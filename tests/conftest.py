@@ -16,6 +16,10 @@ def pytest_configure(config):
         "markers",
         "slow: multi-device subprocess tests (forced host device count)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (repro_torch kernels); skips without one",
+    )
 
 
 @pytest.fixture(scope="session")
