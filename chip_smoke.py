@@ -8,14 +8,18 @@ Phases, one line (or a few) each:
      sources (one ``nvcc`` per CUDA source, started together, while Triton
      compiles the rmsnorm kernel);
   2. every kernel against its plain PyTorch version on the card, at the
-     shapes the serving path gives it (qN ring m=8, B=4, D=S*2304 for
-     S in {1, 256}, bf16; attention B=4, S=256, 36 heads x 64, plus a GQA
-     and a ragged case; decode over a 1024-token cache with mixed lengths;
+     shapes the serving and training paths give it (qN ring m=8, B=4,
+     D=S*2304 for S in {1, 256}, bf16: broyden_step, qn_apply_multi with
+     (False,), (False, True) and the SHINE backward's (True,), qn_apply,
+     lowrank_append; attention B=4, S=256, 36 heads x 64, plus a GQA and a
+     ragged case; decode over a 1024-token cache with mixed lengths;
      rmsnorm 1024 x 2304): max error against the stated tolerance and the
-     kernel, plain and library times (CUDA events);
-  3. an end-to-end check at a small size: the smoke config in f32 served on
-     the card (kernels) and on the CPU (plain versions) must emit the same
-     tokens with matching logits;
+     kernel, plain and library times (CUDA events); then the gradients of
+     the attention and rmsnorm autograd wrappers (kernel forward, plain
+     recompute backward) against plain autograd at the same shapes;
+  3. end-to-end checks at a small size, card against CPU: the smoke config
+     in f32 served (same tokens, matching logits) and trained for three
+     steps (same solver steps, matching loss and grad norm);
   4. serving at the full width of MiniCPM-2B (DEQ, random weights with the
      weight-tied blocks scaled by 0.3): 8 requests, 4 slots, prompts of 128
      and 256 tokens, 16 new tokens each, a 1024-token cache -- through
@@ -23,7 +27,17 @@ Phases, one line (or a few) each:
      read just after; every kernel of the path must have launched;
   5. a profiled window at full width (torch.profiler: device busy time,
      idle share, top kernels) for one prefill tick and one decode tick;
-  6. a ``{"kernels": [...]}`` line, then the last line
+  6. training at the full width of MiniCPM-2B (the same weights, DEQ with
+     the ``DEQSettings`` defaults, SHINE-fallback backward): 4 AdamW steps
+     of batch 4 x 256 synthetic tokens through ``Trainer``, launch counts
+     reset just before and read just after; then one profiled train step;
+  7. a refine backward (``shine_refine``) with a carried ring
+     (``deq_carry="full"``) at full width: the backward's adjoint solve
+     must leave the carry's ring bit for bit as the forward left it; and a
+     train step with ``deq_carry="full"`` (solver guard off) that
+     ``skip_nonfinite`` rejects must give back the pre-step carry bit for
+     bit;
+  8. a ``{"kernels": [...]}`` line, then the last line
      ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the last
@@ -49,13 +63,21 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.configs.base import TrainConfig  # noqa: E402
 from repro_torch.configs.registry import get_config, smoke_config  # noqa: E402
-from repro_torch.kernels import build, launches, ref  # noqa: E402
+from repro_torch.data.pipeline import (  # noqa: E402
+    SyntheticTokenDataset,
+    make_lm_batch_iterator,
+)
+from repro_torch.kernels import build, launches, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as cuda_fa  # noqa: E402
 from repro_torch.kernels import qn_apply as cuda_qn  # noqa: E402
 from repro_torch.kernels import rmsnorm as triton_rms  # noqa: E402
+from repro_torch.launch import steps as train_steps  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.obs import metrics as obs_metrics  # noqa: E402
 from repro_torch.runtime.serving import Request, ServeLoop, serve_summary  # noqa: E402
+from repro_torch.runtime.trainer import Trainer  # noqa: E402
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s and FLOP/s by operand type
 HBM_BPS = 3.35e12
@@ -73,7 +95,17 @@ KERNELS = {
                          "src/repro/kernels/flash_attention.py:160"),
     "rmsnorm": ("triton", "src/repro_torch/csrc/rmsnorm_triton.py",
                 "src/repro/kernels/rmsnorm.py:26"),
+    "lowrank_append": ("cuda", "src/repro_torch/csrc/qn_apply.cu",
+                       "src/repro/kernels/qn_apply.py:343"),
+    "qn_apply": ("cuda", "src/repro_torch/csrc/qn_apply.cu",
+                 "src/repro/kernels/qn_apply.py:119"),
 }
+# kernels that no path of either package launches (only the ops and the
+# LowRank methods reach them); checked in phase 2, 0 launches on every path
+OFF_PATH = ("lowrank_append", "qn_apply")
+SERVE_PATH = ("broyden_step", "qn_apply_multi", "flash_attention",
+              "decode_attention", "rmsnorm")
+TRAIN_PATH = ("broyden_step", "qn_apply_multi", "flash_attention", "rmsnorm")
 
 # tolerances, applied elementwise as |got - want| <= atol + rtol * |want|:
 # f32 outputs accumulate in another order than the plain version (the qN
@@ -170,25 +202,22 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
     return err
 
 
-def check_broyden_step(name: str, got, want, u, v, slot, active,
-                       eps: float) -> float:
-    """Hold ``broyden_step``'s outputs against the plain version's.  The
-    evicted rows and every ring row the step does not write are copies, so
-    they must be equal bit for bit; each written slot row holds at the
-    bf16 tolerance with atol scaled to its own largest entry; ``hg_new``
-    and ``b`` at rtol 1e-3 with atol 1e-4 of each row's largest entry, and
-    ``den`` at the f32 tolerance.  ``u``/``v`` are the ring before the
-    step."""
-    new_u, new_v, hg, b, den, ev_u, ev_v = got
-    w_u, w_v, w_hg, w_b, w_den, w_evu, w_evv = want
+def _check_evicted(name, ev_u, ev_v, w_evu, w_evv, u, v, slot) -> None:
+    """The evicted rows are copies of the ring's old slot rows: equal to
+    the plain version's and to the ring before the op, bit for bit."""
     rows = torch.arange(u.shape[1], device=u.device)
     for nm, g_ev, w_ev, ring in (("ev_u", ev_u, w_evu, u),
                                  ("ev_v", ev_v, w_evv, v)):
         old = ring[slot.long(), rows]
         if not (torch.equal(g_ev, w_ev) and torch.equal(g_ev, old)):
             raise AssertionError(f"{name}.{nm}: not the old slot rows")
-    hot = torch.zeros(u.shape[:2], dtype=torch.bool, device=u.device)
-    hot[slot.long(), rows] = active & (w_den.abs() > eps)
+
+
+def _check_slot_write(name, new_u, new_v, w_u, w_v, u, v, hot) -> float:
+    """Every ring row the op does not write (``~hot``) must equal the ring
+    before it, bit for bit, in the kernel's output and the plain
+    version's; each written slot row holds at rtol 2e-2 plus 2e-3 x its
+    own largest entry (one bf16 rounding)."""
     if not hot.any():
         raise AssertionError(f"{name}: the inputs write no ring row")
     err = 0.0
@@ -196,15 +225,64 @@ def check_broyden_step(name: str, got, want, u, v, slot, active,
                                ("new_v", new_v, w_v, v)):
         if not (torch.equal(g_r[~hot], ring[~hot])
                 and torch.equal(w_r[~hot], ring[~hot])):
-            raise AssertionError(f"{name}.{nm}: a row the step does not "
+            raise AssertionError(f"{name}.{nm}: a row the op does not "
                                  "write changed")
         w_hot = w_r[hot]
         err = max(err, check_close(f"{name}.{nm}[slot]", g_r[hot], w_hot,
                                    row_tol(w_hot, 2e-2, 2e-3)))
+    return err
+
+
+def _hot(u, slot, write) -> torch.Tensor:
+    hot = torch.zeros(u.shape[:2], dtype=torch.bool, device=u.device)
+    hot[slot.long(), torch.arange(u.shape[1], device=u.device)] = write
+    return hot
+
+
+def check_broyden_step(name: str, got, want, u, v, slot, active,
+                       eps: float) -> float:
+    """Hold ``broyden_step``'s outputs against the plain version's: the
+    evicted rows and the unwritten ring rows bit for bit, the written slot
+    rows at the bf16 tolerance (``_check_slot_write``); ``hg_new`` and
+    ``b`` at rtol 1e-3 with atol 1e-4 of each row's largest entry, and
+    ``den`` at the f32 tolerance.  ``u``/``v`` are the ring before the
+    step."""
+    new_u, new_v, hg, b, den, ev_u, ev_v = got
+    w_u, w_v, w_hg, w_b, w_den, w_evu, w_evv = want
+    _check_evicted(name, ev_u, ev_v, w_evu, w_evv, u, v, slot)
+    err = _check_slot_write(name, new_u, new_v, w_u, w_v, u, v,
+                            _hot(u, slot, active & (w_den.abs() > eps)))
     for nm, g_o, w_o in (("hg_new", hg, w_hg), ("b", b, w_b)):
         err = max(err, check_close(f"{name}.{nm}", g_o, w_o,
                                    row_tol(w_o, 1e-3, 1e-4)))
     err = max(err, check_close(f"{name}.den", den, w_den, TOL_F32))
+    return err
+
+
+def check_lowrank_append(name: str, got, want, u, v, slot, upd) -> float:
+    """Hold ``lowrank_append``'s outputs against the plain version's as
+    ``broyden_step``'s ring outputs are held.  ``u``/``v`` are the ring
+    before the write."""
+    new_u, new_v, ev_u, ev_v = got
+    w_u, w_v, w_evu, w_evv = want
+    _check_evicted(name, ev_u, ev_v, w_evu, w_evv, u, v, slot)
+    return _check_slot_write(name, new_u, new_v, w_u, w_v, u, v,
+                             _hot(u, slot, upd > 0.5))
+
+
+def check_grads(name: str, got, want) -> float:
+    """Gradients of an autograd wrapper (kernel forward, backward by
+    recomputing the plain version from the saved inputs) against autograd
+    straight through the plain version.  The backward is the same
+    computation on the same inputs, so the two agree to the last bit in
+    practice; each is held at rtol 2e-2 plus 2e-3 x its largest entry
+    (one bf16 rounding), far inside what a wrong or missing gradient
+    gives."""
+    err = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        err = max(err, check_close(f"{name}.grad[{i}]", g, w,
+                                   dict(rtol=2e-2, atol=2e-3 * w.float()
+                                        .abs().max())))
     return err
 
 
@@ -297,16 +375,17 @@ def kernel_qn(seq: int, gen) -> dict:
         device_ms=dev_b, plain_ms=plain_b, bound_ms=b_ms, bound_by=b_by)
 
     xs = g[None]
+    row = lambda w: row_tol(w, 1e-3, 1e-4)  # noqa: E731
     want_q = ref.qn_apply_multi_ref(u, v, xs, alpha, mask, (False,))
     got_q = cuda_qn.qn_apply_multi(u, v, xs, alpha, mask, (False,))
     err_q = check_close(f"qn_apply_multi[S={seq}]", got_q, want_q,
-                        row_tol(want_q, 1e-3, 1e-4))
-    want_q2 = ref.qn_apply_multi_ref(u, v, torch.stack([g, s]), alpha, mask,
-                                     (False, True))
-    got_q2 = cuda_qn.qn_apply_multi(u, v, torch.stack([g, s]), alpha, mask,
-                                    (False, True))
-    err_q = max(err_q, check_close(f"qn_apply_multi[S={seq},K=2]", got_q2,
-                                   want_q2, row_tol(want_q2, 1e-3, 1e-4)))
+                        row(want_q))
+    for flags, rhs in (((False, True), torch.stack([g, s])),
+                       ((True,), xs)):  # (True,): the SHINE backward H^T w
+        want_m = ref.qn_apply_multi_ref(u, v, rhs, alpha, mask, flags)
+        got_m = cuda_qn.qn_apply_multi(u, v, rhs, alpha, mask, flags)
+        err_q = max(err_q, check_close(
+            f"qn_apply_multi[S={seq},{flags}]", got_m, want_m, row(want_m)))
     ms_q = time_ms(lambda: cuda_qn.qn_apply_multi(u, v, xs, alpha, mask,
                                                   (False,)))
     dev_q = device_ms(lambda: cuda_qn.qn_apply_multi(u, v, xs, alpha, mask,
@@ -315,18 +394,62 @@ def kernel_qn(seq: int, gen) -> dict:
                                                      (False,)))
     q_ms, q_by = bound(ring + 2 * bsz * dim * 4, 4 * m * bsz * dim, "f32")
     say("kernel", name="qn_apply_multi", shape=f"m={m} B={bsz} K=1 "
-        f"D={seq}x{d}", max_abs_err=err_q,
-        tol="rtol 1e-3, atol 1e-4 x row max", ms=ms_q,
+        f"D={seq}x{d}", checked="(False,), (False, True), (True,)",
+        max_abs_err=err_q, tol="rtol 1e-3, atol 1e-4 x row max", ms=ms_q,
         device_ms=dev_q, plain_ms=plain_q, bound_ms=q_ms, bound_by=q_by)
+
+    want_a = ref.qn_apply_ref(u, v, g, alpha, mask)
+    got_a = cuda_qn.qn_apply(u, v, g, alpha, mask)
+    err_a = check_close(f"qn_apply[S={seq}]", got_a, want_a, row(want_a))
+    ms_a = time_ms(lambda: cuda_qn.qn_apply(u, v, g, alpha, mask))
+    dev_a = device_ms(lambda: cuda_qn.qn_apply(u, v, g, alpha, mask))
+    plain_a = time_ms(lambda: ref.qn_apply_ref(u, v, g, alpha, mask))
+    say("kernel", name="qn_apply", shape=f"m={m} B={bsz} D={seq}x{d}",
+        max_abs_err=err_a, tol="rtol 1e-3, atol 1e-4 x row max", ms=ms_a,
+        device_ms=dev_a, plain_ms=plain_a, bound_ms=q_ms, bound_by=q_by)
+
+    hy = torch.randn(bsz, dim, device="cuda", generator=gen)
+    bvec = torch.randn(bsz, dim, device="cuda", generator=gen)
+    inv_den = torch.randn(bsz, device="cuda", generator=gen)
+    upd = torch.tensor([1.0, 1.0, 0.0, 1.0], device="cuda")
+    want_l = ref.lowrank_append_ref(u, v, s, hy, bvec, inv_den, slot, upd)
+    got_l = cuda_qn.lowrank_append(u.clone(), v.clone(), s, hy, bvec,
+                                   inv_den, slot, upd)
+    err_l = check_lowrank_append(f"lowrank_append[S={seq}]", got_l, want_l,
+                                 u, v, slot, upd)
+    uu, vv = u.clone(), v.clone()
+    ms_l = time_ms(lambda: cuda_qn.lowrank_append(uu, vv, s, hy, bvec,
+                                                  inv_den, slot, upd))
+    dev_l = device_ms(lambda: cuda_qn.lowrank_append(uu, vv, s, hy, bvec,
+                                                     inv_den, slot, upd))
+    plain_l = time_ms(lambda: ref.lowrank_append_ref(u, v, s, hy, bvec,
+                                                     inv_den, slot, upd))
+    n_w = int((upd > 0.5).sum())
+    # slot rows read (u, v), evicted rows written; s/hy/b read and the slot
+    # rows written only where upd (a refused row keeps its old contents);
+    # (s - hy) * inv_den is 2 f32 operations per written entry
+    l_ms, l_by = bound(2 * bsz * dim * 2 + 2 * bsz * dim * 2
+                       + n_w * (3 * dim * 4 + 2 * dim * 2),
+                       2 * n_w * dim, "f32")
+    say("kernel", name="lowrank_append", shape=f"m={m} B={bsz} D={seq}x{d}",
+        max_abs_err=err_l, tol="evicted and unwritten rows equal; slot rows "
+        "rtol 2e-2, atol 2e-3 x row max", ms=ms_l, device_ms=dev_l,
+        plain_ms=plain_l, bound_ms=l_ms, bound_by=l_by)
+
+    def row_out(err, ms, dev, plain, b_ms, b_by, shape):
+        return dict(max_abs_err=err, ms=ms, device_ms=dev, plain_ms=plain,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                    shape=shape)
+
+    shape = f"m={m} B={bsz} D={seq}x{d}"
     return {
-        "broyden_step": dict(max_abs_err=err_b, ms=ms_b, device_ms=dev_b,
-                             plain_ms=plain_b,
-                             bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                             shape=f"m={m} B={bsz} D={seq}x{d}"),
-        "qn_apply_multi": dict(max_abs_err=err_q, ms=ms_q, device_ms=dev_q,
-                               plain_ms=plain_q,
-                               bound_ms=q_ms, bound_by=q_by, library_ms=None,
-                               shape=f"m={m} B={bsz} K=1 D={seq}x{d}"),
+        "broyden_step": row_out(err_b, ms_b, dev_b, plain_b, b_ms, b_by,
+                                shape),
+        "qn_apply_multi": row_out(err_q, ms_q, dev_q, plain_q, q_ms, q_by,
+                                  f"m={m} B={bsz} K=1 D={seq}x{d}"),
+        "qn_apply": row_out(err_a, ms_a, dev_a, plain_a, q_ms, q_by, shape),
+        "lowrank_append": row_out(err_l, ms_l, dev_l, plain_l, l_ms, l_by,
+                                  shape),
     }
 
 
@@ -437,6 +560,50 @@ def kernel_rmsnorm(gen) -> dict:
                             shape=shape)}
 
 
+def _wrapper_and_plain_grads(op, plain, inputs, cot):
+    """``(out, grads)`` of the op's autograd wrapper and of plain autograd
+    through its plain version, on the same inputs and cotangent."""
+    res = []
+    for fn in (op, plain):
+        leaves = [t.clone().requires_grad_(True) for t in inputs]
+        out = fn(*leaves)
+        res.append((out.detach(), torch.autograd.grad(out, leaves, cot)))
+    return res
+
+
+def kernel_grads(gen) -> None:
+    """The gradients training takes through the attention and rmsnorm
+    kernels, at the training shapes (B=4, S=256, 36 x 64 heads; rmsnorm
+    over 1024 x 2304), bf16."""
+    bsz, seq, h, hd = 4, 256, 36, 64
+    q, k, v, g = (torch.randn(bsz, seq, h, hd, device="cuda", generator=gen
+                              ).to(torch.bfloat16) for _ in range(4))
+    (out_w, g_w), (out_p, g_p) = _wrapper_and_plain_grads(
+        lambda *a: ops.attention(*a, causal=True),
+        lambda *a: ref.attention_ref(*a, causal=True), (q, k, v), g)
+    err_f = check_close("attention.forward", out_w, out_p, TOL_BF16)
+    err_a = check_grads("attention", g_w, g_p)
+    say("kernel_grad", name="flash_attention", shape=f"B={bsz} S=T={seq} "
+        f"H=KV={h} hd={hd} causal bf16", forward_err=err_f,
+        max_abs_err=err_a, bitwise_equal=all(
+            torch.equal(a, b) for a, b in zip(g_w, g_p)),
+        tol="rtol 2e-2, atol 2e-3 x max")
+    rows, d = 1024, 2304
+    x = torch.randn(rows, d, device="cuda", generator=gen).to(torch.bfloat16)
+    w = (1 + 0.1 * torch.randn(d, device="cuda", generator=gen)
+         ).to(torch.bfloat16)
+    gx = torch.randn(rows, d, device="cuda", generator=gen).to(torch.bfloat16)
+    (out_w, g_w), (out_p, g_p) = _wrapper_and_plain_grads(
+        lambda *a: ops.rmsnorm(*a, 1e-5),
+        lambda *a: ref.rmsnorm_ref(*a, 1e-5), (x, w), gx)
+    err_f = check_close("rmsnorm.forward", out_w, out_p, TOL_BF16)
+    err_r = check_grads("rmsnorm", g_w, g_p)
+    say("kernel_grad", name="rmsnorm", shape=f"rows={rows} D={d} bf16",
+        forward_err=err_f, max_abs_err=err_r, bitwise_equal=all(
+            torch.equal(a, b) for a, b in zip(g_w, g_p)),
+        tol="rtol 2e-2, atol 2e-3 x max")
+
+
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     res = {}
@@ -449,6 +616,7 @@ def phase_kernels() -> dict:
         res[name]["decode_device_ms"] = row["device_ms"]
     res.update(kernel_attention(gen))
     res.update(kernel_rmsnorm(gen))
+    kernel_grads(gen)
     torch.cuda.synchronize()
     return res
 
@@ -458,15 +626,17 @@ def phase_kernels() -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _map(fn, params: dict) -> dict:
+    """``fn`` over every tensor of a parameter tree."""
+    return {k: _map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in params.items()}
+
+
 def _scaled_blocks(params: dict, scale: float) -> dict:
     """Scale the weight-tied blocks (a random init is not contractive at
     scale 1; the JAX package's tests use 0.3)."""
-    def walk(p):
-        return {k: walk(v) if isinstance(v, dict) else v * scale
-                for k, v in p.items()}
-    out = dict(params)
-    out["deq_blocks"] = walk(params["deq_blocks"])
-    return out
+    return dict(params, deq_blocks=_map(lambda t: t * scale,
+                                        params["deq_blocks"]))
 
 
 def phase_parity() -> None:
@@ -477,11 +647,7 @@ def phase_parity() -> None:
                                 qn_dtype="float32"))
     cpu_params = _scaled_blocks(lm.init_params(cfg, seed=1, device="cpu"),
                                 0.3)
-    def to_dev(p):
-        return {k: to_dev(v) if isinstance(v, dict) else v.to("cuda")
-                for k, v in p.items()}
-
-    gpu_params = to_dev(cpu_params)
+    gpu_params = _map(lambda t: t.to("cuda"), cpu_params)
     rng = np.random.default_rng(0)
     lens = [5, 9, 5, 12, 9, 5]
     prompts = [rng.integers(2, cfg.vocab_size, size=n).tolist() for n in lens]
@@ -513,12 +679,53 @@ def phase_parity() -> None:
         steps_cpu=[s["steps"] for s in lc.solve_log])
 
 
+def phase_train_parity() -> None:
+    """Three train steps of the smoke config in f32 (f32 ring) on the card
+    and on the CPU from the same weights and batches.  Held: the same
+    forward solver steps, the loss at rtol 1e-4 and the grad norm at rtol
+    2e-3 (the SHINE gradient applies the inverse each device builds from
+    its own Broyden pairs, whose last pairs move with f32 rounding, as
+    between the two packages in ``tests/test_torch_training.py``)."""
+    cfg = smoke_config("minicpm-2b", deq=True)
+    cfg = dataclasses.replace(
+        cfg, dtype="float32",
+        deq=dataclasses.replace(cfg.deq, qn_dtype="float32"))
+    tcfg = TrainConfig(steps=3, global_batch=2, seq_len=16, lr=1e-3,
+                       warmup_steps=2)
+    cpu_params = _scaled_blocks(lm.init_params(cfg, seed=1, device="cpu"),
+                                0.3)
+    ds = SyntheticTokenDataset(cfg.vocab_size, 0)
+    seen = {}
+    for dev in ("cuda", "cpu"):
+        state = train_steps.init_train_state(cfg, tcfg,
+                                             params=_map(lambda t: t.to(dev),
+                                                         cpu_params))
+        step = train_steps.build_train_step(cfg, tcfg)
+        seen[dev] = []
+        for i in range(3):
+            toks = torch.from_numpy(ds.batch(i, 2, 17)).to(dev)
+            state, m = step(state, {"tokens": toks[:, :-1],
+                                    "targets": toks[:, 1:]})
+            seen[dev].append((m["deq_steps"], float(m["loss"]),
+                              float(m["grad_norm"])))
+    for i, ((sg, lg, gg), (sc, lc, gc)) in enumerate(zip(seen["cuda"],
+                                                         seen["cpu"])):
+        if sg != sc or abs(lg - lc) > 1e-4 * abs(lc) \
+                or abs(gg - gc) > 2e-3 * abs(gc):
+            raise AssertionError(f"train step {i}: card {seen['cuda'][i]} "
+                                 f"vs CPU {seen['cpu'][i]}")
+    say("train_parity", config="minicpm-2b smoke f32 (d=64, 2 blocks x0.3, "
+        "ring f32), batch 2 x 16, 3 AdamW steps", card=seen["cuda"],
+        cpu=seen["cpu"], tol="same solver steps; loss rtol 1e-4; grad norm "
+        "rtol 2e-3")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: serve at the full width of MiniCPM-2B
 # ---------------------------------------------------------------------------
 
 
-def phase_serve(smi: str) -> tuple[dict, dict, object]:
+def phase_serve(smi: str) -> tuple[dict, int, dict, object]:
     cfg = get_config("minicpm-2b", deq=True)
     t0 = time.perf_counter()
     params = _scaled_blocks(lm.init_params(cfg, seed=0, device="cuda"), 0.3)
@@ -559,11 +766,11 @@ def phase_serve(smi: str) -> tuple[dict, dict, object]:
         decode_steps=[s for p, s in steps if p == "decode"],
         statuses_seen=statuses)
     say("serve_launches", **counts)
-    missing = [k for k, n in counts.items() if n == 0]
+    missing = [k for k in SERVE_PATH if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the serve path: "
                              f"{missing}")
-    return counts, params, cfg
+    return counts, len(steps), params, cfg
 
 
 def _profile_window(fn) -> dict:
@@ -605,6 +812,160 @@ def phase_profile(params, cfg, smi: str) -> None:
         loop.solve_log.clear()
 
 
+# ---------------------------------------------------------------------------
+# phase 6: train at the full width of MiniCPM-2B
+# ---------------------------------------------------------------------------
+
+
+def phase_train(params, cfg, smi: str) -> dict:
+    """4 AdamW steps through ``Trainer`` (the ``DEQSettings`` defaults: 12
+    Broyden steps to tol 1e-3, bf16 ring of 8, shine_fallback backward),
+    batch 4 x 256 synthetic tokens; one host read of the metrics per step.
+    Then one profiled train step."""
+    nsteps, bsz, seq = 4, 4, 256
+    tcfg = TrainConfig(steps=nsteps, global_batch=bsz, seq_len=seq,
+                       schedule=cfg.schedule)
+    trainer = Trainer(cfg, tcfg, params=params)
+    reg = obs_metrics.default_registry()
+    est = {"estimator": cfg.deq.backward}
+    fb = reg.counter("backward_fallbacks_total", est)
+    n_est = reg.counter("backward_estimates_total", est)
+    n_est0 = n_est.value
+    log = []
+    mark = {"t": 0.0, "fb": fb.value}
+
+    def on_metrics(i, m):
+        now = time.perf_counter()
+        log.append(dict(step=i, loss=m["loss"], grad_norm=m["grad_norm"],
+                        lr=m["lr"], forward_steps=m["deq_steps"],
+                        fallback_rows=fb.value - mark["fb"],
+                        skipped=m["update_skipped"],
+                        step_ms=(now - mark["t"]) * 1e3,
+                        peak_mem_gib=torch.cuda.max_memory_allocated()
+                        / 2 ** 30))
+        mark.update(t=now, fb=fb.value)
+
+    batches = make_lm_batch_iterator(cfg, bsz, seq, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    mark["t"] = t0 = time.perf_counter()
+    state = trainer.run(batches, steps=nsteps, log_every=1,
+                        on_metrics=on_metrics)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launches.counts()
+    for row in log:
+        say("train_step", card=smi, **row)
+        if not (np.isfinite(row["loss"]) and np.isfinite(row["grad_norm"])
+                and row["skipped"] == 0.0):
+            raise AssertionError(f"train step {row['step']}: {row}")
+    if int(state.step) != nsteps:
+        raise AssertionError(f"trainer stopped at step {int(state.step)}")
+    backwards = n_est.value - n_est0
+    if backwards != nsteps:
+        raise AssertionError(f"{backwards} {cfg.deq.backward} backward "
+                             f"passes in {nsteps} steps")
+    say("train", config="minicpm-2b DEQ (d=2304, 36x64 heads, ff=5760, "
+        "vocab 122753, 4 blocks x0.3, bf16, ring bf16 m=8), AdamW, "
+        f"batch {bsz} x {seq}", backward=cfg.deq.backward,
+        backward_passes=backwards, seconds=secs, card=smi,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    say("train_launches", total=counts,
+        per_step={k: n / nsteps for k, n in counts.items()})
+    missing = [k for k in TRAIN_PATH if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the train path: "
+                             f"{missing}")
+
+    step_fn = train_steps.build_train_step(cfg, tcfg)
+    batch = next(batches)
+    prof = _profile_window(lambda: step_fn(state, batch))
+    say("profile", window="train_step", card=smi, **prof)
+    return counts
+
+
+def phase_refine_carry(params, cfg, smi: str) -> None:
+    """``deq_carry="full"`` hands the forward solve the carried ring, which
+    the solve extends in place and returns as the new carry (and as the
+    ``H`` the backward reads).  A ``shine_refine`` backward warm-starts its
+    adjoint solve from ``H^T``: it must work on a copy and leave the
+    carry's ring, bit for bit, as the forward left it."""
+    cfg = dataclasses.replace(cfg, deq=dataclasses.replace(
+        cfg.deq, backward="shine_refine"))
+    bsz, seq = 4, 256
+    toks = torch.from_numpy(SyntheticTokenDataset(cfg.vocab_size, 5).batch(
+        0, bsz, seq + 1)).cuda()
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    carry = lm.deq_solve_carry(cfg, bsz, seq, "cuda")
+    with torch.no_grad():  # a first solve fills the carried chain
+        carry = lm.loss_fn(params, batch, cfg, carry=carry)[1]["solve_carry"]
+    leaves = _map(lambda t: t.detach().requires_grad_(True), params)
+    loss, metrics = lm.loss_fn(leaves, batch, cfg, carry=carry)
+    new = metrics["solve_carry"].lowrank
+    snap = (new.u.clone(), new.v.clone(), new.count.clone())
+    launches.reset()
+    loss.backward()
+    torch.cuda.synchronize()
+    counts = launches.counts()
+    same = (torch.equal(new.u, snap[0]) and torch.equal(new.v, snap[1])
+            and torch.equal(new.count, snap[2]))
+    if not same:
+        raise AssertionError("the refine backward changed the carry's ring")
+    if counts["broyden_step"] == 0:
+        raise AssertionError("the refine backward ran no adjoint Broyden "
+                             "step on the card")
+    say("refine_carry", backward="shine_refine", deq_carry="full",
+        ring_unchanged=same, carried_count=snap[2].tolist(),
+        forward_steps=metrics["deq_steps"],
+        backward_launches={k: n for k, n in counts.items() if n}, card=smi)
+
+
+def phase_skip_carry(params, cfg, smi: str) -> None:
+    """``deq_carry="full"`` with ``skip_nonfinite``: a step that the
+    non-finite check rejects must give back the pre-step carry bit for bit.
+    The solver's guard is off here: with it on, its entry repair selects
+    the carried ring into new buffers, while without it the solve extends
+    the carried ring in place and only the step's copy keeps it.  One good
+    step fills the ring; a NaN final-norm scale then makes the next step's
+    loss NaN after its solve has run."""
+    cfg = dataclasses.replace(cfg, deq=dataclasses.replace(cfg.deq,
+                                                           guard=False))
+    bsz, seq = 4, 256
+    tcfg = TrainConfig(steps=2, global_batch=bsz, seq_len=seq,
+                       deq_carry="full", skip_nonfinite=True)
+    state = train_steps.init_train_state(cfg, tcfg, params=params)
+    step = train_steps.build_train_step(cfg, tcfg)
+    toks = torch.from_numpy(SyntheticTokenDataset(cfg.vocab_size, 6).batch(
+        0, bsz, seq + 1)).cuda()
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    state, m = step(state, batch)
+    if float(m["update_skipped"]) != 0.0:
+        raise AssertionError("the first (finite) step was rejected")
+    before, z = state.carry.lowrank.clone(), state.carry.z.clone()
+    nan_norm = _map(lambda t: torch.full_like(t, float("nan")),
+                    state.params["final_norm"])
+    state = state._replace(params=dict(state.params, final_norm=nan_norm))
+    launches.reset()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    counts = launches.counts()
+    after = state.carry.lowrank
+    same = (torch.equal(after.u, before.u) and torch.equal(after.v, before.v)
+            and torch.equal(after.count, before.count)
+            and torch.equal(state.carry.z, z))
+    if float(m["update_skipped"]) != 1.0 or not same \
+            or counts["broyden_step"] == 0:
+        raise AssertionError(f"rejected step: skipped {m['update_skipped']}"
+                             f", carry unchanged {same}, solve launches "
+                             f"{counts['broyden_step']}")
+    say("skip_carry", deq_carry="full", skip_nonfinite=True, guard=False,
+        update_skipped=float(m["update_skipped"]), carry_unchanged=same,
+        carried_count=before.count.tolist(),
+        forward_steps=float(m["deq_steps"]),
+        step_launches={k: n for k, n in counts.items() if n}, card=smi)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -612,22 +973,39 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     env = phase_env()
+    smi = env["nvidia_smi"]
     res = phase_kernels()
     phase_parity()
-    counts, params, cfg = phase_serve(env["nvidia_smi"])
-    phase_profile(params, cfg, env["nvidia_smi"])
+    phase_train_parity()
+    serve_counts, n_solves, params, cfg = phase_serve(smi)
+    phase_profile(params, cfg, smi)
+    train_counts = phase_train(params, cfg, smi)
+    phase_refine_carry(params, cfg, smi)
+    phase_skip_carry(params, cfg, smi)
     rows = []
     for name, (route, source, replaces) in KERNELS.items():
         r = res[name]
-        rows.append({"name": name, "route": route, "source": source,
-                     "replaces": replaces, "launches": counts[name],
-                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"],
-                     "library_ms": r.get("library_ms"),
-                     "device_ms": r["device_ms"], "shape": r["shape"],
-                     **{k: r[k] for k in ("decode_ms", "decode_device_ms")
-                        if k in r}})
+        row = {"name": name, "route": route, "source": source,
+               "replaces": replaces,
+               "launches": serve_counts[name] + train_counts[name],
+               "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"],
+               "library_ms": r.get("library_ms"),
+               "device_ms": r["device_ms"], "shape": r["shape"],
+               "launches_serve": serve_counts[name],
+               "launches_per_serve_solve": serve_counts[name] / n_solves,
+               "launches_train": train_counts[name],
+               "launches_per_train_step": train_counts[name] / 4,
+               **{k: r[k] for k in ("decode_ms", "decode_device_ms")
+                  if k in r}}
+        if name in OFF_PATH:
+            if row["launches"]:
+                raise AssertionError(f"{name} launched on a path")
+            row["note"] = ("no path of either package launches it (only "
+                           "the ops and LowRank methods); checked in "
+                           "phase 2")
+        rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

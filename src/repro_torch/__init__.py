@@ -8,10 +8,13 @@ PyTorch; every Pallas TPU kernel on the ported path is a hand-written
 Hopper kernel (CUDA C++ under ``csrc/``, Triton for rmsnorm) with a plain
 PyTorch version beside it that CPU tensors take.
 
-Ported so far: DEQ serving of the dense LM family (``launch/serve.py`` ->
-``runtime/serving.ServeLoop`` sync pipeline -> ``models/lm.prefill`` /
-``decode_step`` -> ``implicit`` -> ``core.solvers.broyden_solve`` ->
-``core.lowrank.LowRank`` -> ``kernels.ops``).
+Ported so far, for the dense LM family: DEQ serving (``launch/serve.py``
+-> ``runtime/serving.ServeLoop`` sync pipeline -> ``models/lm.prefill`` /
+``decode_step``) and DEQ training with the SHINE backward
+(``launch/train.py`` -> ``runtime/trainer.Trainer`` ->
+``launch/steps.build_train_step`` -> ``models/lm.loss_fn``), both through
+``implicit`` -> ``core.solvers.broyden_solve`` -> ``core.lowrank.LowRank``
+-> ``kernels.ops``.
 """
 
 from repro_torch.device import resolve_device

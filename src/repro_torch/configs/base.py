@@ -2,8 +2,9 @@
 
 The port's own copy of ``repro/configs/base.py`` (the port imports nothing
 of the JAX package): same frozen dataclasses, same fields, same defaults, so
-both packages run identical hyperparameters.  The analytic parameter counts
-and ``TrainConfig`` come with the training and dry-run slices.
+both packages run identical hyperparameters: the model schema and the
+trainer's ``TrainConfig``.  The analytic parameter counts come with the
+dry-run slice.
 """
 
 from __future__ import annotations
@@ -135,3 +136,42 @@ class ModelConfig:
 
     def with_(self, **kw: Any) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    steps: int = 100
+    global_batch: int = 8
+    seq_len: int = 128
+    lr: float = 3e-4
+    warmup_steps: int = 10
+    min_lr_ratio: float = 0.1
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    optimizer: str = "adamw"     # adamw | sgdm
+    schedule: str = "cosine"     # cosine | wsd | linear
+    grad_accum: int = 1
+    z_loss: float = 1e-4
+    seed: int = 0
+    # distributed-optimization knobs (read by the layout slice)
+    zero1: bool = True
+    compress_pod_grads: bool = False
+    checkpoint_every: int = 0
+    checkpoint_dir: str = ""
+    keep_checkpoints: int = 3
+    # DEQ persistent solve state across train steps:
+    #   "state" -- warm-start the iterate only, the quasi-Newton chain is
+    #              rebuilt each step (fresh i.i.d. batches);
+    #   "full"  -- iterate and chain (repeated / similar batches);
+    #   "off"   -- cold start every step.
+    deq_carry: str = "state"
+    # checkpoint-lean mode: omit the (m, B, S, d) u/v ring of the carry from
+    # saves; restore zero-fills it (a zeroed ring is the identity inverse)
+    checkpoint_lean: bool = False
+    # storage dtype of the quasi-Newton ring of the trainer's DEQ solves
+    qn_dtype: str = "bfloat16"
+    # a non-finite loss or gradient norm rejects the whole update; past
+    # skip_budget consecutive rejected steps the trainer rolls back to the
+    # last checkpoint
+    skip_nonfinite: bool = True
+    skip_budget: int = 5

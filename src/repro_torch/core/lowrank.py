@@ -79,6 +79,49 @@ class LowRank:
         """``H^T @ x`` batched over B."""
         return self.matvec_multi((x,), (True,))[0]
 
+    def transpose(self) -> "LowRank":
+        """``H^T`` as a view: the same ring buffers, roles swapped."""
+        return LowRank(alpha=self.alpha, u=self.v, v=self.u, count=self.count)
+
+    def clone(self) -> "LowRank":
+        """A private copy of the ring (solves that append to a ring update
+        it in place on the card)."""
+        return LowRank(alpha=self.alpha, u=self.u.clone(), v=self.v.clone(),
+                       count=self.count.clone())
+
+    def append(self, a: torch.Tensor, b: torch.Tensor,
+               update_mask: torch.Tensor) -> "LowRank":
+        """Append the rank-one term ``a b^T`` for samples where
+        ``update_mask (B,)``, overwriting ring slot ``count % m``; a
+        one-hot masked select (new buffers)."""
+        m = self.memory
+        slot = (self.count % m).int()
+        idx = torch.arange(m, dtype=torch.int32, device=self.u.device)
+        hot = (idx[:, None] == slot[None, :]) & update_mask[None, :]
+        hot = hot.reshape(hot.shape + (1,) * (self.u.ndim - 2))
+        return LowRank(
+            alpha=self.alpha,
+            u=torch.where(hot, a.to(self.u.dtype)[None], self.u),
+            v=torch.where(hot, b.to(self.v.dtype)[None], self.v),
+            count=self.count + update_mask.int())
+
+    def apply_update(self, s, hy, b, denom, update_mask):
+        """The Broyden good update as one ring-slot write
+        (``kernels/ops.lowrank_append``): ``a = (s - hy) / denom`` and ``b``
+        into slot ``count % m`` where ``update_mask``.  ``denom (B,)`` is
+        pre-guarded (non-zero).  Returns ``(H_new, ev_u, ev_v)``, the
+        evicted pair being the slot's previous rows (live iff ``count >=
+        memory``).  On the card the ring is updated in place: this
+        ``LowRank`` is consumed."""
+        m = self.memory
+        slot = (self.count % m).int()
+        inv_den = 1.0 / denom.float()
+        new_u, new_v, ev_u, ev_v = kernel_ops.lowrank_append(
+            self.u, self.v, s, hy, b, inv_den, slot, update_mask.float())
+        H = LowRank(alpha=self.alpha, u=new_u, v=new_v,
+                    count=self.count + update_mask.int())
+        return H, ev_u, ev_v
+
     def broyden_step(self, g_new, s, hg_old, active, eps: float):
         """One Broyden iteration's memory work in one fused U/V pass
         (``kernels/ops.broyden_step``).  Returns ``(H_new, hg_new, b, den,

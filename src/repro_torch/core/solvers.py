@@ -200,6 +200,18 @@ def reset_carry_rows(carry: SolveCarry, evict: Tensor) -> SolveCarry:
                                       torch.zeros_like(carry.age)))
 
 
+def carry_state_only(carry: SolveCarry) -> SolveCarry:
+    """Drop the quasi-Newton chain from a carry (ring counts zeroed) and
+    keep the iterate warm: with a fresh batch every step, a chain built on
+    the previous step's samples degrades the solve, while the iterate
+    carries the parameters' equilibrium structure over."""
+    bsz = carry.z.shape[0]
+    return dataclasses.replace(
+        carry, lowrank=dataclasses.replace(
+            carry.lowrank, count=torch.zeros((bsz,), dtype=torch.int32,
+                                             device=carry.z.device)))
+
+
 def seed_carry(carry: SolveCarry, z: Tensor) -> SolveCarry:
     """Warm-start every row at ``z`` with a fresh inverse (ring count
     zeroed) -- e.g. a prefill's last-token equilibrium seeding decode."""

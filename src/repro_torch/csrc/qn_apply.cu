@@ -3,12 +3,17 @@
 //   H x   = alpha x + sum_i mask[i,b] u[i,b,:] <v[i,b,:], x>
 //   H^T x = alpha x + sum_i mask[i,b] v[i,b,:] <u[i,b,:], x>
 //
-// Replaces two Pallas TPU kernels of repro/kernels/qn_apply.py:
+// Replaces the Pallas TPU kernels of repro/kernels/qn_apply.py:
 //   * qn_apply_multi_pallas (_make_coeff_multi_kernel, _make_apply_multi_kernel):
 //     out[k] = (H^T if transpose[k] else H) xs[k] for K stacked right-hand sides;
+//     qn_apply_pallas (_coeff_kernel, _apply_kernel) is its K=1 case and
+//     launches the same kernels;
 //   * broyden_step_pallas (_make_broyden_step_kernel): one whole Broyden
 //     iteration -- H g_new, H^T s, den = s^T H y and the guarded ring-slot
-//     write of the rank-one pair a = (s - H y)/den, b = H^T s.
+//     write of the rank-one pair a = (s - H y)/den, b = H^T s;
+//   * lowrank_append_pallas (_append_kernel): that ring-slot write alone, one
+//     launch that reads and writes only row slot[b] of U and V (2 x B x D
+//     ring elements each way, bound by bytes).
 //
 // What bounds it on the card: bytes.  Each call streams the (m, B, D) U/V
 // ring (bf16 by default) twice -- a coefficient pass and an apply pass --
@@ -373,6 +378,45 @@ broyden_apply_kernel(T* __restrict__ u, T* __restrict__ v,
   }
 }
 
+// ---------------------------------------------------------------------------
+// lowrank_append
+// ---------------------------------------------------------------------------
+
+// The ring-slot write alone (lowrank_append_pallas): each block reads its
+// chunk of row slot[b] of U and V into ev_u/ev_v, and only then, where
+// upd[b], writes a = (s - hy) * inv_den and b into that row in place.  No
+// other ring row is read or written.  A slot outside [0, m) writes nothing.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+lowrank_append_kernel(T* __restrict__ u, T* __restrict__ v,
+                      const float* __restrict__ s, const float* __restrict__ hy,
+                      const float* __restrict__ bvec, const float* __restrict__ inv_den,
+                      const int* __restrict__ slot, const float* __restrict__ upd,
+                      T* __restrict__ ev_u, T* __restrict__ ev_v, int m, int B,
+                      long long D, int chunk, bool vec) {
+  const int c = blockIdx.x, b = blockIdx.y;
+  const int sl = slot[b];
+  if (sl < 0 || sl >= m) return;
+  const bool write = upd[b] > 0.5f;
+  const float k = inv_den[b];
+  const long long d0 = (long long)c * chunk;
+  const long long d1 = d0 + chunk < D ? d0 + chunk : D;
+  for (long long d = d0 + 4LL * threadIdx.x; d < d1; d += 4LL * kThreads) {
+    const int n = (int)(d1 - d < 4 ? d1 - d : 4);
+    const long long off = (long long)b * D + d;
+    const long long row = ((long long)sl * B + b) * D + d;
+    store4(ev_u + off, load4(u + row, n, vec), n, vec);
+    store4(ev_v + off, load4(v + row, n, vec), n, vec);
+    if (write) {
+      const float4 sk = load4(s + off, n, vec), hk = load4(hy + off, n, vec);
+      const float4 a = make_float4((sk.x - hk.x) * k, (sk.y - hk.y) * k,
+                                   (sk.z - hk.z) * k, (sk.w - hk.w) * k);
+      store4(u + row, a, n, vec);
+      store4(v + row, load4(bvec + off, n, vec), n, vec);
+    }
+  }
+}
+
 template <typename T, int M>
 cudaError_t qn_apply_multi_t(const void* u, const void* v, const float* xs,
                              const float* mask, const float* alpha, float* partial,
@@ -454,6 +498,25 @@ int broyden_step_launch(void* u, void* v, const float* g, const float* s,
   if (m <= 16) BS_CALL(float, 16);
   BS_CALL(float, 32);
 #undef BS_CALL
+}
+
+int lowrank_append_launch(void* u, void* v, const float* s, const float* hy,
+                          const float* bvec, const float* inv_den, const int* slot,
+                          const float* upd, void* ev_u, void* ev_v, int m, int B,
+                          long long D, int chunk, int nchunks, int bf16, int vec,
+                          void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (m < 1) return (int)cudaErrorInvalidValue;
+  dim3 grid(nchunks, B);
+  if (bf16)
+    lowrank_append_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+        (__nv_bfloat16*)u, (__nv_bfloat16*)v, s, hy, bvec, inv_den, slot, upd,
+        (__nv_bfloat16*)ev_u, (__nv_bfloat16*)ev_v, m, B, D, chunk, vec != 0);
+  else
+    lowrank_append_kernel<float><<<grid, kThreads, 0, st>>>(
+        (float*)u, (float*)v, s, hy, bvec, inv_den, slot, upd, (float*)ev_u,
+        (float*)ev_v, m, B, D, chunk, vec != 0);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

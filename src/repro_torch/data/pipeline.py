@@ -1,0 +1,64 @@
+"""Deterministic synthetic token batches.
+
+The port of ``repro/data/pipeline.py``: the same counter-mode recipe in
+numpy, so both packages draw the same batches, placed on the given device.
+Batch ``i`` depends only on ``(seed, i)``, so a restarted run resumes its
+stream by starting at the restored step.  A batch is one small numpy draw
+on the host, so there is no prefetch thread (and no ``close``).
+"""
+
+from __future__ import annotations
+
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+
+
+class SyntheticTokenDataset:
+    """Counter-mode hashed tokens with mild n-gram structure (so small models
+    can actually reduce loss on it)."""
+
+    def __init__(self, vocab_size: int, seed: int = 0):
+        self.vocab = vocab_size
+        self.seed = seed
+
+    def batch(self, index: int, batch: int, seq: int) -> np.ndarray:
+        rng = np.random.default_rng((self.seed, index))
+        base = rng.integers(0, self.vocab, size=(batch, seq), dtype=np.int64)
+        # inject learnable structure: token t depends on t-1 half the time
+        shifted = (np.roll(base, 1, axis=1) * 31 + 7) % self.vocab
+        use = rng.random((batch, seq)) < 0.5
+        out = np.where(use, shifted, base)
+        return out.astype(np.int32)
+
+
+class _Batches:
+    """Iterator of ``{"tokens", "targets"}`` int32 tensors on a device."""
+
+    def __init__(self, ds: SyntheticTokenDataset, batch: int, seq: int,
+                 start_step: int, device: torch.device):
+        self.ds, self.batch, self.seq = ds, batch, seq
+        self.i, self.device = start_step, device
+
+    def __iter__(self) -> "_Batches":
+        return self
+
+    def __next__(self) -> dict:
+        toks = torch.from_numpy(self.ds.batch(self.i, self.batch,
+                                              self.seq + 1))
+        self.i += 1
+        return {"tokens": toks[:, :-1].to(self.device),
+                "targets": toks[:, 1:].to(self.device)}
+
+
+def make_lm_batch_iterator(cfg: ModelConfig, batch: int, seq: int, *,
+                           seed: int = 0, start_step: int = 0,
+                           device=None) -> Iterator[dict]:
+    """Yields ``{tokens, targets}`` batches of ``(batch, seq)`` next-token
+    pairs, from step ``start_step`` on, on ``device`` (default the card)."""
+    return _Batches(SyntheticTokenDataset(cfg.vocab_size, seed), batch, seq,
+                    start_step, resolve_device(device))

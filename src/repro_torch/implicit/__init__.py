@@ -1,5 +1,7 @@
-"""Implicit (fixed-point) API of the port: forward solves through the solver
-registry, the batched serving engine and the per-slot carry cache."""
+"""Implicit (fixed-point) API of the port: differentiable fixed points
+(forward solves through the solver registry, backward through the
+estimator registry), the batched serving engine and the per-slot carry
+cache."""
 
 from repro_torch.core.solvers import (
     SolveCarry,
@@ -11,6 +13,11 @@ from repro_torch.implicit.config import (
     BackwardConfig,
     ForwardConfig,
     ImplicitConfig,
+)
+from repro_torch.implicit.estimators import (
+    AdjointResult,
+    EstimatorContext,
+    estimate_cotangent,
 )
 from repro_torch.implicit.engine import (
     CarryCache,
@@ -30,7 +37,8 @@ from repro_torch.implicit.registry import (
 )
 
 __all__ = [
-    "BackwardConfig", "CarryCache", "ESTIMATORS", "ForwardConfig",
+    "AdjointResult", "BackwardConfig", "CarryCache", "ESTIMATORS",
+    "EstimatorContext", "ForwardConfig", "estimate_cotangent",
     "ImplicitConfig", "ImplicitStats", "Registry", "SOLVERS", "SolveCarry",
     "batched_solve", "implicit_fixed_point",
     "init_solve_carry", "register_estimator", "register_solver",

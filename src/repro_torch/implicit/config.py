@@ -2,8 +2,8 @@
 
 The port of ``repro/implicit/config.py``: ``forward`` (which registered
 solver finds ``z* = f(z*)`` and its budget), ``backward`` (the cotangent
-estimator, used by the training slice), and the shared qN ``memory`` and
-ring dtype.  All classes are frozen.
+estimator of the backward pass and its budget), and the shared qN
+``memory`` and ring dtype.  All classes are frozen.
 """
 
 from __future__ import annotations
@@ -61,6 +61,15 @@ class ImplicitConfig:
             restart_budget=f.restart_budget,
             restart_damping=f.restart_damping,
         )
+
+    def adjoint_cfg(self, steps: int) -> SolverConfig:
+        """The refine/full adjoint solves: absolute tolerance, the forward
+        guard knobs, the default step size and no OPA."""
+        default = SolverConfig()
+        return dataclasses.replace(
+            self.solver_cfg(), max_steps=steps, tol=self.backward.tol,
+            relative=False, step_size=default.step_size,
+            opa_freq=default.opa_freq)
 
     @classmethod
     def from_strings(

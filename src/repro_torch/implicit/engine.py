@@ -21,7 +21,7 @@ from repro_torch.core.solvers import SolveCarry, reset_carry_rows
 from repro_torch.implicit.config import ImplicitConfig
 from repro_torch.implicit.fixed_point import (
     ImplicitStats,
-    _require_no_grad,
+    _flatten,
     solve_forward,
 )
 from repro_torch.implicit.pytree import prepare_flat_problem
@@ -44,7 +44,12 @@ def batched_solve(
     (returned untouched).  ``carry`` warm-starts per slot and turns the
     return into ``(z, stats, new_carry)``; frozen slots keep their carry
     rows' iterate and ring (they neither move nor age)."""
-    _require_no_grad(params, x, z0)
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in _flatten((params, x, z0))[0]):
+        raise ValueError("batched_solve is the inference engine and has no "
+                         "backward; differentiate through "
+                         "implicit_fixed_point")
     z0_flat, unravel, f_flat = prepare_flat_problem(f, z0)
     freeze = None if valid is None else ~valid
     with torch.no_grad():

@@ -44,6 +44,10 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "broyden_step_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _P,
                                 _P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I,
                                 _I, _P],
+        # u, v, s, hy, b, inv_den, slot, upd, ev_u, ev_v, m, B, D, chunk,
+        # nchunks, bf16, vec, stream
+        "lowrank_append_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                  _I, _L, _I, _I, _I, _I, _P],
     },
     "flash_attention": {
         # q, k, v, kv_len, out, B, S, T, H, KV, HD, scale, causal,

@@ -9,7 +9,7 @@ resetting the counts, driving the path, and reading them back.
 from __future__ import annotations
 
 KERNELS = ("broyden_step", "qn_apply_multi", "flash_attention",
-           "decode_attention", "rmsnorm")
+           "decode_attention", "rmsnorm", "lowrank_append", "qn_apply")
 
 _COUNTS = {name: 0 for name in KERNELS}
 

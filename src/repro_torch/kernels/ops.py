@@ -10,9 +10,17 @@ plain version, and a failed build or launch raises.  (The JAX package's
 ``flash_xla`` route and its TPU sublane pad of the ring memory axis have no
 counterpart here: the CUDA kernels mask the ragged edges themselves.)
 
-Ops: ``qn_apply_multi`` (K stacked RHS, per-RHS H vs H^T, one U/V stream),
-``broyden_step`` (one Broyden iteration's apply, denominator and guarded
-ring append), ``attention``, ``decode_attention``, ``rmsnorm``.
+Ops: ``qn_apply`` (single-RHS ``H x``), ``qn_apply_multi`` (K stacked RHS,
+per-RHS H vs H^T, one U/V stream), ``lowrank_append`` (the guarded ring-slot
+write of a Broyden pair), ``broyden_step`` (one Broyden iteration's apply,
+denominator and guarded ring append), ``attention``, ``decode_attention``,
+``rmsnorm``.
+
+Gradients: ``attention`` and ``rmsnorm`` are ``torch.autograd.Function``s
+whose forward is the kernel (the plain version on the CPU) and whose
+backward recomputes through the plain version from the saved inputs, as the
+JAX package's custom VJPs do.  The qN ops run only inside the implicit
+layer's forward and backward, so they need no gradient of their own.
 
 Precision: the qN ring may be stored bf16; every path upcasts ring loads
 and accumulates coefficients, denominators and outputs in f32.  The stream
@@ -124,6 +132,35 @@ def qn_apply_multi(u, v, xs, alpha, mask,
     return out.reshape(xs.shape)
 
 
+def qn_apply(u, v, x, alpha, mask) -> torch.Tensor:
+    """``H @ x`` for one right-hand side ``x: (B, *F)`` over U/V
+    ``(m, B, *F)``; returns ``(B, *F)`` in ``x.dtype``."""
+    _record_stream(u, (False,))
+    if not _on_card(u, v, x, mask):
+        return ref.qn_apply_ref(u, v, x, alpha, mask)
+    m, bsz = u.shape[0], u.shape[1]
+    out = cuda_qn.qn_apply(u.reshape(m, bsz, -1), v.reshape(m, bsz, -1),
+                           x.reshape(bsz, -1), alpha, mask)
+    return out.reshape(x.shape)
+
+
+def lowrank_append(u, v, s, hy, b, inv_den, slot, upd):
+    """Write ``a = (s - hy) * inv_den`` and ``b`` into ring slot ``slot[b]``
+    where ``upd``; returns ``(new_u, new_v, ev_u, ev_v)`` (see
+    ``kernels/ref.lowrank_append_ref``).  On the card ``u``/``v`` are
+    updated in place and returned as ``new_u``/``new_v``: callers treat the
+    inputs as consumed."""
+    if not _on_card(u, v, s, hy, b):
+        return ref.lowrank_append_ref(u, v, s, hy, b, inv_den, slot, upd)
+    m, bsz = u.shape[0], u.shape[1]
+    feat = u.shape[2:]
+    new_u, new_v, ev_u, ev_v = cuda_qn.lowrank_append(
+        u.reshape(m, bsz, -1), v.reshape(m, bsz, -1), s.reshape(bsz, -1),
+        hy.reshape(bsz, -1), b.reshape(bsz, -1), inv_den, slot, upd)
+    return (new_u.reshape(u.shape), new_v.reshape(v.shape),
+            ev_u.reshape((bsz,) + feat), ev_v.reshape((bsz,) + feat))
+
+
 def broyden_step(u, v, g_new, s, hg_old, alpha, mask, slot, active, eps):
     """One Broyden iteration's memory work as one fused U/V pass (it counts
     as exactly one stream call; on the card it is two launches): ``H @
@@ -152,16 +189,55 @@ def broyden_step(u, v, g_new, s, hg_old, alpha, mask, slot, active, eps):
 # ---------------------------------------------------------------------------
 
 
-def attention(q, k, v, *, causal: bool = True, kv_length=None,
-              scale: float | None = None) -> torch.Tensor:
-    """Multi-head attention (B,S,H,hd) x (B,T,KV,hd) -> (B,S,H,hd), forward
-    only (the serving path needs no gradient)."""
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _recompute_grads(fn, inputs, grad_out):
+    """Gradients of ``fn(*inputs)`` with respect to every input, by
+    re-evaluating the plain version under autograd."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        out = fn(*leaves)
+    return torch.autograd.grad(out, leaves, grad_out)
+
+
+class _Attention(torch.autograd.Function):
+    """Forward: the attention kernel (plain version for CPU tensors);
+    backward: recompute through ``ref.attention_ref``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_length, causal, scale):
+        ctx.save_for_backward(q, k, v, kv_length)
+        ctx.causal, ctx.scale = causal, scale
+        return _attention_fwd(q, k, v, kv_length, causal, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, kv_length = ctx.saved_tensors
+        dq, dk, dv = _recompute_grads(
+            lambda q_, k_, v_: ref.attention_ref(
+                q_, k_, v_, causal=ctx.causal, kv_length=kv_length,
+                scale=ctx.scale), (q, k, v), g)
+        return dq, dk, dv, None, None, None
+
+
+def _attention_fwd(q, k, v, kv_length, causal, scale):
     if not _on_card(q, k, v):
         return ref.attention_ref(q, k, v, causal=causal, kv_length=kv_length,
                                  scale=scale)
     return cuda_fa.flash_attention(q.contiguous(), k.contiguous(),
                                    v.contiguous(), kv_length, causal=causal,
                                    scale=scale)
+
+
+def attention(q, k, v, *, causal: bool = True, kv_length=None,
+              scale: float | None = None) -> torch.Tensor:
+    """Differentiable multi-head attention (B,S,H,hd) x (B,T,KV,hd) ->
+    (B,S,H,hd)."""
+    if _needs_grad(q, k, v):
+        return _Attention.apply(q, k, v, kv_length, causal, scale)
+    return _attention_fwd(q, k, v, kv_length, causal, scale)
 
 
 def decode_attention(q, k, v, kv_length, *,
@@ -173,8 +249,32 @@ def decode_attention(q, k, v, kv_length, *,
                                     v.contiguous(), kv_length, scale=scale)
 
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor,
-            eps: float = 1e-6) -> torch.Tensor:
+class _RMSNorm(torch.autograd.Function):
+    """Forward: the rmsnorm kernel (plain version for CPU tensors);
+    backward: recompute through ``ref.rmsnorm_ref``."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return _rmsnorm_fwd(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx, dw = _recompute_grads(
+            lambda x_, w_: ref.rmsnorm_ref(x_, w_, ctx.eps), (x, w), g)
+        return dx, dw, None
+
+
+def _rmsnorm_fwd(x, w, eps):
     if not _on_card(x, w):
         return ref.rmsnorm_ref(x, w, eps)
     return triton_rms.rmsnorm(x.contiguous(), w, eps)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    if _needs_grad(x, w):
+        return _RMSNorm.apply(x, w, eps)
+    return _rmsnorm_fwd(x, w, eps)

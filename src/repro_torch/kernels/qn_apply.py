@@ -1,7 +1,9 @@
 """Wrappers of the Hopper quasi-Newton kernels (``csrc/qn_apply.cu``).
 
-``qn_apply_multi`` replaces ``qn_apply_multi_pallas`` and ``broyden_step``
-replaces ``broyden_step_pallas`` (``repro/kernels/qn_apply.py``).  Both take
+``qn_apply_multi`` replaces ``qn_apply_multi_pallas``, ``qn_apply`` (the
+same kernels at K=1, counted under its own name) ``qn_apply_pallas``,
+``broyden_step`` replaces ``broyden_step_pallas`` and ``lowrank_append``
+replaces ``lowrank_append_pallas`` (``repro/kernels/qn_apply.py``).  All take
 flattened ``(m, B, D)`` rings on the card; ``kernels/ops.py`` flattens the
 feature axes and dispatches here only for CUDA tensors.  Each wrapper checks
 device, dtype, shape and contiguity, allocates the outputs and the
@@ -34,7 +36,8 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-def _check_ring(u: torch.Tensor, v: torch.Tensor, mask: torch.Tensor):
+def _check_ring(u: torch.Tensor, v: torch.Tensor,
+                mask: torch.Tensor | None = None):
     _require(u.is_cuda and v.is_cuda, "qN kernels take CUDA tensors")
     _require(u.ndim == 3 and u.shape == v.shape,
              f"u/v must be matching (m, B, D); got {tuple(u.shape)}, "
@@ -44,7 +47,8 @@ def _check_ring(u: torch.Tensor, v: torch.Tensor, mask: torch.Tensor):
     _require(u.is_contiguous() and v.is_contiguous(), "u/v must be contiguous")
     m, bsz, _ = u.shape
     _require(1 <= m <= MAX_MEMORY, f"ring memory {m} outside 1..{MAX_MEMORY}")
-    _require(tuple(mask.shape) == (m, bsz), f"mask must be {(m, bsz)}")
+    _require(mask is None or tuple(mask.shape) == (m, bsz),
+             f"mask must be {(m, bsz)}")
 
 
 def _f32(x: torch.Tensor, device) -> torch.Tensor:
@@ -58,6 +62,20 @@ def _aligned(*ts: torch.Tensor) -> bool:
 def qn_apply_multi(u, v, xs, alpha, mask, transpose) -> torch.Tensor:
     """``out[k] = (H^T if transpose[k] else H) @ xs[k]``; u/v ``(m, B, D)``,
     xs ``(K, B, D)``; returns ``(K, B, D)`` in ``xs.dtype``."""
+    out = _launch_multi(u, v, xs, alpha, mask, transpose)
+    launches.bump("qn_apply_multi")
+    return out
+
+
+def qn_apply(u, v, x, alpha, mask) -> torch.Tensor:
+    """``H @ x`` for one right-hand side ``x (B, D)``: the ``qn_apply_multi``
+    kernels at K=1, ``(False,)``.  Returns ``(B, D)`` in ``x.dtype``."""
+    out = _launch_multi(u, v, x[None], alpha, mask, (False,))
+    launches.bump("qn_apply")
+    return out[0]
+
+
+def _launch_multi(u, v, xs, alpha, mask, transpose) -> torch.Tensor:
     _check_ring(u, v, mask)
     m, bsz, dim = u.shape
     kk = xs.shape[0]
@@ -81,7 +99,6 @@ def qn_apply_multi(u, v, xs, alpha, mask, transpose) -> torch.Tensor:
         kk, tmask, chunk, nchunks, int(u.dtype == torch.bfloat16), int(vec),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "qn_apply_multi")
-    launches.bump("qn_apply_multi")
     return out if xs.dtype == torch.float32 else out.to(xs.dtype)
 
 
@@ -126,3 +143,36 @@ def broyden_step(u, v, g_new, s, hg_old, alpha, mask, slot, active,
     build.check(err, "broyden_step")
     launches.bump("broyden_step")
     return u, v, hg_new, b, den, ev_u, ev_v
+
+
+def lowrank_append(u, v, s, hy, b, inv_den, slot, upd):
+    """Write ``a = (s - hy) * inv_den`` and ``b`` into ring row ``slot[b]``
+    where ``upd[b]``, on the card.  ``u``/``v`` ``(m, B, D)`` are updated IN
+    PLACE and returned (callers treat the inputs as consumed); returns
+    ``(u, v, ev_u, ev_v)`` with the slot's previous rows, as
+    ``repro_torch.kernels.ref.lowrank_append_ref`` does."""
+    _check_ring(u, v)
+    m, bsz, dim = u.shape
+    dev = u.device
+    for name, t in (("s", s), ("hy", hy), ("b", b)):
+        _require(tuple(t.shape) == (bsz, dim) and t.is_cuda,
+                 f"{name} must be ({bsz}, {dim}) on the card")
+    s32, hy32, b32 = _f32(s, dev), _f32(hy, dev), _f32(b, dev)
+    inv32, upd32 = _f32(inv_den, dev), _f32(upd, dev)
+    slot32 = torch.as_tensor(slot, dtype=torch.int32, device=dev).contiguous()
+    _require(tuple(inv32.shape) == (bsz,) and tuple(upd32.shape) == (bsz,)
+             and tuple(slot32.shape) == (bsz,),
+             f"inv_den/slot/upd must be ({bsz},)")
+    chunk, nchunks = _geometry(dim)
+    ev_u = torch.empty((bsz, dim), dtype=u.dtype, device=dev)
+    ev_v = torch.empty_like(ev_u)
+    vec = dim % 4 == 0 and _aligned(u, v, s32, hy32, b32, ev_u, ev_v)
+    err = build.library("qn_apply").lowrank_append_launch(
+        u.data_ptr(), v.data_ptr(), s32.data_ptr(), hy32.data_ptr(),
+        b32.data_ptr(), inv32.data_ptr(), slot32.data_ptr(), upd32.data_ptr(),
+        ev_u.data_ptr(), ev_v.data_ptr(), m, bsz, dim, chunk, nchunks,
+        int(u.dtype == torch.bfloat16), int(vec),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "lowrank_append")
+    launches.bump("lowrank_append")
+    return u, v, ev_u, ev_v

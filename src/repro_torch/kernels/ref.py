@@ -19,6 +19,15 @@ def _flat(a: torch.Tensor, lead: int) -> torch.Tensor:
     return a.reshape(a.shape[:lead] + (-1,))
 
 
+def qn_apply_ref(u, v, x, alpha, mask) -> torch.Tensor:
+    """``(alpha*I + sum_i mask_i u_i v_i^T) @ x`` for one right-hand side
+    ``x: (B, *F)``, f32 accumulation, out in ``x.dtype``."""
+    xf = _flat(x.float(), 1)
+    coeff = torch.einsum("mbd,bd->mb", _flat(v.float(), 2), xf) * mask.float()
+    out = alpha * xf + torch.einsum("mb,mbd->bd", coeff, _flat(u.float(), 2))
+    return out.reshape(x.shape).to(x.dtype)
+
+
 def qn_apply_multi_ref(
     u: torch.Tensor,      # (m, B, *F)
     v: torch.Tensor,      # (m, B, *F)

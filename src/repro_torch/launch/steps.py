@@ -1,0 +1,194 @@
+"""The train step and its state.
+
+The port of the training half of ``repro/launch/steps.py``: ``TrainState``
+(with the persistent solve carry of DEQ models), ``train_carry_enabled``,
+``build_train_step`` and ``init_train_state``.  The sharding and struct
+helpers come with the layout slice.
+
+Eager PyTorch needs no jit: the step is a plain function.  The qN ring of a
+carry is updated in place on the card by the solve that takes it, so the
+step copies it first where the pre-step carry must survive a rejected
+update (``deq_carry="full"`` with ``skip_nonfinite``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.core.solvers import SolveCarry, carry_state_only
+from repro_torch.models import lm
+from repro_torch.optim.optimizers import (
+    OptState,
+    adamw_init,
+    adamw_update,
+    clip_by_global_norm,
+    make_schedule,
+    sgdm_update,
+    tree_leaves,
+    tree_map,
+)
+
+Tree = Any
+
+
+class TrainState(NamedTuple):
+    step: torch.Tensor                # () int32
+    params: Tree
+    opt: OptState
+    # the warm-start carry threaded across train steps (DEQ models)
+    carry: SolveCarry | None = None
+    # consecutive rejected (non-finite) updates; None without skip_nonfinite
+    skips: torch.Tensor | None = None
+
+
+def train_carry_enabled(cfg: ModelConfig, tcfg: TrainConfig) -> bool:
+    """Whether the train step threads a persistent solve carry: a DEQ
+    model, ``deq_carry != "off"``, no gradient accumulation (microbatches
+    slice the batch, so one carry cannot follow them all) and a family
+    whose solver state has ``seq_len`` positions."""
+    if tcfg.deq_carry not in ("state", "full", "off"):
+        raise ValueError(
+            f"deq_carry={tcfg.deq_carry!r}; expected state | full | off")
+    return bool(cfg.deq.enabled) and tcfg.deq_carry != "off" \
+        and tcfg.grad_accum == 1 and cfg.family != "vlm"
+
+
+def _copy_carry(carry: SolveCarry) -> SolveCarry:
+    return dataclasses.replace(carry, lowrank=carry.lowrank.clone())
+
+
+def _keep(ok: torch.Tensor, new: Tree, old: Tree) -> Tree:
+    return tree_map(lambda n, o: torch.where(ok, n, o), new, old)
+
+
+def _keep_carry(ok: torch.Tensor, new: SolveCarry,
+                old: SolveCarry) -> SolveCarry:
+    lr_n, lr_o = new.lowrank, old.lowrank
+    w = lambda n, o: torch.where(ok, n, o)  # noqa: E731
+    return SolveCarry(
+        z=w(new.z, old.z),
+        lowrank=dataclasses.replace(lr_n, u=w(lr_n.u, lr_o.u),
+                                    v=w(lr_n.v, lr_o.v),
+                                    count=w(lr_n.count, lr_o.count)),
+        warm=w(new.warm, old.warm), age=w(new.age, old.age))
+
+
+def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, *,
+                     loss_fn: Callable | None = None) -> Callable:
+    """``(state, batch) -> (state, metrics)``: gradients (with
+    accumulation) -> clip -> AdamW/SGDM on the ``tcfg`` schedule.  Metrics
+    are 0-d tensors on the device (reading them is the caller's host sync).
+
+    With a carry in the state the default loss threads it into the forward
+    solve and the updated carry rides back into the new state.  A custom
+    ``loss_fn(params, batch) -> (loss, aux)`` leaves the carry untouched."""
+    if loss_fn is None:
+        def loss_with_carry(p, b, c):
+            return lm.loss_fn(p, b, cfg, z_loss=tcfg.z_loss, carry=c)
+    else:
+        def loss_with_carry(p, b, c):
+            return loss_fn(p, b)
+    sched = make_schedule(tcfg)
+
+    def grads_of(params, batch, carry):
+        leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        loss, aux = loss_with_carry(leaves, batch, carry)
+        grads = iter(torch.autograd.grad(loss, tree_leaves(leaves),
+                                         allow_unused=True))
+
+        def grad_of(p):  # a parameter the loss does not use gets zeros
+            g = next(grads)
+            return torch.zeros_like(p) if g is None else g
+
+        return loss.detach(), aux, tree_map(grad_of, leaves)
+
+    def train_step(state: TrainState, batch: dict):
+        params = state.params
+        new_carry = state.carry
+        if tcfg.grad_accum > 1:
+            k = tcfg.grad_accum
+            gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                  device=p.device), params)
+            lsum = 0.0
+            for i in range(k):
+                micro = {n: a.reshape((k, a.shape[0] // k) + a.shape[1:])[i]
+                         for n, a in batch.items()}
+                l, _, g = grads_of(params, micro, None)
+                gsum = tree_map(torch.add, gsum, g)
+                lsum = lsum + l
+            grads = tree_map(lambda g: g / k, gsum)
+            loss, aux = lsum / k, {}
+        else:
+            carry_in = state.carry
+            if carry_in is not None and tcfg.deq_carry == "state":
+                # fresh-batch regime: reuse the iterate, rebuild the chain
+                carry_in = carry_state_only(carry_in)
+            elif carry_in is not None and tcfg.skip_nonfinite:
+                # without the solver's guard the solve consumes the ring in
+                # place (with it, the entry repair selects it into new
+                # buffers); a rejected step must give back the pre-step
+                # carry (under "state" the ring's contents are never read:
+                # its count is zeroed)
+                carry_in = _copy_carry(carry_in)
+            loss, aux, grads = grads_of(params, batch, carry_in)
+            new_carry = aux.pop("solve_carry", new_carry)
+
+        grads, gnorm = clip_by_global_norm(grads, tcfg.clip_norm)
+        lr = sched(state.step)
+        if tcfg.optimizer == "sgdm":
+            new_params, opt = sgdm_update(
+                grads, state.opt, params, lr, weight_decay=tcfg.weight_decay)
+        else:
+            new_params, opt = adamw_update(
+                grads, state.opt, params, lr, weight_decay=tcfg.weight_decay)
+        metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}
+        metrics.update({k: (v.detach() if isinstance(v, torch.Tensor) else v)
+                        for k, v in aux.items()
+                        if not isinstance(v, torch.Tensor) or v.ndim == 0})
+        new_state = TrainState(state.step + 1, new_params, opt, new_carry,
+                               state.skips)
+        if tcfg.skip_nonfinite:
+            # a non-finite loss or gradient norm rejects the whole update
+            # (params, optimizer state, carry keep their pre-step values)
+            # by a select on the device: no host read on the hot path.
+            # The trainer reads the consecutive-skip count at its metrics
+            # fetch and rolls back past tcfg.skip_budget.
+            ok = torch.isfinite(loss) & torch.isfinite(gnorm)
+            prev = state.skips if state.skips is not None else \
+                torch.zeros((), dtype=torch.int32, device=ok.device)
+            new_state = TrainState(
+                state.step + 1,
+                _keep(ok, new_params, params),
+                OptState(torch.where(ok, opt.step, state.opt.step),
+                         _keep(ok, opt.mu, state.opt.mu),
+                         _keep(ok, opt.nu, state.opt.nu)),
+                (_keep_carry(ok, new_carry, state.carry)
+                 if new_carry is not None else None),
+                torch.where(ok, torch.zeros_like(prev), prev + 1))
+            metrics["update_skipped"] = (~ok).float()
+            metrics["consec_skips"] = new_state.skips.float()
+        return new_state, metrics
+
+    return train_step
+
+
+def init_train_state(cfg: ModelConfig, tcfg: TrainConfig, *,
+                     seed: int | None = None, params: Tree | None = None,
+                     device=None) -> TrainState:
+    """A fresh state: parameters drawn from ``seed`` (default
+    ``tcfg.seed``) on ``device``, or the given ``params``; zero moments; a
+    cold carry where ``train_carry_enabled``."""
+    if params is None:
+        params = lm.init_params(cfg, seed=tcfg.seed if seed is None else seed,
+                                device=device)
+    dev = lm.params_device(params)
+    carry = (lm.deq_solve_carry(cfg, tcfg.global_batch, tcfg.seq_len, dev)
+             if train_carry_enabled(cfg, tcfg) else None)
+    skips = (torch.zeros((), dtype=torch.int32, device=dev)
+             if tcfg.skip_nonfinite else None)
+    return TrainState(torch.zeros((), dtype=torch.int32, device=dev), params,
+                      adamw_init(params), carry, skips)

@@ -1,0 +1,123 @@
+"""Training launcher: ``python -m repro_torch.launch.train --arch <id> --deq``.
+
+The port of ``repro/launch/train.py``: runs the :class:`Trainer` (restore
+or init, checkpoints, rollback, preemption) on synthetic token batches.
+The JAX launcher's flags, minus ``--mesh`` (sharding), ``--metrics-prom-out``
+and ``--trace-out`` (exporters), which come with later slices, plus
+``--device``.  Unknown ``--backward``/``--solver`` values are rejected
+with the registered names.
+
+Runs on the card by default; ``--device cpu`` runs the plain PyTorch path.
+The default model is the full published config; ``--smoke`` selects the
+reduced ``smoke_config``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import os
+
+import torch
+
+from repro_torch.configs.base import TrainConfig
+from repro_torch.configs.registry import ARCHS, get_config, smoke_config
+from repro_torch.data.pipeline import make_lm_batch_iterator
+from repro_torch.device import resolve_device
+from repro_torch.implicit import ESTIMATORS, SOLVERS
+from repro_torch.models import lm
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.optim.optimizers import tree_leaves
+from repro_torch.runtime.trainer import Trainer
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=sorted(ARCHS), default="minicpm-2b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced same-family config (CPU-sized)")
+    ap.add_argument("--deq", action="store_true",
+                    help="DEQ/SHINE form: weight-tied fixed-point backbone")
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--backward", default=None, choices=ESTIMATORS.names(),
+                    help="DEQ backward cotangent estimator")
+    ap.add_argument("--solver", default=None, choices=SOLVERS.names(),
+                    help="DEQ forward fixed-point solver")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--checkpoint-dir", default="")
+    ap.add_argument("--checkpoint-every", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--metrics-out", default="",
+                    help="write a metrics-registry JSON snapshot here after "
+                         "the run")
+    ap.add_argument("--checkpoint-lean", action="store_true",
+                    help="omit the u/v quasi-Newton carry ring from "
+                         "checkpoints (restore zero-fills it)")
+    ap.add_argument("--qn-dtype", default=None,
+                    choices=("bfloat16", "float32"),
+                    help="storage dtype of the quasi-Newton U/V ring "
+                         "(default bf16; coefficients accumulate f32)")
+    ap.add_argument("--no-guard", action="store_true",
+                    help="run the DEQ solves without the numerical-fault "
+                         "guards")
+    ap.add_argument("--skip-budget", type=int, default=None,
+                    help="consecutive non-finite-update skips tolerated "
+                         "before rolling back to the last checkpoint")
+    args = ap.parse_args(argv)
+
+    if not args.deq:
+        raise SystemExit("repro_torch trains the DEQ model so far: pass "
+                         "--deq")
+    device = resolve_device(args.device)
+    cfg = smoke_config(args.arch, deq=True) if args.smoke \
+        else get_config(args.arch, deq=True)
+    deq = cfg.deq
+    if args.backward:
+        deq = dataclasses.replace(deq, backward=args.backward)
+    if args.solver:
+        deq = dataclasses.replace(deq, solver=args.solver)
+    if args.qn_dtype:
+        deq = dataclasses.replace(deq, qn_dtype=args.qn_dtype)
+    if args.no_guard:
+        deq = dataclasses.replace(deq, guard=False)
+    cfg = dataclasses.replace(cfg, deq=deq)
+
+    tcfg = TrainConfig(
+        steps=args.steps, global_batch=args.batch, seq_len=args.seq,
+        lr=args.lr, grad_accum=args.grad_accum, seed=args.seed,
+        schedule=cfg.schedule, checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every,
+        checkpoint_lean=args.checkpoint_lean,
+        qn_dtype=args.qn_dtype or cfg.deq.qn_dtype, zero1=False,
+        **({"skip_budget": args.skip_budget}
+           if args.skip_budget is not None else {}))
+
+    trainer = Trainer(cfg, tcfg, device=device)
+    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
+             else "cpu")
+    n_params = sum(math.prod(d.shape) for d in tree_leaves(
+        lm.model_decl(cfg)))
+    print(f"arch={cfg.name} params={n_params / 1e6:.1f}M deq=True "
+          f"backward={cfg.deq.backward} device={where}")
+    batches = make_lm_batch_iterator(cfg, args.batch, args.seq,
+                                     seed=args.seed, device=device)
+    state = trainer.run(batches, steps=args.steps)
+    print(f"finished at step {int(state.step)}")
+
+    if args.metrics_out:
+        d = os.path.dirname(args.metrics_out)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        with open(args.metrics_out, "w") as fh:
+            json.dump(obs_metrics.snapshot(), fh, indent=1, sort_keys=True)
+        print(f"metrics snapshot -> {args.metrics_out}")
+
+
+if __name__ == "__main__":
+    main()

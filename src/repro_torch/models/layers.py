@@ -1,4 +1,5 @@
-"""Shared layers: RMSNorm, SwiGLU MLP, rotary embeddings, embedding/head.
+"""Shared layers: RMSNorm, SwiGLU MLP, rotary embeddings, embedding/head and
+the cross-entropy loss.
 
 The port of ``repro/models/layers.py`` for the dense family.  Parameters are
 plain dicts of tensors laid out as in the JAX package (``(d_in, d_out)``
@@ -68,3 +69,20 @@ def lm_logits(params: dict, x: torch.Tensor,
     if cfg.logits_softcap:
         logits = cfg.logits_softcap * torch.tanh(logits / cfg.logits_softcap)
     return logits
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  z_loss: float = 0.0) -> tuple[torch.Tensor, dict]:
+    """Stable cross entropy in f32 plus ``z_loss`` times the mean squared
+    log-partition; targets ``-1`` are ignored.  Returns ``(loss, {"nll",
+    "z", "tokens"})``."""
+    logits = logits.float()
+    mask = (targets >= 0).float()
+    safe_t = torch.clamp(targets, min=0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe_t[..., None])[..., 0]
+    nll = (lse - gold) * mask
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = nll.sum() / denom
+    zl = (lse ** 2 * mask).sum() / denom
+    return loss + z_loss * zl, {"nll": loss, "z": zl, "tokens": denom}

@@ -7,13 +7,15 @@ solved to a fixed point with input injection,
     z* = x + C(z*),   C(z) = blocks(z) - z,
 
 by the registered forward solver (Broyden, whose inverse estimate is
-SHINE's shared object).  This slice serves: :func:`prefill` solves the
-prompt's equilibrium against a fresh KV cache and seeds the decode carry
-with its last token; :func:`decode_step` solves one new token per row
-against the frozen cache (inactive rows frozen in the batched solve), warm
-started from the carried equilibrium and quasi-Newton ring, then refreshes
-the cache once at ``z*``.  ``forward``/``loss_fn`` and the other families
-come with later slices.
+SHINE's shared object).  Training: :func:`forward` and :func:`loss_fn`
+solve the whole sequence causally, and the backward runs the configured
+SHINE-family estimator (``implicit_fixed_point``).  Serving:
+:func:`prefill` solves the prompt's equilibrium against a fresh KV cache
+and seeds the decode carry with its last token; :func:`decode_step` solves
+one new token per row against the frozen cache (inactive rows frozen in the
+batched solve), warm started from the carried equilibrium and quasi-Newton
+ring, then refreshes the cache once at ``z*``.  The other families come
+with later slices.
 
 Parameters are a plain dict with the JAX package's tree and layouts, so
 :func:`params_from_jax` converts a JAX ``init_params`` tree leaf for leaf.
@@ -36,6 +38,7 @@ from repro_torch.implicit.fixed_point import implicit_fixed_point
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
     act_dtype,
+    cross_entropy,
     embed_tokens,
     lm_logits,
     mlp,
@@ -201,12 +204,42 @@ def deq_solve_carry(cfg: ModelConfig, batch: int, seq: int,
                             device=resolve_device(device))
 
 
-def _apply_deq(params, x_emb, cfg, positions, caches, cache_index,
+def _deq_aux(out, carry) -> dict:
+    """The solve's aux outputs from ``implicit_fixed_point``'s return."""
+    stats = out[1]
+    aux = {"deq_residual": stats.residual.mean(),
+           "deq_steps": float(stats.n_steps)}
+    if stats.status is not None:
+        aux["deq_status"] = stats.status
+    if carry is not None:
+        aux["solve_carry"] = out[2]
+    return aux
+
+
+def _apply_deq(params, x_emb, cfg, positions, caches=None, cache_index=None,
                active=None, carry=None):
-    """Solve the weight-tied block group's fixed point for the new tokens
-    against the (frozen) KV cache, then refresh the cache once at z*.
-    Returns ``(z*, caches, aux)``."""
+    """Solve the weight-tied block group's fixed point.  Without caches
+    (training) the whole sequence attends causally over its own k/v and the
+    solve is differentiable; with caches the new tokens attend over the
+    frozen cache, which is refreshed once at ``z*``.  Returns ``(z*,
+    caches, aux)``."""
     nb = cfg.deq.num_blocks
+    # cold start AT the injection: f(x) = x + C(x) is one free Picard step
+    z0 = x_emb
+    if caches is None:
+        def f(p, xin, z):
+            x_in, pos = xin
+            h = z
+            for j in range(nb):
+                h, _ = apply_unit("attn_mlp", _block(p["blocks"], j), h, cfg,
+                                  pos)
+            return x_in + (h - z)
+
+        out = implicit_fixed_point(f, {"blocks": params["deq_blocks"]},
+                                   (x_emb, positions), z0, _deq_cfg(cfg),
+                                   carry=carry)
+        return out[0], None, _deq_aux(out, carry)
+
     blocks = [_block(params["deq_blocks"], j) for j in range(nb)]
     kc, vc = caches["deq"]
 
@@ -218,8 +251,6 @@ def _apply_deq(params, x_emb, cfg, positions, caches, cache_index,
                               attn.KVCache(kc[j], vc[j]), cidx)
         return x_in + (h - z)
 
-    # cold start AT the injection: f(x) = x + C(x) is one free Picard step
-    z0 = x_emb
     xin = (x_emb, positions, cache_index)
     if active is not None:
         out = batched_solve(f_dec, blocks, xin, z0, _deq_cfg(cfg),
@@ -227,20 +258,48 @@ def _apply_deq(params, x_emb, cfg, positions, caches, cache_index,
     else:
         out = implicit_fixed_point(f_dec, blocks, xin, z0, _deq_cfg(cfg),
                                    carry=carry)
-    z_star, stats = out[0], out[1]
+    z_star = out[0]
     # one more pass writes the caches at the fixed point (the state IS the
     # block-input stream under input injection)
     h = z_star
     for j in range(nb):
         h, _ = apply_unit("attn_mlp", blocks[j], h, cfg, positions,
                           attn.KVCache(kc[j], vc[j]), cache_index)
-    aux = {"deq_residual": stats.residual.mean(),
-           "deq_steps": float(stats.n_steps)}
-    if stats.status is not None:
-        aux["deq_status"] = stats.status
-    if carry is not None:
-        aux["solve_carry"] = out[2]
-    return z_star, caches, aux
+    return z_star, caches, _deq_aux(out, carry)
+
+
+# ---------------------------------------------------------------------------
+# Training: full-sequence forward and loss
+# ---------------------------------------------------------------------------
+
+
+def forward(params, batch: dict, cfg: ModelConfig,
+            carry: SolveCarry | None = None):
+    """Full-sequence forward of ``batch["tokens"] (B, S)``.  Returns
+    ``(logits (B, S, V), aux)``; ``carry`` warm-starts the DEQ solve and
+    the updated one comes back under ``aux["solve_carry"]``."""
+    _check_family(cfg)
+    tokens = batch["tokens"]
+    x = embed_tokens(params["embed"], tokens, cfg)
+    b, s = x.shape[:2]
+    pos = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(
+        b, s)
+    z, _, aux = _apply_deq(params, x, cfg, pos, carry=carry)
+    z = rmsnorm(params["final_norm"], z, cfg.norm_eps)
+    return lm_logits(params["embed"], z, cfg), aux
+
+
+def loss_fn(params, batch: dict, cfg: ModelConfig, z_loss: float = 1e-4,
+            carry: SolveCarry | None = None):
+    """Next-token cross entropy (plus z-loss) of ``batch["tokens"]`` against
+    ``batch["targets"]``.  Returns ``(loss, metrics)``; the metrics hold the
+    loss terms and the DEQ solve's aux (``solve_carry`` among them when a
+    carry is given)."""
+    logits, aux = forward(params, batch, cfg, carry=carry)
+    loss, metrics = cross_entropy(logits, batch["targets"], z_loss)
+    metrics.update(aux)
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,9 @@
 
 The registry core of ``repro/obs/metrics.py``.  Host-side recording is
 plain Python arithmetic; eager PyTorch needs no trace-time bridge, so
-callers (the qN stream counters, the carry cache, the serving loop) write
-straight into it.  The Prometheus exposition and the solver telemetry
-helpers come with later slices.
+callers (the qN stream counters, the carry cache, the serving loop, the
+backward pass) write straight into it.  The Prometheus exposition comes with
+a later slice.
 """
 
 from __future__ import annotations
@@ -15,8 +15,10 @@ import threading
 import time
 from typing import Mapping
 
+import torch
+
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
-           "default_registry"]
+           "default_registry", "record_backward", "record_solve"]
 
 _LabelsKey = tuple[tuple[str, str], ...]
 
@@ -136,3 +138,26 @@ def default_registry() -> MetricsRegistry:
 def snapshot() -> dict:
     """Snapshot of the default registry."""
     return _REGISTRY.snapshot()
+
+
+def record_solve(phase: str, result) -> None:
+    """Count one solve and its iterations under ``{phase}``."""
+    pl = {"phase": phase}
+    _REGISTRY.counter("solves_total", pl).inc()
+    _REGISTRY.counter("solve_iters_total", pl).inc(int(result.n_steps))
+
+
+def record_backward(estimator: str, adj) -> None:
+    """One backward cotangent estimate (an ``AdjointResult``): estimates,
+    iterations of its iterative part, mean finite residual and the samples
+    whose fallback guard fired, under ``{estimator}``."""
+    pl = {"estimator": estimator}
+    _REGISTRY.counter("backward_estimates_total", pl).inc()
+    _REGISTRY.counter("backward_iters_total", pl).inc(int(adj.n_steps))
+    res = adj.residual.float()
+    res = res[torch.isfinite(res)]
+    if res.numel():
+        _REGISTRY.histogram("backward_residual", pl).observe(
+            float(res.mean()))
+    _REGISTRY.counter("backward_fallbacks_total", pl).inc(
+        int(adj.fallback_mask.sum()))

@@ -9,7 +9,9 @@ machine without JAX it runs with
 
 Shapes are small but ragged (D not a multiple of 4, S not a multiple of the
 query tile, GQA, an empty ring row, a refused append) so each kernel's edge
-handling is exercised; ``chip_smoke.py`` checks the serving path's shapes.
+handling is exercised; ``chip_smoke.py`` checks the serving and training
+paths' shapes.  Besides the kernels: the autograd wrappers' gradients, and
+a refine backward that must leave a carried ring as the forward left it.
 """
 
 import numpy as np
@@ -31,6 +33,11 @@ def dev():
                     "on the card")
     launches.reset()
     return torch.device("cuda")
+
+
+def _tree(fn, p):
+    return {k: _tree(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in p.items()}
 
 
 def _close(got, want, dtype):
@@ -109,3 +116,128 @@ def test_kernel_wrappers_refuse_bad_inputs(dev):
     q = torch.zeros(1, 4, 2, 48, device=dev)
     with pytest.raises(ValueError):  # head dim not instantiated
         flash_attention.flash_attention(q, q, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lowrank_append_and_qn_apply_match_plain_versions(dev, dtype):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    m, bsz, dim = 6, 5, 1030
+    u = (0.3 * torch.randn(m, bsz, dim, device=dev, generator=gen)).to(dtype)
+    v = (0.3 * torch.randn(m, bsz, dim, device=dev, generator=gen)).to(dtype)
+    s, hy, b = (torch.randn(bsz, dim, device=dev, generator=gen)
+                for _ in range(3))
+    inv_den = torch.randn(bsz, device=dev, generator=gen)
+    slot = torch.tensor([0, 5, 2, 2, 1], device=dev, dtype=torch.int32)
+    upd = torch.tensor([1.0, 1.0, 0.0, 1.0, 1.0], device=dev)
+    want = ref.lowrank_append_ref(u, v, s, hy, b, inv_den, slot, upd)
+    uu, vv = u.clone(), v.clone()
+    got = ops.lowrank_append(uu, vv, s, hy, b, inv_den, slot, upd)
+    assert got[0].data_ptr() == uu.data_ptr()  # the ring, updated in place
+    for gt, wt in zip(got, want):  # copies and one rounding: bit for bit
+        assert torch.equal(gt, wt)
+    count = torch.tensor([m + 2, 2, m, 0, 5], device=dev, dtype=torch.int32)
+    mask = (torch.arange(m, device=dev)[:, None]
+            < torch.clamp(count, max=m)[None]).float()
+    alpha = torch.tensor(0.7, device=dev)
+    for x in (s, s.to(dtype)):
+        _close(ops.qn_apply(u, v, x, alpha, mask),
+               ref.qn_apply_ref(u, v, x, alpha, mask), x.dtype)
+    _close(ops.qn_apply_multi(u, v, s[None], alpha, mask, (True,)),
+           ref.qn_apply_multi_ref(u, v, s[None], alpha, mask, (True,)),
+           torch.float32)
+    c = launches.counts()
+    assert (c["lowrank_append"], c["qn_apply"], c["qn_apply_multi"]) \
+        == (1, 2, 1)
+
+
+@pytest.mark.cuda
+def test_autograd_wrappers_give_plain_gradients(dev):
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q, k, v, g = (torch.randn(2, 70, 4, 16, device=dev, generator=gen)
+                  .to(torch.bfloat16) for _ in range(4))
+    x = torch.randn(33, 2304, device=dev, generator=gen).to(torch.bfloat16)
+    w = torch.ones(2304, device=dev, dtype=torch.bfloat16)
+    gx = torch.randn(33, 2304, device=dev, generator=gen).to(torch.bfloat16)
+    for op, plain, ins, cot in (
+            (lambda *a: ops.attention(*a, causal=True),
+             lambda *a: ref.attention_ref(*a, causal=True), (q, k, v), g),
+            (lambda *a: ops.rmsnorm(*a, 1e-5),
+             lambda *a: ref.rmsnorm_ref(*a, 1e-5), (x, w), gx)):
+        grads = []
+        for fn in (op, plain):
+            leaves = [t.clone().requires_grad_(True) for t in ins]
+            grads.append(torch.autograd.grad(fn(*leaves), leaves, cot))
+        for a, b in zip(*grads):
+            _close(a, b, torch.bfloat16)
+    c = launches.counts()
+    assert c["flash_attention"] == 1 and c["rmsnorm"] == 1
+
+
+@pytest.mark.cuda
+def test_refine_backward_leaves_the_carried_ring_alone(dev):
+    import dataclasses
+
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.models import lm
+    cfg = smoke_config("minicpm-2b", deq=True)
+    cfg = dataclasses.replace(cfg, deq=dataclasses.replace(
+        cfg.deq, backward="shine_refine"))
+    params = lm.init_params(cfg, seed=0, device=dev)
+    params["deq_blocks"] = _tree(lambda t: t * 0.3, params["deq_blocks"])
+    toks = torch.randint(0, cfg.vocab_size, (2, 17), device=dev)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    carry = lm.deq_solve_carry(cfg, 2, 16, dev)
+    with torch.no_grad():
+        carry = lm.loss_fn(params, batch, cfg, carry=carry)[1]["solve_carry"]
+    leaves = _tree(lambda t: t.detach().requires_grad_(True), params)
+    loss, m = lm.loss_fn(leaves, batch, cfg, carry=carry)
+    ring = m["solve_carry"].lowrank
+    snap = (ring.u.clone(), ring.v.clone())
+    launches.reset()
+    loss.backward()
+    assert launches.counts()["broyden_step"] > 0  # the adjoint solve ran
+    assert torch.equal(ring.u, snap[0]) and torch.equal(ring.v, snap[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("guard", [False, True])
+def test_rejected_step_gives_back_the_full_carry(dev, guard):
+    """``deq_carry="full"`` hands the step's solve the carried ring.  A
+    step that ``skip_nonfinite`` rejects must give back the pre-step carry
+    bit for bit.  Without the guard the solve extends that ring in place on
+    the card, so only the step's copy keeps it; with the guard the solve's
+    entry repair already selects it into new buffers."""
+    import dataclasses
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    cfg = smoke_config("minicpm-2b", deq=True)
+    cfg = dataclasses.replace(cfg, deq=dataclasses.replace(cfg.deq,
+                                                           guard=guard))
+    tcfg = TrainConfig(steps=2, global_batch=2, seq_len=16, deq_carry="full",
+                       skip_nonfinite=True)
+    params = lm.init_params(cfg, seed=0, device=dev)
+    params["deq_blocks"] = _tree(lambda t: t * 0.3, params["deq_blocks"])
+    state = steps.init_train_state(cfg, tcfg, params=params)
+    step = steps.build_train_step(cfg, tcfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 17), device=dev)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    state, m = step(state, batch)  # fills the carried ring
+    assert float(m["update_skipped"]) == 0.0
+    before = state.carry.lowrank.clone()
+    z = state.carry.z.clone()
+    nan_norm = {k: torch.full_like(t, float("nan"))
+                for k, t in state.params["final_norm"].items()}
+    state = state._replace(params=dict(state.params, final_norm=nan_norm))
+    launches.reset()
+    state, m = step(state, batch)  # the solve runs; the loss is NaN
+    assert launches.counts()["broyden_step"] > 0
+    assert float(m["update_skipped"]) == 1.0
+    after = state.carry.lowrank
+    assert int(before.count.min()) > 0
+    for a, b in ((after.u, before.u), (after.v, before.v),
+                 (after.count, before.count), (state.carry.z, z)):
+        assert torch.equal(a, b)

@@ -10,6 +10,7 @@ on the card: ``tests/test_torch_cuda.py`` compares them with the plain
 versions there.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -217,3 +218,160 @@ def test_ops_refuse_mixed_devices():
     x = torch.zeros(2, 4)
     with pytest.raises(ValueError):
         tops.rmsnorm(x, torch.zeros(4, device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# lowrank_append and qn_apply (off every path; ported as ops)
+# ---------------------------------------------------------------------------
+
+
+def _append_inputs(rng, m, bsz, dim):
+    u = rng.standard_normal((m, bsz, dim)).astype(np.float32)
+    v = rng.standard_normal((m, bsz, dim)).astype(np.float32)
+    s, hy, b = (rng.standard_normal((bsz, dim)).astype(np.float32)
+                for _ in range(3))
+    inv_den = rng.standard_normal(bsz).astype(np.float32)
+    slot = rng.integers(0, m, size=bsz).astype(np.int32)
+    upd = (np.arange(bsz) % 2 == 0).astype(np.float32)
+    return u, v, s, hy, b, inv_den, slot, upd
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,bsz,dim", [(2, 1, 8), (6, 3, 100)])
+def test_lowrank_append_matches_jax_ref_and_pallas_interpret(m, bsz, dim,
+                                                              dtype):
+    rng = np.random.default_rng(m * 31 + dim)
+    u, v, s, hy, b, inv_den, slot, upd = _append_inputs(rng, m, bsz, dim)
+    (ju, tu), (jv, tv) = _both(u, dtype), _both(v, dtype)
+    js, ts = _both(s)
+    jh, th = _both(hy)
+    jb, tb = _both(b)
+    jargs = (js, jh, jb, jnp.asarray(inv_den), jnp.asarray(slot),
+             jnp.asarray(upd))
+    targs = (ts, th, tb, torch.from_numpy(inv_den), torch.from_numpy(slot),
+             torch.from_numpy(upd))
+    got = tops.lowrank_append(tu, tv, *targs)
+    for impl in ("ref", "pallas_interpret"):
+        want = jops.lowrank_append(ju, jv, *jargs, impl=impl)
+        for gt, wt in zip(got, want):
+            assert gt.dtype == tu.dtype
+            # a copy (evicted rows, untouched rows) or one rounding of the
+            # same f32 product: equal at either dtype
+            np.testing.assert_array_equal(_np(gt), _np(wt))
+    # functional on the CPU: the inputs are left as they were
+    np.testing.assert_array_equal(_np(tu), _np(_both(u, dtype)[1]))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_qn_apply_matches_jax_ref_and_pallas_interpret(dtype):
+    rng = np.random.default_rng(21)
+    u, v, xs, mask = _qn_inputs(rng, 5, 3, 100, 1)
+    (ju, tu), (jv, tv) = _both(u, dtype), _both(v, dtype)
+    (jx, tx), (jm, tm) = _both(xs[0], dtype), _both(mask)
+    got = tops.qn_apply(tu, tv, tx, torch.tensor(0.7), tm)
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    for impl in ("ref", "pallas_interpret"):
+        want = jops.qn_apply(ju, jv, jx, jnp.float32(0.7), jm, impl=impl)
+        _close(got, want, dtype)
+    # the K=1 case of qn_apply_multi
+    _close(got, tops.qn_apply_multi(tu, tv, tx[None], torch.tensor(0.7),
+                                    tm, (False,))[0], dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_lowrank_apply_update_append_transpose_match_jax(dtype):
+    from repro.core.lowrank import LowRank as JLowRank
+    from repro_torch.core.lowrank import LowRank as TLowRank
+    rng = np.random.default_rng(8)
+    m, bsz, dim = 4, 3, 10
+    u, v = (rng.standard_normal((m, bsz, dim)).astype(np.float32)
+            for _ in range(2))
+    s, hy, b, a = (rng.standard_normal((bsz, dim)).astype(np.float32)
+                   for _ in range(4))
+    den = np.array([0.5, -2.0, 3.0], np.float32)
+    count = np.array([m + 1, 2, 0], np.int32)
+    mask = np.array([True, False, True])
+    (ju, tu), (jv, tv) = _both(u, dtype), _both(v, dtype)
+    jl = JLowRank(alpha=jnp.float32(1.0), u=ju, v=jv,
+                  count=jnp.asarray(count))
+    tl = TLowRank(alpha=torch.tensor(1.0), u=tu, v=tv,
+                  count=torch.from_numpy(count))
+    jh, jev_u, jev_v = jl.apply_update(jnp.asarray(s), jnp.asarray(hy),
+                                       jnp.asarray(b), jnp.asarray(den),
+                                       jnp.asarray(mask))
+    th, tev_u, tev_v = tl.apply_update(*(torch.from_numpy(x) for x in
+                                         (s, hy, b, den, mask)))
+    for got, want in ((th.u, jh.u), (th.v, jh.v), (tev_u, jev_u),
+                      (tev_v, jev_v)):
+        np.testing.assert_allclose(_np(got), _np(want), rtol=1e-6)
+    np.testing.assert_array_equal(th.count.numpy(), np.asarray(jh.count))
+    ja = jl.append(jnp.asarray(a), jnp.asarray(b), jnp.asarray(mask))
+    ta = tl.append(torch.from_numpy(a), torch.from_numpy(b),
+                   torch.from_numpy(mask))
+    np.testing.assert_array_equal(_np(ta.u), _np(ja.u))
+    np.testing.assert_array_equal(_np(ta.v), _np(ja.v))
+    x = rng.standard_normal((bsz, dim)).astype(np.float32)
+    _close(tl.transpose().matvec(torch.from_numpy(x)),
+           jl.transpose().matvec(jnp.asarray(x)), "float32")
+    _close(tl.transpose().matvec(torch.from_numpy(x)),
+           tl.rmatvec(torch.from_numpy(x)), "float32")
+
+
+# ---------------------------------------------------------------------------
+# the autograd wrappers of attention and rmsnorm
+# ---------------------------------------------------------------------------
+
+
+def _jax_vjp(fn, inputs, cot):
+    return jax.jit(lambda ins, c: jax.vjp(fn, *ins)[1](c))(inputs, cot)
+
+
+def _grads(fn, inputs, cot):
+    leaves = [t.clone().requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+    return out.detach(), torch.autograd.grad(out, leaves, cot)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_attention_and_rmsnorm_wrappers_give_plain_autograd_grads(dtype):
+    """The wrapper route (autograd.Function: forward by the op, backward by
+    recomputing the plain version) against autograd straight through the
+    plain version (bit for bit), and at f32 against JAX's custom VJP (in
+    bf16 the weight gradient sums rows in another order than XLA, a few
+    bf16 steps apart)."""
+    from repro_torch.kernels import ref as tref
+    rng = np.random.default_rng(17)
+    b, s, h, kv, hd = 2, 7, 4, 2, 16
+    q, k, v, g = (rng.standard_normal(shape).astype(np.float32)
+                  for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd),
+                                (b, s, h, hd)))
+    tq, tk, tv, tg = (_both(a, dtype)[1] for a in (q, k, v, g))
+    out_w, grads_w = _grads(lambda *a: tops.attention(*a, causal=True),
+                            (tq, tk, tv), tg)
+    out_p, grads_p = _grads(lambda *a: tref.attention_ref(*a, causal=True),
+                            (tq, tk, tv), tg)
+    assert torch.equal(out_w, out_p)
+    for gw, gp in zip(grads_w, grads_p):
+        assert torch.equal(gw, gp)
+    if dtype == "float32":
+        jq, jk, jv, jg = (_both(a, dtype)[0] for a in (q, k, v, g))
+        for gw, gj in zip(grads_w, _jax_vjp(
+                lambda *a: jops.attention(*a, causal=True, impl="ref"),
+                (jq, jk, jv), jg)):
+            _close(gw, gj, dtype)
+
+    x = rng.standard_normal((3, 5, 48)).astype(np.float32)
+    w = (1 + 0.1 * rng.standard_normal(48)).astype(np.float32)
+    gx = rng.standard_normal((3, 5, 48)).astype(np.float32)
+    (jx, tx), (jw, tw), (jgx, tgx) = (_both(a, dtype) for a in (x, w, gx))
+    out_w, grads_w = _grads(lambda *a: tops.rmsnorm(*a, 1e-5), (tx, tw), tgx)
+    out_p, grads_p = _grads(lambda *a: tref.rmsnorm_ref(*a, 1e-5), (tx, tw),
+                            tgx)
+    assert torch.equal(out_w, out_p)
+    for gw, gp in zip(grads_w, grads_p):
+        assert torch.equal(gw, gp)
+    if dtype == "float32":
+        for gw, gj in zip(grads_w, _jax_vjp(
+                lambda *a: jops.rmsnorm(*a, 1e-5, impl="ref"), (jx, jw),
+                jgx)):
+            _close(gw, gj, dtype)

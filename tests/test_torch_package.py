@@ -2,8 +2,8 @@
 
   * Importing every module of the port pulls in neither JAX nor any module
     of the JAX package (checked in a fresh interpreter).
-  * The port's own copies of the config schema and registry equal the JAX
-    package's, field by field.
+  * The port's own copies of the config schema and registry, and of the
+    trainer's ``TrainConfig``, equal the JAX package's, field by field.
   * Entry points run on the card by default: with no CUDA and no device
     asked for they raise; with ``device="cpu"`` they run.
 """
@@ -16,8 +16,11 @@ import sys
 import pytest
 import torch
 
+from repro.configs import base as jbase
 from repro.configs import registry as jreg
+from repro_torch.configs import base as tbase
 from repro_torch.configs import registry as treg
+from repro_torch.launch import train as train_launcher
 from repro_torch.models import lm
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -34,7 +37,7 @@ bad = sorted(m for m in sys.modules
              or m.startswith("repro."))
 print(len(names), "modules;", "leaked:", bad)
 assert not bad, bad
-assert len(names) >= 25, names
+assert len(names) >= 35, names
 """
 
 
@@ -64,6 +67,15 @@ def test_config_copies_equal_the_jax_package(make, deq):
                                if c.family == "dense"}
 
 
+def test_train_config_copy_equals_the_jax_package():
+    got, want = tbase.TrainConfig(), jbase.TrainConfig()
+    assert [(f.name, f.type) for f in dataclasses.fields(got)] == \
+        [(f.name, f.type) for f in dataclasses.fields(want)]
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert (got.deq_carry, got.skip_nonfinite, got.skip_budget, got.z_loss,
+            got.warmup_steps) == ("state", True, 5, 1e-4, 10)
+
+
 def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch):
     cfg = treg.smoke_config("minicpm-2b", deq=True)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -71,6 +83,8 @@ def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch):
         lm.init_params(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         lm.init_cache(cfg, 2, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_launcher.main(["--smoke", "--deq", "--steps", "1"])
     params = lm.init_params(cfg, seed=0, device="cpu")
     assert params["embed"]["embedding"].device.type == "cpu"
     assert params["embed"]["embedding"].shape == (cfg.padded_vocab,

@@ -1,10 +1,13 @@
-"""``chip_smoke.py``'s check of the ``broyden_step`` kernel, on the CPU.
+"""``chip_smoke.py``'s kernel checks, on the CPU.
 
-The chip smoke run holds the kernel's seven outputs against the plain
-version: the evicted rows and every unwritten ring row bit for bit, each
-written slot row at the bf16 tolerance.  Here the plain version stands in
-for the kernel: it must pass, and each wrong answer a kernel could give
-must fail.
+The chip smoke run holds ``broyden_step``'s seven outputs and
+``lowrank_append``'s four against the plain version: the evicted rows and
+every unwritten ring row bit for bit, each written slot row at the bf16
+tolerance.  It holds the SHINE backward's ``qn_apply_multi`` with
+``(True,)`` at the row tolerance, and the gradients of the attention and
+rmsnorm autograd wrappers against plain autograd.  Here the plain version
+stands in for the kernel: it must pass, and each wrong answer a kernel
+could give must fail.
 """
 
 import os
@@ -90,3 +93,81 @@ def test_broyden_step_check_rejects_a_wrong_kernel(mutant):
     with pytest.raises(AssertionError):
         chip_smoke.check_broyden_step("broyden_step", bad, want, u, v, slot,
                                       active, EPS)
+
+
+def _append_case():
+    gen = torch.Generator().manual_seed(1)
+    m, bsz, dim = 8, 4, 1030
+    u = (0.3 * torch.randn(m, bsz, dim, generator=gen)).bfloat16()
+    v = (0.3 * torch.randn(m, bsz, dim, generator=gen)).bfloat16()
+    s, hy, b = (torch.randn(bsz, dim, generator=gen) for _ in range(3))
+    inv_den = torch.randn(bsz, generator=gen)
+    slot = torch.tensor([3, 0, 5, 7], dtype=torch.int32)
+    upd = torch.tensor([1.0, 1.0, 0.0, 1.0])
+    args = (s, hy, b, inv_den, slot, upd)
+    want = ref.lowrank_append_ref(u, v, *args)
+    got = ref.lowrank_append_ref(u.clone(), v.clone(), *args)
+    return u, v, slot, upd, got, want
+
+
+APPEND_MUTANTS = {
+    "ev_u_zero": (2, lambda t, u, s: torch.zeros_like(t)),
+    "ev_v_wrong_slot": (3, lambda t, u, s: t.roll(1, dims=0)),
+    "slot_row_off_3pct": (0, lambda t, u, s: _scaled_slot_row(t, s)),
+    "unwritten_entry_moved": (1, lambda t, u, s: _moved_entry(t, s)),
+    "refused_row_written": (0, lambda t, u, s: _write_refused(t, s)),
+}
+
+
+def _write_refused(t, slot):
+    t = t.clone()
+    t[slot[2], 2] = t[slot[0], 0]  # row 2's append is refused (upd = 0)
+    return t
+
+
+def test_lowrank_append_check_passes_the_plain_version():
+    u, v, slot, upd, got, want = _append_case()
+    assert chip_smoke.check_lowrank_append("lowrank_append", got, want, u,
+                                           v, slot, upd) == 0.0
+
+
+@pytest.mark.parametrize("mutant", sorted(APPEND_MUTANTS))
+def test_lowrank_append_check_rejects_a_wrong_kernel(mutant):
+    u, v, slot, upd, got, want = _append_case()
+    idx, fn = APPEND_MUTANTS[mutant]
+    bad = list(got)
+    bad[idx] = fn(bad[idx], u, slot)
+    with pytest.raises(AssertionError):
+        chip_smoke.check_lowrank_append("lowrank_append", bad, want, u, v,
+                                        slot, upd)
+
+
+def test_transposed_apply_check_rejects_h_for_h_transpose():
+    u, v, slot, active, _, _ = _case()
+    mask = torch.ones(u.shape[:2])
+    x = torch.randn((1,) + u.shape[1:], generator=torch.Generator()
+                    .manual_seed(2))
+    want = ref.qn_apply_multi_ref(u, v, x, torch.tensor(1.0), mask, (True,))
+    got = ref.qn_apply_multi_ref(u, v, x, torch.tensor(1.0), mask, (False,))
+    chip_smoke.check_close("H^T x", want, want,
+                           chip_smoke.row_tol(want, 1e-3, 1e-4))
+    with pytest.raises(AssertionError):
+        chip_smoke.check_close("H^T x", got, want,
+                               chip_smoke.row_tol(want, 1e-3, 1e-4))
+
+
+@pytest.mark.parametrize("wrong", ["zero", "swapped", "scaled_5pct"])
+def test_gradient_check_rejects_a_wrong_backward(wrong):
+    gen = torch.Generator().manual_seed(3)
+    q, k, v, g = (torch.randn(2, 9, 2, 16, generator=gen).bfloat16()
+                  for _ in range(4))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(ref.attention_ref(*leaves, causal=True),
+                               leaves, g)
+    assert chip_smoke.check_grads("attention", want, want) == 0.0
+    bad = {"zero": [torch.zeros_like(want[0]), want[1], want[2]],
+           "swapped": [want[0], want[2], want[1]],
+           "scaled_5pct": [want[0], want[1], (want[2].float() * 1.05)
+                           .bfloat16()]}[wrong]
+    with pytest.raises(AssertionError):
+        chip_smoke.check_grads("attention", bad, want)
