@@ -50,10 +50,10 @@ SIGNATURES: dict[str, dict[str, list]] = {
                                   _I, _L, _I, _I, _I, _I, _P],
     },
     "flash_attention": {
-        # q, k, v, kv_len, out, B, S, T, H, KV, HD, scale, causal,
-        # decode, bf16, stream
-        "flash_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                   _I, _F, _I, _I, _I, _P],
+        # q, k, v, kv_len, out, partial, B, S, T, H, KV, HD, scale, causal,
+        # decode, bf16, chunk, stream
+        "flash_attention_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _I, _I, _F, _I, _I, _I, _I, _P],
     },
 }
 

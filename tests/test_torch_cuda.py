@@ -14,13 +14,20 @@ paths' shapes.  Besides the kernels: the autograd wrappers' gradients, and
 a refine backward that must leave a carried ring as the forward left it.
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import launches
-from repro_torch.kernels import ops
-from repro_torch.kernels import ref
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+import chip_smoke  # noqa: E402
+from repro_torch.kernels import launches  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
 
 TOL = {torch.float32: dict(rtol=1e-3, atol=1e-3),
        torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
@@ -77,23 +84,52 @@ def test_qn_kernels_match_plain_versions(dev, dtype):
     assert c["broyden_step"] == 1 and c["qn_apply_multi"] == 1
 
 
+# prefill (B, S, T, H, KV, kv_length, causal): GQA groups 1, 3 and 4,
+# ragged S and T (T != S too), a kv_length 0 row and lengths inside a tile
+PREFILL = [(2, 70, 70, 4, 2, [70, 33], True),
+           (3, 197, 197, 12, 12, [197, 0, 37], True),
+           (2, 197, 150, 12, 4, None, True),
+           (2, 64, 130, 12, 3, [129, 0], False)]
+# decode (B, H, KV, T, kv_length): the split chunk's edges (127, 128, 129,
+# T) and 0, a cache shorter than one chunk, GQA H=36 over KV=12
+DECODE = [(2, 4, 2, 70, [1, 0]),
+          (4, 4, 4, 300, [127, 128, 129, 300]),
+          (3, 4, 2, 100, [100, 0, 37]),
+          (3, 36, 12, 300, [257, 0, 300])]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", [16, 64])
 def test_attention_kernels_match_plain_versions(dev, dtype, hd):
     gen = torch.Generator(device=dev).manual_seed(1)
-    b, s, h, kv = 2, 70, 4, 2
-    q = torch.randn(b, s, h, hd, device=dev, generator=gen).to(dtype)
-    k = torch.randn(b, s, kv, hd, device=dev, generator=gen).to(dtype)
-    v = torch.randn(b, s, kv, hd, device=dev, generator=gen).to(dtype)
-    lens = torch.tensor([70, 33], device=dev, dtype=torch.int32)
-    _close(ops.attention(q, k, v, causal=True, kv_length=lens),
-           ref.attention_ref(q, k, v, causal=True, kv_length=lens), dtype)
-    dl = torch.tensor([1, 0], device=dev, dtype=torch.int32)  # 0: all masked
-    _close(ops.decode_attention(q[:, 0], k, v, dl),
-           ref.decode_attention_ref(q[:, 0], k, v, dl), dtype)
+
+    def draw(*shape):
+        return torch.randn(*shape, device=dev, generator=gen).to(dtype)
+
+    def lengths(vals):
+        return None if vals is None else torch.tensor(vals, device=dev,
+                                                      dtype=torch.int32)
+
+    for b, s, t, h, kv, lens, causal in PREFILL:
+        q, k, v = draw(b, s, h, hd), draw(b, t, kv, hd), draw(b, t, kv, hd)
+        lens = lengths(lens)
+        chip_smoke.check_attention(
+            f"attention{(b, s, t, h, kv)}",
+            ops.attention(q, k, v, causal=causal, kv_length=lens),
+            ref.attention_ref(q, k, v, causal=causal, kv_length=lens),
+            q, k, v, lens, TOL[dtype])
+    for b, h, kv, t, lens in DECODE:
+        q, k, v = draw(b, h, hd), draw(b, t, kv, hd), draw(b, t, kv, hd)
+        lens = lengths(lens)  # 0: every key masked, the uniform average
+        chip_smoke.check_attention(
+            f"decode_attention{(b, h, kv, t)}",
+            ops.decode_attention(q, k, v, lens),
+            ref.decode_attention_ref(q, k, v, lens), q, k, v, lens,
+            TOL[dtype])
     c = launches.counts()
-    assert c["flash_attention"] == 1 and c["decode_attention"] == 1
+    assert c["flash_attention"] == len(PREFILL)
+    assert c["decode_attention"] == len(DECODE)
 
 
 @pytest.mark.cuda
@@ -115,6 +151,10 @@ def test_kernel_wrappers_refuse_bad_inputs(dev):
                                 torch.zeros(40, 2, device=dev), (False,))
     q = torch.zeros(1, 4, 2, 48, device=dev)
     with pytest.raises(ValueError):  # head dim not instantiated
+        flash_attention.flash_attention(q, q, q)
+    flat = torch.zeros(1 + 4 * 2 * 64, device=dev, dtype=torch.bfloat16)
+    q = flat[1:].view(1, 4, 2, 64)  # contiguous, 2 bytes off 16
+    with pytest.raises(ValueError):  # the 16-byte copies need alignment
         flash_attention.flash_attention(q, q, q)
 
 

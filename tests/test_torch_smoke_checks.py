@@ -171,3 +171,117 @@ def test_gradient_check_rejects_a_wrong_backward(wrong):
                            .bfloat16()]}[wrong]
     with pytest.raises(AssertionError):
         chip_smoke.check_grads("attention", bad, want)
+
+
+# ---------------------------------------------------------------------------
+# the attention check: each wrong answer an attention kernel could give
+# ---------------------------------------------------------------------------
+
+CHUNK = 16  # keys per split chunk of the plain split-K decode below
+
+
+def _attention_case():
+    gen = torch.Generator().manual_seed(4)
+    b, s, h, kv, hd = 3, 24, 4, 2, 16
+    q, k, v = (torch.randn(b, s, n, hd, generator=gen).bfloat16()
+               for n in (h, kv, kv))
+    lens = torch.tensor([24, 5, 0], dtype=torch.int32)  # 0: all masked
+    return q, k, v, lens
+
+
+def _decode_case():
+    gen = torch.Generator().manual_seed(5)
+    b, h, kv, hd, t = 3, 4, 2, 16, 40
+    q = torch.randn(b, h, hd, generator=gen).bfloat16()
+    k, v = (torch.randn(b, t, kv, hd, generator=gen).bfloat16()
+            for _ in range(2))
+    lens = torch.tensor([40, 23, 0], dtype=torch.int32)
+    return q, k, v, lens
+
+
+def _split_decode(q, k, v, lens, *, drop_last_live=False, rescale=True):
+    """Split-K decode in plain PyTorch, as the two decode launches do it:
+    f32 partials ``(m, l, acc)`` over CHUNK-key chunks of each row's live
+    keys (all T keys for kv_length 0, every score then NEG_INF), merged with
+    the ``e^(m_c - m*)`` rescale."""
+    b, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    kk, vv = (x.float().repeat_interleave(h // kv, dim=2) for x in (k, v))
+    scores = torch.einsum("bhd,bthd->bht", q.float(), kk) * hd ** -0.5
+    out = torch.empty(b, h, hd)
+    for i in range(b):
+        n = int(lens[i])
+        limit = min(n, t) if n >= 1 else t
+        sc = scores[i] if n >= 1 else torch.full_like(scores[i], ref.NEG_INF)
+        parts = []
+        for c0 in range(0, limit, CHUNK):
+            x = sc[:, c0:min(c0 + CHUNK, limit)]
+            m = x.max(-1, keepdim=True).values
+            p = torch.exp(x - m)
+            parts.append((m, p.sum(-1, keepdim=True), torch.einsum(
+                "hl,lhd->hd", p, vv[i, c0:c0 + x.shape[1]])))
+        if drop_last_live:
+            parts = parts[:-1]
+        mm = torch.stack([m for m, _, _ in parts]).amax(0)
+        w = [torch.exp(m - mm) if rescale else torch.ones_like(m)
+             for m, _, _ in parts]
+        out[i] = (sum(wc * acc for wc, (_, _, acc) in zip(w, parts))
+                  / sum(wc * lc for wc, (_, lc, _) in zip(w, parts)))
+    return out.to(q.dtype)
+
+
+def _zero_row(out, lens):
+    out = out.clone()
+    out[lens == 0] = 0
+    return out
+
+
+def _prefill(wrong):
+    q, k, v, lens = _attention_case()
+    kl = {"causal_dropped": lens,
+          "prefill_kv_length_plus_one": torch.clamp(lens + (lens > 0).int(),
+                                                    max=k.shape[1])}[wrong]
+    got = ref.attention_ref(q, k, v, causal=wrong != "causal_dropped",
+                            kv_length=kl)
+    want = ref.attention_ref(q, k, v, causal=True, kv_length=lens)
+    return got, want, (q, k, v, lens), chip_smoke.TOL_BF16
+
+
+def _decode(wrong):
+    q, k, v, lens = _decode_case()
+    want = ref.decode_attention_ref(q, k, v, lens)
+    got = {"decode_drops_last_live_chunk": lambda: _split_decode(
+               q, k, v, lens, drop_last_live=True),
+           "merge_without_rescale": lambda: _split_decode(
+               q, k, v, lens, rescale=False),
+           "kv_length_0_row_zeros": lambda: _zero_row(want, lens)}[wrong]()
+    return got, want, (q, k, v, lens), chip_smoke.TOL_DECODE
+
+
+ATTENTION_MUTANTS = {
+    "causal_dropped": _prefill,
+    "prefill_kv_length_plus_one": _prefill,
+    "decode_drops_last_live_chunk": _decode,
+    "merge_without_rescale": _decode,
+    "kv_length_0_row_zeros": _decode,
+}
+
+
+@pytest.mark.parametrize("path", ["prefill", "decode"])
+def test_attention_check_passes_the_plain_versions(path):
+    if path == "prefill":
+        q, k, v, lens = _attention_case()
+        want = ref.attention_ref(q, k, v, causal=True, kv_length=lens)
+        got, tol = want.clone(), chip_smoke.TOL_BF16
+    else:  # the split-K merge, done right, against the one-pass plain version
+        q, k, v, lens = _decode_case()
+        want = ref.decode_attention_ref(q, k, v, lens)
+        got, tol = _split_decode(q, k, v, lens), chip_smoke.TOL_DECODE
+    chip_smoke.check_attention(path, got, want, q, k, v, lens, tol)
+
+
+@pytest.mark.parametrize("wrong", sorted(ATTENTION_MUTANTS))
+def test_attention_check_rejects_a_wrong_kernel(wrong):
+    got, want, (q, k, v, lens), tol = ATTENTION_MUTANTS[wrong](wrong)
+    with pytest.raises(AssertionError):
+        chip_smoke.check_attention(wrong, got, want, q, k, v, lens, tol)
