@@ -23,8 +23,12 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+# -split-compile=0: nvcc optimises and assembles the kernels of one source
+# in parallel on every core (qn_apply.cu holds 36 kernel instances; in one
+# thread their build alone took minutes)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-split-compile=0")
 SOURCES = ("qn_apply", "flash_attention")
 
 _P = ctypes.c_void_p
@@ -35,15 +39,19 @@ _F = ctypes.c_float
 # C signatures of every exported launcher; all return a cudaError_t as int.
 SIGNATURES: dict[str, dict[str, list]] = {
     "qn_apply": {
-        # u, v, xs, mask, alpha, partial, out, m, B, D, K, tmask, chunk,
-        # nchunks, bf16, vec, stream
+        # u, v, xs, mask, alpha, partial, out, m, B, D, K, tmask, n_cta,
+        # slice, csize, nbuf, pref, l2_tiles, coop, bf16, vec, stream
         "qn_apply_multi_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _I,
-                                  _I, _I, _I, _I, _I, _P],
+                                  _I, _I, _L, _I, _I, _I, _I, _I, _I, _I,
+                                  _P],
         # u, v, g, s, hg, mask, slot, active, alpha, eps, partial, hg_new,
-        # b, den, ev_u, ev_v, m, B, D, chunk, nchunks, bf16, vec, stream
+        # b, den, ev_u, ev_v, m, B, D, n_cta, slice, csize, nbuf, pref,
+        # l2_tiles, coop, bf16, vec, stream
         "broyden_step_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _P,
-                                _P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I,
-                                _I, _P],
+                                _P, _P, _P, _P, _P, _I, _I, _L, _I, _L, _I,
+                                _I, _I, _I, _I, _I, _I, _P],
+        # broyden, bf16, m, K, vec, nbuf, out ctas
+        "qn_stream_ctas": [_I, _I, _I, _I, _I, _I, _P],
         # u, v, s, hy, b, inv_den, slot, upd, ev_u, ev_v, m, B, D, chunk,
         # nchunks, bf16, vec, stream
         "lowrank_append_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
@@ -88,7 +96,9 @@ def build_all(names=SOURCES) -> dict[str, dict]:
     for name in names:
         out = library_path(name)
         if out.exists():
-            report[name] = {"seconds": 0.0, "cached": True, "log": ""}
+            log = out.with_suffix(".log")
+            report[name] = {"seconds": 0.0, "cached": True,
+                            "log": log.read_text() if log.exists() else ""}
             continue
         tmp = out.with_suffix(f".tmp{os.getpid()}.so")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -103,6 +113,7 @@ def build_all(names=SOURCES) -> dict[str, dict]:
         if proc.returncode != 0:
             failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))

@@ -5,9 +5,9 @@ card, and nowhere else (the plain versions that CPU tensors take do not
 count).  A run shows that the main path went through the kernels by
 resetting the counts, driving the path, and reading them back.
 
-A count is one call of the op, not one kernel launch: ``broyden_step``,
-``qn_apply_multi`` and ``qn_apply`` are two launches each (coefficients,
-apply), and bf16 ``decode_attention`` is two (split-K partials, combine).
+A count is one call of the op, not one kernel launch: bf16
+``decode_attention`` is two launches (split-K partials, combine); every
+other op is one.
 """
 
 from __future__ import annotations

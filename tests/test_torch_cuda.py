@@ -9,7 +9,8 @@ machine without JAX it runs with
 
 Shapes are small but ragged (D not a multiple of 4, S not a multiple of the
 query tile, GQA, an empty ring row, a refused append) so each kernel's edge
-handling is exercised; ``chip_smoke.py`` checks the serving and training
+handling is exercised, and the qN kernels run every case of
+``chip_smoke.QN_CASES`` (both schedules); ``chip_smoke.py`` checks the serving and training
 paths' shapes.  Besides the kernels: the autograd wrappers' gradients, and
 a refine backward that must leave a carried ring as the forward left it.
 """
@@ -82,6 +83,15 @@ def test_qn_kernels_match_plain_versions(dev, dtype):
            torch.float32)
     c = launches.counts()
     assert c["broyden_step"] == 1 and c["qn_apply_multi"] == 1
+    # both schedules: m in {1, 8, 30}, ragged D, slices straddling samples,
+    # slots at rows 0 and m-1, a refused and an inactive row, K = 1, 2
+    # mixed and 4, two calls bit for bit (chip_smoke.QN_CASES)
+    for tag, m, bsz, dim, schedule in chip_smoke.QN_CASES:
+        chip_smoke.qn_case(tag, m, bsz, dim, dtype, schedule, gen)
+    c = launches.counts()
+    n = len(chip_smoke.QN_CASES)
+    assert c["broyden_step"] == 1 + 2 * n
+    assert c["qn_apply_multi"] == 1 + 2 * len(chip_smoke.QN_FLAGS) * n
 
 
 # prefill (B, S, T, H, KV, kv_length, causal): GQA groups 1, 3 and 4,

@@ -7,7 +7,9 @@ tolerance.  It holds the SHINE backward's ``qn_apply_multi`` with
 ``(True,)`` at the row tolerance, and the gradients of the attention and
 rmsnorm autograd wrappers against plain autograd.  Here the plain version
 stands in for the kernel: it must pass, and each wrong answer a kernel
-could give must fail.
+could give must fail.  The same holds for the qN library's SASS check
+(canned listings) and the training-trajectory check (canned steps, and
+the recording and replay of forward solves it rests on, at smoke size).
 """
 
 import os
@@ -20,7 +22,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 import chip_smoke  # noqa: E402
+from repro_torch.configs.base import TrainConfig  # noqa: E402
+from repro_torch.configs.registry import smoke_config  # noqa: E402
+from repro_torch.data.pipeline import make_lm_batch_iterator  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.runtime.trainer import Trainer  # noqa: E402
 
 EPS = 1e-8
 
@@ -285,3 +292,152 @@ def test_attention_check_rejects_a_wrong_kernel(wrong):
     got, want, (q, k, v, lens), tol = ATTENTION_MUTANTS[wrong](wrong)
     with pytest.raises(AssertionError):
         chip_smoke.check_attention(wrong, got, want, q, k, v, lens, tol)
+
+
+# ---------------------------------------------------------------------------
+# the qN SASS check: 16-byte loads, no local memory, no spills
+# ---------------------------------------------------------------------------
+
+_NS, _ARGS = "_ZN12_GLOBAL__N_1", "EvNS_10StreamArgsE"  # mangled symbols
+_SYMS = {"qn_kernel<1,8,1,1>": _NS + "9qn_kernelILi1ELi8ELi1ELi1EE" + _ARGS,
+         "qn_kernel<1,8,4,1>": _NS + "9qn_kernelILi1ELi8ELi4ELi1EE" + _ARGS,
+         "broyden_kernel<1,8,1>": _NS + "14broyden_kernelILi1ELi8ELi1EE"
+         + _ARGS}
+_BODY = [
+    "        /*0000*/                   LDC R1, c[0x0][0x28] ;",
+    "        /*0010*/              @!P0 LDGSTS.E.BYPASS.128 [R33], desc[UR10][R22.64] ;",
+    "        /*0020*/                   LDGDEPBAR ;",
+    "        /*0030*/                   FFMA R4, R5, R6, R4 ;",
+    "        /*0040*/                   EXIT ;",
+]
+_NO_SPILL = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+
+
+def _sass(body=None, skip=()):
+    lines = ["        code for sm_90a"]
+    for name, sym in _SYMS.items():
+        if name in skip:
+            continue
+        lines.append(f"                Function : {sym}")
+        lines.extend(body if body is not None else _BODY)
+    return "\n".join(lines)
+
+
+def _ptxas(spill=_NO_SPILL):
+    return {name: {"spill": spill, "used": "Used 96 registers"}
+            for name in _SYMS}
+
+
+SASS_MUTANTS = {
+    "no_16_byte_load": (lambda: _sass([ln.replace(".128", ".64")
+                                       for ln in _BODY]), _ptxas),
+    "local_memory": (lambda: _sass(_BODY[:3] + [
+        "        /*0038*/                   STL [R1], R4 ;"] + _BODY[3:]),
+        _ptxas),
+    "spills": (_sass, lambda: _ptxas(
+        "8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads")),
+    "kernel_missing": (lambda: _sass(skip=("broyden_kernel<1,8,1>",)),
+                       _ptxas),
+}
+
+
+def test_qn_sass_check_passes_wide_loads_without_spills():
+    ops = chip_smoke.sass_ops(_sass())
+    assert set(ops) == set(_SYMS)  # the symbols parse to the short names
+    out = chip_smoke.check_qn_sass(ops, _ptxas())
+    assert out["qn_kernel<1,8,1,1>"]["first"].startswith(
+        "LDGSTS.E.BYPASS.128")
+
+
+@pytest.mark.parametrize("wrong", sorted(SASS_MUTANTS))
+def test_qn_sass_check_rejects(wrong):
+    text, ptxas = SASS_MUTANTS[wrong]
+    with pytest.raises(AssertionError):
+        chip_smoke.check_qn_sass(chip_smoke.sass_ops(text()), ptxas())
+
+
+# ---------------------------------------------------------------------------
+# the training trajectory check: kernel arm against the plain-attention arm,
+# free and with the kernel arm's forward solves replayed
+# ---------------------------------------------------------------------------
+
+# (forward steps, loss, grad norm, fallback rows) of four train steps, as an
+# H100 run of chip_smoke.py read them: the kernel arm, the plain-attention
+# arm (step 2's forward solve does not settle and the two arms pick a
+# different best iterate for one row, so its grad norm is 8% apart), and
+# the plain-attention arm at the kernel arm's iterates
+_KERN = [(12.0, 45.369, 5.8328, 0.0), (12.0, 42.320, 46.521, 3.0),
+         (12.0, 17.889, 56.291, 0.0), (12.0, 12.237, 2.7999, 0.0)]
+_PLAIN = [(12.0, 45.369, 5.8353, 0.0), (12.0, 42.479, 43.088, 3.0),
+          (12.0, 17.940, 56.342, 0.0), (12.0, 12.238, 2.8037, 0.0)]
+_REPLAY = [(12.0, 45.369, 5.8327, 0.0), (12.0, 42.320, 46.521, 3.0),
+           (12.0, 17.889, 56.288, 0.0), (12.0, 12.237, 2.7996, 0.0)]
+
+
+def _with(rows, step, idx, value):
+    rows = [list(r) for r in rows]
+    rows[step][idx] = value
+    return [tuple(r) for r in rows]
+
+
+def test_trajectory_check_holds_settled_steps_and_reports_a_flipped_pick():
+    rel = chip_smoke.hold_trajectory(_KERN, _PLAIN, _REPLAY)
+    assert rel["plain"][1][1] > 5e-2  # step 2, free arms: reported
+    assert all(dg < 5e-2 for _, dg in rel["replay"])  # held at every step
+
+
+TRAJECTORY_MUTANTS = {
+    "grad_norm_off_at_a_settled_step": (_with(_KERN, 2, 2, 56.291 * 1.06),
+                                        _PLAIN, _REPLAY),
+    "grad_norm_off_with_the_same_picks": (_KERN, _PLAIN,
+                                          _with(_REPLAY, 1, 2, 43.088)),
+    "loss_off_2pct": (_with(_KERN, 3, 1, 12.237 * 1.02), _PLAIN, _REPLAY),
+    "plain_loss_off_2pct": (_KERN, _with(_PLAIN, 1, 1, 42.320 * 1.02),
+                            _REPLAY),
+    "forward_steps_differ": (_with(_KERN, 0, 0, 11.0), _PLAIN, _REPLAY),
+    "fallback_rows_differ": (_with(_KERN, 1, 3, 2.0), _PLAIN, _REPLAY),
+    "replay_fallback_rows_differ": (_KERN, _PLAIN,
+                                    _with(_REPLAY, 1, 3, 2.0)),
+    "a_step_missing": (_KERN[:3], _PLAIN, _REPLAY),
+    "a_replayed_step_missing": (_KERN, _PLAIN, _REPLAY[:3]),
+}
+
+
+@pytest.mark.parametrize("wrong", sorted(TRAJECTORY_MUTANTS))
+def test_trajectory_check_rejects(wrong):
+    kern, plain, replay = TRAJECTORY_MUTANTS[wrong]
+    with pytest.raises(AssertionError):
+        chip_smoke.hold_trajectory(kern, plain, replay)
+
+
+def _smoke_train(rows, steps=2):
+    cfg = smoke_config("minicpm-2b", deq=True)
+    tcfg = TrainConfig(steps=steps, global_batch=2, seq_len=16,
+                       schedule=cfg.schedule)
+    params = chip_smoke._scaled_blocks(
+        lm.init_params(cfg, seed=1, device="cpu"), 0.3)
+    Trainer(cfg, tcfg, params=params).run(
+        make_lm_batch_iterator(cfg, 2, 16, seed=0, device="cpu"),
+        steps=steps, log_every=1, on_metrics=lambda i, m: rows.append(
+            (m["deq_steps"], m["loss"], m["grad_norm"])))
+
+
+def test_replayed_solves_give_the_recorded_steps():
+    """The replay arm's plumbing: recorded forward solves answered back give
+    the recorded steps bit for bit; a moved iterate moves the gradient; a
+    missing or unused recording raises."""
+    want, got, moved, rec = [], [], [], []
+    with chip_smoke._record_solves(rec):
+        _smoke_train(want)
+    assert len(rec) == 2
+    with chip_smoke._replay_solves(rec):
+        _smoke_train(got)
+    assert got == want
+    shifted = [r._replace(z=r.z * 1.01) for r in rec]
+    with chip_smoke._replay_solves(shifted):
+        _smoke_train(moved)
+    assert [r[2] for r in moved] != [r[2] for r in want]
+    with pytest.raises(AssertionError), chip_smoke._replay_solves(rec[:1]):
+        _smoke_train([])
+    with pytest.raises(AssertionError), chip_smoke._replay_solves(rec):
+        _smoke_train([], steps=1)
