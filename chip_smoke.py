@@ -29,10 +29,15 @@ Phases, one line (or a few) each:
      chunk's edges, head dims 16 and 64 in bf16 and f32), each through
      ``check_attention``; then the gradients of the attention and rmsnorm
      autograd wrappers (kernel forward, plain recompute backward) against
-     plain autograd at the same shapes;
+     plain autograd at the same shapes; and ``qn_apply_multi`` at the
+     adjoint-Broyden path's shape (f32 ring, m=8, B=4, D=256x2304, the
+     mixed pair (False, True) and (True,); ``kernel_qn_adjoint``);
   3. end-to-end checks at a small size, card against CPU: the smoke config
      in f32 served (same tokens, matching logits) and trained for three
-     steps (same solver steps, matching loss and grad norm);
+     steps (same solver steps, matching loss and grad norm), the training
+     once with each forward solver (Broyden, adjoint Broyden, Anderson,
+     Picard; ``shine_fallback`` backward) and the serving also with
+     Anderson;
   4. serving at the full width of MiniCPM-2B (DEQ, random weights with the
      weight-tied blocks scaled by 0.3): 8 requests, 4 slots, prompts of 128
      and 256 tokens, 16 new tokens each, a 1024-token cache -- through
@@ -58,8 +63,17 @@ Phases, one line (or a few) each:
      train step with ``deq_carry="full"`` (solver guard off) that
      ``skip_nonfinite`` rejects must give back the pre-step carry bit for
      bit;
-  8. a ``{"kernels": [...]}`` line, then the last line
-     ``{"ok": true, "device": {...}}``.
+  8. 2 AdamW steps at full width with adjoint Broyden and with Anderson
+     as the forward solver (``phase_train_solvers``): finite losses, the
+     adjoint arm's ``qn_apply_multi`` launches, no off-path launch, each
+     arm's step time, statuses, peak memory and one profiled step; then
+     the same 2 steps with span tracing on (``--trace-out``'s path): the
+     trace's ``forward_solve``, ``implicit_backward`` and ``optimizer``
+     phases, ended by CUDA events, must tile each ``train_step`` span
+     (``check_trace_phases``), and the steps must make no host wait on the
+     card (``count_syncs``);
+  9. a ``{"kernels": [...]}`` line (with each kernel's launches in the
+     step 8 arms), then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the last
 line.  It imports nothing of JAX; it needs the repository's ``src/`` beside
@@ -76,6 +90,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -97,10 +112,12 @@ from repro_torch.kernels import build, launches, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as cuda_fa  # noqa: E402
 from repro_torch.kernels import qn_apply as cuda_qn  # noqa: E402
 from repro_torch.kernels import rmsnorm as triton_rms  # noqa: E402
+from repro_torch.implicit import fixed_point as implicit_fp  # noqa: E402
 from repro_torch.implicit import solvers as implicit_solvers  # noqa: E402
 from repro_torch.launch import steps as train_steps  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.obs import metrics as obs_metrics  # noqa: E402
+from repro_torch.obs import tracing as obs_tracing  # noqa: E402
 from repro_torch.runtime.serving import Request, ServeLoop, serve_summary  # noqa: E402
 from repro_torch.runtime.trainer import Trainer  # noqa: E402
 
@@ -852,6 +869,44 @@ def kernel_qn(seq: int, gen) -> dict:
     return rows
 
 
+def kernel_qn_adjoint(gen) -> dict:
+    """``qn_apply_multi`` at the adjoint-Broyden path's shape: both chains
+    f32 whatever ``qn_dtype`` says, m=8, B=4, D=256x2304, applied as the
+    mixed pair ``(False, True)`` (``H sigma`` with ``w^T H``) and, for the
+    SHINE backward and ``B^T sigma``, as ``(True,)``.  Each against
+    ``qn_apply_multi_ref`` at the row tolerance, then timed with a cold L2
+    (and warm), beside its bound.  Returns one timing row per case."""
+    m, bsz, seq = 8, 4, 256
+    dim = seq * 2304
+    u, v, _, mask = _ring(m, bsz, dim, gen, torch.float32)
+    g = torch.randn(bsz, dim, device="cuda", generator=gen)
+    s = torch.randn(bsz, dim, device="cuda", generator=gen)
+    alpha = torch.tensor(1.0, device="cuda")
+    ring = 2 * m * bsz * dim * 4
+    rows = {}
+    for tag, flags, xs in (("k2_mixed", (False, True), torch.stack([g, s])),
+                           ("k1_transposed", (True,), g[None])):
+        want = ref.qn_apply_multi_ref(u, v, xs, alpha, mask, flags)
+        got = cuda_qn.qn_apply_multi(u, v, xs, alpha, mask, flags)
+        err = check_close(f"qn_apply_multi[adjoint,{flags}]", got, want,
+                          row_tol(want, 1e-3, 1e-4))
+        kk = len(flags)
+        rows[tag] = qn_timing(
+            f"qn_apply_multi[adjoint {tag}]",
+            lambda xs=xs, flags=flags: cuda_qn.qn_apply_multi(
+                u, v, xs, alpha, mask, flags),
+            lambda xs=xs, flags=flags: ref.qn_apply_multi_ref(
+                u, v, xs, alpha, mask, flags),
+            ring + 2 * kk * bsz * dim * 4, 4 * kk * m * bsz * dim,
+            f"m={m} B={bsz} K={kk} {flags} D={seq}x2304 f32 ring",
+            max_abs_err=err)
+    say("kernel_check", shape=f"m={m} B={bsz} D={seq}x2304 f32 ring "
+        "(adjoint Broyden's B and H chains)",
+        max_abs_err={k: r["max_abs_err"] for k, r in rows.items()},
+        tol="rtol 1e-3, atol 1e-4 x row max")
+    return rows
+
+
 def _sdpa(q, k, v, *, causal, mask=None):
     gqa = q.shape[2] != k.shape[2]
     return F.scaled_dot_product_attention(
@@ -1103,6 +1158,12 @@ def phase_kernels() -> dict:
                                        row["max_abs_err"])
         for key in ("ms", "device_ms", "bound_ms", "launches_per_call"):
             res[name][f"decode_{key}"] = row[key]
+    for tag, row in kernel_qn_adjoint(gen).items():
+        q = res["qn_apply_multi"]
+        q["max_abs_err"] = max(q["max_abs_err"], row["max_abs_err"])
+        for key in ("ms", "device_ms", "device_ms_warm", "bound_ms",
+                    "plain_ms", "launches_per_call", "shape"):
+            q[f"adjoint_{tag}_{key}"] = row[key]
     kernel_qn_cases(gen)
     res.update(kernel_attention(gen))
     res.update(kernel_rmsnorm(gen))
@@ -1129,12 +1190,15 @@ def _scaled_blocks(params: dict, scale: float) -> dict:
                                         params["deq_blocks"]))
 
 
-def phase_parity() -> None:
+def phase_parity(solver: str = "broyden") -> None:
+    """The smoke config in f32 served by ``solver`` on the card and on the
+    CPU: the same tokens, logits within 1e-3 of their scale (a non-Broyden
+    solver runs the frozen-row and carry paths with its own carry rules)."""
     cfg = smoke_config("minicpm-2b", deq=True)
     cfg = dataclasses.replace(
         cfg, dtype="float32",
         deq=dataclasses.replace(cfg.deq, max_steps=30, tol=1e-4, memory=16,
-                                qn_dtype="float32"))
+                                qn_dtype="float32", solver=solver))
     cpu_params = _scaled_blocks(lm.init_params(cfg, seed=1, device="cpu"),
                                 0.3)
     gpu_params = _map(lambda t: t.to("cuda"), cpu_params)
@@ -1164,22 +1228,24 @@ def phase_parity() -> None:
         raise AssertionError(f"card vs CPU logits differ by {err:.3e} "
                              f"(scale {scale:.3e})")
     say("parity", config="minicpm-2b smoke f32 (d=64, 2 blocks x0.3)",
-        requests=len(prompts), tokens_identical=True, max_abs_logit_err=err,
+        solver=solver, requests=len(prompts), tokens_identical=True, max_abs_logit_err=err,
         logit_scale=scale, steps_card=[s["steps"] for s in lg.solve_log],
         steps_cpu=[s["steps"] for s in lc.solve_log])
 
 
-def phase_train_parity() -> None:
-    """Three train steps of the smoke config in f32 (f32 ring) on the card
-    and on the CPU from the same weights and batches.  Held: the same
-    forward solver steps, the loss at rtol 1e-4 and the grad norm at rtol
-    2e-3 (the SHINE gradient applies the inverse each device builds from
-    its own Broyden pairs, whose last pairs move with f32 rounding, as
-    between the two packages in ``tests/test_torch_training.py``)."""
+def phase_train_parity(solver: str = "broyden") -> None:
+    """Three train steps of the smoke config in f32 (f32 ring) with forward
+    solver ``solver`` and the ``shine_fallback`` backward on the card and
+    on the CPU from the same weights and batches.  Held: the same forward
+    solver steps, the loss at rtol 1e-4 and the grad norm at rtol 2e-3 (the
+    SHINE gradient applies the inverse each device builds from its own
+    quasi-Newton pairs, whose last pairs move with f32 rounding, as between
+    the two packages in ``tests/test_torch_training.py``)."""
     cfg = smoke_config("minicpm-2b", deq=True)
     cfg = dataclasses.replace(
         cfg, dtype="float32",
-        deq=dataclasses.replace(cfg.deq, qn_dtype="float32"))
+        deq=dataclasses.replace(cfg.deq, qn_dtype="float32", solver=solver,
+                                backward="shine_fallback"))
     tcfg = TrainConfig(steps=3, global_batch=2, seq_len=16, lr=1e-3,
                        warmup_steps=2)
     cpu_params = _scaled_blocks(lm.init_params(cfg, seed=1, device="cpu"),
@@ -1202,10 +1268,12 @@ def phase_train_parity() -> None:
                                                          seen["cpu"])):
         if sg != sc or abs(lg - lc) > 1e-4 * abs(lc) \
                 or abs(gg - gc) > 2e-3 * abs(gc):
-            raise AssertionError(f"train step {i}: card {seen['cuda'][i]} "
-                                 f"vs CPU {seen['cpu'][i]}")
+            raise AssertionError(f"train step {i} ({solver}): card "
+                                 f"{seen['cuda'][i]} vs CPU "
+                                 f"{seen['cpu'][i]}")
     say("train_parity", config="minicpm-2b smoke f32 (d=64, 2 blocks x0.3, "
-        "ring f32), batch 2 x 16, 3 AdamW steps", card=seen["cuda"],
+        "ring f32), batch 2 x 16, 3 AdamW steps", solver=solver,
+        backward="shine_fallback", card=seen["cuda"],
         cpu=seen["cpu"], tol="same solver steps; loss rtol 1e-4; grad norm "
         "rtol 2e-3")
 
@@ -1587,6 +1655,197 @@ def phase_skip_carry(params, cfg, smi: str) -> None:
         step_launches={k: n for k, n in counts.items() if n}, card=smi)
 
 
+FULL_WIDTH_SOLVERS = ("adjoint_broyden", "anderson")
+
+
+@contextlib.contextmanager
+def _record_statuses(out: list):
+    """Keep the per-row status of every forward solve made inside the
+    block (``implicit.fixed_point.solve_forward``)."""
+    orig = implicit_fp.solve_forward
+
+    def recorded(*args, **kwargs):
+        res = orig(*args, **kwargs)
+        out.append(res.status.tolist())
+        return res
+
+    with mock.patch.object(implicit_fp, "solve_forward", recorded):
+        yield
+
+
+TRAIN_PHASES = ("forward_solve", "implicit_backward", "optimizer")
+
+
+def check_trace_phases(trace: dict, phases=TRAIN_PHASES) -> list[dict]:
+    """Hold a Chrome trace of ``Trainer`` steps to the tracer's contract:
+    the X events recorded inside each ``train_step`` span are ``phases``,
+    in order, and tile it: the first starts at the span's start, each next
+    one where the previous one ended, no duration is negative, and the last
+    ends no later than the span.  Spans are matched to their phases by
+    recording order, since the host may open the next step's span before
+    the card has finished this one.  Returns each step's durations (ms)."""
+    steps, cur = [], None
+    for e in trace["traceEvents"]:
+        if e["name"] == "train_step" and e["ph"] == "B":
+            cur = {"B": e, "X": []}
+        elif cur is not None and e["ph"] == "X":
+            cur["X"].append(e)
+        elif cur is not None and e["name"] == "train_step" \
+                and e["ph"] == "E":
+            steps.append(dict(cur, E=e))
+            cur = None
+    if not steps or cur is not None:
+        raise AssertionError(f"trace: {len(steps)} closed train_step spans"
+                             f"{', one left open' if cur else ''}")
+    out = []
+    for i, st in enumerate(steps):
+        b, e, xs = st["B"]["ts"], st["E"]["ts"], st["X"]
+        names = [x["name"] for x in xs]
+        if names != list(phases):
+            raise AssertionError(f"train_step {i}: phases {names}, want "
+                                 f"{list(phases)}")
+        at = b
+        for x in xs:
+            if x["dur"] < 0 or abs(x["ts"] - at) > 1e-3:
+                raise AssertionError(
+                    f"train_step {i}: {x['name']} spans [{x['ts']}, "
+                    f"+{x['dur']}] us, not from the boundary at {at} us")
+            at = x["ts"] + x["dur"]
+        if at > e + 1e-3:
+            raise AssertionError(f"train_step {i}: phases end at {at} us, "
+                                 f"after the span's end at {e} us")
+        out.append({"train_step": (e - b) / 1e3,
+                    **{x["name"]: x["dur"] / 1e3 for x in xs}})
+    return out
+
+
+@contextlib.contextmanager
+def count_syncs(out: list):
+    """Note in ``out`` each host wait on the card issued inside the block:
+    ``torch.cuda.synchronize`` and the event's and stream's
+    ``synchronize``."""
+    with contextlib.ExitStack() as stack:
+        for owner, label in ((torch.cuda, "torch.cuda"),
+                             (torch.cuda.Event, "Event"),
+                             (torch.cuda.Stream, "Stream")):
+            orig = getattr(owner, "synchronize")
+
+            def counted(*a, _orig=orig, _label=label, **kw):
+                out.append(f"{_label}.synchronize")
+                return _orig(*a, **kw)
+
+            stack.enter_context(mock.patch.object(owner, "synchronize",
+                                                  counted))
+        yield
+
+
+def traced_train_steps(trainer, batches, steps: int) -> tuple[dict, list]:
+    """``steps`` steps of ``trainer`` with span tracing on and one metrics
+    read at the end, as ``--trace-out`` runs them: the Chrome trace, written
+    to a file and read back, and the host waits on the card issued during
+    the steps (the trace's own resolution at ``write`` comes after)."""
+    syncs = []
+    obs_tracing.clear()
+    obs_tracing.set_enabled(True)
+    try:
+        with count_syncs(syncs):
+            trainer.run(batches, steps=steps, log_every=steps,
+                        on_metrics=lambda i, m: None)
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "trace.json")
+            obs_tracing.write(path)
+            with open(path) as fh:
+                trace = json.load(fh)
+    finally:
+        obs_tracing.set_enabled(False)
+        obs_tracing.clear()
+    return trace, syncs
+
+
+def phase_train_solvers(params, cfg, smi: str) -> dict:
+    """2 AdamW steps of batch 4 x 256 at full width with each of
+    FULL_WIDTH_SOLVERS as the forward solver (the other ``DEQSettings``
+    defaults, ``shine_fallback`` backward; the weights of ``phase_train``),
+    launch counts reset just before each arm and read just after, then one
+    profiled step.  Fails on a non-finite loss, on an adjoint-Broyden arm
+    that launched no ``qn_apply_multi``, and on any launch of an OFF_PATH
+    kernel.  Returns each arm's launch counts."""
+    nsteps, bsz, seq = 2, 4, 256
+    reg = obs_metrics.default_registry()
+    out = {}
+    for solver in FULL_WIDTH_SOLVERS:
+        scfg = dataclasses.replace(cfg, deq=dataclasses.replace(
+            cfg.deq, solver=solver))
+        tcfg = TrainConfig(steps=nsteps, global_batch=bsz, seq_len=seq,
+                           schedule=cfg.schedule)
+        fb = reg.counter("backward_fallbacks_total",
+                         {"estimator": scfg.deq.backward})
+        log, statuses = [], []
+        mark = {"t": 0.0, "fb": fb.value}
+
+        def on_metrics(i, m):
+            now = time.perf_counter()
+            log.append(dict(step=i, loss=m["loss"], grad_norm=m["grad_norm"],
+                            forward_steps=m["deq_steps"],
+                            fallback_rows=fb.value - mark["fb"],
+                            skipped=m["update_skipped"],
+                            step_ms=(now - mark["t"]) * 1e3))
+            mark.update(t=now, fb=fb.value)
+
+        batches = make_lm_batch_iterator(scfg, bsz, seq, seed=0,
+                                         device="cuda")
+        trainer = Trainer(scfg, tcfg, params=params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        launches.reset()
+        mark["t"] = time.perf_counter()
+        with _record_statuses(statuses):
+            state = trainer.run(batches, steps=nsteps, log_every=1,
+                                on_metrics=on_metrics)
+        torch.cuda.synchronize()
+        counts = launches.counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        for row, st in zip(log, statuses):
+            row["statuses"] = st
+            say("train_solver_step", solver=solver, card=smi, **row)
+            if not (np.isfinite(row["loss"])
+                    and np.isfinite(row["grad_norm"])):
+                raise AssertionError(f"{solver} train step {row['step']}: "
+                                     f"{row}")
+        if int(state.step) != nsteps or len(statuses) != nsteps:
+            raise AssertionError(f"{solver}: {int(state.step)} steps, "
+                                 f"{len(statuses)} forward solves")
+        if solver == "adjoint_broyden" and counts["qn_apply_multi"] == 0:
+            raise AssertionError("the adjoint-Broyden arm launched no "
+                                 "qn_apply_multi")
+        off = {k: counts[k] for k in OFF_PATH if counts[k]}
+        if off:
+            raise AssertionError(f"{solver} arm launched off-path kernels "
+                                 f"{off}")
+        # the same steps traced: the phases tile each train_step span, and
+        # tracing adds no host wait
+        trace, syncs = traced_train_steps(trainer, batches, nsteps)
+        if syncs:
+            raise AssertionError(f"{solver}: the traced steps waited on the "
+                                 f"card: {syncs}")
+        say("train_solver_trace", solver=solver, card=smi, host_waits=0,
+            steps_ms=check_trace_phases(trace))
+        step_fn = train_steps.build_train_step(scfg, tcfg)
+        batch = next(batches)
+        prof = _profile_window(lambda: step_fn(state, batch))
+        say("train_solver", solver=solver, backward=scfg.deq.backward,
+            config="minicpm-2b DEQ full width, 4 blocks x0.3, bf16, "
+            f"AdamW, batch {bsz} x {seq}", card=smi, peak_mem_gib=peak,
+            launches=counts, launches_per_step={
+                k: n / nsteps for k, n in counts.items()})
+        say("profile", window=f"train_step[{solver}]", card=smi, **prof)
+        out[solver] = counts
+        # the next arm's peak must not hold this arm's parameters and
+        # optimizer state
+        del state, trainer, batches, step_fn, batch
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1598,11 +1857,15 @@ def main() -> int:
     res = phase_kernels()
     phase_parity()
     phase_train_parity()
+    for solver in ("adjoint_broyden", "anderson", "fixed_point"):
+        phase_train_parity(solver)
+    phase_parity("anderson")
     serve_counts, n_solves, params, cfg = phase_serve(smi)
     phase_profile(params, cfg, smi)
     train_counts = phase_train(params, cfg, smi)
     phase_refine_carry(params, cfg, smi)
     phase_skip_carry(params, cfg, smi)
+    solver_counts = phase_train_solvers(params, cfg, smi)
     rows = []
     for name, (route, source, replaces) in KERNELS.items():
         r = res[name]
@@ -1619,10 +1882,13 @@ def main() -> int:
                "launches_per_serve_solve": serve_counts[name] / n_solves,
                "launches_train": train_counts[name],
                "launches_per_train_step": train_counts[name] / 4,
+               **{f"launches_train_{solver}": c[name]
+                  for solver, c in solver_counts.items()},
                **{k: r[k] for k in ("launches_per_call", "decode_ms",
                                     "decode_device_ms", "decode_bound_ms",
                                     "decode_launches_per_call",
-                                    "composition_device_ms") if k in r}}
+                                    "composition_device_ms") if k in r},
+               **{k: v for k, v in r.items() if k.startswith("adjoint_")}}
         if name in OFF_PATH:
             if row["launches"]:
                 raise AssertionError(f"{name} launched on a path")

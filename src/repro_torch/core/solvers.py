@@ -1,18 +1,28 @@
-"""Broyden root solver whose inverse estimate SHINE shares.
+"""Root and fixed-point solvers whose inverse estimates SHINE shares.
 
-The port of ``broyden_solve`` from ``repro/core/solvers.py`` with everything
-that rides its loop: the persistent :class:`SolveCarry` and its helpers,
-per-sample freeze masks, best-iterate tracking, the residual trace, the
+The port of the DEQ solvers of ``repro/core/solvers.py``:
+
+  * ``broyden_solve``          Broyden's good method (the DEQ forward);
+  * ``adjoint_broyden_solve``  adjoint Broyden with the paper's OPA extra
+                               updates (§2.3, Theorem 4);
+  * ``fixed_point_solve``      damped Picard iteration and
+  * ``anderson_solve``         type-II Anderson acceleration, the forward
+                               solvers of the Jacobian-free baseline;
+
+with everything that rides their loops: the persistent :class:`SolveCarry`
+and its helpers, per-sample freeze masks, the residual trace, the
 :class:`~repro_torch.obs.tape.SolveTape` and the fault guard (per-sample
 STATUS codes, entry repair of a poisoned warm start, one restart round).
-The other solvers (Picard, Anderson, adjoint Broyden, L-BFGS) come with
-later slices.
+L-BFGS serves the bi-level workloads and comes with them.
 
-Eager PyTorch runs the loop on the host: the whole-batch early exit
-(``all(converged)``) and the guard's "any restart" test read one flag each
-per iteration.  Every solve is batched; converged, faulted and frozen
-samples stop moving (their updates are masked out).  All inner products
-and denominators are f32; the ring stores ``cfg.qn_dtype``.
+Eager PyTorch runs each loop on the host: the whole-batch early exit
+(``all(converged)``) and, where a restart scrubs solver memory, the guard's
+"any restart" test read one flag each per iteration.  There is no
+``while_loop``/``unroll`` split: ``SolverConfig.unroll`` changes nothing
+(the JAX package unrolls only for XLA's cost analysis).  Every solve is
+batched; converged, faulted and frozen samples stop moving (their updates
+are masked out).  All inner products and denominators are f32; the
+Broyden ring stores ``cfg.qn_dtype``.
 """
 
 from __future__ import annotations
@@ -309,6 +319,18 @@ def _entry_frozen(freeze_mask: Tensor | None, bsz: int, device) -> Tensor:
     return freeze_mask
 
 
+def _guard_aux(gs: _GuardState | None) -> dict:
+    return {} if gs is None else {"restarts": gs.restarts, "sick": gs.sick}
+
+
+def _finish_carry(carry, z, H, freeze_mask, gs, bsz, dev):
+    carry_out = _carry_out(carry, z, H, _entry_frozen(freeze_mask, bsz, dev))
+    if gs is not None and carry_out is not None:
+        # sick rows hand the next solve a cold start, not a faulted state
+        carry_out = reset_carry_rows(carry_out, gs.sick)
+    return carry_out
+
+
 def _stop_threshold(g0_norm: Tensor, z_norm: Tensor,
                     cfg: SolverConfig) -> Tensor:
     if cfg.relative:
@@ -443,12 +465,363 @@ def broyden_solve(
         z, gz = z_new, gz_new
         k += 1
 
-    status = _exit_status(conv, gs)
-    aux = {} if gs is None else {"restarts": gs.restarts, "sick": gs.sick}
-    carry_out = _carry_out(carry, best_z, H,
-                           _entry_frozen(freeze_mask, bsz, dev))
-    if gs is not None and carry_out is not None:
-        # sick rows hand the next solve a cold start, not a faulted state
-        carry_out = reset_carry_rows(carry_out, gs.sick)
-    return SolveResult(best_z, H, best_res, k, conv, trace, aux, carry_out,
-                       tape, status)
+    return SolveResult(best_z, H, best_res, k, conv, trace, _guard_aux(gs),
+                       _finish_carry(carry, best_z, H, freeze_mask, gs, bsz,
+                                     dev),
+                       tape, _exit_status(conv, gs))
+
+
+# ---------------------------------------------------------------------------
+# Fixed-point / Anderson (the Jacobian-free baseline's forward)
+# ---------------------------------------------------------------------------
+
+
+def _placeholder_inverse(z: Tensor) -> LowRank:
+    """The identity "inverse" Picard and Anderson hand the backward (JFB
+    shares I).  The JAX package's is a ``(1, B, 1)`` ring that broadcasts
+    against the state; this one has the state's feature shape and one empty
+    slot (count 0), so ``H^T w`` is ``w`` exactly, through the same
+    ``qn_apply_multi`` kernel on the card as on any other ring."""
+    return LowRank.identity(z.shape[0], tuple(z.shape[1:]), 1, alpha=1.0,
+                            dtype=torch.float32, device=z.device)
+
+
+def fixed_point_solve(
+    f: Callable[[Tensor], Tensor],
+    z0: Tensor,
+    cfg: SolverConfig,
+    *,
+    damping: float = 1.0,
+    freeze_mask: Tensor | None = None,
+    carry: SolveCarry | None = None,
+) -> SolveResult:
+    """Damped Picard iteration ``z <- (1-d) z + d f(z)``; residual
+    ``f(z) - z``.
+
+    Carry reuse is iterate-only (Picard keeps no quasi-Newton memory): warm
+    rows start at ``carry.z`` and the carried ring passes through untouched.
+    The guard's restart damping scales the mixing per row; healthy rows
+    select the undamped expression bit for bit.  Returns the last iterate
+    with the best residual seen, and :func:`_placeholder_inverse` as ``H``.
+    """
+    bsz, dev = z0.shape[0], z0.device
+    z_cold = z0  # pre-carry start: the guard's restart target
+    if carry is not None:
+        z0, _ = _carry_start(carry, z0, carry.memory)  # validates shapes
+    z0, gs, _bad0 = _guard_entry(cfg, carry, z0, z_cold)
+    H = _placeholder_inverse(z0)
+    res0 = bnorm(f(z0) - z0)
+    thresh = _stop_threshold(res0, bnorm(z0), cfg)
+    div_ref = torch.maximum(res0, bnorm(z0))  # warm-start-safe scale
+    trace = torch.full((max(cfg.max_steps, 1), bsz), float("inf"),
+                       dtype=torch.float32, device=dev)
+    tape = empty_tape(cfg.max_steps, bsz, dev)
+    no_qn = torch.zeros((bsz,), dtype=torch.int32, device=dev)
+    conv = res0 < thresh
+    if freeze_mask is not None:
+        conv = conv | freeze_mask
+    k, z, best_res = 0, z0, res0
+
+    while k < cfg.max_steps:
+        done = (conv | gs.sick) if cfg.guard else conv
+        if bool(done.all()):
+            break
+        fz = f(z)
+        z_pic = (1 - damping) * z + damping * fz
+        if cfg.guard:
+            # restart damping scales the mixing factor per sample (the
+            # product is cast back: an f32 scale must not widen the state)
+            d2 = _expand(damping * gs.stepscale, z)
+            z_dampd = ((1 - d2) * z + d2 * fz).to(z.dtype)
+            z_pic = torch.where(_expand(gs.stepscale < 1.0, z), z_dampd,
+                                z_pic)
+        z_new = torch.where(_expand(done, z), z, z_pic)
+        res = bnorm(fz - z)
+        step_n = bnorm(z_new - z)
+        status_k = None
+        if cfg.guard:
+            gs, do_rs, code, res = _guard_detect(gs, cfg, ~done, res, step_n,
+                                                 div_ref)
+            z_new = torch.where(_expand(do_rs, z), z_cold, z_new)
+            status_k = torch.where(do_rs, code, gs.status)
+        trace[k] = torch.where(done, trace[k], res)
+        tape_record(tape, k, ~done, res, step_n, no_qn, status=status_k)
+        best_res = torch.minimum(best_res, res)
+        conv = conv | (res < thresh)
+        z = z_new
+        k += 1
+
+    return SolveResult(z, H, best_res, k, conv, trace, _guard_aux(gs),
+                       _finish_carry(carry, z, None, freeze_mask, gs, bsz,
+                                     dev),
+                       tape, _exit_status(conv, gs))
+
+
+def anderson_solve(
+    f: Callable[[Tensor], Tensor],
+    z0: Tensor,
+    cfg: SolverConfig,
+    *,
+    mixing: float = 1.0,
+    ridge: float = 1e-8,
+    freeze_mask: Tensor | None = None,
+    carry: SolveCarry | None = None,
+) -> SolveResult:
+    """Type-II Anderson acceleration with a window of ``min(cfg.memory,
+    8)``.
+
+    The iterate and residual windows ``Z``/``F`` ``(m, B, *F)`` live in the
+    state dtype; the per-sample Gram matrix and its small solve run in f32
+    (plain PyTorch: the JAX package computes them outside any kernel).  A
+    row whose mixture is non-finite takes the Picard step; a restarted row's
+    window is scrubbed to ``Z = z_cold``, ``F = 0``.  Carry reuse is
+    iterate-only, as for :func:`fixed_point_solve`.
+    """
+    bsz, feat, dev = z0.shape[0], tuple(z0.shape[1:]), z0.device
+    m = min(cfg.memory, 8)
+    z_cold = z0  # pre-carry start: the guard's restart target
+    if carry is not None:
+        z0, _ = _carry_start(carry, z0, carry.memory)  # validates shapes
+    z0, gs, _bad0 = _guard_entry(cfg, carry, z0, z_cold)
+    res0 = bnorm(f(z0) - z0)
+    thresh = _stop_threshold(res0, bnorm(z0), cfg)
+    div_ref = torch.maximum(res0, bnorm(z0))  # warm-start-safe scale
+    trace = torch.full((max(cfg.max_steps, 1), bsz), float("inf"),
+                       dtype=torch.float32, device=dev)
+    tape = empty_tape(cfg.max_steps, bsz, dev)
+    Z = torch.zeros((m, bsz) + feat, dtype=z0.dtype, device=dev)  # iterates
+    F = torch.zeros((m, bsz) + feat, dtype=z0.dtype, device=dev)  # residuals
+    eye = torch.eye(m, dtype=torch.float32, device=dev)
+    conv = res0 < thresh
+    if freeze_mask is not None:
+        conv = conv | freeze_mask
+    k, z = 0, z0
+
+    while k < cfg.max_steps:
+        done = (conv | gs.sick) if cfg.guard else conv
+        if bool(done.all()):
+            break
+        fz = f(z)
+        r = fz - z
+        Z[k % m] = fz
+        F[k % m] = r
+        nk = min(k + 1, m)
+        valid = (torch.arange(m, device=dev) < nk).float()          # (m,)
+        vv = valid[:, None] * valid[None, :]
+        # min ||sum_i w_i F_i|| s.t. sum w = 1 (normal equations, f32);
+        # one (m, D) x (D, m) product per sample: cuBLAS streams those at
+        # several times the rate of the batched einsum's long-K kernel
+        F32 = F.reshape(m, bsz, -1).float()
+        G = torch.stack([F32[:, i] @ F32[:, i].T for i in range(bsz)])
+        G = G * vv[None]
+        G = G + (ridge + (1 - vv))[None] * eye[None]
+        ones = valid[None, :, None].expand(bsz, m, 1)
+        # solve_ex: a rank-deficient window gives non-finite weights (the
+        # mix_ok rows below), as jnp.linalg.solve does, not an exception
+        w = torch.linalg.solve_ex(G, ones)[0][..., 0] * valid[None]
+        w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-12)
+        z_and = torch.einsum("bi,ibx->bx", w, Z.reshape(m, bsz, -1).float()
+                             ).reshape(z.shape).to(z.dtype)
+        z_mix = (1 - mixing) * z + mixing * z_and
+        if cfg.guard:
+            # restart damping scales the mixing per sample; healthy rows
+            # select the undamped expression bit for bit
+            mx = _expand(mixing * gs.stepscale, z)
+            z_dampd = ((1 - mx) * z + mx * z_and).to(z.dtype)
+            z_mix = torch.where(_expand(gs.stepscale < 1.0, z), z_dampd,
+                                z_mix)
+            # a rank-deficient window (e.g. just after a restart scrub)
+            # NaNs the weight solve: those rows take the Picard step
+            mix_ok = torch.isfinite(z_mix.reshape(bsz, -1)).all(dim=-1)
+            z_mix = torch.where(_expand(mix_ok, z), z_mix, fz)
+        z_new = torch.where(_expand(done, z), z, z_mix)
+        res = bnorm(r)
+        step_n = bnorm(z_new - z)
+        status_k = None
+        if cfg.guard:
+            gs, do_rs, code, res = _guard_detect(gs, cfg, ~done, res, step_n,
+                                                 div_ref)
+            rm = _expand(do_rs, z)
+            if bool(do_rs.any()):
+                # scrub the restarted rows' window to Z = z_cold, F = 0:
+                # identical non-zero sentinels would make the Gram matrix
+                # rank-deficient beyond the ridge's f32 reach, while F = 0
+                # leaves those slots at exactly ridge * I
+                Z = torch.where(rm[None], z_cold[None].to(Z.dtype), Z)
+                F = torch.where(rm[None], torch.zeros((), dtype=F.dtype,
+                                                      device=dev), F)
+            z_new = torch.where(rm, z_cold, z_new)
+            status_k = torch.where(do_rs, code, gs.status)
+        trace[k] = torch.where(done, trace[k], res)
+        # qn_count reports the window fill
+        tape_record(tape, k, ~done, res, step_n,
+                    torch.full((bsz,), nk, dtype=torch.int32, device=dev),
+                    status=status_k)
+        conv = conv | (res < thresh)
+        z = z_new
+        k += 1
+
+    final_res = bnorm(f(z) - z)
+    if cfg.guard:
+        # a sick row's iterate may be non-finite; report +inf, not NaN
+        final_res = torch.where(gs.sick, torch.full_like(final_res,
+                                                         float("inf")),
+                                final_res)
+    return SolveResult(z, _placeholder_inverse(z), final_res, k, conv, trace,
+                       _guard_aux(gs),
+                       _finish_carry(carry, z, None, freeze_mask, gs, bsz,
+                                     dev),
+                       tape, _exit_status(conv, gs))
+
+
+# ---------------------------------------------------------------------------
+# Adjoint Broyden with OPA (paper §2.3, Theorem 4)
+# ---------------------------------------------------------------------------
+
+
+def _g_with_vjp(g: Callable[[Tensor], Tensor], z: Tensor):
+    """``g(z)`` and its VJP ``sigma -> sigma^T J_g(z)`` (f32) from one graph
+    built for ``z`` alone: gradients are on for a detached leaf only, so no
+    parameter ``.grad`` accumulates, and the graph dies with the returned
+    closure (``keep=True`` retains it for one more VJP at the same
+    point)."""
+    with torch.enable_grad():
+        zl = z.detach().requires_grad_(True)
+        out = g(zl)
+
+    def vjp(sigma: Tensor, keep: bool = False) -> Tensor:
+        return torch.autograd.grad(out, zl, sigma.to(out.dtype),
+                                   retain_graph=keep)[0].float()
+
+    return out.detach(), vjp
+
+
+def adjoint_broyden_solve(
+    g: Callable[[Tensor], Tensor],
+    z0: Tensor,
+    cfg: SolverConfig,
+    *,
+    outer_grad: Callable[[Tensor], Tensor] | None = None,
+    freeze_mask: Tensor | None = None,
+    carry: SolveCarry | None = None,
+) -> SolveResult:
+    """Adjoint Broyden: the secant ``sigma^T B_{n+1} = sigma^T
+    J_g(z_{n+1})``.
+
+    Keeps both chains exactly, in f32 whatever ``cfg.qn_dtype`` says: ``B =
+    I + sum sigma_i w_i^T`` (appended) and ``H = B^{-1}`` by
+    Sherman-Morrison, since the update needs ``sigma^T B`` (cheap on the B
+    chain) while the steps need ``H g``.  Each iteration applies them in
+    three ``qn_apply_multi`` calls (``H g``; ``B^T sigma``; ``H sigma`` with
+    ``w^T H`` as one mixed pair) and takes one VJP of ``g`` at the new
+    iterate, from the same graph that evaluates ``g`` there.
+
+    OPA: every ``cfg.opa_freq`` steps an extra update in the direction
+    ``sigma = H^T dL/dz(z_n)`` (Eq. 8), the direction the hypergradient
+    consumes; it needs ``outer_grad`` and reuses the iteration's graph.
+
+    Carry reuse is iterate-only: warm-starting ``H`` without ``B`` would
+    break ``H = B^{-1}``.  The new H chain goes into the returned carry
+    (cast to the carry's ring dtype); ``aux["B"]`` holds the B chain.  A
+    guard restart scrubs both chains for the row, together.  Returns the
+    last iterate.
+    """
+    bsz, feat, dev = z0.shape[0], tuple(z0.shape[1:]), z0.device
+    z_cold = z0  # pre-carry start: the guard's restart target
+    z0, _ = _carry_start(carry, z0, cfg.memory)  # validates; H not reused
+    z0, gs, _bad0 = _guard_entry(cfg, carry, z0, z_cold)
+    B = LowRank.identity(bsz, feat, cfg.memory, alpha=1.0,
+                         dtype=torch.float32, device=dev)
+    H = LowRank.identity(bsz, feat, cfg.memory, alpha=1.0,
+                         dtype=torch.float32, device=dev)
+
+    g0 = g(z0)
+    res0 = bnorm(g0)
+    thresh = _stop_threshold(res0, bnorm(z0), cfg)
+    div_ref = torch.maximum(res0, bnorm(z0))  # warm-start-safe scale
+    trace = torch.full((max(cfg.max_steps, 1), bsz), float("inf"),
+                       dtype=torch.float32, device=dev)
+    tape = empty_tape(cfg.max_steps, bsz, dev)
+    one = torch.ones((bsz,), dtype=torch.float32, device=dev)
+
+    def update_chains(B, H, vjp, sigma, active, keep):
+        # sigma^T J at z_new by the VJP; sigma^T B on the B chain
+        sJT = vjp(sigma, keep)
+        sB = B.rmatvec(sigma)
+        ss = bdot(sigma, sigma)
+        safe = ss > cfg.eps
+        w_row = (sJT - sB) / _expand(torch.where(safe, ss, one), sJT)
+        # H <- H - (H sigma)(w^T H) / (1 + w^T H sigma): one U/V stream
+        Hs, wH = H.matvec_multi((sigma, w_row), (False, True))
+        den = 1.0 + bdot(w_row, Hs)
+        safe = safe & (den.abs() > cfg.eps)
+        a = -Hs / _expand(torch.where(safe, den, one), Hs)
+        return (B.append(sigma, w_row, active & safe),
+                H.append(a, wH, active & safe))
+
+    conv = res0 < thresh
+    if freeze_mask is not None:
+        conv = conv | freeze_mask
+    k, z, gz = 0, z0, g0
+
+    while k < cfg.max_steps:
+        done = (conv | gs.sick) if cfg.guard else conv
+        if bool(done.all()):
+            break
+        active = ~done
+        am = _expand(active, z)
+        p = -H.matvec(gz.float())
+        if cfg.guard:
+            p = _damped(p, gs)
+        z_new = torch.where(am, z + cfg.step_size * p.to(z.dtype), z)
+        g_at, vjp = _g_with_vjp(g, z_new)
+        gz_new = torch.where(am, g_at, gz)
+
+        sigma = gz_new.float()
+        opa = (outer_grad is not None and cfg.opa_freq > 0
+               and k % cfg.opa_freq == cfg.opa_freq - 1)
+        B2, H2 = update_chains(B, H, vjp, sigma, active, keep=opa)
+        if opa:
+            w = outer_grad(z_new).float()
+            sigma_e = H2.rmatvec(w)  # v_n = (dL/dz B^{-1})^T   (Eq. 8)
+            B2, H2 = update_chains(B2, H2, vjp, sigma_e, active, keep=False)
+        del vjp  # frees the iteration's graph
+
+        res = bnorm(gz_new)
+        status_k = None
+        if cfg.guard:
+            gs, do_rs, code, res = _guard_detect(
+                gs, cfg, active, res, bnorm(z_new - z), div_ref)
+            if bool(do_rs.any()):
+                # recovery round: scrub BOTH chains for the restarted rows
+                # (H = B^{-1} holds only if they reset together) and go
+                # back to the cold start
+                rm = _expand(do_rs, z)
+                B2, H2 = (LowRank(alpha=c.alpha,
+                                  u=torch.where(rm[None], 0.0, c.u),
+                                  v=torch.where(rm[None], 0.0, c.v),
+                                  count=torch.where(do_rs,
+                                                    torch.zeros_like(c.count),
+                                                    c.count))
+                          for c in (B2, H2))
+                gz_cold = g0 if carry is None else g(z_cold)
+                z_new = torch.where(rm, z_cold, z_new)
+                gz_new = torch.where(rm, gz_cold, gz_new)
+                res = torch.where(do_rs, bnorm(gz_cold), res)
+            status_k = torch.where(do_rs, code, gs.status)
+        trace[k] = torch.where(active, res, trace[k])
+        tape_record(tape, k, active, res, bnorm(z_new - z), H2.count,
+                    status=status_k)
+        conv = conv | (res < thresh)
+        z, gz, B, H = z_new, gz_new, B2, H2
+        k += 1
+
+    final_res = bnorm(gz)
+    if cfg.guard:
+        final_res = torch.where(gs.sick, torch.full_like(final_res,
+                                                         float("inf")),
+                                final_res)
+    aux = {"B": B, **_guard_aux(gs)}
+    return SolveResult(z, H, final_res, k, conv, trace, aux,
+                       _finish_carry(carry, z, H, freeze_mask, gs, bsz, dev),
+                       tape, _exit_status(conv, gs))

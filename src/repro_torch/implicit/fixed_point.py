@@ -16,7 +16,11 @@ Theorem 1's hypergradient with the registered cotangent estimator
     ``backward_cotangents_zeroed_total``) so one poisoned sample cannot NaN
     the whole batch's gradient;
   * the cotangent flows to ``params`` and ``x``; ``z0`` and the carry get
-    none (a warm start never perturbs the gradient).
+    none (a warm start never perturbs the gradient);
+  * ``outer_grad(params, x, z) -> dL/dz``, bound per call, reaches the
+    forward solver (the adjoint-Broyden OPA updates);
+  * with tracing on, ``forward_solve`` and ``implicit_backward`` are marked
+    as phases (``obs/tracing.phase_done``).
 
 Memory is the paper's O(1): saved are ``params``, ``x``, ``z*`` and the
 qN chain, no unrolled activations.
@@ -36,9 +40,10 @@ from repro_torch.core.lowrank import _expand
 from repro_torch.core.solvers import SolveCarry
 from repro_torch.implicit.config import ImplicitConfig
 from repro_torch.implicit.estimators import estimate_cotangent
-from repro_torch.implicit.pytree import prepare_flat_problem
+from repro_torch.implicit.pytree import prepare_flat_problem, ravel_state
 from repro_torch.implicit.registry import SOLVERS
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import tracing as obs_tracing
 from repro_torch.obs.tape import SolveTape
 
 
@@ -51,12 +56,20 @@ class ImplicitStats(NamedTuple):
     status: torch.Tensor | None = None  # (B,) STATUS_* codes
 
 
-def solve_forward(f_z, z0, cfg: ImplicitConfig, *, freeze_mask=None,
-                  carry=None):
+def solve_forward(f_z, z0, cfg: ImplicitConfig, *, outer_grad=None,
+                  freeze_mask=None, carry=None):
     solver = SOLVERS.get(cfg.forward.solver)
-    return _builtin_solvers.call_solver(
-        solver, f_z, z0, cfg.solver_cfg(), freeze_mask=freeze_mask,
-        carry=carry)
+    res = _builtin_solvers.call_solver(
+        solver, f_z, z0, cfg.solver_cfg(), outer_grad=outer_grad,
+        freeze_mask=freeze_mask, carry=carry)
+    obs_tracing.phase_done("forward_solve", res.z)
+    return res
+
+
+def _bind_outer(outer_grad, params, x):
+    if outer_grad is None:
+        return None
+    return lambda z: outer_grad(params, x, z)
 
 
 def _flatten(tree) -> tuple[list, Callable[[list], Any]]:
@@ -88,9 +101,10 @@ def _flatten(tree) -> tuple[list, Callable[[list], Any]]:
 class _Problem:
     """What the autograd function needs besides its tensor inputs."""
 
-    def __init__(self, f_flat, cfg: ImplicitConfig, carry, rebuild):
+    def __init__(self, f_flat, cfg: ImplicitConfig, carry, rebuild,
+                 outer_flat=None):
         self.f_flat, self.cfg, self.carry = f_flat, cfg, carry
-        self.rebuild = rebuild
+        self.rebuild, self.outer_flat = rebuild, outer_flat
         self.result = None
 
     def f(self, leaves: list, z: torch.Tensor) -> torch.Tensor:
@@ -102,9 +116,17 @@ class _ImplicitFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, prob: _Problem, z0, *leaves):
+        # the solve sees detached leaves: a solver that turns gradients on
+        # (adjoint Broyden's VJP in z) builds no graph into the parameters
+        fixed = [t.detach() if isinstance(t, torch.Tensor) else t
+                 for t in leaves]
+        outer = None
+        if prob.outer_flat is not None:
+            p, xx = prob.rebuild(list(fixed))
+            outer = _bind_outer(prob.outer_flat, p, xx)
         with torch.no_grad():
-            res = solve_forward(lambda z: prob.f(leaves, z), z0, prob.cfg,
-                                carry=prob.carry)
+            res = solve_forward(lambda z: prob.f(fixed, z), z0, prob.cfg,
+                                outer_grad=outer, carry=prob.carry)
         prob.result = res
         ctx.prob = prob
         ctx.H, ctx.status = res.lowrank, res.status
@@ -136,6 +158,7 @@ class _ImplicitFn(torch.autograd.Function):
         adj = estimate_cotangent(cfg, vjp_z, w, ctx.H,
                                  forward_status=ctx.status)
         obs_metrics.record_backward(cfg.backward.estimator, adj)
+        obs_tracing.phase_done("implicit_backward", adj.u)
         u = adj.u
         row_ok = torch.isfinite(u).reshape(u.shape[0], -1).all(dim=1)
         u = torch.where(_expand(row_ok, u), u,
@@ -161,27 +184,38 @@ def implicit_fixed_point(
     z0: torch.Tensor,
     cfg: ImplicitConfig,
     *,
+    outer_grad: Callable[[Any, Any, torch.Tensor], torch.Tensor] | None = None,
     carry: SolveCarry | None = None,
 ):
     """Differentiable fixed point of ``z = f(params, x, z)``.  Returns
     ``(z*, stats)``, or ``(z*, stats, new_carry)`` when ``carry`` is given;
     the returned carry holds no gradient.
 
+    ``outer_grad(params, x, z) -> dL/dz`` (the state's shape) enables the
+    OPA extra updates of the adjoint-Broyden forward (paper §2.3); other
+    solvers ignore it.
+
     Everything that needs a gradient must flow through ``params`` and
     ``x`` (trees of dicts, lists and tuples of tensors), never through
     ``f``'s closure."""
     z0_flat, unravel, f_flat = prepare_flat_problem(f, z0)
+    outer_flat = None
+    if outer_grad is not None:
+        def outer_flat(p, xx, z_flat):
+            return ravel_state(outer_grad(p, xx, unravel(z_flat)))[0]
     leaves, rebuild = _flatten((params, x))
     if torch.is_grad_enabled() and any(
             isinstance(t, torch.Tensor) and t.requires_grad
             for t in leaves):
-        prob = _Problem(f_flat, cfg, carry, rebuild)
+        prob = _Problem(f_flat, cfg, carry, rebuild, outer_flat)
         z = _ImplicitFn.apply(prob, z0_flat.detach(), *leaves)
         res = prob.result
     else:
         with torch.no_grad():
             res = solve_forward(lambda zz: f_flat(params, x, zz), z0_flat,
-                                cfg, carry=carry)
+                                cfg, outer_grad=_bind_outer(outer_flat,
+                                                            params, x),
+                                carry=carry)
         z = res.z
     stats = ImplicitStats(res.residual, res.n_steps, res.converged,
                           res.trace, res.tape, res.status)

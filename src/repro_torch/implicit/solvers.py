@@ -1,13 +1,15 @@
 """Registered forward fixed-point solvers.
 
-The port of ``repro/implicit/solvers.py`` for the Broyden solver: an
-adapter from the registry's uniform signature
+The port of ``repro/implicit/solvers.py``: adapters from the registry's
+uniform signature
 
     solver(f, z0, cfg, *, outer_grad=None, freeze_mask=None, carry=None)
         -> SolveResult
 
-(``f(z) -> z`` the fixed-point map) onto ``core.solvers.broyden_solve``,
-which wants the residual ``g(z) = z - f(z)``.
+(``f(z) -> z`` the fixed-point map) onto ``core.solvers``.  The root
+solvers (``broyden``, ``adjoint_broyden``) want the residual ``g(z) = z -
+f(z)``; ``fixed_point`` and ``anderson`` take ``f`` itself.  Only
+``adjoint_broyden`` reads ``outer_grad`` (its OPA updates).
 """
 
 from __future__ import annotations
@@ -17,8 +19,17 @@ from typing import Callable
 
 import torch
 
-from repro_torch.core.solvers import SolveResult, SolverConfig, broyden_solve
+from repro_torch.core.solvers import (
+    SolveResult,
+    SolverConfig,
+    adjoint_broyden_solve,
+    anderson_solve,
+    broyden_solve,
+    fixed_point_solve,
+)
 from repro_torch.implicit.registry import register_solver
+
+FixedPointMap = Callable[[torch.Tensor], torch.Tensor]
 
 
 def call_solver(solver, f, z0, cfg, *, outer_grad=None, freeze_mask=None,
@@ -43,8 +54,30 @@ def call_solver(solver, f, z0, cfg, *, outer_grad=None, freeze_mask=None,
 
 
 @register_solver("broyden")
-def _broyden(f: Callable[[torch.Tensor], torch.Tensor], z0: torch.Tensor,
-             cfg: SolverConfig, *, outer_grad=None, freeze_mask=None,
-             carry=None) -> SolveResult:
+def _broyden(f: FixedPointMap, z0: torch.Tensor, cfg: SolverConfig, *,
+             outer_grad=None, freeze_mask=None, carry=None) -> SolveResult:
     return broyden_solve(lambda z: z - f(z), z0, cfg,
                          freeze_mask=freeze_mask, carry=carry)
+
+
+@register_solver("adjoint_broyden")
+def _adjoint_broyden(f: FixedPointMap, z0: torch.Tensor, cfg: SolverConfig,
+                     *, outer_grad=None, freeze_mask=None,
+                     carry=None) -> SolveResult:
+    return adjoint_broyden_solve(lambda z: z - f(z), z0, cfg,
+                                 outer_grad=outer_grad,
+                                 freeze_mask=freeze_mask, carry=carry)
+
+
+@register_solver("fixed_point")
+def _fixed_point(f: FixedPointMap, z0: torch.Tensor, cfg: SolverConfig, *,
+                 outer_grad=None, freeze_mask=None,
+                 carry=None) -> SolveResult:
+    return fixed_point_solve(f, z0, cfg, freeze_mask=freeze_mask,
+                             carry=carry)
+
+
+@register_solver("anderson")
+def _anderson(f: FixedPointMap, z0: torch.Tensor, cfg: SolverConfig, *,
+              outer_grad=None, freeze_mask=None, carry=None) -> SolveResult:
+    return anderson_solve(f, z0, cfg, freeze_mask=freeze_mask, carry=carry)

@@ -10,6 +10,9 @@ async pipeline is ported.  The prompts are drawn exactly as the JAX launcher dra
 Runs on the card by default; ``--device cpu`` runs the plain PyTorch path.
 The default model is the full published config (``get_config``);
 ``--smoke`` selects the reduced ``smoke_config`` for CPU runs.
+``--metrics-prom-out`` keeps a Prometheus text file of the metrics registry
+(rewritten every 10 s and at the end); ``--trace-out`` writes a Chrome
+trace of the drain's spans.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from repro_torch.configs.registry import ARCHS, get_config, smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import tracing as obs_tracing
 from repro_torch.runtime.serving import Request, ServeLoop
 
 
@@ -71,11 +75,23 @@ def main(argv=None) -> None:
     ap.add_argument("--metrics-out", default="",
                     help="write a metrics-registry JSON snapshot here after "
                          "the drain")
+    ap.add_argument("--metrics-prom-out", default="",
+                    help="write (and refresh every 10 s) a Prometheus "
+                         "text exposition of the metrics registry here")
+    ap.add_argument("--trace-out", default="",
+                    help="write a Chrome-trace JSON of the drain here "
+                         "(enables span tracing)")
     args = ap.parse_args(argv)
 
     if not args.deq:
         raise SystemExit("repro_torch serves the DEQ model so far: pass --deq")
     device = resolve_device(args.device)
+    if args.metrics_out or args.metrics_prom_out:
+        obs_metrics.set_enabled(True)
+    if args.trace_out:
+        obs_tracing.set_enabled(True)
+    flusher = (obs_metrics.PromFlusher(args.metrics_prom_out).start()
+               if args.metrics_prom_out else None)
     cfg = (smoke_config(args.arch, deq=True) if args.smoke
            else get_config(args.arch, deq=True))
     if args.qn_dtype or args.no_guard:
@@ -114,6 +130,12 @@ def main(argv=None) -> None:
         with open(args.metrics_out, "w") as fh:
             json.dump(obs_metrics.snapshot(), fh, indent=1, sort_keys=True)
         print(f"metrics snapshot -> {args.metrics_out}")
+    if flusher is not None:
+        flusher.stop()
+        print(f"prometheus exposition -> {args.metrics_prom_out}")
+    if args.trace_out:
+        obs_tracing.write(args.trace_out)
+        print(f"chrome trace -> {args.trace_out}")
 
 
 if __name__ == "__main__":

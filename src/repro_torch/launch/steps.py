@@ -21,6 +21,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.solvers import SolveCarry, carry_state_only
 from repro_torch.models import lm
+from repro_torch.obs import tracing as obs_tracing
 from repro_torch.optim.optimizers import (
     OptState,
     adamw_init,
@@ -171,6 +172,9 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, *,
                 torch.where(ok, torch.zeros_like(prev), prev + 1))
             metrics["update_skipped"] = (~ok).float()
             metrics["consec_skips"] = new_state.skips.float()
+        # the optimizer phase ends when the new optimizer state is computed
+        # (forward_solve and implicit_backward are marked inside the solve)
+        obs_tracing.phase_done("optimizer", new_state.opt.step)
         return new_state, metrics
 
     return train_step

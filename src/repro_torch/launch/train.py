@@ -2,10 +2,11 @@
 
 The port of ``repro/launch/train.py``: runs the :class:`Trainer` (restore
 or init, checkpoints, rollback, preemption) on synthetic token batches.
-The JAX launcher's flags, minus ``--mesh`` (sharding), ``--metrics-prom-out``
-and ``--trace-out`` (exporters), which come with later slices, plus
+The JAX launcher's flags, minus ``--mesh`` (sharding, a later slice), plus
 ``--device``.  Unknown ``--backward``/``--solver`` values are rejected
-with the registered names.
+with the registered names.  ``--metrics-prom-out`` keeps a Prometheus text
+file of the metrics registry (rewritten every 10 s and at the end);
+``--trace-out`` writes a Chrome trace of the run's spans and phases.
 
 Runs on the card by default; ``--device cpu`` runs the plain PyTorch path.
 The default model is the full published config; ``--smoke`` selects the
@@ -29,6 +30,7 @@ from repro_torch.device import resolve_device
 from repro_torch.implicit import ESTIMATORS, SOLVERS
 from repro_torch.models import lm
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import tracing as obs_tracing
 from repro_torch.optim.optimizers import tree_leaves
 from repro_torch.runtime.trainer import Trainer
 
@@ -56,6 +58,12 @@ def main(argv=None) -> None:
     ap.add_argument("--metrics-out", default="",
                     help="write a metrics-registry JSON snapshot here after "
                          "the run")
+    ap.add_argument("--metrics-prom-out", default="",
+                    help="write (and refresh every 10 s) a Prometheus "
+                         "text exposition of the metrics registry here")
+    ap.add_argument("--trace-out", default="",
+                    help="write a Chrome-trace JSON of the run here "
+                         "(enables span tracing)")
     ap.add_argument("--checkpoint-lean", action="store_true",
                     help="omit the u/v quasi-Newton carry ring from "
                          "checkpoints (restore zero-fills it)")
@@ -75,6 +83,12 @@ def main(argv=None) -> None:
         raise SystemExit("repro_torch trains the DEQ model so far: pass "
                          "--deq")
     device = resolve_device(args.device)
+    if args.metrics_out or args.metrics_prom_out:
+        obs_metrics.set_enabled(True)
+    if args.trace_out:
+        obs_tracing.set_enabled(True)
+    flusher = (obs_metrics.PromFlusher(args.metrics_prom_out).start()
+               if args.metrics_prom_out else None)
     cfg = smoke_config(args.arch, deq=True) if args.smoke \
         else get_config(args.arch, deq=True)
     deq = cfg.deq
@@ -117,6 +131,12 @@ def main(argv=None) -> None:
         with open(args.metrics_out, "w") as fh:
             json.dump(obs_metrics.snapshot(), fh, indent=1, sort_keys=True)
         print(f"metrics snapshot -> {args.metrics_out}")
+    if flusher is not None:
+        flusher.stop()
+        print(f"prometheus exposition -> {args.metrics_prom_out}")
+    if args.trace_out:
+        obs_tracing.write(args.trace_out)
+        print(f"chrome trace -> {args.trace_out}")
 
 
 if __name__ == "__main__":

@@ -20,6 +20,9 @@ slots and runs ONE ``decode_step`` for all slots, inactive ones masked:
     with the fault recorded on the request.
 
 Every tick blocks on its logits: the host picks tokens with ``argmax``.
+With tracing on, a drain is a ``drain`` span over ``serve_tick`` spans,
+each holding ``admit`` (with a ``prefill`` span per prompt length) and
+``decode``.
 The async pipeline and the cross-request prefix caches come with a later
 slice.
 """
@@ -39,6 +42,7 @@ from repro_torch.core.solvers import STATUS_DIVERGED, STATUS_NAMES
 from repro_torch.implicit.engine import CarryCache, write_carry_rows
 from repro_torch.models import lm
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import tracing as obs_tracing
 
 
 @dataclasses.dataclass
@@ -111,20 +115,22 @@ class ServeLoop:
         by_len: dict[int, list[tuple[int, Request]]] = {}
         for slot, req in wave:
             by_len.setdefault(len(req.prompt), []).append((slot, req))
-        for plen, group in by_len.items():
-            self._prefill_group(plen, group)
+        with obs_tracing.span("admit", wave=len(wave)):
+            for plen, group in by_len.items():
+                self._prefill_group(plen, group)
 
     def _prefill_group(self, plen: int,
                        group: list[tuple[int, Request]]) -> None:
         toks = torch.tensor([req.prompt for _, req in group],
                             dtype=torch.int32, device=self.device)
         wave_carry = lm.deq_solve_carry(self.cfg, len(group), 1, self.device)
-        logits, cache_new, _lens, seeded, steps, status = lm.prefill(
-            self.params, {"tokens": toks}, self.cfg, self.max_len,
-            carry=wave_carry, return_steps=True, return_status=True)
-        last = logits[:, -1].float()
-        nxt_all = last.argmax(-1).tolist()
-        st = status.tolist()
+        with obs_tracing.span("prefill", plen=plen, wave=len(group)):
+            logits, cache_new, _lens, seeded, steps, status = lm.prefill(
+                self.params, {"tokens": toks}, self.cfg, self.max_len,
+                carry=wave_carry, return_steps=True, return_status=True)
+            last = logits[:, -1].float()
+            nxt_all = last.argmax(-1).tolist()
+            st = status.tolist()
         self.solve_log.append({"phase": "prefill", "rows": len(group),
                                "steps": steps, "status": st})
         failed = ({row: st[row] for row in range(len(group))
@@ -179,20 +185,25 @@ class ServeLoop:
     def step(self) -> int:
         """Admit, then one blocking decode tick; returns the number of
         active slots decoded."""
+        with obs_tracing.span("serve_tick"):
+            return self._step()
+
+    def _step(self) -> int:
         self._admit()
         mask = [r is not None and not r.done for r in self.active]
         if not any(mask):
             return 0
         mask_t = torch.tensor(mask, dtype=torch.bool, device=self.device)
         t0 = time.perf_counter()
-        logits, self.caches, new_carry, steps, status = lm.decode_step(
-            self.params, self.caches, self.cur_tok, self.lengths, self.cfg,
-            active=mask_t, carry=self.carries.carry, return_steps=True,
-            return_status=True)
-        self.carries.update(new_carry)
-        nxt = logits.float().argmax(-1).int()
-        nxt_l = nxt.tolist()
-        st = status.tolist()
+        with obs_tracing.span("decode", active=sum(mask)):
+            logits, self.caches, new_carry, steps, status = lm.decode_step(
+                self.params, self.caches, self.cur_tok, self.lengths,
+                self.cfg, active=mask_t, carry=self.carries.carry,
+                return_steps=True, return_status=True)
+            self.carries.update(new_carry)
+            nxt = logits.float().argmax(-1).int()
+            nxt_l = nxt.tolist()
+            st = status.tolist()
         self.solve_log.append({"phase": "decode", "rows": sum(mask),
                                "steps": steps,
                                "status": [c for c, a in zip(st, mask) if a]})
@@ -226,14 +237,15 @@ class ServeLoop:
 
     def drain(self, reqs: list[Request],
               max_ticks: int = 10_000) -> list[Request]:
-        for r in reqs:
-            self.submit(r)
-        ticks = 0
-        while (not self.queue.empty() or self.pending
-               or any(a is not None for a in self.active)) \
-                and ticks < max_ticks:
-            self.step()
-            ticks += 1
+        with obs_tracing.span("drain", requests=len(reqs)):
+            for r in reqs:
+                self.submit(r)
+            ticks = 0
+            while (not self.queue.empty() or self.pending
+                   or any(a is not None for a in self.active)) \
+                    and ticks < max_ticks:
+                self.step()
+                ticks += 1
         return reqs
 
 

@@ -4,7 +4,10 @@ The port of ``repro/runtime/trainer.py``.  The step function and the
 ``TrainState`` come from ``launch/steps.py``; this module owns the runtime
 concerns: the step loop with one host read of the metrics per log
 interval, the rollback past ``skip_budget`` consecutive rejected updates,
-checkpointing, preemption and the straggler watchdog.
+checkpointing, preemption and the straggler watchdog.  With tracing on,
+each step is a ``data`` and a ``train_step`` span (a saved step adds a
+``checkpoint`` span); the device phases marked inside ``train_step`` end
+it no earlier than the card finishes them, without a host wait.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from repro_torch.implicit import ESTIMATORS, SOLVERS
 from repro_torch.launch import steps
 from repro_torch.launch.steps import TrainState
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import tracing as obs_tracing
 from repro_torch.runtime.ft import PreemptionGuard, StragglerWatchdog
 
 __all__ = ["Trainer", "TrainState"]
@@ -99,18 +103,31 @@ class Trainer:
         steps = steps if steps is not None else self.tcfg.steps
         t_sync = time.perf_counter()
         n_since = 0
+        skipped = None  # rejected updates since the last read, on the device
         with PreemptionGuard() as guard:
             for i in range(start, steps):
-                batch = next(batches)
-                state, metrics = self._train_step(state, batch)
+                with obs_tracing.span("data", step=i + 1):
+                    batch = next(batches)
+                with obs_tracing.span("train_step", step=i + 1):
+                    state, metrics = self._train_step(state, batch)
+                if "update_skipped" in metrics:
+                    skipped = (metrics["update_skipped"] if skipped is None
+                               else skipped + metrics["update_skipped"])
                 n_since += 1
                 if (i + 1) % log_every == 0 or i + 1 == steps:
-                    # the interval's one host read: every metric at once
+                    # the interval's one host read: every metric at once,
+                    # and the interval's count of rejected updates
                     names = list(metrics)
                     vals = torch.stack([
                         torch.as_tensor(metrics[k], dtype=torch.float32,
                                         device=state.step.device)
-                        for k in names]).tolist()
+                        for k in names]
+                        + ([skipped] if skipped is not None else [])
+                    ).tolist()
+                    if skipped is not None:
+                        obs_metrics.emit_scalar("train_update_skips_total",
+                                                vals.pop(), kind="counter")
+                        skipped = None
                     metrics = dict(zip(names, vals))
                     now = time.perf_counter()
                     # the read drains every step since the last one, so the
@@ -131,7 +148,8 @@ class Trainer:
                               f"lr={metrics['lr']:.2e} {dt * 1e3:.0f}ms")
                 if self.ckpt and self.tcfg.checkpoint_every and (
                         (i + 1) % self.tcfg.checkpoint_every == 0):
-                    self.ckpt.save(i + 1, state)
+                    with obs_tracing.span("checkpoint", step=i + 1):
+                        self.ckpt.save(i + 1, state)
                     # keep checkpoint time out of the per-step average
                     t_sync, n_since = time.perf_counter(), 0
                 if guard.should_exit:

@@ -11,8 +11,9 @@ Shapes are small but ragged (D not a multiple of 4, S not a multiple of the
 query tile, GQA, an empty ring row, a refused append) so each kernel's edge
 handling is exercised, and the qN kernels run every case of
 ``chip_smoke.QN_CASES`` (both schedules); ``chip_smoke.py`` checks the serving and training
-paths' shapes.  Besides the kernels: the autograd wrappers' gradients, and
-a refine backward that must leave a carried ring as the forward left it.
+paths' shapes.  Besides the kernels: the autograd wrappers' gradients, a
+refine backward that must leave a carried ring as the forward left it, and
+the span tracer's device phases on two traced train steps.
 """
 
 import os
@@ -291,3 +292,64 @@ def test_rejected_step_gives_back_the_full_carry(dev, guard):
     for a, b in ((after.u, before.u), (after.v, before.v),
                  (after.count, before.count), (state.carry.z, z)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["fixed_point", "anderson"])
+def test_placeholder_inverse_is_the_identity_on_the_card(dev, solver):
+    """Picard and Anderson hand the backward an empty ring of the state's
+    shape: on the card ``H^T w`` goes through the ``qn_apply_multi``
+    kernel (one launch) and gives ``w`` bit for bit."""
+    from repro_torch.core import solvers
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(2, 5, 64, device=dev, generator=g)
+    res = getattr(solvers, f"{solver}_solve")(
+        lambda z: 0.5 * torch.tanh(z) + x, torch.zeros_like(x),
+        solvers.SolverConfig(max_steps=30, tol=1e-5, memory=4))
+    w = torch.randn(2, 5, 64, device=dev, generator=g)
+    launches.reset()
+    assert torch.equal(res.lowrank.rmatvec(w), w)
+    assert launches.counts()["qn_apply_multi"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["broyden", "adjoint_broyden"])
+def test_traced_train_steps_tile_on_the_card(dev, solver):
+    """Span tracing of two ``Trainer`` steps on the card: each phase ends at
+    a CUDA event resolved when the trace is written, the phases tile each
+    ``train_step`` span (``chip_smoke.check_trace_phases``) and the steps
+    make no host wait on the card (``chip_smoke.count_syncs``)."""
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.data.pipeline import make_lm_batch_iterator
+    from repro_torch.models import lm
+    from repro_torch.obs import tracing
+    from repro_torch.runtime.trainer import Trainer
+    cfg = smoke_config("minicpm-2b", deq=True)
+    cfg = dataclasses.replace(cfg, deq=dataclasses.replace(cfg.deq,
+                                                           solver=solver))
+    tcfg = TrainConfig(steps=2, global_batch=2, seq_len=16,
+                       schedule=cfg.schedule)
+    params = lm.init_params(cfg, seed=1, device=dev)
+    params["deq_blocks"] = _tree(lambda t: t * 0.3, params["deq_blocks"])
+    marks = []
+    real = tracing._DeviceMark
+
+    def mark(device):
+        marks.append(device)
+        return real(device)
+
+    with mock.patch.object(tracing, "_DeviceMark", mark):
+        trace, syncs = chip_smoke.traced_train_steps(
+            Trainer(cfg, tcfg, params=params),
+            make_lm_batch_iterator(cfg, 2, 16, seed=0, device=dev), 2)
+    assert syncs == []
+    assert len(marks) == 2 * len(chip_smoke.TRAIN_PHASES)
+    assert all(d.type == "cuda" for d in marks)
+    steps = chip_smoke.check_trace_phases(trace)
+    assert len(steps) == 2
+    for st in steps:
+        assert all(st[p] > 0 for p in chip_smoke.TRAIN_PHASES)

@@ -9,9 +9,12 @@ rmsnorm autograd wrappers against plain autograd.  Here the plain version
 stands in for the kernel: it must pass, and each wrong answer a kernel
 could give must fail.  The same holds for the qN library's SASS check
 (canned listings) and the training-trajectory check (canned steps, and
-the recording and replay of forward solves it rests on, at smoke size).
+the recording and replay of forward solves it rests on, at smoke size),
+and the check of a traced train step's phases (canned traces, and two
+traced smoke steps on the CPU).
 """
 
+import dataclasses
 import os
 import sys
 
@@ -27,6 +30,7 @@ from repro_torch.configs.registry import smoke_config  # noqa: E402
 from repro_torch.data.pipeline import make_lm_batch_iterator  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.obs import tracing as obs_tracing  # noqa: E402
 from repro_torch.runtime.trainer import Trainer  # noqa: E402
 
 EPS = 1e-8
@@ -441,3 +445,103 @@ def test_replayed_solves_give_the_recorded_steps():
         _smoke_train([])
     with pytest.raises(AssertionError), chip_smoke._replay_solves(rec):
         _smoke_train([], steps=1)
+
+
+def _traced_smoke_steps(solver):
+    cfg = smoke_config("minicpm-2b", deq=True)
+    cfg = dataclasses.replace(cfg, deq=dataclasses.replace(cfg.deq,
+                                                           solver=solver))
+    tcfg = TrainConfig(steps=2, global_batch=2, seq_len=16,
+                       schedule=cfg.schedule)
+    trainer = Trainer(cfg, tcfg, params=lm.init_params(cfg, seed=1,
+                                                       device="cpu"))
+    return chip_smoke.traced_train_steps(
+        trainer, make_lm_batch_iterator(cfg, 2, 16, seed=0, device="cpu"), 2)
+
+
+@pytest.mark.parametrize("solver", ["broyden", "adjoint_broyden"])
+def test_trace_check_passes_traced_train_steps(solver):
+    """Two traced ``Trainer`` steps, as the chip smoke run takes them at
+    full width: the phases tile each step, no host wait is counted, and
+    tracing is off again afterwards."""
+    trace, syncs = _traced_smoke_steps(solver)
+    steps = chip_smoke.check_trace_phases(trace)
+    assert len(steps) == 2 and syncs == []
+    for st in steps:
+        assert set(st) == {"train_step", *chip_smoke.TRAIN_PHASES}
+        assert sum(st[p] for p in chip_smoke.TRAIN_PHASES) \
+            <= st["train_step"] + 1e-6
+    assert not obs_tracing.enabled()
+    assert obs_tracing.default_recorder().events() == []
+
+
+def test_sync_counter_counts_host_waits():
+    """Each of the three waits is noted before it runs (here, without a
+    card, each then fails), and the originals are back afterwards."""
+    seen = []
+    with chip_smoke.count_syncs(seen):
+        for call in (torch.cuda.synchronize,
+                     lambda: torch.cuda.Event.synchronize(None),
+                     lambda: torch.cuda.Stream.synchronize(None)):
+            with pytest.raises((AssertionError, AttributeError,
+                                RuntimeError)):
+                call()
+    assert seen == ["torch.cuda.synchronize", "Event.synchronize",
+                    "Stream.synchronize"]
+    for owner in (torch.cuda, torch.cuda.Event, torch.cuda.Stream):
+        assert owner.synchronize.__name__ == "synchronize"
+
+
+def _phase(name, ts, dur):
+    return {"name": name, "ph": "X", "ts": ts, "dur": dur, "pid": 1,
+            "tid": 1}
+
+
+def _step_events(b, ends, e, names=chip_smoke.TRAIN_PHASES):
+    """A ``train_step`` span from ``b`` to ``e`` with phases ending at
+    ``ends``, each starting where the previous one ended."""
+    xs, at = [], b
+    for name, end in zip(names, ends):
+        xs.append(_phase(name, at, end - at))
+        at = end
+    return ([{"name": "train_step", "ph": "B", "ts": b, "pid": 1, "tid": 1}]
+            + xs
+            + [{"name": "train_step", "ph": "E", "ts": e, "pid": 1,
+                "tid": 1}])
+
+
+# two steps; the second span opens before the first one's device end
+_GOOD = (_step_events(0.0, (40.0, 70.0, 80.0), 80.0)
+         + [{"name": "data", "ph": "B", "ts": 60.0, "pid": 1, "tid": 1},
+            {"name": "data", "ph": "E", "ts": 61.0, "pid": 1, "tid": 1}]
+         + _step_events(62.0, (120.0, 150.0, 151.0), 152.0))
+
+
+def _mutate(i, **kw):
+    ev = [dict(e) for e in _GOOD]
+    ev[i].update(kw)
+    return ev
+
+
+TRACE_MUTANTS = {
+    "phase_missing": [e for e in _GOOD if not (
+        e["name"] == "optimizer" and e["ts"] == 70.0)],
+    "phases_swapped": _mutate(1, name="implicit_backward")[:2]
+    + [dict(_GOOD[2], name="forward_solve")] + _GOOD[3:],
+    "negative_duration": _mutate(2, dur=-5.0),
+    "gap_between_phases": _mutate(2, ts=41.0, dur=29.0),
+    "first_phase_late": _mutate(1, ts=1.0, dur=39.0),
+    "phase_past_span_end": _mutate(4, ts=75.0),
+    "span_left_open": _GOOD[:-1],
+    "no_span": [e for e in _GOOD if e["name"] != "train_step"],
+}
+
+
+def test_trace_check_passes_overlapping_steps():
+    assert len(chip_smoke.check_trace_phases({"traceEvents": _GOOD})) == 2
+
+
+@pytest.mark.parametrize("wrong", sorted(TRACE_MUTANTS))
+def test_trace_check_rejects(wrong):
+    with pytest.raises(AssertionError):
+        chip_smoke.check_trace_phases({"traceEvents": TRACE_MUTANTS[wrong]})
