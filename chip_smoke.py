@@ -5,9 +5,11 @@
 Phases, one line (or a few) each:
   1. environment: torch/CUDA versions, the card's name and power limit
      (``nvidia-smi``), and the build of every kernel from the checkout's
-     sources (one ``nvcc`` per CUDA source, started together, while Triton
-     compiles the rmsnorm kernel); each kernel's registers, shared memory
-     and spills (``-Xptxas -v``); the attention library's SASS
+     sources (one ``nvcc`` per CUDA source -- qn_apply, flash_attention,
+     rmsnorm -- all started together); each kernel's registers, shared
+     memory and spills (``-Xptxas -v``; no instance of the bf16 attention
+     kernels or of rmsnorm may spill, ``check_spills``); the attention
+     library's SASS
      (``cuobjdump``), where the bf16 prefill kernels must hold HMMA (tensor
      cores), LDGSTS (cp.async) and LDSM (ldmatrix);
   2. every kernel against its plain PyTorch version on the card, at the
@@ -15,7 +17,9 @@ Phases, one line (or a few) each:
      D=S*2304 for S in {1, 256}, bf16: broyden_step, qn_apply_multi with
      (False,), (False, True) and the SHINE backward's (True,), qn_apply,
      lowrank_append; attention B=4, S=256, 36 heads x 64; decode over a
-     1024-token cache with mixed lengths; rmsnorm 1024 x 2304): max error
+     1024-token cache with mixed lengths; rmsnorm at ``RMS_SHAPES``, bf16
+     and f32, each bf16 shape timed in turns against ``F.rms_norm``): max
+     error
      against the stated tolerance, the kernel's time (CUDA events and
      profiler device time per kernel; the qN ops each after a 256 MB write
      that leaves the L2 cold, as the path's block evaluations do), the
@@ -26,8 +30,10 @@ Phases, one line (or a few) each:
      spills (``check_qn_sass``); then the
      attention edge cases (``PREFILL_CASES``, ``DECODE_CASES``: GQA groups
      1/3/4, ragged S and T, kv_length 0 and inside a tile or at the split
-     chunk's edges, head dims 16 and 64 in bf16 and f32), each through
-     ``check_attention``; then the gradients of the attention and rmsnorm
+     chunk's edges, head dims 16, 64, 80, 96 and 128 in bf16 and f32), each
+     through ``check_attention``, and each registered config's head dim at
+     its heads timed (``kernel_attention_head_dims``); then the gradients of
+     the attention and rmsnorm
      autograd wrappers (kernel forward, plain recompute backward) against
      plain autograd at the same shapes; and ``qn_apply_multi`` at the
      adjoint-Broyden path's shape (f32 ring, m=8, B=4, D=256x2304, the
@@ -37,18 +43,26 @@ Phases, one line (or a few) each:
      steps (same solver steps, matching loss and grad norm), the training
      once with each forward solver (Broyden, adjoint Broyden, Anderson,
      Picard; ``shine_fallback`` backward) and the serving also with
-     Anderson;
-  4. serving at the full width of MiniCPM-2B (DEQ, random weights with the
-     weight-tied blocks scaled by 0.3): 8 requests, 4 slots, prompts of 128
-     and 256 tokens, 16 new tokens each, a 1024-token cache -- through
-     ``ServeLoop``, with the kernel launch counts reset just before and
-     read just after; every kernel of the path must have launched;
+     Anderson; then serving and training at the head dims of the other
+     registered configs (80, 96, 128; 2 heads) with the same tokens and
+     solver steps on both;
+  4. one drain at the full width of each other registered config
+     (StableLM-3B, Phi-3-mini, InternLM2-20B; ``phase_serve_configs``:
+     2 requests of 128 tokens, 4 new tokens each); then serving at the full
+     width of MiniCPM-2B (DEQ, random weights with the weight-tied blocks
+     scaled by 0.3): 8 requests, 4 slots, prompts of 128 and 256 tokens, 16
+     new tokens each, a 1024-token cache -- through ``ServeLoop``, with the
+     kernel launch counts reset just before and read just after; every
+     kernel of the path must have launched;
   5. a profiled window at full width (torch.profiler: device busy time,
      idle share, top kernels) for one prefill tick and one decode tick;
   6. training at the full width of MiniCPM-2B (the same weights, DEQ with
      the ``DEQSettings`` defaults, SHINE-fallback backward): 4 AdamW steps
      of batch 4 x 256 synthetic tokens through ``Trainer``, launch counts
-     reset just before and read just after; then one profiled train step,
+     reset just before and read just after, metrics on, and no host wait
+     besides the solver's two reads per iteration and the one metrics read
+     per step (``count_syncs``, ``expected_syncs``), nor with metrics off
+     (one more step); then one profiled train step,
      and the same 4 steps with the attention forward through its plain
      version: the same forward steps and fallback rows and losses within
      rtol 1e-2; then the plain-attention arm once more with each forward
@@ -70,8 +84,9 @@ Phases, one line (or a few) each:
      the same 2 steps with span tracing on (``--trace-out``'s path): the
      trace's ``forward_solve``, ``implicit_backward`` and ``optimizer``
      phases, ended by CUDA events, must tile each ``train_step`` span
-     (``check_trace_phases``), and the steps must make no host wait on the
-     card (``count_syncs``);
+     (``check_trace_phases``), and the traced steps (metrics off) must make
+     as many host waits as the untraced ones (metrics on): the solver's and
+     the trainer's, nothing more (``count_syncs``);
   9. a ``{"kernels": [...]}`` line (with each kernel's launches in the
      step 8 arms), then the last line ``{"ok": true, "device": {...}}``.
 
@@ -82,7 +97,7 @@ it.
 
 from __future__ import annotations
 
-import concurrent.futures
+import collections
 import contextlib
 import dataclasses
 import json
@@ -92,6 +107,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from unittest import mock
 
 import numpy as np
@@ -111,7 +127,7 @@ from repro_torch.data.pipeline import (  # noqa: E402
 from repro_torch.kernels import build, launches, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as cuda_fa  # noqa: E402
 from repro_torch.kernels import qn_apply as cuda_qn  # noqa: E402
-from repro_torch.kernels import rmsnorm as triton_rms  # noqa: E402
+from repro_torch.kernels import rmsnorm as cuda_rms  # noqa: E402
 from repro_torch.implicit import fixed_point as implicit_fp  # noqa: E402
 from repro_torch.implicit import solvers as implicit_solvers  # noqa: E402
 from repro_torch.launch import steps as train_steps  # noqa: E402
@@ -135,7 +151,7 @@ KERNELS = {
                         "src/repro/kernels/flash_attention.py:95"),
     "decode_attention": ("cuda", "src/repro_torch/csrc/flash_attention.cu",
                          "src/repro/kernels/flash_attention.py:160"),
-    "rmsnorm": ("triton", "src/repro_torch/csrc/rmsnorm_triton.py",
+    "rmsnorm": ("cuda", "src/repro_torch/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:26"),
     "lowrank_append": ("cuda", "src/repro_torch/csrc/qn_apply.cu",
                        "src/repro/kernels/qn_apply.py:343"),
@@ -487,6 +503,34 @@ def check_qn_sass(ops: dict, ptxas: dict) -> dict:
     return out
 
 
+def _spill_bytes(line: str) -> int:
+    m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+    if not m:
+        raise AssertionError(f"no spill count in {line!r}")
+    return int(m.group(1)) + int(m.group(2))
+
+
+# the kernels of the bf16 paths, which must not spill: every instance of
+# these (the f32 attention body keeps a row in registers and may spill at
+# large head dims; it is reported)
+NO_SPILL = {"flash_attention": ("flash_fwd_mma_kernel", "decode_split_kernel",
+                                "decode_combine_kernel"),
+            "rmsnorm": ("rmsnorm_vec_kernel", "rmsnorm_generic_kernel")}
+
+
+def check_spills(ptxas: dict) -> dict:
+    """Spill bytes (stores + loads) of every kernel instance of the
+    attention and rmsnorm libraries; raises if an instance of ``NO_SPILL``
+    spills."""
+    out = {}
+    for source, prefixes in NO_SPILL.items():
+        for name, r in ptxas[source].items():
+            n = out[f"{source}:{name}"] = _spill_bytes(r.get("spill", ""))
+            if n and name.startswith(prefixes):
+                raise AssertionError(f"{name} spills: {r['spill']!r}")
+    return out
+
+
 def check_attention_sass(sass: dict) -> None:
     """The bf16 prefill kernels must run their products on the tensor cores
     (HMMA), fill their tiles with async copies (LDGSTS) and read fragments
@@ -509,25 +553,18 @@ def phase_env() -> dict:
         python=sys.version.split()[0], device=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), nvidia_smi=smi)
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        nvcc = pool.submit(build.build_all)
-        # Triton compiles the rmsnorm kernel meanwhile (first launch)
-        x = torch.randn(8, 2304, device="cuda", dtype=torch.bfloat16)
-        triton_rms.rmsnorm(x, torch.ones(2304, device="cuda",
-                                         dtype=torch.bfloat16))
-        torch.cuda.synchronize()
-        t_triton = time.perf_counter() - t0
-        report = nvcc.result()
+    report = build.build_all()  # one nvcc per source, all started together
     for name in build.SOURCES:
         build.library(name)
     secs = time.perf_counter() - t0
-    say("build", seconds=round(secs, 2), triton_seconds=round(t_triton, 2),
+    say("build", seconds=round(secs, 2),
         nvcc={n: r["seconds"] for n, r in report.items()},
         cached=[n for n, r in report.items() if r["cached"]])
     ptxas = {}
     for name, r in report.items():
         ptxas[name] = ptxas_summary(r["log"])
         say("ptxas", source=f"{name}.cu", kernels=ptxas[name])
+    say("spills", kernels=check_spills(ptxas))
     qn = check_qn_sass(sass_ops(sass_text(build.library_path(
         "qn_apply"))), ptxas["qn_apply"])
     say("sass", source="qn_apply.cu", kernels=qn)
@@ -933,9 +970,9 @@ def _lens(vals):
 
 
 # prefill cases besides "main" (the reported shape): (tag, B, S, T, H, KV,
-# hd, dtype, kv_length, causal) -- GQA groups 1, 3 and 4, ragged S and T,
-# a kv_length 0 row and lengths inside a tile, head dims 16 and 64 in bf16
-# and f32
+# hd, dtype, kv_length, causal) -- GQA groups 1, 3, 4 and 6 (InternLM2's
+# 48/8), ragged S and T, a kv_length 0 row and lengths inside a tile, head
+# dims 16, 64, 80, 96 and 128 in bf16 and f32
 PREFILL_CASES = [
     ("gqa3", 4, 256, 256, 36, 12, 64, torch.bfloat16, None, True),
     ("gqa4", 2, 256, 256, 36, 9, 64, torch.bfloat16, None, True),
@@ -947,10 +984,18 @@ PREFILL_CASES = [
     ("hd16", 3, 197, 197, 8, 2, 16, torch.bfloat16, [197, 0, 70], True),
     ("hd16_f32", 3, 197, 197, 8, 2, 16, torch.float32, [197, 0, 70], True),
     ("hd64_f32", 2, 197, 197, 8, 8, 64, torch.float32, [100, 0], True),
+    ("hd80", 2, 197, 230, 32, 32, 80, torch.bfloat16, [230, 0], True),
+    ("hd80_f32", 2, 130, 197, 8, 4, 80, torch.float32, [150, 0], True),
+    ("hd96", 3, 197, 197, 32, 32, 96, torch.bfloat16, [197, 0, 37], True),
+    ("hd96_f32", 2, 130, 130, 8, 8, 96, torch.float32, [100, 0], True),
+    ("hd128_gqa", 2, 197, 230, 48, 8, 128, torch.bfloat16, [230, 0], True),
+    ("hd128_f32", 2, 130, 197, 48, 8, 128, torch.float32, [150, 0], True),
 ]
 # decode cases besides "main": (tag, B, H, KV, hd, T, dtype, kv_length) --
 # kv_length at the split chunk's edges (CH-1, CH, CH+1, T) and 0, a cache
-# shorter than one chunk, GQA (H=36, KV=12), head dims 16 and 64 in f32
+# shorter than one chunk, GQA (H=36, KV=12; 48/8), head dims 16, 64, 80, 96
+# and 128 (bf16 and f32); the "chunk_edges" cases also take the kv_length
+# +-1 guard
 _CH = cuda_fa.DECODE_CHUNK
 DECODE_CASES = [
     ("chunk_edges", 4, 36, 36, 64, 1024, torch.bfloat16,
@@ -960,6 +1005,15 @@ DECODE_CASES = [
     ("hd16", 3, 8, 2, 16, 300, torch.bfloat16, [300, 0, _CH + 1]),
     ("hd16_f32", 3, 8, 2, 16, 300, torch.float32, [300, 0, _CH + 1]),
     ("hd64_f32", 2, 8, 8, 64, 300, torch.float32, [_CH, 0]),
+    ("hd80_chunk_edges", 4, 32, 32, 80, 1024, torch.bfloat16,
+     [_CH - 1, _CH, _CH + 1, 1024]),
+    ("hd80_f32", 3, 8, 8, 80, 300, torch.float32, [300, 0, _CH + 1]),
+    ("hd96_chunk_edges", 4, 32, 32, 96, 1024, torch.bfloat16,
+     [_CH - 1, _CH, _CH + 1, 1024]),
+    ("hd96_f32", 3, 8, 8, 96, 300, torch.float32, [300, 0, _CH + 1]),
+    ("hd128_chunk_edges", 4, 48, 8, 128, 1024, torch.bfloat16,
+     [_CH - 1, _CH, _CH + 1, 0]),
+    ("hd128_f32", 3, 48, 8, 128, 300, torch.float32, [300, 0, _CH + 1]),
 ]
 
 
@@ -1071,37 +1125,127 @@ def kernel_attention(gen) -> dict:
         got = cuda_fa.decode_attention(q, k, v, kl)
         err = check_attention(f"decode_attention[{tag}]", got, want, q, k, v,
                               kl, tol)
+        guard = None
+        if tag.endswith("chunk_edges"):
+            guard = _off_by_one_guard(
+                f"decode_attention[{tag}]",
+                lambda x: ref.decode_attention_ref(q, k, v, x), want, kl, t_,
+                tol)
         say("kernel_case", name="decode_attention", case=tag,
             shape=f"B={b_} H={h_} KV={kv_} hd={hd_} T={t_} {str(dt)[6:]}",
-            kv_length=lens, max_abs_err=err, tol=tol)
+            kv_length=lens, max_abs_err=err, tol=tol,
+            kv_length_off_by_one_excess=guard)
         if dt == bf:
             out["decode_attention"]["max_abs_err"] = max(
                 out["decode_attention"]["max_abs_err"], err)
+    for name, rows in kernel_attention_head_dims(gen).items():
+        out[name]["head_dims"] = rows
     return out
 
 
+# the registry's other head dims, each at its config's heads (H, KV)
+HEAD_DIM_CONFIGS = {80: ("stablelm-3b", 32, 32), 96: ("phi3-mini-3.8b", 32, 32),
+                    128: ("internlm2-20b", 48, 8)}
+
+
+def kernel_attention_head_dims(gen) -> dict:
+    """Prefill (B=4, S=T=256, causal) and decode (B=4 over a 1024-token
+    cache, the main decode case's lengths) at each head dim of
+    ``HEAD_DIM_CONFIGS`` with its config's heads, bf16: checked against the
+    plain version and timed beside SDPA and the bound."""
+    bf = torch.bfloat16
+    out = {"flash_attention": {}, "decode_attention": {}}
+    for hd, (arch, h, kvh) in HEAD_DIM_CONFIGS.items():
+        bsz, seq = 4, 256
+        q, k, v = _attn_inputs(gen, bsz, seq, seq, h, kvh, hd, bf)
+        kern = lambda: cuda_fa.flash_attention(q, k, v, causal=True)  # noqa: E731
+        err = check_attention(f"flash_attention[{arch}]", kern(),
+                              ref.attention_ref(q, k, v, causal=True),
+                              q, k, v, None, TOL_BF16)
+        b_ms, b_by = bound(2 * q.numel() * 2 + 2 * k.numel() * 2,
+                           4 * bsz * h * hd * seq * (seq + 1) / 2, "bf16")
+        row = out["flash_attention"][str(hd)] = dict(
+            config=arch, shape=f"B={bsz} S=T={seq} H={h} KV={kvh} hd={hd} "
+            "causal bf16", max_abs_err=err, ms=time_ms(kern),
+            device_ms=device_ms(kern),
+            plain_ms=time_ms(lambda: ref.attention_ref(q, k, v, causal=True)),
+            library_device_ms=device_ms(lambda: _sdpa(q, k, v, causal=True)),
+            bound_ms=b_ms, bound_by=b_by)
+        say("kernel_case", name="flash_attention", case=f"hd{hd}", **row)
+        t = 1024
+        lens = _lens([129, 257, 200, 1024])
+        q, k, v = _decode_inputs(gen, bsz, h, kvh, hd, t, bf)
+        kern = lambda: cuda_fa.decode_attention(q, k, v, lens)  # noqa: E731
+        err = check_attention(f"decode_attention[{arch}]", kern(),
+                              ref.decode_attention_ref(q, k, v, lens),
+                              q, k, v, lens, TOL_DECODE)
+        amask = (torch.arange(t, device="cuda")[None, :] < lens[:, None]
+                 )[:, None, None, :]
+        live = int(lens.sum())
+        b_ms, b_by = bound(2 * q.numel() * 2 + 2 * live * kvh * hd * 2
+                           + bsz * 4, 4 * h * hd * live, "bf16")
+        row = out["decode_attention"][str(hd)] = dict(
+            config=arch, shape=f"B={bsz} H={h} KV={kvh} hd={hd} T={t} "
+            f"kv_length={lens.tolist()} bf16", max_abs_err=err,
+            ms=time_ms(kern), device_ms=device_ms(kern),
+            plain_ms=time_ms(lambda: ref.decode_attention_ref(q, k, v,
+                                                              lens)),
+            library_device_ms=device_ms(lambda: _sdpa(
+                q[:, None], k, v, causal=False, mask=amask)),
+            bound_ms=b_ms, bound_by=b_by)
+        say("kernel_case", name="decode_attention", case=f"hd{hd}", **row)
+    return out
+
+
+# rmsnorm shapes (rows, D): the registry's widths at the paths' 1024 rows
+# (B=4 x S=256), the decode shape (4 slots), a ragged row count and a width
+# with no vector instance (the generic kernel); the first is the reported row
+RMS_SHAPES = [(1024, 2304), (1024, 2560), (1024, 3072), (1024, 6144),
+              (4, 2304), (4, 6144), (1000, 2304), (1024, 64)]
+
+
 def kernel_rmsnorm(gen) -> dict:
-    rows, d, eps = 1024, 2304, 1e-5
-    x = torch.randn(rows, d, device="cuda", generator=gen).to(torch.bfloat16)
-    w = (1 + 0.1 * torch.randn(d, device="cuda", generator=gen)
-         ).to(torch.bfloat16)
-    want = ref.rmsnorm_ref(x, w, eps)
-    got = triton_rms.rmsnorm(x, w, eps)
-    err = check_close("rmsnorm", got, want, TOL_BF16)
-    ms = time_ms(lambda: triton_rms.rmsnorm(x, w, eps))
-    dev = device_ms(lambda: triton_rms.rmsnorm(x, w, eps))
-    plain = time_ms(lambda: ref.rmsnorm_ref(x, w, eps))
-    lib = time_ms(lambda: F.rms_norm(x, (d,), w, eps))
-    lib_dev = device_ms(lambda: F.rms_norm(x, (d,), w, eps))
-    b_ms, b_by = bound(2 * rows * d * 2 + d * 2, 4 * rows * d, "f32")
-    shape = f"rows={rows} D={d} bf16"
-    say("kernel", name="rmsnorm", shape=shape, max_abs_err=err,
-        tol=TOL_BF16, ms=ms, device_ms=dev, plain_ms=plain, library_ms=lib,
-        library_device_ms=lib_dev, bound_ms=b_ms, bound_by=b_by)
-    return {"rmsnorm": dict(max_abs_err=err, ms=ms, device_ms=dev,
-                            plain_ms=plain, library_ms=lib,
-                            library_device_ms=lib_dev, bound_ms=b_ms,
-                            bound_by=b_by, shape=shape)}
+    """The rmsnorm kernel against its plain version at every shape of
+    ``RMS_SHAPES`` in bf16 (``TOL_BF16``) and f32 (``TOL_F32``); in bf16
+    each shape also timed in turns against ``F.rms_norm`` (the yardstick,
+    never called by the port): kernel, library, library, kernel."""
+    eps = 1e-5
+    shapes, err_all = {}, 0.0
+    for dt in (torch.bfloat16, torch.float32):
+        for rows, d in RMS_SHAPES:
+            x = torch.randn(rows, d, device="cuda", generator=gen).to(dt)
+            w = (1 + 0.1 * torch.randn(d, device="cuda", generator=gen)
+                 ).to(dt)
+            tag = f"{rows}x{d} {str(dt)[6:]}"
+            err = check_close(f"rmsnorm[{tag}]", cuda_rms.rmsnorm(x, w, eps),
+                              ref.rmsnorm_ref(x, w, eps),
+                              TOL_BF16 if dt == torch.bfloat16 else TOL_F32)
+            err_all = max(err_all, err)
+            p = cuda_rms.plan(rows, d, dt)
+            row = dict(max_abs_err=err, per=p.per, warps_per_row=p.wpr,
+                       n_cta=p.n_cta, threads=p.threads)
+            if dt == torch.bfloat16:
+                kern = lambda: cuda_rms.rmsnorm(x, w, eps)  # noqa: E731
+                lib = lambda: F.rms_norm(x, (d,), w, eps)  # noqa: E731
+                turns = [device_ms(f) for f in (kern, lib, lib, kern)]
+                row.update(
+                    device_ms=min(turns[0], turns[3]),
+                    library_device_ms=min(turns[1], turns[2]),
+                    turns_device_ms=turns, ms=time_ms(kern),
+                    library_ms=time_ms(lib),
+                    plain_ms=time_ms(lambda: ref.rmsnorm_ref(x, w, eps)))
+                row["bound_ms"], row["bound_by"] = bound(
+                    2 * rows * d * 2 + d * 2, 4 * rows * d, "f32")
+            shapes[tag] = row
+            say("kernel_case", name="rmsnorm", shape=tag, **row)
+    main = shapes["1024x2304 bfloat16"]
+    out = {k: main[k] for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                                "library_device_ms", "bound_ms", "bound_by")}
+    out.update(max_abs_err=err_all, shape="rows=1024 D=2304 bf16",
+               shapes=shapes)
+    say("kernel", name="rmsnorm", **{k: v for k, v in out.items()
+                                     if k != "shapes"})
+    return {"rmsnorm": out}
 
 
 def _wrapper_and_plain_grads(op, plain, inputs, cot):
@@ -1190,11 +1334,24 @@ def _scaled_blocks(params: dict, scale: float) -> dict:
                                         params["deq_blocks"]))
 
 
-def phase_parity(solver: str = "broyden") -> None:
+def _at_head_dim(cfg, arch: str):
+    """The smoke config at ``arch``'s real head dim with 2 query heads (2
+    kv heads; 1 where ``arch`` groups its heads, as InternLM2 does)."""
+    real = get_config(arch)
+    return dataclasses.replace(
+        cfg, head_dim=real.head_dim, num_heads=2,
+        num_kv_heads=1 if real.num_kv_heads < real.num_heads else 2)
+
+
+def phase_parity(solver: str = "broyden", arch: str | None = None) -> None:
     """The smoke config in f32 served by ``solver`` on the card and on the
-    CPU: the same tokens, logits within 1e-3 of their scale (a non-Broyden
-    solver runs the frozen-row and carry paths with its own carry rules)."""
+    CPU: the same tokens and solver steps, logits within 1e-3 of their
+    scale (a non-Broyden solver runs the frozen-row and carry paths with
+    its own carry rules).  With ``arch``, at that config's head dim
+    (``_at_head_dim``)."""
     cfg = smoke_config("minicpm-2b", deq=True)
+    if arch is not None:
+        cfg = _at_head_dim(smoke_config(arch, deq=True), arch)
     cfg = dataclasses.replace(
         cfg, dtype="float32",
         deq=dataclasses.replace(cfg.deq, max_steps=30, tol=1e-4, memory=16,
@@ -1218,6 +1375,11 @@ def phase_parity(solver: str = "broyden") -> None:
     if toks_g != toks_c:
         raise AssertionError(f"card and CPU tokens differ: {toks_g} vs "
                              f"{toks_c}")
+    steps_g = [s["steps"] for s in lg.solve_log]
+    steps_c = [s["steps"] for s in lc.solve_log]
+    if arch is not None and steps_g != steps_c:
+        raise AssertionError(f"{arch}: card and CPU solver steps differ: "
+                             f"{steps_g} vs {steps_c}")
     err = max(float(np.abs(a - b).max())
               for uid in lc.recorded_logits
               for a, b in zip(lg.recorded_logits[uid],
@@ -1227,13 +1389,15 @@ def phase_parity(solver: str = "broyden") -> None:
     if err > 1e-3 * max(scale, 1.0):
         raise AssertionError(f"card vs CPU logits differ by {err:.3e} "
                              f"(scale {scale:.3e})")
-    say("parity", config="minicpm-2b smoke f32 (d=64, 2 blocks x0.3)",
-        solver=solver, requests=len(prompts), tokens_identical=True, max_abs_logit_err=err,
-        logit_scale=scale, steps_card=[s["steps"] for s in lg.solve_log],
-        steps_cpu=[s["steps"] for s in lc.solve_log])
+    say("parity", config=f"{cfg.name} smoke f32 (d=64, 2 blocks x0.3, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads x {cfg.head_dim})",
+        solver=solver, requests=len(prompts), tokens_identical=True,
+        max_abs_logit_err=err, logit_scale=scale, steps_card=steps_g,
+        steps_cpu=steps_c)
 
 
-def phase_train_parity(solver: str = "broyden") -> None:
+def phase_train_parity(solver: str = "broyden",
+                       arch: str | None = None) -> None:
     """Three train steps of the smoke config in f32 (f32 ring) with forward
     solver ``solver`` and the ``shine_fallback`` backward on the card and
     on the CPU from the same weights and batches.  Held: the same forward
@@ -1242,6 +1406,8 @@ def phase_train_parity(solver: str = "broyden") -> None:
     quasi-Newton pairs, whose last pairs move with f32 rounding, as between
     the two packages in ``tests/test_torch_training.py``)."""
     cfg = smoke_config("minicpm-2b", deq=True)
+    if arch is not None:
+        cfg = _at_head_dim(smoke_config(arch, deq=True), arch)
     cfg = dataclasses.replace(
         cfg, dtype="float32",
         deq=dataclasses.replace(cfg.deq, qn_dtype="float32", solver=solver,
@@ -1271,8 +1437,9 @@ def phase_train_parity(solver: str = "broyden") -> None:
             raise AssertionError(f"train step {i} ({solver}): card "
                                  f"{seen['cuda'][i]} vs CPU "
                                  f"{seen['cpu'][i]}")
-    say("train_parity", config="minicpm-2b smoke f32 (d=64, 2 blocks x0.3, "
-        "ring f32), batch 2 x 16, 3 AdamW steps", solver=solver,
+    say("train_parity", config=f"{cfg.name} smoke f32 (d=64, 2 blocks x0.3, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads x {cfg.head_dim}, ring "
+        "f32), batch 2 x 16, 3 AdamW steps", solver=solver,
         backward="shine_fallback", card=seen["cuda"],
         cpu=seen["cpu"], tol="same solver steps; loss rtol 1e-4; grad norm "
         "rtol 2e-3")
@@ -1331,6 +1498,66 @@ def phase_serve(smi: str) -> tuple[dict, int, dict, object]:
     return counts, len(steps), params, cfg
 
 
+def phase_serve_configs(smi: str) -> dict:
+    """A drain at the full width of each config of ``HEAD_DIM_CONFIGS``
+    (DEQ defaults, random weights from seed 0 with the blocks scaled by
+    0.3, bf16): 2 requests of 128-token prompts over 2 slots, 4 new tokens,
+    a 256-token cache, launch counts reset just before and read just after.
+    Each request must be served in full with no fault and finite logits,
+    and both attention kernels must have launched.  The peak memory is the
+    drain's and its model's, over what the script held before."""
+    out = {}
+    for hd, (arch, _, _) in HEAD_DIM_CONFIGS.items():
+        cfg = get_config(arch, deq=True)
+        base = torch.cuda.memory_allocated()  # what the script holds besides
+        params = _scaled_blocks(lm.init_params(cfg, seed=0, device="cuda"),
+                                0.3)
+        rng = np.random.default_rng(0)
+        loop = ServeLoop(params, cfg, slots=2, max_len=256, record=True)
+        reqs = [Request(uid=i, max_new_tokens=4, prompt=rng.integers(
+            2, cfg.vocab_size, size=128).tolist()) for i in range(2)]
+        ttft = obs_metrics.default_registry().histogram("serve_ttft_ms")
+        ttft0 = (ttft.sum, ttft.count)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        launches.reset()
+        t0 = time.perf_counter()
+        loop.drain(reqs)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = launches.counts()
+        summ = serve_summary(loop, reqs, secs)
+        # this drain's own first tokens (the histogram is the process's)
+        summ["ttft_ms_mean"] = ((ttft.sum - ttft0[0])
+                                / max(ttft.count - ttft0[1], 1))
+        del summ["ttft_ms_max"]
+        for r in reqs:
+            if len(r.out) != r.max_new_tokens or r.error is not None:
+                raise AssertionError(f"{arch} request {r.uid}: "
+                                     f"{len(r.out)} tokens, error {r.error}")
+            if not all(np.isfinite(x).all()
+                       for x in loop.recorded_logits[r.uid]):
+                raise AssertionError(f"{arch} request {r.uid}: non-finite "
+                                     f"logits")
+        missing = [k for k in ("flash_attention", "decode_attention",
+                               "rmsnorm") if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"{arch}: kernels not launched: {missing}")
+        row = out[arch] = dict(
+            head_dim=hd, heads=f"{cfg.num_heads}/{cfg.num_kv_heads}",
+            d_model=cfg.d_model, **summ,
+            peak_mem_gib=(torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+            solve_steps=[(s["phase"], s["steps"]) for s in loop.solve_log],
+            launches={k: n for k, n in counts.items() if n})
+        say("serve_config", config=f"{arch} DEQ (d={cfg.d_model}, "
+            f"{cfg.num_heads}/{cfg.num_kv_heads} heads x {hd}, ff="
+            f"{cfg.d_ff}, vocab {cfg.vocab_size}, 4 blocks x0.3, bf16)",
+            card=smi, **row)
+        del params, loop
+        torch.cuda.empty_cache()
+    return out
+
+
 def _profile_window(fn) -> dict:
     """Run ``fn`` under torch.profiler: wall time, device busy time (sum of
     kernel self time on the one stream), idle share and the top kernels."""
@@ -1378,9 +1605,30 @@ def phase_profile(params, cfg, smi: str) -> None:
 def phase_train(params, cfg, smi: str) -> dict:
     """4 AdamW steps through ``Trainer`` (the ``DEQSettings`` defaults: 12
     Broyden steps to tol 1e-3, bf16 ring of 8, shine_fallback backward),
-    batch 4 x 256 synthetic tokens; one host read of the metrics per step.
-    Then one profiled train step, and the trajectory check
-    (``hold_trajectory``) against the plain attention."""
+    batch 4 x 256 synthetic tokens, metrics on; one host read of the
+    metrics per step, and no other host wait than the solver's
+    (``count_syncs``, ``expected_syncs``); one more step with metrics off,
+    held to the same count.  Then one profiled train step, and the
+    trajectory check (``hold_trajectory``) against the plain attention."""
+    with metrics_on():
+        counts = _phase_train(params, cfg, smi)
+    # a metrics-off step makes the same host waits: the bridge reads nothing
+    tcfg = TrainConfig(steps=1, global_batch=4, seq_len=256,
+                       schedule=cfg.schedule)
+    syncs, fwd, seen = [], [], []
+    with count_syncs(syncs), _record_forward(fwd):
+        Trainer(cfg, tcfg, params=params).run(
+            make_lm_batch_iterator(cfg, 4, 256, seed=0, device="cuda"),
+            steps=1, log_every=1, on_metrics=lambda i, m: seen.append(m))
+    waits = check_syncs("Broyden train step (metrics off)", syncs,
+                        expected_syncs([n for n, _ in fwd],
+                                       cfg.deq.max_steps, 1))
+    say("train_host_waits", metrics="off", forward_steps=[n for n, _ in fwd],
+        host_waits=waits, loss=seen[0]["loss"], card=smi)
+    return counts
+
+
+def _phase_train(params, cfg, smi: str) -> dict:
     nsteps, bsz, seq = 4, 4, 256
     tcfg = TrainConfig(steps=nsteps, global_batch=bsz, seq_len=seq,
                        schedule=cfg.schedule)
@@ -1408,12 +1656,19 @@ def phase_train(params, cfg, smi: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     launches.reset()
+    syncs = []
     mark["t"] = t0 = time.perf_counter()
-    state = trainer.run(batches, steps=nsteps, log_every=1,
-                        on_metrics=on_metrics)
+    with count_syncs(syncs):
+        state = trainer.run(batches, steps=nsteps, log_every=1,
+                            on_metrics=on_metrics)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = launches.counts()
+    waits = check_syncs("Broyden train steps (metrics on)", syncs,
+                        expected_syncs([r["forward_steps"] for r in log],
+                                       cfg.deq.max_steps, nsteps))
+    say("train_host_waits", metrics="on", steps=nsteps, host_waits=waits,
+        card=smi)
     for row in log:
         say("train_step", card=smi, **row)
         if not (np.isfinite(row["loss"]) and np.isfinite(row["grad_norm"])
@@ -1659,14 +1914,15 @@ FULL_WIDTH_SOLVERS = ("adjoint_broyden", "anderson")
 
 
 @contextlib.contextmanager
-def _record_statuses(out: list):
-    """Keep the per-row status of every forward solve made inside the
-    block (``implicit.fixed_point.solve_forward``)."""
+def _record_forward(out: list):
+    """Keep ``(n_steps, per-row status)`` of every forward solve made inside
+    the block (``implicit.fixed_point.solve_forward``), without a host
+    read: the statuses stay on the card until the caller reads them."""
     orig = implicit_fp.solve_forward
 
     def recorded(*args, **kwargs):
         res = orig(*args, **kwargs)
-        out.append(res.status.tolist())
+        out.append((res.n_steps, res.status.clone()))
         return res
 
     with mock.patch.object(implicit_fp, "solve_forward", recorded):
@@ -1719,12 +1975,26 @@ def check_trace_phases(trace: dict, phases=TRAIN_PHASES) -> list[dict]:
     return out
 
 
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
 @contextlib.contextmanager
 def count_syncs(out: list):
     """Note in ``out`` each host wait on the card issued inside the block:
-    ``torch.cuda.synchronize`` and the event's and stream's
-    ``synchronize``."""
-    with contextlib.ExitStack() as stack:
+    the explicit ones (``torch.cuda.synchronize`` and the event's and
+    stream's ``synchronize``) and the implicit ones, which
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports as warnings: a read
+    of a card tensor (``int()``, ``float()``, ``bool()``, ``.item()``,
+    ``.tolist()``, ``.cpu()``), a copy from pageable host memory,
+    ``nonzero`` and masked indexing.  An implicit one is noted with the
+    ``file:line`` that made it; an explicit call is counted once (its own
+    warning, if any, is not).  Without a card there is nothing to set:
+    only the explicit calls and warnings raised by hand are noted."""
+    card = torch.cuda.is_available()
+    prev = torch.cuda.get_sync_debug_mode() if card else None
+    with warnings.catch_warnings(record=True) as caught, \
+            contextlib.ExitStack() as stack:
+        warnings.simplefilter("always")
         for owner, label in ((torch.cuda, "torch.cuda"),
                              (torch.cuda.Event, "Event"),
                              (torch.cuda.Stream, "Stream")):
@@ -1732,24 +2002,78 @@ def count_syncs(out: list):
 
             def counted(*a, _orig=orig, _label=label, **kw):
                 out.append(f"{_label}.synchronize")
-                return _orig(*a, **kw)
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    return _orig(*a, **kw)
 
             stack.enter_context(mock.patch.object(owner, "synchronize",
                                                   counted))
+        if card:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            if card:
+                torch.cuda.set_sync_debug_mode(prev)
+    for w in caught:
+        if SYNC_WARNING in str(w.message):
+            out.append(f"implicit at {os.path.relpath(w.filename, ROOT)}:"
+                       f"{w.lineno}")
+        else:  # not ours: shown as it would have been
+            warnings.warn_explicit(w.message, w.category, w.filename,
+                                   w.lineno)
+
+
+def expected_syncs(forward_steps, max_steps: int, reads: int) -> int:
+    """The host waits a train run makes: per forward solve, the solver's
+    two reads per iteration (``bool(done.all())`` at the top of each,
+    ``bool(do_rs.any())`` after the guard) and one more when the solve
+    stops before its budget (the top check that ends it); then ``reads``,
+    the trainer's one read per log interval, which also lands what the
+    metrics bridge holds.  Nothing else: the backward, the optimizer, the
+    bridge and the tracer read nothing."""
+    return sum(2 * int(n) + (int(n) < max_steps)
+               for n in forward_steps) + reads
+
+
+def check_syncs(name: str, syncs: list, want: int) -> dict:
+    """``syncs`` must hold exactly ``want`` host waits; the message names
+    the sites of the ones counted."""
+    if len(syncs) != want:
+        raise AssertionError(
+            f"{name}: {len(syncs)} host waits on the card, want {want}: "
+            f"{dict(collections.Counter(syncs))}")
+    return dict(collections.Counter(syncs))
+
+
+@contextlib.contextmanager
+def metrics_on():
+    """The metrics bridge on inside the block (the fallback-row and
+    backward counts the phases read come through it), off after."""
+    obs_metrics.set_enabled(True)
+    try:
         yield
+    finally:
+        obs_metrics.default_registry().flush()
+        obs_metrics.set_enabled(False)
 
 
-def traced_train_steps(trainer, batches, steps: int) -> tuple[dict, list]:
+def traced_train_steps(trainer, batches, steps: int, *,
+                       log_every: int | None = None,
+                       forward: list | None = None) -> tuple[dict, list]:
     """``steps`` steps of ``trainer`` with span tracing on and one metrics
-    read at the end, as ``--trace-out`` runs them: the Chrome trace, written
-    to a file and read back, and the host waits on the card issued during
-    the steps (the trace's own resolution at ``write`` comes after)."""
+    read every ``log_every`` steps (default: one at the end), as
+    ``--trace-out`` runs them: the Chrome trace, written to a file and read
+    back, and the host waits on the card issued during the steps
+    (``count_syncs``; the trace's own resolution at ``write`` comes after).
+    ``forward`` receives each forward solve's ``(n_steps, status)``."""
     syncs = []
     obs_tracing.clear()
     obs_tracing.set_enabled(True)
     try:
-        with count_syncs(syncs):
-            trainer.run(batches, steps=steps, log_every=steps,
+        with count_syncs(syncs), _record_forward(
+                [] if forward is None else forward):
+            trainer.run(batches, steps=steps, log_every=log_every or steps,
                         on_metrics=lambda i, m: None)
         with tempfile.TemporaryDirectory() as d:
             path = os.path.join(d, "trace.json")
@@ -1768,8 +2092,10 @@ def phase_train_solvers(params, cfg, smi: str) -> dict:
     defaults, ``shine_fallback`` backward; the weights of ``phase_train``),
     launch counts reset just before each arm and read just after, then one
     profiled step.  Fails on a non-finite loss, on an adjoint-Broyden arm
-    that launched no ``qn_apply_multi``, and on any launch of an OFF_PATH
-    kernel.  Returns each arm's launch counts."""
+    that launched no ``qn_apply_multi``, on any launch of an OFF_PATH
+    kernel, and on any host wait besides the solver's and the interval
+    reads (``expected_syncs``), untraced with metrics on and traced with
+    metrics off.  Returns each arm's launch counts."""
     nsteps, bsz, seq = 2, 4, 256
     reg = obs_metrics.default_registry()
     out = {}
@@ -1799,14 +2125,19 @@ def phase_train_solvers(params, cfg, smi: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         launches.reset()
         mark["t"] = time.perf_counter()
-        with _record_statuses(statuses):
+        syncs = []
+        with metrics_on(), count_syncs(syncs), _record_forward(statuses):
             state = trainer.run(batches, steps=nsteps, log_every=1,
                                 on_metrics=on_metrics)
         torch.cuda.synchronize()
         counts = launches.counts()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        for row, st in zip(log, statuses):
-            row["statuses"] = st
+        max_steps = scfg.deq.max_steps
+        untraced = check_syncs(
+            f"{solver} steps (metrics on)", syncs,
+            expected_syncs([n for n, _ in statuses], max_steps, nsteps))
+        for row, (_, st) in zip(log, statuses):
+            row["statuses"] = st.tolist()
             say("train_solver_step", solver=solver, card=smi, **row)
             if not (np.isfinite(row["loss"])
                     and np.isfinite(row["grad_norm"])):
@@ -1822,13 +2153,21 @@ def phase_train_solvers(params, cfg, smi: str) -> dict:
         if off:
             raise AssertionError(f"{solver} arm launched off-path kernels "
                                  f"{off}")
-        # the same steps traced: the phases tile each train_step span, and
-        # tracing adds no host wait
-        trace, syncs = traced_train_steps(trainer, batches, nsteps)
-        if syncs:
-            raise AssertionError(f"{solver}: the traced steps waited on the "
-                                 f"card: {syncs}")
-        say("train_solver_trace", solver=solver, card=smi, host_waits=0,
+        # the same steps traced, with metrics off: the phases tile each
+        # train_step span, and tracing adds no host wait: as many as the
+        # untraced steps, the solver's and the interval reads
+        fwd = []
+        trace, syncs = traced_train_steps(trainer, batches, nsteps,
+                                          log_every=1, forward=fwd)
+        traced = check_syncs(
+            f"{solver} traced steps (metrics off)", syncs,
+            expected_syncs([n for n, _ in fwd], max_steps, nsteps))
+        if [n for n, _ in fwd] == [n for n, _ in statuses] and \
+                sum(traced.values()) != sum(untraced.values()):
+            raise AssertionError(f"{solver}: traced {traced} vs untraced "
+                                 f"{untraced} host waits")
+        say("train_solver_trace", solver=solver, card=smi,
+            host_waits_untraced=untraced, host_waits_traced=traced,
             steps_ms=check_trace_phases(trace))
         step_fn = train_steps.build_train_step(scfg, tcfg)
         batch = next(batches)
@@ -1860,6 +2199,10 @@ def main() -> int:
     for solver in ("adjoint_broyden", "anderson", "fixed_point"):
         phase_train_parity(solver)
     phase_parity("anderson")
+    for arch, _, _ in HEAD_DIM_CONFIGS.values():
+        phase_parity(arch=arch)
+        phase_train_parity(arch=arch)
+    drains = phase_serve_configs(smi)
     serve_counts, n_solves, params, cfg = phase_serve(smi)
     phase_profile(params, cfg, smi)
     train_counts = phase_train(params, cfg, smi)
@@ -1888,7 +2231,8 @@ def main() -> int:
                                     "decode_device_ms", "decode_bound_ms",
                                     "decode_launches_per_call",
                                     "composition_device_ms") if k in r},
-               **{k: v for k, v in r.items() if k.startswith("adjoint_")}}
+               **{k: v for k, v in r.items() if k.startswith("adjoint_")},
+               **{k: r[k] for k in ("head_dims", "shapes") if k in r}}
         if name in OFF_PATH:
             if row["launches"]:
                 raise AssertionError(f"{name} launched on a path")
@@ -1896,6 +2240,9 @@ def main() -> int:
                            "the ops and LowRank methods); checked in "
                            "phase 2")
         rows.append(row)
+    say("serve_configs", drains={k: {f: v[f] for f in (
+        "head_dim", "tokens", "tok_per_s", "peak_mem_gib")}
+        for k, v in drains.items()})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

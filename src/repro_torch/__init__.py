@@ -5,7 +5,7 @@ The JAX package ``repro`` is the reference; this package mirrors its layout
 (``configs``, ``kernels``, ``core``, ``obs``, ``implicit``, ``models``,
 ``runtime``, ``launch``) and imports nothing of it.  Plain tensor code is
 PyTorch; every Pallas TPU kernel on the ported path is a hand-written
-Hopper kernel (CUDA C++ under ``csrc/``, Triton for rmsnorm) with a plain
+Hopper kernel (CUDA C++ under ``csrc/``) with a plain
 PyTorch version beside it that CPU tensors take.
 
 Ported so far, for the dense LM family: DEQ serving (``launch/serve.py``

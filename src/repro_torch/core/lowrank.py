@@ -48,7 +48,8 @@ class LowRank:
                  device: torch.device | str = "cpu") -> "LowRank":
         feat = (feat,) if isinstance(feat, int) else tuple(feat)
         return LowRank(
-            alpha=torch.tensor(alpha, dtype=torch.float32, device=device),
+            # a fill on the device, not a copy from the host (which waits)
+            alpha=torch.full((), alpha, dtype=torch.float32, device=device),
             u=torch.zeros((memory, batch) + feat, dtype=dtype, device=device),
             v=torch.zeros((memory, batch) + feat, dtype=dtype, device=device),
             count=torch.zeros((batch,), dtype=torch.int32, device=device),

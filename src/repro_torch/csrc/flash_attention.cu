@@ -7,7 +7,8 @@
 // Semantics carried over from the Pallas kernel and the oracle
 // (repro/kernels/ref.py attention_ref), on every path below:
 //   * f32 scores (scale applied in f32; at head dims 16 and 64 the scale is a
-//     power of two, so this equals the Pallas kernel's scaling of q), online
+//     power of two, so this equals the Pallas kernel's scaling of q; at 80,
+//     96 and 128 the two round differently, within the f32 tolerance), online
 //     softmax with f32 running max, denominator and accumulator;
 //   * GQA: query head h reads kv head h / (H / KV);
 //   * per-row kv_length mask and a causal mask kpos <= qpos (query row s
@@ -32,11 +33,14 @@
 //     tile of one (b, h), 16 rows per warp; grid (H, B, ceil(S/64)) with the
 //     q-block index reversed, so that the q-blocks holding the most key tiles
 //     (the last rows under the causal mask) of every head are dispatched
-//     first and the lightest form the tail.  Q is loaded once into ldmatrix
+//     first and the lightest form the tail (struct Mma: the shape per head
+//     dim).  Q is loaded once into ldmatrix
 //     A-fragments held in registers.  K/V stream through a 2-stage ring of
 //     bf16 key tiles in shared memory (32 keys at hd 64, 64 at hd 16),
 //     filled by 16-byte cp.async copies (zero-fill past the live keys), so
-//     that tile j+1 loads while tile j computes; rows are padded by 16 bytes
+//     that tile j+1 loads while tile j computes (at hd 80 and 96, 10 or 12
+//     chunks a row, the CTA walks rows x chunks with a stride of 128 threads);
+//     rows are padded by 16 bytes
 //     so ldmatrix is free of bank conflicts.  Both products run on the tensor
 //     cores (mma.sync m16n8k16 bf16 -> f32): S = Q K^T from ldmatrix K
 //     fragments, the online softmax on the accumulator fragments (a row
@@ -44,19 +48,24 @@
 //     P converted to bf16 A-fragments in registers, O += P V from
 //     ldmatrix.trans V fragments.  Masks are applied only on the tiles that
 //     need them.  The epilogue stages O through the warp's own Q rows in
-//     shared memory and stores 16-byte rows.  Registers are capped at 128 a
-//     thread (4 CTAs per SM), which the 32-key tile meets without spills.
+//     shared memory and stores 16-byte rows.  Registers are capped per head
+//     dim (the O accumulator is HD / 2 f32 a thread): 128 a thread (4 CTAs
+//     per SM) up to hd 64, 170 (3) at 80 and 96, 255 (2) at 128, where the
+//     tiles also take 51 KB of dynamic shared memory.
 //   * decode, split-K flash-decode in two launches: decode_split_kernel,
 //     grid (ceil(T/128), KV, B) -- the grid comes from T, never from
 //     kv_length, which lives on the device -- takes the H/KV query rows of
 //     one kv head over a 128-key chunk, so K/V is read once per group,
-//     16 bytes per lane (8 lanes per 64-dim row), and writes an f32 partial
+//     16 bytes per lane (8 lanes per 64-dim row; 10 or 12 of a group of 16
+//     at hd 80 and 96, struct Dec), and writes an f32 partial
 //     (m, l, acc[hd]) per row (an empty one, l = 0, past the row's live
 //     keys); decode_combine_kernel, grid (H, B), merges the partials.  This
 //     part is bandwidth-bound, so it stays on the FMA pipes.
 // Float32 inputs (the card-vs-CPU parity checks at smoke widths) take the
 // FMA body flash_fwd_f32_kernel, one query row per thread pair (prefill) or
-// one row per block (decode): TF32 products would break those checks.
+// one row per block (decode): TF32 products would break those checks.  It
+// keeps a row's q and accumulator in registers, so at hd 128 it spills
+// (ptxas reports how much); it is right, and off the paths' bf16.
 //
 // Left for later: wgmma (mma.sync keeps the causal product below the byte
 // bound at these shapes), two 16-row m-tiles per warp for long prompts (each
@@ -297,28 +306,45 @@ __device__ __forceinline__ void unpack8(const uint4& w, float (&f)[8]) {
 // bf16 prefill: tensor-core flash-attention forward
 // ---------------------------------------------------------------------------
 
+// The prefill kernel's shape per head dim: BK keys per K/V tile (one tile of
+// 32 keys at hd 16 is less than one 16-byte copy per thread), MINB CTAs per
+// SM the registers are capped for (the O accumulator is HD / 2 f32 a thread:
+// 128 registers hold it without spills up to hd 64, 170 up to 96, 255 at
+// 128), SMEM bytes of dynamic shared memory (Q, then 2 stages of K and V;
+// over 48 KB at hd 128).
+template <int HD> struct Mma {
+  static constexpr int BQ = 64, STAGES = 2;
+  static constexpr int BK = HD >= 32 ? 32 : 64;
+  static constexpr int MINB = HD <= 64 ? 4 : (HD <= 96 ? 3 : 2);
+  static constexpr int LD = HD + 8;  // shared row stride (elements): +16 B, ldmatrix conflict-free
+  static constexpr int SMEM = (BQ + 2 * STAGES * BK) * LD * 2;
+};
+
 // A CTA of 4 warps owns a 64-row query tile of one (b, h), 16 rows per warp;
-// BK keys per K/V tile, in a 2-stage ring.  At most 128 registers a thread
-// (4 CTAs per SM): at hd 64 that needs no spill with BK = 32.
-template <int HD, int BK>
-__global__ void __launch_bounds__(128, 4)
+// BK keys per K/V tile, in a 2-stage ring.
+template <int HD>
+__global__ void __launch_bounds__(128, Mma<HD>::MINB)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
                      const int* __restrict__ kv_len, __nv_bfloat16* __restrict__ out,
                      int S, int Tk, int H, int KV, float scale, int causal) {
-  constexpr int BQ = 64, STAGES = 2;
-  constexpr int LD = HD + 8;   // shared row stride (elements): +16 B, ldmatrix conflict-free
+  constexpr int BQ = Mma<HD>::BQ, STAGES = Mma<HD>::STAGES, BK = Mma<HD>::BK;
+  constexpr int LD = Mma<HD>::LD;
   constexpr int CPR = HD / 8;  // 16-byte chunks per row
   constexpr int KSTEPS = HD / 16;  // k-steps of Q K^T
   constexpr int NT = BK / 8;       // 8-key n-tiles of S
   constexpr int DT = HD / 8;       // 8-dim n-tiles of O
-  constexpr int RSTEP = 128 / CPR;  // rows between one thread's 16-byte copies
+  // EVEN: a thread copies one 16-byte column of rows RSTEP apart (CPR
+  // divides the CTA: hd 16, 64, 128); else (hd 80, 96: 10 or 12 chunks a
+  // row) the CTA walks the tile's rows x CPR chunks with a stride of 128
+  constexpr bool EVEN = 128 % CPR == 0 && BK % (128 / CPR) == 0;
+  constexpr int RSTEP = EVEN ? 128 / CPR : 1;  // rows between one thread's copies
   static_assert(HD % 16 == 0 && BK % 16 == 0, "head dim and key tile: multiples of 16");
-  static_assert(128 % CPR == 0 && BK % RSTEP == 0, "tile not a multiple of the CTA");
-  __shared__ __align__(128) __nv_bfloat16 qs[BQ * LD];
-  __shared__ __align__(128) __nv_bfloat16 ks[STAGES * BK * LD];
-  __shared__ __align__(128) __nv_bfloat16 vs[STAGES * BK * LD];
+  extern __shared__ __align__(128) unsigned char fa_smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(fa_smem);
+  __nv_bfloat16* ks = qs + BQ * LD;
+  __nv_bfloat16* vs = ks + STAGES * BK * LD;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int h = blockIdx.x, b = blockIdx.y;
@@ -340,31 +366,55 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   // ...: its source pointers advance one tile of keys per issue, its shared
   // addresses cycle over the stages.  Rows past S (Q) or past `limit` (K/V)
   // take the zero-fill form (src-size 0): nothing is read.
-  const int crow = tid / CPR, ccol = (tid % CPR) * 8;
+  const int crow = EVEN ? tid / CPR : 0, ccol = EVEN ? (tid % CPR) * 8 : 0;
+  const __nv_bfloat16* qg = q + (((long long)b * S + r0) * H + h) * HD;
+  if constexpr (EVEN) {
 #pragma unroll
-  for (int i = 0; i < BQ / RSTEP; ++i) {
-    const int r = crow + i * RSTEP;
-    cp_async16(smem_u32(&qs[r * LD + ccol]),
-               q + (((long long)b * S + r0 + r) * H + h) * HD + ccol, r0 + r < S);
+    for (int i = 0; i < BQ / RSTEP; ++i) {
+      const int r = crow + i * RSTEP;
+      cp_async16(smem_u32(&qs[r * LD + ccol]), qg + (long long)r * H * HD + ccol, r0 + r < S);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < (BQ * CPR + 127) / 128; ++i) {
+      const int c = tid + i * 128, r = c / CPR, col = (c % CPR) * 8;
+      if (c < BQ * CPR)
+        cp_async16(smem_u32(&qs[r * LD + col]), qg + (long long)r * H * HD + col, r0 + r < S);
+    }
   }
   const long long rstep = RSTEP * kv_stride;
-  const __nv_bfloat16* kg = k + ((long long)b * Tk * KV + kvh) * HD + crow * kv_stride + ccol;
-  const __nv_bfloat16* vg = v + ((long long)b * Tk * KV + kvh) * HD + crow * kv_stride + ccol;
+  const long long kv0 = ((long long)b * Tk * KV + kvh) * HD;
+  const __nv_bfloat16* kg = k + kv0 + crow * kv_stride + ccol;
+  const __nv_bfloat16* vg = v + kv0 + crow * kv_stride + ccol;
   const uint32_t ks_dst = smem_u32(&ks[crow * LD + ccol]);
   const uint32_t vs_dst = smem_u32(&vs[crow * LD + ccol]);
   auto issue = [&](int tile) {  // tile's K and V into its stage: one commit group
     if (tile < n_tiles) {
-      const int r = tile * BK + crow;
       const uint32_t st = (tile % STAGES) * BK * LD * 2;
+      if constexpr (EVEN) {
+        const int r = tile * BK + crow;
 #pragma unroll
-      for (int i = 0; i < BK / RSTEP; ++i) {
-        const bool ok = r + i * RSTEP < limit;
-        const uint32_t so = st + i * RSTEP * LD * 2;
-        cp_async16(ks_dst + so, kg + i * rstep, ok);
-        cp_async16(vs_dst + so, vg + i * rstep, ok);
+        for (int i = 0; i < BK / RSTEP; ++i) {
+          const bool ok = r + i * RSTEP < limit;
+          const uint32_t so = st + i * RSTEP * LD * 2;
+          cp_async16(ks_dst + so, kg + i * rstep, ok);
+          cp_async16(vs_dst + so, vg + i * rstep, ok);
+        }
+        kg += BK * kv_stride;
+        vg += BK * kv_stride;
+      } else {
+#pragma unroll
+        for (int i = 0; i < (BK * CPR + 127) / 128; ++i) {
+          const int c = tid + i * 128, r = c / CPR, col = (c % CPR) * 8;
+          if (c < BK * CPR) {
+            const int key = tile * BK + r;
+            const long long off = kv0 + key * kv_stride + col;
+            const uint32_t so = st + (r * LD + col) * 2;
+            cp_async16(ks_dst + so, k + off, key < limit);
+            cp_async16(vs_dst + so, v + off, key < limit);
+          }
+        }
       }
-      kg += BK * kv_stride;
-      vg += BK * kv_stride;
     }
     cp_async_commit();
   };
@@ -398,18 +448,17 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int nt = 0; nt < NT; ++nt) {
       sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
       const int key = nt * 8 + (lane & 7);
-      if constexpr (KSTEPS >= 2) {
 #pragma unroll
-        for (int kp = 0; kp < KSTEPS / 2; ++kp) {
-          uint32_t bf[4];
-          ldsm_x4(bf, smem_u32(&kt[key * LD + kp * 32 + (lane >> 3) * 8]));
-          mma_bf16(sc[nt], qa[2 * kp], bf[0], bf[1]);
-          mma_bf16(sc[nt], qa[2 * kp + 1], bf[2], bf[3]);
-        }
-      } else {
+      for (int kp = 0; kp < KSTEPS / 2; ++kp) {
+        uint32_t bf[4];
+        ldsm_x4(bf, smem_u32(&kt[key * LD + kp * 32 + (lane >> 3) * 8]));
+        mma_bf16(sc[nt], qa[2 * kp], bf[0], bf[1]);
+        mma_bf16(sc[nt], qa[2 * kp + 1], bf[2], bf[3]);
+      }
+      if constexpr (KSTEPS % 2) {  // hd 16 and 80: one k-step left
         uint32_t bf[2];
-        ldsm_x2(bf, smem_u32(&kt[key * LD + ((lane >> 3) & 1) * 8]));
-        mma_bf16(sc[nt], qa[0], bf[0], bf[1]);
+        ldsm_x2(bf, smem_u32(&kt[key * LD + (KSTEPS - 1) * 16 + ((lane >> 3) & 1) * 8]));
+        mma_bf16(sc[nt], qa[KSTEPS - 1], bf[0], bf[1]);
       }
     }
 
@@ -518,22 +567,36 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // bf16 decode: split-K flash-decode (split launch, then combine launch)
 // ---------------------------------------------------------------------------
 
+// The decode split kernel's shape per head dim: a key row is LPR = HD / 8
+// 16-byte chunks, held by a group of LP lanes (LPR rounded up to a power of
+// two, so that a row's dot product and the key groups of a warp reduce by
+// xor shuffles; at hd 80 and 96 the lanes past LPR hold nothing); NKG key
+// groups of LP lanes, KPT keys a thread, NTH threads in NW warps (256 at
+// LP 16, so that a thread's keys stay at 8: 64 registers of K and V).
+template <int HD> struct Dec {
+  static constexpr int LPR = HD / 8;
+  static constexpr int LP = LPR <= 2 ? 2 : LPR <= 4 ? 4 : LPR <= 8 ? 8 : 16;
+  static constexpr int NTH = LP * 16 > 128 ? LP * 16 : 128;
+  static constexpr int NKG = NTH / LP;
+  static constexpr int KPT = kDecodeChunk / NKG;
+  static constexpr int NW = NTH / 32;
+};
+
 // Partials: (B, H, n_chunks, HD + 2) f32, each (m, l, acc[HD]) with acc
 // unnormalized; an empty partial (chunk past the row's live keys) is
 // (kEmpty, 0) and its acc is never read.
 template <int HD>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(Dec<HD>::NTH)
 decode_split_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
                     const int* __restrict__ kv_len, float* __restrict__ part, int Tk,
                     int H, int KV, float scale) {
-  constexpr int LPR = HD / 8;                // lanes per key row: 16 B each
-  constexpr int NKG = 128 / LPR;             // key groups of the CTA
-  constexpr int KPT = kDecodeChunk / NKG;    // keys per thread
+  constexpr int LPR = Dec<HD>::LPR, LP = Dec<HD>::LP, NTH = Dec<HD>::NTH;
+  constexpr int NKG = Dec<HD>::NKG, KPT = Dec<HD>::KPT, NW = Dec<HD>::NW;
   constexpr int PS = HD + 2;
-  static_assert(LPR >= 1 && LPR <= 32 && KPT >= 1, "head dim out of range");
-  __shared__ float red[2][4][PS];
+  static_assert(LPR >= 1 && LPR <= LP && KPT >= 1 && PS <= NTH, "head dim out of range");
+  __shared__ float red[2][NW][PS];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int chunk = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
@@ -544,14 +607,15 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
   const long long row_stride = (long long)n_chunks * PS;  // between query rows
   float* pb = part + ((long long)b * H + kvh * G) * row_stride + chunk * PS;
   if (t0 >= limit) {
-    for (int g = tid; g < G; g += 128) {
+    for (int g = tid; g < G; g += NTH) {
       pb[g * row_stride] = kEmpty;
       pb[g * row_stride + 1] = 0.f;
     }
     return;
   }
 
-  const int li = tid % LPR, kg = tid / LPR;
+  const int li = tid % LP, kg = tid / LP;
+  const bool row_lane = li < LPR;  // holds a 16-byte chunk of the row
   const long long kv_stride = (long long)KV * HD;
   const long long base = ((long long)b * Tk * KV + kvh) * HD + li * 8;
   uint4 kr[KPT], vr[KPT];
@@ -559,7 +623,7 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
   for (int i = 0; i < KPT; ++i) {
     const int t = t0 + kg + i * NKG;
     kr[i] = vr[i] = make_uint4(0u, 0u, 0u, 0u);
-    if (t < limit) {
+    if (row_lane && t < limit) {
       kr[i] = __ldg(reinterpret_cast<const uint4*>(k + base + t * kv_stride));
       vr[i] = __ldg(reinterpret_cast<const uint4*>(v + base + t * kv_stride));
     }
@@ -568,7 +632,9 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
   for (int g = 0; g < G; ++g) {
     const int h = kvh * G + g;
     float qf[8];
-    unpack8(__ldg(reinterpret_cast<const uint4*>(q + ((long long)b * H + h) * HD + li * 8)),
+    unpack8(row_lane ? __ldg(reinterpret_cast<const uint4*>(q + ((long long)b * H + h) * HD +
+                                                            li * 8))
+                     : make_uint4(0u, 0u, 0u, 0u),
             qf);
 #pragma unroll
     for (int e = 0; e < 8; ++e) qf[e] *= scale;
@@ -582,7 +648,7 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 8; ++e) dot = fmaf(qf[e], kf[e], dot);
 #pragma unroll
-      for (int off = LPR / 2; off > 0; off >>= 1)
+      for (int off = LP / 2; off > 0; off >>= 1)
         dot += __shfl_xor_sync(0xffffffffu, dot, off);
       s[i] = len >= 1 ? dot : kNegInf;
       if (t0 + kg + i * NKG < limit) m = fmaxf(m, s[i]);
@@ -601,7 +667,7 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
     }
     // merge the warp's key groups (lanes that differ above the row lanes)
 #pragma unroll
-    for (int off = LPR; off < 32; off <<= 1) {
+    for (int off = LP; off < 32; off <<= 1) {
       const float m_o = __shfl_xor_sync(0xffffffffu, m, off);
       const float l_o = __shfl_xor_sync(0xffffffffu, l, off);
       const float m_n = fmaxf(m, m_o);
@@ -612,7 +678,7 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
         acc[e] = acc[e] * c1 + __shfl_xor_sync(0xffffffffu, acc[e], off) * c2;
       m = m_n;
     }
-    // then the 4 warps, through shared memory (double-buffered by g)
+    // then the NW warps, through shared memory (double-buffered by g)
     float* rw = red[g & 1][warp];
     if (lane < LPR) {
       if (lane == 0) {
@@ -625,24 +691,30 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();
     if (tid < PS) {
       const float(*rd)[PS] = red[g & 1];
-      const float mm = fmaxf(fmaxf(rd[0][0], rd[1][0]), fmaxf(rd[2][0], rd[3][0]));
+      float mm = rd[0][0];
+#pragma unroll
+      for (int w = 1; w < NW; ++w) mm = fmaxf(mm, rd[w][0]);
       float val = mm;
       if (tid >= 1) {
         val = 0.f;
 #pragma unroll
-        for (int w = 0; w < 4; ++w) val += expf(rd[w][0] - mm) * rd[w][tid];
+        for (int w = 0; w < NW; ++w) val += expf(rd[w][0] - mm) * rd[w][tid];
       }
       pb[g * row_stride + tid] = val;
     }
   }
 }
 
+// One block of whole warps per (h, b), one thread per output dim.
+template <int HD> constexpr int combine_threads() { return (HD + 31) / 32 * 32; }
+
 template <int HD>
-__global__ void __launch_bounds__(HD)
+__global__ void __launch_bounds__(combine_threads<HD>())
 decode_combine_kernel(const float* __restrict__ part, __nv_bfloat16* __restrict__ out,
                       int H, int n_chunks) {
   constexpr int PS = HD + 2;
   const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
+  if (d >= HD) return;
   const float* p = part + ((long long)b * H + h) * n_chunks * PS;
   float mm = kEmpty;
   for (int c = 0; c < n_chunks; ++c)
@@ -686,20 +758,24 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const int* 
                         float scale, int causal, int decode, cudaStream_t st) {
   using bf = __nv_bfloat16;
   if (!decode) {
-    // key tiles of 32 at hd 64 (64 at hd 16, where one tile of 32 is less
-    // than one 16-byte copy per thread)
-    constexpr int BK = HD >= 32 ? 32 : 64;
-    flash_fwd_mma_kernel<HD, BK><<<dim3(H, B, (S + 63) / 64), 128, 0, st>>>(
+    constexpr int smem = Mma<HD>::SMEM;
+    if (smem > 48 * 1024) {  // past the static limit: opt in to more
+      const cudaError_t err = cudaFuncSetAttribute(
+          flash_fwd_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return err;
+    }
+    flash_fwd_mma_kernel<HD><<<dim3(H, B, (S + Mma<HD>::BQ - 1) / Mma<HD>::BQ), 128, smem, st>>>(
         (const bf*)q, (const bf*)k, (const bf*)v, kv_len, (bf*)out, S, Tk, H, KV, scale,
         causal);
     return cudaGetLastError();
   }
   const int n_chunks = (Tk + kDecodeChunk - 1) / kDecodeChunk;
-  decode_split_kernel<HD><<<dim3(n_chunks, KV, B), 128, 0, st>>>(
+  decode_split_kernel<HD><<<dim3(n_chunks, KV, B), Dec<HD>::NTH, 0, st>>>(
       (const bf*)q, (const bf*)k, (const bf*)v, kv_len, partial, Tk, H, KV, scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_combine_kernel<HD><<<dim3(H, B), HD, 0, st>>>(partial, (bf*)out, H, n_chunks);
+  decode_combine_kernel<HD><<<dim3(H, B), combine_threads<HD>(), 0, st>>>(partial, (bf*)out, H,
+                                                                      n_chunks);
   return cudaGetLastError();
 }
 
@@ -722,21 +798,24 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   if (bf16 && decode &&
       (partial == nullptr || chunk != kDecodeChunk || S != 1 || causal))
     return (int)cudaErrorInvalidValue;
-  // the head dims this slice serves: 16 (smoke configs), 64 (MiniCPM-2B)
+  // the registry's head dims: 16 (smoke configs), 64 (MiniCPM-2B), 80
+  // (StableLM-3B), 96 (Phi-3-mini), 128 (InternLM2-20B)
+#define FA_CASE(D)                                                                      \
+  case D:                                                                               \
+    return bf16 ? (int)launch_bf16<D>(q, k, v, kv_len, out, partial, B, S, Tk, H, KV,    \
+                                      scale, causal, decode, st)                        \
+                : (int)launch_f32<D>(q, k, v, kv_len, out, B, S, Tk, H, KV, scale, causal, \
+                                     decode, st);
   switch (HD) {
-    case 16:
-      return bf16 ? (int)launch_bf16<16>(q, k, v, kv_len, out, partial, B, S, Tk, H, KV,
-                                         scale, causal, decode, st)
-                  : (int)launch_f32<16>(q, k, v, kv_len, out, B, S, Tk, H, KV, scale,
-                                        causal, decode, st);
-    case 64:
-      return bf16 ? (int)launch_bf16<64>(q, k, v, kv_len, out, partial, B, S, Tk, H, KV,
-                                         scale, causal, decode, st)
-                  : (int)launch_f32<64>(q, k, v, kv_len, out, B, S, Tk, H, KV, scale,
-                                        causal, decode, st);
+    FA_CASE(16)
+    FA_CASE(64)
+    FA_CASE(80)
+    FA_CASE(96)
+    FA_CASE(128)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef FA_CASE
 }
 
 }  // extern "C"

@@ -4,7 +4,8 @@ The port of ``repro/data/pipeline.py``: the same counter-mode recipe in
 numpy, so both packages draw the same batches, placed on the given device.
 Batch ``i`` depends only on ``(seed, i)``, so a restarted run resumes its
 stream by starting at the restored step.  A batch is one small numpy draw
-on the host, so there is no prefetch thread (and no ``close``).
+on the host, so there is no prefetch thread (and no ``close``); it goes
+to the card through pinned memory, without a host wait.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_device
 
 
 class SyntheticTokenDataset:
@@ -51,8 +52,8 @@ class _Batches:
         toks = torch.from_numpy(self.ds.batch(self.i, self.batch,
                                               self.seq + 1))
         self.i += 1
-        return {"tokens": toks[:, :-1].to(self.device),
-                "targets": toks[:, 1:].to(self.device)}
+        return {"tokens": to_device(toks[:, :-1], self.device),
+                "targets": to_device(toks[:, 1:], self.device)}
 
 
 def make_lm_batch_iterator(cfg: ModelConfig, batch: int, seq: int, *,

@@ -22,3 +22,12 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor on ``device`` without a host wait: on the card it goes
+    through pinned memory with a non-blocking copy (a copy from pageable
+    memory waits for the card to drain its queue first)."""
+    if device.type != "cuda":
+        return t.to(device)
+    return t.contiguous().pin_memory().to(device, non_blocking=True)

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.core.lowrank import LowRank, _expand
 from repro_torch.core.solvers import SolveCarry, reset_carry_rows
+from repro_torch.device import to_device
 from repro_torch.implicit.config import ImplicitConfig
 from repro_torch.implicit.fixed_point import (
     ImplicitStats,
@@ -61,6 +62,7 @@ def batched_solve(
         z = torch.where(_expand(valid, z), z, z0_flat)
     stats = ImplicitStats(res.residual, res.n_steps, res.converged,
                           res.trace, res.tape, res.status)
+    obs_metrics.record_solve("serve", res, carry=carry)
     if carry is None:
         return unravel(z), stats
     return unravel(z), stats, res.carry
@@ -73,8 +75,8 @@ def write_carry_rows(dst: SolveCarry, src: SolveCarry,
     place: ``dst``'s buffers are updated and a carry sharing them is
     returned."""
     dev = dst.z.device
-    sl = torch.as_tensor(list(slots), dtype=torch.long, device=dev)
-    rw = torch.as_tensor(list(rows), dtype=torch.long, device=dev)
+    sl = to_device(torch.as_tensor(list(slots), dtype=torch.long), dev)
+    rw = to_device(torch.as_tensor(list(rows), dtype=torch.long), dev)
     lr_d, lr_s = dst.lowrank, src.lowrank
     dst.z[sl] = src.z[rw].to(dst.z.dtype)
     lr_d.u[:, sl] = lr_s.u[:, rw].to(lr_d.u.dtype)

@@ -12,9 +12,12 @@ Theorem 1's hypergradient with the registered cotangent estimator
     copied -- nothing writes to it between the forward and the backward;
   * the backward evaluates ``f`` once at ``z*`` under autograd and reuses
     that graph for every VJP the estimator asks for;
-  * non-finite cotangent rows are zeroed (and counted in
+  * non-finite cotangent rows are zeroed (and, with metrics on, counted in
     ``backward_cotangents_zeroed_total``) so one poisoned sample cannot NaN
     the whole batch's gradient;
+  * with metrics on, the forward solve and the backward estimate are
+    recorded (``obs_metrics.record_solve("forward", ...)``,
+    ``record_backward``) without a host read of their own;
   * the cotangent flows to ``params`` and ``x``; ``z0`` and the carry get
     none (a warm start never perturbs the gradient);
   * ``outer_grad(params, x, z) -> dL/dz``, bound per call, reaches the
@@ -163,8 +166,8 @@ class _ImplicitFn(torch.autograd.Function):
         row_ok = torch.isfinite(u).reshape(u.shape[0], -1).all(dim=1)
         u = torch.where(_expand(row_ok, u), u,
                         torch.zeros((), dtype=u.dtype, device=u.device))
-        obs_metrics.default_registry().counter(
-            "backward_cotangents_zeroed_total").inc(int((~row_ok).sum()))
+        obs_metrics.emit_scalar("backward_cotangents_zeroed_total",
+                                (~row_ok).sum(), kind="counter")
         wanted = [i for i, t in enumerate(leaves)
                   if isinstance(t, torch.Tensor) and t.requires_grad]
         grads = torch.autograd.grad(y, [leaves[i] for i in wanted],
@@ -217,6 +220,7 @@ def implicit_fixed_point(
                                                             params, x),
                                 carry=carry)
         z = res.z
+    obs_metrics.record_solve("forward", res, carry=carry)
     stats = ImplicitStats(res.residual, res.n_steps, res.converged,
                           res.trace, res.tape, res.status)
     if carry is None:

@@ -29,7 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-split-compile=0")
-SOURCES = ("qn_apply", "flash_attention")
+SOURCES = ("qn_apply", "flash_attention", "rmsnorm")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -62,6 +62,10 @@ SIGNATURES: dict[str, dict[str, list]] = {
         # decode, bf16, chunk, stream
         "flash_attention_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                    _I, _I, _F, _I, _I, _I, _I, _P],
+    },
+    "rmsnorm": {
+        # x, w, out, rows, D, eps, bf16, per, wpr, n_cta, threads, stream
+        "rmsnorm_launch": [_P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _I, _P],
     },
 }
 

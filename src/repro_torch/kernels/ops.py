@@ -39,7 +39,7 @@ import torch
 from repro_torch.kernels import flash_attention as cuda_fa
 from repro_torch.kernels import qn_apply as cuda_qn
 from repro_torch.kernels import ref
-from repro_torch.kernels import rmsnorm as triton_rms
+from repro_torch.kernels import rmsnorm as cuda_rms
 from repro_torch.obs import metrics as obs_metrics
 
 
@@ -270,7 +270,7 @@ class _RMSNorm(torch.autograd.Function):
 def _rmsnorm_fwd(x, w, eps):
     if not _on_card(x, w):
         return ref.rmsnorm_ref(x, w, eps)
-    return triton_rms.rmsnorm(x.contiguous(), w, eps)
+    return cuda_rms.rmsnorm(x.contiguous(), w, eps)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor,

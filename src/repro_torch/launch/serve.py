@@ -19,8 +19,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import json
-import os
 import time
 
 import numpy as np
@@ -124,11 +122,7 @@ def main(argv=None) -> None:
     for r in reqs[:4]:
         print(f"  req {r.uid}: prompt[{len(r.prompt)}] -> {r.out}")
     if args.metrics_out:
-        d = os.path.dirname(args.metrics_out)
-        if d:
-            os.makedirs(d, exist_ok=True)
-        with open(args.metrics_out, "w") as fh:
-            json.dump(obs_metrics.snapshot(), fh, indent=1, sort_keys=True)
+        obs_metrics.default_registry().write_json(args.metrics_out)
         print(f"metrics snapshot -> {args.metrics_out}")
     if flusher is not None:
         flusher.stop()

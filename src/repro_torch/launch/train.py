@@ -17,9 +17,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import json
 import math
-import os
 
 import torch
 
@@ -125,11 +123,7 @@ def main(argv=None) -> None:
     print(f"finished at step {int(state.step)}")
 
     if args.metrics_out:
-        d = os.path.dirname(args.metrics_out)
-        if d:
-            os.makedirs(d, exist_ok=True)
-        with open(args.metrics_out, "w") as fh:
-            json.dump(obs_metrics.snapshot(), fh, indent=1, sort_keys=True)
+        obs_metrics.default_registry().write_json(args.metrics_out)
         print(f"metrics snapshot -> {args.metrics_out}")
     if flusher is not None:
         flusher.stop()

@@ -1,29 +1,41 @@
-"""Process-local metrics registry: counters, gauges, histograms.
+"""Process-local metrics registry and the bridge from the device.
 
-The registry core and the Prometheus exporter of ``repro/obs/metrics.py``.
-Host-side recording is plain Python arithmetic; eager PyTorch needs no
-trace-time bridge, so callers (the qN stream counters, the carry cache, the
-serving loop, the backward pass) write straight into it.  The registry
-renders as Prometheus text (:meth:`MetricsRegistry.to_prom`), written
-atomically (:meth:`MetricsRegistry.write_prom`) and refreshed by a
-:class:`PromFlusher` thread.  The ``enabled`` switch gates only
-:func:`emit_scalar`, whose value is a tensor: reading it is a host read,
-made only when a launcher asked for metrics.
+The port of ``repro/obs/metrics.py``: counters, gauges, histograms and
+series keyed by ``(name, labels)``, rendered as a JSON snapshot or as
+Prometheus text (:meth:`MetricsRegistry.to_prom`, written atomically by
+:meth:`MetricsRegistry.write_prom` and refreshed by a :class:`PromFlusher`
+thread).
+
+Host-side recording (serving counters, qN stream counters, checkpoint
+bytes) is plain Python arithmetic and unconditional, as in the reference.
+The bridge -- :func:`emit_scalar`, :func:`record_solve`,
+:func:`record_backward` -- carries values computed on the device.  It is
+gated on :func:`enabled` (off by default): switched off it returns at once
+and reads nothing.  Switched on it still makes no host read of its own: it
+keeps the detached tensors it was given, with the host code that lands
+them, in the registry's pending list (:meth:`MetricsRegistry.defer`), and
+they land all at once at the next read the program already makes --
+:func:`read` (the trainer's interval read, the serving loop's per-tick
+read) copies them to the host in the same transfer as the program's own
+values -- or at :meth:`MetricsRegistry.flush`, which ``snapshot``,
+``to_prom`` and ``write_json`` call first.
 """
 
 from __future__ import annotations
 
 import bisect
+import json
 import os
 import threading
 import time
-from typing import Mapping
+from typing import Callable, Mapping
 
+import numpy as np
 import torch
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "PromFlusher",
-           "default_registry", "emit_scalar", "enabled", "record_backward",
-           "record_solve", "set_enabled"]
+           "Series", "default_registry", "emit_scalar", "enabled", "read",
+           "record_backward", "record_solve", "set_enabled"]
 
 _LabelsKey = tuple[tuple[str, str], ...]
 
@@ -95,10 +107,30 @@ class Histogram:
         }
 
 
+class Series:
+    """The most recent recorded sequence (one solve's residual tape) and
+    how many sequences were recorded in all."""
+
+    kind = "series"
+
+    def __init__(self):
+        self.last: list[float] = []
+        self.count = 0
+
+    def record(self, values) -> None:
+        self.last = [float(v) for v in values]
+        self.count += 1
+
+    def payload(self) -> dict:
+        return {"last": self.last, "count": self.count}
+
+
 class MetricsRegistry:
     def __init__(self):
         self._lock = threading.RLock()
         self._metrics: dict[tuple[str, _LabelsKey], object] = {}
+        # (land, tensors): device values waiting for a host read
+        self._pending: list[tuple[Callable, tuple[torch.Tensor, ...]]] = []
 
     def _get(self, cls, name: str, labels, **kw):
         key = (name, _labels_key(labels))
@@ -122,7 +154,45 @@ class MetricsRegistry:
         kw = {"buckets": buckets} if buckets is not None else {}
         return self._get(Histogram, name, labels, **kw)
 
+    def series(self, name: str, labels=None) -> Series:
+        return self._get(Series, name, labels)
+
+    # -- values on the device ----------------------------------------------
+
+    def defer(self, land: Callable, *tensors: torch.Tensor) -> None:
+        """Keep ``tensors`` (detached) until the next :meth:`read` or
+        :meth:`flush`, which calls ``land(*arrays)`` with their values as
+        numpy arrays of the same shapes."""
+        with self._lock:
+            self._pending.append((land, tuple(t.detach() for t in tensors)))
+
+    def read(self, *tensors: torch.Tensor) -> list:
+        """``tensors``' values as Python numbers or nested lists
+        (``tolist()``), copied to the host in one transfer together with
+        every pending value, which lands meanwhile."""
+        with self._lock:
+            pending, self._pending = self._pending, []
+        parts = [t for _, ts in pending for t in ts] + [
+            t.detach() for t in tensors]
+        host = iter(_to_host(parts))
+        for land, ts in pending:
+            land(*[next(host).float().numpy() if t.is_floating_point()
+                   else next(host).numpy() for t in ts])
+        return [next(host).tolist() for _ in tensors]
+
+    def flush(self) -> None:
+        """Land every pending value (one transfer)."""
+        self.read()
+
+    # -- export ------------------------------------------------------------
+
+    def reset(self) -> None:
+        with self._lock:
+            self._metrics.clear()
+            self._pending.clear()
+
     def snapshot(self) -> dict:
+        self.flush()
         with self._lock:
             metrics = [
                 {"name": name, "labels": dict(lk), "kind": m.kind,
@@ -132,12 +202,24 @@ class MetricsRegistry:
         return {"schema": "repro.obs.metrics/v1", "unix_time": time.time(),
                 "pid": os.getpid(), "metrics": metrics}
 
-    def to_prom(self) -> str:
+    def write_json(self, path: str) -> dict:
+        snap = self.snapshot()
+        d = os.path.dirname(path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        with open(path, "w") as fh:
+            json.dump(snap, fh, indent=1, sort_keys=True)
+        return snap
+
+    def to_prom(self, flush: bool = True) -> str:
         """The registry in the Prometheus text exposition format: counters
         and gauges one line each; histograms the cumulative
         ``_bucket{le=...}`` series (always with a ``+Inf`` bucket) plus
-        ``_sum``/``_count``.  Names are sanitised to the Prometheus charset
-        and label values escaped."""
+        ``_sum``/``_count``; a series, which Prometheus has no kind for, as
+        its count of records (``<name>_records``, a gauge).  Names are
+        sanitised to the Prometheus charset and label values escaped."""
+        if flush:
+            self.flush()
         with self._lock:
             items = sorted(self._metrics.items())
         groups: dict[str, list] = {}
@@ -147,6 +229,11 @@ class MetricsRegistry:
         for name, rows in groups.items():
             kind = rows[0][1].kind
             pname = _prom_name(name)
+            if kind == "series":
+                lines.append(f"# TYPE {pname}_records gauge")
+                lines.extend(f"{pname}_records{_prom_labels(lk)} {m.count}"
+                             for lk, m in rows if m.kind == kind)
+                continue
             lines.append(f"# TYPE {pname} {kind}")
             for lk, m in rows:
                 if m.kind != kind:
@@ -170,10 +257,10 @@ class MetricsRegistry:
                 lines.append(f"{pname}_count{_prom_labels(lk)} {m.count}")
         return "\n".join(lines) + ("\n" if lines else "")
 
-    def write_prom(self, path: str) -> str:
+    def write_prom(self, path: str, flush: bool = True) -> str:
         """Write :meth:`to_prom` atomically (a temporary file, then a
         rename), so a scrape of the file never sees a torn exposition."""
-        text = self.to_prom()
+        text = self.to_prom(flush)
         d = os.path.dirname(path)
         if d:
             os.makedirs(d, exist_ok=True)
@@ -182,6 +269,24 @@ class MetricsRegistry:
             fh.write(text)
         os.replace(tmp, path)
         return text
+
+
+def _to_host(parts: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Host copies of ``parts``, each of its own shape and dtype; the ones
+    on a card travel in one device-to-host copy (as float64, which holds
+    every int32, bool, bf16 and f32 value exactly)."""
+    out = list(parts)
+    dev = [i for i, t in enumerate(parts) if t.device.type != "cpu"]
+    if dev:
+        flat = torch.cat([parts[i].reshape(-1).to(torch.float64)
+                          for i in dev]).cpu()
+        at = 0
+        for i in dev:
+            n = parts[i].numel()
+            out[i] = flat[at:at + n].reshape(parts[i].shape).to(
+                parts[i].dtype)
+            at += n
+    return out
 
 
 def _prom_name(name: str) -> str:
@@ -224,8 +329,10 @@ class PromFlusher:
         return self
 
     def _run(self) -> None:
+        # values still on the device land at the program's own reads: this
+        # thread never reads the card
         while not self._stop.wait(self.interval_s):
-            self.registry.write_prom(self.path)
+            self.registry.write_prom(self.path, flush=False)
 
     def stop(self) -> None:
         self._stop.set()
@@ -243,7 +350,7 @@ def default_registry() -> MetricsRegistry:
 
 
 def set_enabled(on: bool) -> None:
-    """Switch :func:`emit_scalar` on or off (off by default)."""
+    """Switch the bridge on or off (off by default)."""
     global _ENABLED
     _ENABLED = bool(on)
 
@@ -252,13 +359,19 @@ def enabled() -> bool:
     return _ENABLED
 
 
-def emit_scalar(name: str, value, *, labels=None, kind: str = "gauge") -> None:
-    """Land a scalar (a number or a one-element tensor) in the registry:
-    ``kind`` "gauge" sets, "counter" adds, "histogram" observes.  No-op,
-    and no host read, when disabled."""
-    if not _ENABLED:
-        return
-    v = float(value)
+def read(*tensors: torch.Tensor) -> list:
+    """:meth:`MetricsRegistry.read` of the default registry: the program's
+    own host read, which also lands what the bridge holds."""
+    return _REGISTRY.read(*tensors)
+
+
+def snapshot() -> dict:
+    """Snapshot of the default registry."""
+    return _REGISTRY.snapshot()
+
+
+def _land_scalar(name: str, labels, kind: str, v) -> None:
+    v = float(np.asarray(v).reshape(-1)[0])
     if kind == "counter":
         _REGISTRY.counter(name, labels).inc(v)
     elif kind == "histogram":
@@ -267,29 +380,107 @@ def emit_scalar(name: str, value, *, labels=None, kind: str = "gauge") -> None:
         _REGISTRY.gauge(name, labels).set(v)
 
 
-def snapshot() -> dict:
-    """Snapshot of the default registry."""
-    return _REGISTRY.snapshot()
+def emit_scalar(name: str, value, *, labels=None, kind: str = "gauge") -> None:
+    """Land a scalar (a number or a one-element tensor) in the registry:
+    ``kind`` "gauge" sets, "counter" adds, "histogram" observes.  A no-op
+    when the bridge is off; a tensor lands at the next read."""
+    if not _ENABLED:
+        return
+    frozen = dict(labels) if labels else None
+    if isinstance(value, torch.Tensor):
+        _REGISTRY.defer(lambda v: _land_scalar(name, frozen, kind, v), value)
+    else:
+        _land_scalar(name, frozen, kind, value)
 
 
-def record_solve(phase: str, result) -> None:
-    """Count one solve and its iterations under ``{phase}``."""
+def _mean_finite(x) -> float | None:
+    x = np.asarray(x, np.float64).reshape(-1)
+    x = x[np.isfinite(x)]
+    return float(x.mean()) if x.size else None
+
+
+def _land_solve(phase: str, n_steps: int, residual, warm=None, age=None,
+                tape_res=None, status=None) -> None:
+    """Host side of :func:`record_solve` (the reference's ``_solve_cb``)."""
+    from repro_torch.core.solvers import STATUS_CONVERGED, STATUS_NAMES
+    from repro_torch.obs.tape import tape_residual_series
+
+    reg = _REGISTRY
     pl = {"phase": phase}
-    _REGISTRY.counter("solves_total", pl).inc()
-    _REGISTRY.counter("solve_iters_total", pl).inc(int(result.n_steps))
+    reg.counter("solves_total", pl).inc()
+    if status is not None:
+        codes = np.asarray(status).reshape(-1)
+        for code in np.unique(codes):
+            if int(code) == STATUS_CONVERGED:
+                continue
+            reg.counter("solve_failures_total", {
+                "phase": phase,
+                "status": STATUS_NAMES.get(int(code), str(int(code))),
+            }).inc(float((codes == code).sum()))
+    w = None if warm is None else np.asarray(warm).reshape(-1).astype(bool)
+    wl = "warm" if w is not None and w.size and w.mean() >= 0.5 else "cold"
+    wpl = {"phase": phase, "warm": wl}
+    reg.counter("solves_by_warm_total", wpl).inc()
+    reg.counter("solve_iters_total", wpl).inc(n_steps)
+    reg.gauge("solve_iters_last", wpl).set(n_steps)
+    res = _mean_finite(residual)
+    if res is not None:
+        reg.histogram("solve_residual", pl).observe(res)
+    if w is not None and age is not None and w.any():
+        a = np.asarray(age, np.float64).reshape(-1)
+        reg.histogram("carry_age_at_use", pl).observe(float(a[w].mean()))
+    if tape_res is not None:
+        series = tape_residual_series(tape_res)
+        if series:
+            reg.series("solve_residual_tape", pl).record(series)
+
+
+def record_solve(phase: str, result, *, carry=None) -> None:
+    """One solve's telemetry under ``{phase}``: ``result`` a
+    ``SolveResult``/``ImplicitStats`` (``n_steps``, ``residual``, and the
+    ``tape`` and ``status`` where it has them), ``carry`` the solve's entry
+    carry (its ``warm``/``age`` classify a warm or cold start).  A no-op
+    when the bridge is off."""
+    if not _ENABLED:
+        return
+    parts, keys = [result.residual], []
+    if carry is not None:
+        parts += [carry.warm, carry.age]
+        keys += ["warm", "age"]
+    tape = getattr(result, "tape", None)
+    if tape is not None:
+        parts.append(tape.residual)
+        keys.append("tape_res")
+    status = getattr(result, "status", None)
+    if status is not None:
+        parts.append(status)
+        keys.append("status")
+    n = int(result.n_steps)
+    _REGISTRY.defer(lambda res, *rest: _land_solve(
+        phase, n, res, **dict(zip(keys, rest))), *parts)
+
+
+def _land_backward(estimator: str, n_steps: int, residual,
+                   fallback) -> None:
+    reg = _REGISTRY
+    pl = {"estimator": estimator}
+    reg.counter("backward_estimates_total", pl).inc()
+    reg.counter("backward_iters_total", pl).inc(n_steps)
+    res = _mean_finite(residual)
+    if res is not None:
+        reg.histogram("backward_residual", pl).observe(res)
+    fb = np.asarray(fallback)
+    if fb.size:
+        reg.counter("backward_fallbacks_total", pl).inc(float(fb.sum()))
 
 
 def record_backward(estimator: str, adj) -> None:
-    """One backward cotangent estimate (an ``AdjointResult``): estimates,
-    iterations of its iterative part, mean finite residual and the samples
-    whose fallback guard fired, under ``{estimator}``."""
-    pl = {"estimator": estimator}
-    _REGISTRY.counter("backward_estimates_total", pl).inc()
-    _REGISTRY.counter("backward_iters_total", pl).inc(int(adj.n_steps))
-    res = adj.residual.float()
-    res = res[torch.isfinite(res)]
-    if res.numel():
-        _REGISTRY.histogram("backward_residual", pl).observe(
-            float(res.mean()))
-    _REGISTRY.counter("backward_fallbacks_total", pl).inc(
-        int(adj.fallback_mask.sum()))
+    """One backward cotangent estimate (an ``AdjointResult``) under
+    ``{estimator}``: estimates, iterations of its iterative part, mean
+    finite residual and the samples whose fallback guard fired.  A no-op
+    when the bridge is off."""
+    if not _ENABLED:
+        return
+    n = int(adj.n_steps)
+    _REGISTRY.defer(lambda res, fb: _land_backward(estimator, n, res, fb),
+                    adj.residual, adj.fallback_mask)

@@ -5,12 +5,15 @@ loop and records, per iteration and per sample, the post-step residual
 norm (inf where unrecorded), the step length (0 where unrecorded), the
 quasi-Newton ring occupancy and, for guarded solvers, the health code (-1
 where unrecorded).  Frozen samples keep their cells bit for bit.
+:func:`tape_residual_series` digests a tape's residuals on the host (the
+metrics bridge's ``solve_residual_tape`` series).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -46,3 +49,21 @@ def tape_record(tape: SolveTape, k: int, active: torch.Tensor,
     if status is not None and tape.status is not None:
         tape.status[k] = torch.where(active, status.int(), tape.status[k])
     return tape
+
+
+def tape_residual_series(residual) -> list[float]:
+    """Host side: the batch-mean residual of each realized iteration
+    (finite entries only), up to the last iteration any sample recorded."""
+    r = np.asarray(residual, np.float64)
+    if r.ndim == 1:
+        r = r[:, None]
+    finite = np.isfinite(r)
+    realized = finite.any(axis=1)
+    if not realized.any():
+        return []
+    last = int(np.nonzero(realized)[0].max()) + 1
+    out = []
+    for k in range(last):
+        row = r[k][finite[k]]
+        out.append(float(row.mean()) if row.size else float("nan"))
+    return out

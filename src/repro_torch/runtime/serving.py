@@ -19,7 +19,9 @@ slots and runs ONE ``decode_step`` for all slots, inactive ones masked:
     faulted decode row keeps generating (the solver already restarted it)
     with the fault recorded on the request.
 
-Every tick blocks on its logits: the host picks tokens with ``argmax``.
+Every tick blocks on its logits: the host picks tokens with ``argmax``,
+read together with the row statuses and whatever the metrics bridge holds
+in one transfer per prefill and per decode.
 With tracing on, a drain is a ``drain`` span over ``serve_tick`` spans,
 each holding ``admit`` (with a ``prefill`` span per prompt length) and
 ``decode``.
@@ -39,6 +41,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.solvers import STATUS_DIVERGED, STATUS_NAMES
+from repro_torch.device import to_device
 from repro_torch.implicit.engine import CarryCache, write_carry_rows
 from repro_torch.models import lm
 from repro_torch.obs import metrics as obs_metrics
@@ -121,16 +124,16 @@ class ServeLoop:
 
     def _prefill_group(self, plen: int,
                        group: list[tuple[int, Request]]) -> None:
-        toks = torch.tensor([req.prompt for _, req in group],
-                            dtype=torch.int32, device=self.device)
+        toks = to_device(torch.tensor([req.prompt for _, req in group],
+                                      dtype=torch.int32), self.device)
         wave_carry = lm.deq_solve_carry(self.cfg, len(group), 1, self.device)
         with obs_tracing.span("prefill", plen=plen, wave=len(group)):
             logits, cache_new, _lens, seeded, steps, status = lm.prefill(
                 self.params, {"tokens": toks}, self.cfg, self.max_len,
                 carry=wave_carry, return_steps=True, return_status=True)
             last = logits[:, -1].float()
-            nxt_all = last.argmax(-1).tolist()
-            st = status.tolist()
+            # the prefill's one host read (it lands the metrics bridge too)
+            nxt_all, st = obs_metrics.read(last.argmax(-1), status)
         self.solve_log.append({"phase": "prefill", "rows": len(group),
                                "steps": steps, "status": st})
         failed = ({row: st[row] for row in range(len(group))
@@ -193,7 +196,7 @@ class ServeLoop:
         mask = [r is not None and not r.done for r in self.active]
         if not any(mask):
             return 0
-        mask_t = torch.tensor(mask, dtype=torch.bool, device=self.device)
+        mask_t = to_device(torch.tensor(mask, dtype=torch.bool), self.device)
         t0 = time.perf_counter()
         with obs_tracing.span("decode", active=sum(mask)):
             logits, self.caches, new_carry, steps, status = lm.decode_step(
@@ -202,8 +205,8 @@ class ServeLoop:
                 return_steps=True, return_status=True)
             self.carries.update(new_carry)
             nxt = logits.float().argmax(-1).int()
-            nxt_l = nxt.tolist()
-            st = status.tolist()
+            # the tick's one host read (it lands the metrics bridge too)
+            nxt_l, st = obs_metrics.read(nxt, status)
         self.solve_log.append({"phase": "decode", "rows": sum(mask),
                                "steps": steps,
                                "status": [c for c, a in zip(st, mask) if a]})

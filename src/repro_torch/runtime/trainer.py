@@ -68,14 +68,19 @@ class Trainer:
                                       device=self._device)
 
     def restore_or_init(self) -> TrainState:
+        return self._restore_or_init()[0]
+
+    def _restore_or_init(self) -> tuple[TrainState, int]:
+        """The state and its step, known on the host (no read of the
+        card)."""
         if self.ckpt is not None and self.ckpt.latest_step() is not None:
             # the carry and the skip count are forward-compatible state:
             # zero-filled they are a cold carry and "no skips"
-            _, state, _ = self.ckpt.restore(
+            step, state, _ = self.ckpt.restore(
                 self.init_state(),
                 fill_missing_prefixes=(".carry", ".skips"))
-            return state
-        return self.init_state()
+            return state, int(step)
+        return self.init_state(), 0
 
     def _rollback(self, at_step: int) -> TrainState:
         """Every recent update was rejected: restore the last checkpoint (or
@@ -98,8 +103,7 @@ class Trainer:
             log_every: int = 10,
             on_metrics: Callable[[int, dict], None] | None = None
             ) -> TrainState:
-        state = self.restore_or_init()
-        start = int(state.step)
+        state, start = self._restore_or_init()
         steps = steps if steps is not None else self.tcfg.steps
         t_sync = time.perf_counter()
         n_since = 0
@@ -115,20 +119,20 @@ class Trainer:
                                else skipped + metrics["update_skipped"])
                 n_since += 1
                 if (i + 1) % log_every == 0 or i + 1 == steps:
-                    # the interval's one host read: every metric at once,
-                    # and the interval's count of rejected updates
-                    names = list(metrics)
-                    vals = torch.stack([
-                        torch.as_tensor(metrics[k], dtype=torch.float32,
-                                        device=state.step.device)
-                        for k in names]
-                        + ([skipped] if skipped is not None else [])
-                    ).tolist()
+                    # the interval's one host read: every metric on the
+                    # device at once, the interval's count of rejected
+                    # updates, and what the metrics bridge holds
+                    names = [k for k, v in metrics.items()
+                             if isinstance(v, torch.Tensor)]
+                    vals = obs_metrics.read(
+                        *[metrics[k] for k in names],
+                        *([skipped] if skipped is not None else []))
                     if skipped is not None:
                         obs_metrics.emit_scalar("train_update_skips_total",
                                                 vals.pop(), kind="counter")
                         skipped = None
-                    metrics = dict(zip(names, vals))
+                    metrics = {k: float(v) for k, v in
+                               {**metrics, **dict(zip(names, vals))}.items()}
                     now = time.perf_counter()
                     # the read drains every step since the last one, so the
                     # honest per-step time is the interval average

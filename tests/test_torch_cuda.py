@@ -1,6 +1,6 @@
 """The Hopper kernels against their plain PyTorch versions, on the card.
 
-These tests need an NVIDIA GPU (``sm_90a``), ``nvcc`` and Triton; they skip
+These tests need an NVIDIA GPU (``sm_90a``) and ``nvcc``; they skip
 elsewhere.  The file imports neither JAX nor the JAX package, so on a
 machine without JAX it runs with
 
@@ -10,10 +10,15 @@ machine without JAX it runs with
 Shapes are small but ragged (D not a multiple of 4, S not a multiple of the
 query tile, GQA, an empty ring row, a refused append) so each kernel's edge
 handling is exercised, and the qN kernels run every case of
-``chip_smoke.QN_CASES`` (both schedules); ``chip_smoke.py`` checks the serving and training
+``chip_smoke.QN_CASES`` (both schedules), the attention kernels every
+registered head dim (16, 64, 80, 96, 128) and rmsnorm every width of
+``chip_smoke.RMS_SHAPES``; ``chip_smoke.py`` checks the serving and training
 paths' shapes.  Besides the kernels: the autograd wrappers' gradients, a
-refine backward that must leave a carried ring as the forward left it, and
-the span tracer's device phases on two traced train steps.
+refine backward that must leave a carried ring as the forward left it, the
+span tracer's device phases on two traced train steps, and the host waits
+of train steps (``chip_smoke.count_syncs``): the solver's two reads per
+iteration and the one metrics read per interval, nothing more, with
+metrics off and on, traced and untraced.
 """
 
 import os
@@ -38,7 +43,7 @@ TOL = {torch.float32: dict(rtol=1e-3, atol=1e-3),
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA/Triton kernels run only "
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only "
                     "on the card")
     launches.reset()
     return torch.device("cuda")
@@ -111,7 +116,7 @@ DECODE = [(2, 4, 2, 70, [1, 0]),
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("hd", [16, 64, 80, 96, 128])
 def test_attention_kernels_match_plain_versions(dev, dtype, hd):
     gen = torch.Generator(device=dev).manual_seed(1)
 
@@ -146,11 +151,21 @@ def test_attention_kernels_match_plain_versions(dev, dtype, hd):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_kernel_matches_plain_version(dev, dtype):
+    """Every width and row count ``chip_smoke.py`` checks (the registry's
+    widths at 1024 rows, the decode shape, a ragged row count, D = 64),
+    a ragged row count of a width with no vector instance, and a row that
+    is not 16-byte aligned (the generic kernel)."""
     gen = torch.Generator(device=dev).manual_seed(2)
-    x = torch.randn(33, 2304, device=dev, generator=gen).to(dtype)
-    w = (1 + 0.1 * torch.randn(2304, device=dev, generator=gen)).to(dtype)
-    _close(ops.rmsnorm(x, w, 1e-5), ref.rmsnorm_ref(x, w, 1e-5), dtype)
-    assert launches.counts()["rmsnorm"] == 1
+    shapes = chip_smoke.RMS_SHAPES + [(33, 2304), (5, 100)]
+    for rows, d in shapes:
+        x = torch.randn(rows, d, device=dev, generator=gen).to(dtype)
+        w = (1 + 0.1 * torch.randn(d, device=dev, generator=gen)).to(dtype)
+        _close(ops.rmsnorm(x, w, 1e-5), ref.rmsnorm_ref(x, w, 1e-5), dtype)
+    flat = torch.randn(1 + 3 * 2304, device=dev, generator=gen).to(dtype)
+    x = flat[1:].view(3, 2304)  # contiguous, one element off 16 bytes
+    _close(ops.rmsnorm(x, w[:1].expand(2304).contiguous(), 1e-5),
+           ref.rmsnorm_ref(x, w[:1].expand(2304), 1e-5), dtype)
+    assert launches.counts()["rmsnorm"] == len(shapes) + 1
 
 
 @pytest.mark.cuda
@@ -163,6 +178,9 @@ def test_kernel_wrappers_refuse_bad_inputs(dev):
     q = torch.zeros(1, 4, 2, 48, device=dev)
     with pytest.raises(ValueError):  # head dim not instantiated
         flash_attention.flash_attention(q, q, q)
+    x = torch.zeros(4, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # the weight must have x's dtype
+        ops.rmsnorm(x, torch.ones(64, device=dev))
     flat = torch.zeros(1 + 4 * 2 * 64, device=dev, dtype=torch.bfloat16)
     q = flat[1:].view(1, 4, 2, 64)  # contiguous, 2 bytes off 16
     with pytest.raises(ValueError):  # the 16-byte copies need alignment
@@ -312,21 +330,12 @@ def test_placeholder_inverse_is_the_identity_on_the_card(dev, solver):
     assert launches.counts()["qn_apply_multi"] == 1
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("solver", ["broyden", "adjoint_broyden"])
-def test_traced_train_steps_tile_on_the_card(dev, solver):
-    """Span tracing of two ``Trainer`` steps on the card: each phase ends at
-    a CUDA event resolved when the trace is written, the phases tile each
-    ``train_step`` span (``chip_smoke.check_trace_phases``) and the steps
-    make no host wait on the card (``chip_smoke.count_syncs``)."""
+def _smoke_trainer(dev, solver):
     import dataclasses
-    from unittest import mock
 
     from repro_torch.configs.base import TrainConfig
     from repro_torch.configs.registry import smoke_config
-    from repro_torch.data.pipeline import make_lm_batch_iterator
     from repro_torch.models import lm
-    from repro_torch.obs import tracing
     from repro_torch.runtime.trainer import Trainer
     cfg = smoke_config("minicpm-2b", deq=True)
     cfg = dataclasses.replace(cfg, deq=dataclasses.replace(cfg.deq,
@@ -335,6 +344,52 @@ def test_traced_train_steps_tile_on_the_card(dev, solver):
                        schedule=cfg.schedule)
     params = lm.init_params(cfg, seed=1, device=dev)
     params["deq_blocks"] = _tree(lambda t: t * 0.3, params["deq_blocks"])
+    return cfg, Trainer(cfg, tcfg, params=params)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metrics", [False, True])
+def test_train_step_reads_the_card_only_in_the_solver_and_interval(
+        dev, metrics):
+    """Two smoke ``Trainer`` steps (Broyden) under the sync debug mode, with
+    one metrics read per step: no host wait besides the solver's two reads
+    per iteration and the read per interval (``chip_smoke.expected_syncs``),
+    with metrics off and on alike (the bridge lands at that read)."""
+    from repro_torch.data.pipeline import make_lm_batch_iterator
+    from repro_torch.obs import metrics as obs_metrics
+    cfg, trainer = _smoke_trainer(dev, "broyden")
+    syncs, fwd = [], []
+    obs_metrics.set_enabled(metrics)
+    try:
+        with chip_smoke.count_syncs(syncs), chip_smoke._record_forward(fwd):
+            trainer.run(make_lm_batch_iterator(cfg, 2, 16, seed=0,
+                                               device=dev),
+                        steps=2, log_every=1, on_metrics=lambda i, m: None)
+    finally:
+        obs_metrics.set_enabled(False)
+    chip_smoke.check_syncs(
+        f"metrics {'on' if metrics else 'off'}", syncs,
+        chip_smoke.expected_syncs([n for n, _ in fwd], cfg.deq.max_steps, 2))
+    if metrics:
+        reg = obs_metrics.default_registry()
+        assert not reg._pending
+        assert reg.counter("backward_estimates_total",
+                           {"estimator": cfg.deq.backward}).value >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["broyden", "adjoint_broyden"])
+def test_traced_train_steps_tile_on_the_card(dev, solver):
+    """Span tracing of two ``Trainer`` steps on the card: each phase ends at
+    a CUDA event resolved when the trace is written, the phases tile each
+    ``train_step`` span (``chip_smoke.check_trace_phases``) and the traced
+    steps make as many host waits on the card as the same steps untraced
+    (``chip_smoke.count_syncs``): the solver's and the interval reads."""
+    from unittest import mock
+
+    from repro_torch.data.pipeline import make_lm_batch_iterator
+    from repro_torch.obs import tracing
+    cfg, trainer = _smoke_trainer(dev, solver)
     marks = []
     real = tracing._DeviceMark
 
@@ -342,11 +397,18 @@ def test_traced_train_steps_tile_on_the_card(dev, solver):
         marks.append(device)
         return real(device)
 
+    untraced, fwd0 = [], []
+    with chip_smoke.count_syncs(untraced), chip_smoke._record_forward(fwd0):
+        trainer.run(make_lm_batch_iterator(cfg, 2, 16, seed=0, device=dev),
+                    steps=2, log_every=2, on_metrics=lambda i, m: None)
+    fwd = []
     with mock.patch.object(tracing, "_DeviceMark", mark):
         trace, syncs = chip_smoke.traced_train_steps(
-            Trainer(cfg, tcfg, params=params),
-            make_lm_batch_iterator(cfg, 2, 16, seed=0, device=dev), 2)
-    assert syncs == []
+            trainer, make_lm_batch_iterator(cfg, 2, 16, seed=0, device=dev),
+            2, forward=fwd)
+    assert [n for n, _ in fwd] == [n for n, _ in fwd0]
+    assert len(syncs) == len(untraced) == chip_smoke.expected_syncs(
+        [n for n, _ in fwd], cfg.deq.max_steps, 1)
     assert len(marks) == 2 * len(chip_smoke.TRAIN_PHASES)
     assert all(d.type == "cuda" for d in marks)
     steps = chip_smoke.check_trace_phases(trace)

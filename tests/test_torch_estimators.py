@@ -186,12 +186,14 @@ def test_nonfinite_cotangent_rows_are_zeroed_and_counted():
         u[0] = float("nan")
         return AdjointResult(u, ctx.nan_residual, 0, ctx.no_fallback)
 
+    # the count lands through the metrics bridge, which is off by default
+    obs_metrics.set_enabled(True)
     try:
         base = _cfgs("jfb")[1]
         cfg = dataclasses.replace(
             base, backward=dataclasses.replace(base.backward, estimator=name))
-        counter = obs_metrics.default_registry().counter(
-            "backward_cotangents_zeroed_total")
+        reg = obs_metrics.default_registry()
+        counter = reg.counter("backward_cotangents_zeroed_total")
         before = counter.value
         grads = {}
         for est, c in (("poison", cfg), ("jfb", base)):
@@ -203,12 +205,14 @@ def test_nonfinite_cotangent_rows_are_zeroed_and_counted():
                 cot[0] = 0.0  # the row the poisoned estimator loses
             (z * cot).sum().backward()
             grads[est] = p.grad
+        reg.flush()
         assert counter.value == before + 1
         assert torch.isfinite(grads["poison"]).all()
         np.testing.assert_allclose(grads["poison"].numpy(),
                                    grads["jfb"].numpy(), rtol=1e-6,
                                    atol=1e-7)
     finally:
+        obs_metrics.set_enabled(False)
         ESTIMATORS._entries.pop(name, None)
 
 

@@ -1,4 +1,5 @@
-"""The port's span tracer and Prometheus exporter against the JAX package's.
+"""The port's span tracer, metrics bridge and Prometheus exporter against
+the JAX package's.
 
   * the Chrome-trace schema and nesting (as ``tests/test_obs.py`` holds the
     JAX recorder), silence when disabled, and the phase marks of a
@@ -9,25 +10,47 @@
     ``emit_scalar``, and the trainer's count of rejected updates, landed
     from its one host read per interval;
   * the launchers end to end on the CPU with ``--trace-out`` and
-    ``--metrics-prom-out``, for every forward solver.
+    ``--metrics-prom-out``, for every forward solver;
+  * the bridge (``record_solve``, ``record_backward``, ``emit_scalar``):
+    switched off, a train step and a drain reach none of it; switched on,
+    the same smoke train steps and drain as the JAX package's give the same
+    metric names and labels (forward, backward and serve solve records, the
+    residual-tape series) and the same counts of solves and iterations,
+    landed at the trainer's one host read per interval without a read of
+    their own; a series' Prometheus text equals the reference's.
 """
 
 import dataclasses
 import json
 import os
 
+import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
+from repro.configs.base import TrainConfig as JTrainConfig
+from repro.configs.registry import smoke_config as jax_smoke_config
+from repro.data.pipeline import SyntheticTokenDataset as JDataset
+from repro.launch import steps as jsteps
+from repro.models import lm as jlm
 from repro.obs import metrics as jmetrics
+from repro.optim import optimizers as jopt
+from repro.parallel.sharding import ShardCtx
+from repro.runtime.serving import Request as JRequest
+from repro.runtime.serving import ServeLoop as JServeLoop
 from repro_torch.configs.base import TrainConfig
 from repro_torch.configs.registry import smoke_config
 from repro_torch.data.pipeline import make_lm_batch_iterator
 from repro_torch.implicit import ImplicitConfig, implicit_fixed_point
 from repro_torch.launch import serve as tserve
+from repro_torch.launch import steps as tsteps
 from repro_torch.launch import train as tlaunch
+from repro_torch.models import lm as tlm
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import tracing as obs_tracing
+from repro_torch.runtime.serving import Request, ServeLoop
 from repro_torch.runtime.trainer import Trainer
 
 
@@ -193,6 +216,10 @@ def test_emit_scalar_kinds_and_off_switch():
                                 kind="counter")
         obs_metrics.emit_scalar("es_hist_t", v, kind="histogram",
                                 labels={"k": "x"})
+    # a number lands at once; a tensor at the next read, here a flush
+    assert reg.histogram("es_hist_t", {"k": "x"}).count == 2
+    assert reg.gauge("es_gauge_t").value == 0.0
+    reg.flush()
     assert reg.gauge("es_gauge_t").value == 5.0
     assert reg.counter("es_count_t").value == 8.0
     assert reg.histogram("es_hist_t", {"k": "x"}).count == 2
@@ -288,3 +315,197 @@ def test_serve_launcher_traces_the_drain(tmp_path):
             assert drain[0] <= e["ts"] <= drain[1] + 1e-3
     assert (f"serve_requests_completed "
             f"{obs_metrics._prom_num(before + 3)}") in prom.read_text()
+
+
+# ---------------------------------------------------------------------------
+# The bridge from the device: off, silent; on, the reference's metrics
+# ---------------------------------------------------------------------------
+
+CTX = ShardCtx.for_mesh(None)
+# every metric the bridge writes (the rest of the registry is host-side
+# counting, unconditional in both packages)
+BRIDGE = {"solves_total", "solve_failures_total", "solves_by_warm_total",
+          "solve_iters_total", "solve_iters_last", "solve_residual",
+          "carry_age_at_use", "solve_residual_tape",
+          "backward_estimates_total", "backward_iters_total",
+          "backward_residual", "backward_fallbacks_total",
+          "backward_cotangents_zeroed_total"}
+
+
+def _small(cfg, **deq):
+    """The smoke DEQ at d=32, f32 with an f32 ring (the serving parity
+    tests' size): both packages take the same solver steps."""
+    return dataclasses.replace(
+        cfg, d_model=32, num_heads=2, num_kv_heads=2, d_ff=64,
+        vocab_size=128, head_dim=16, dtype="float32",
+        deq=dataclasses.replace(cfg.deq, qn_dtype="float32", **deq))
+
+
+@pytest.fixture(scope="module")
+def bridge_setup():
+    jcfg = _small(jax_smoke_config("minicpm-2b", deq=True))
+    tcfg = _small(smoke_config("minicpm-2b", deq=True))
+    jp = jlm.init_params(jcfg, jax.random.PRNGKey(0))
+    jp["deq_blocks"] = jax.tree_util.tree_map(lambda a: a * 0.3,
+                                              jp["deq_blocks"])
+    npp = jax.tree_util.tree_map(np.asarray, jp)
+    return jcfg, tcfg, jp, npp
+
+
+def _bridge_rows(snapshot: dict) -> dict:
+    return {(m["name"], tuple(sorted(m["labels"].items()))): m
+            for m in snapshot["metrics"] if m["name"] in BRIDGE}
+
+
+def _torch_train(tcfg, npp, steps=2):
+    """``steps`` steps of the port's train step (``deq_carry="state"``)
+    through the Trainer, one read at the end; returns its metrics."""
+    tc = TrainConfig(steps=steps, global_batch=2, seq_len=8, lr=1e-3,
+                     warmup_steps=2)
+    seen = []
+    Trainer(tcfg, tc, params=tlm.params_from_jax(npp, "cpu")).run(
+        make_lm_batch_iterator(tcfg, 2, 8, device="cpu"), steps=steps,
+        log_every=steps, on_metrics=lambda i, m: seen.append(m))
+    return seen
+
+
+def _jax_train(jcfg, jp, steps=2):
+    jtc = JTrainConfig(zero1=False, steps=steps, global_batch=2, seq_len=8,
+                       lr=1e-3, warmup_steps=2)
+    step = jax.jit(jsteps.build_train_step(jcfg, jtc, CTX))
+    st = jsteps.TrainState(jnp.zeros((), jnp.int32), jp, jopt.adamw_init(jp),
+                           jlm.deq_solve_carry(jcfg, 2, 8),
+                           jnp.zeros((), jnp.int32))
+    for i in range(steps):
+        toks = JDataset(jcfg.vocab_size, 0).batch(i, 2, 9)
+        st, m = step(st, {"tokens": jnp.asarray(toks[:, :-1]),
+                          "targets": jnp.asarray(toks[:, 1:])})
+    jax.block_until_ready(m)
+    jax.effects_barrier()
+
+
+_PROMPTS = [[5, 9, 3, 7, 11], [2, 4, 6, 8, 10, 12, 14, 16, 18],
+            [13, 17, 19, 23, 29]]
+
+
+def _torch_drain(tcfg, npp):
+    loop = ServeLoop(tlm.params_from_jax(npp, "cpu"), tcfg, slots=2,
+                     max_len=32)
+    reqs = [Request(uid=i, prompt=list(p), max_new_tokens=3)
+            for i, p in enumerate(_PROMPTS)]
+    loop.drain(reqs)
+    return reqs
+
+
+def _jax_drain(jcfg, jp):
+    loop = JServeLoop(jp, jcfg, CTX, slots=2, max_len=32, pipeline="sync")
+    reqs = [JRequest(uid=i, prompt=list(p), max_new_tokens=3)
+            for i, p in enumerate(_PROMPTS)]
+    loop.drain(reqs)
+    jax.effects_barrier()
+    return reqs
+
+
+def test_metrics_off_reaches_no_bridge(bridge_setup, monkeypatch):
+    """With metrics off a train step and a drain land nothing through the
+    bridge and queue nothing for it: the registry holds no bridge metric."""
+    _, tcfg, _, npp = bridge_setup
+    reg = obs_metrics.default_registry()
+    reg.reset()
+
+    def refuse(*a, **k):
+        raise AssertionError("the bridge was reached with metrics off")
+
+    for name in ("_land_solve", "_land_backward", "_land_scalar"):
+        monkeypatch.setattr(obs_metrics, name, refuse)
+    monkeypatch.setattr(obs_metrics.MetricsRegistry, "defer", refuse)
+    _torch_train(tcfg, npp, steps=1)
+    assert all(len(r.out) == 3 for r in _torch_drain(tcfg, npp))
+    names = {m["name"] for m in reg.snapshot()["metrics"]}
+    assert not names & BRIDGE, names & BRIDGE
+    assert "serve_tokens_total" in names  # host-side counting goes on
+
+
+@pytest.mark.parametrize("path", ["train", "drain"])
+def test_metrics_on_match_jax_names_and_counts(bridge_setup, path):
+    """The same 2 smoke train steps (a cold then a warm forward solve and
+    two ``shine_fallback`` backwards), or the same drain (prefill solves
+    under ``forward``, decode solves under ``serve``), in both packages with
+    metrics on: the same bridge metric names and labels, the same counter
+    values, histogram and series counts, and carry ages; residual means at
+    rtol 1e-3."""
+    jcfg, tcfg, jp, npp = bridge_setup
+    treg, jreg = obs_metrics.default_registry(), jmetrics.default_registry()
+    treg.reset()
+    jreg.reset()
+    obs_metrics.set_enabled(True)
+    jmetrics.set_enabled(True)
+    try:
+        if path == "train":
+            _jax_train(jcfg, jp)
+            _torch_train(tcfg, npp)
+        else:
+            jreqs, treqs = _jax_drain(jcfg, jp), _torch_drain(tcfg, npp)
+            assert [r.out for r in treqs] == [r.out for r in jreqs]
+    finally:
+        jmetrics.set_enabled(False)
+    want = _bridge_rows(jreg.snapshot())
+    got = _bridge_rows(treg.snapshot())
+    assert sorted(got) == sorted(want)
+    phases = {dict(k[1]).get("phase") for k in got}
+    assert phases == ({"forward"} | ({"serve"} if path == "drain"
+                                     else {None}))
+    assert ("solve_residual_tape", (("phase", "forward"),)) in got
+    for key, w in want.items():
+        g = got[key]
+        assert g["kind"] == w["kind"], key
+        if w["kind"] in ("counter", "gauge"):
+            assert g["value"] == w["value"], key
+        elif w["kind"] == "series":
+            assert g["count"] == w["count"], key
+            np.testing.assert_allclose(g["last"], w["last"], rtol=1e-3,
+                                       err_msg=str(key))
+        else:
+            assert g["count"] == w["count"], key
+            assert g["counts"] == w["counts"] or key[0] == "solve_residual"
+            np.testing.assert_allclose(g["sum"], w["sum"], rtol=1e-3,
+                                       err_msg=str(key))
+
+
+def test_bridge_lands_at_the_interval_read(bridge_setup, monkeypatch):
+    """With metrics on, 2 train steps with one metrics read at the end make
+    one host transfer (``_to_host``), which also lands every solve and
+    backward record: the bridge reads nothing on its own."""
+    _, tcfg, _, npp = bridge_setup
+    reg = obs_metrics.default_registry()
+    reg.reset()
+    calls = []
+    real = obs_metrics._to_host
+    monkeypatch.setattr(obs_metrics, "_to_host", lambda parts: (
+        calls.append(len(parts)), real(parts))[1])
+    obs_metrics.set_enabled(True)
+    _torch_train(tcfg, npp)
+    assert len(calls) == 1
+    assert not reg._pending
+    assert reg.counter("solves_total", {"phase": "forward"}).value == 2
+    assert reg.counter("backward_estimates_total",
+                       {"estimator": "shine_fallback"}).value == 2
+
+
+def test_series_prom_text_equals_jax():
+    """A series renders as its count of records (a gauge), as the
+    reference's ``to_prom`` writes it, beside the other kinds."""
+    treg, jreg = obs_metrics.MetricsRegistry(), jmetrics.MetricsRegistry()
+    for reg in (treg, jreg):
+        _fill(reg)
+        reg.series("solve_residual_tape", {"phase": "forward"}).record(
+            [3.0, 0.5, 0.25])
+        reg.series("solve_residual_tape", {"phase": "forward"}).record([1.0])
+        reg.series("solve_residual_tape", {"phase": "serve"}).record([2.0])
+    text = treg.to_prom()
+    assert text == jreg.to_prom()
+    assert "# TYPE solve_residual_tape_records gauge" in text
+    assert 'solve_residual_tape_records{phase="forward"} 2' in text
+    assert treg.series("solve_residual_tape",
+                       {"phase": "forward"}).payload() == jreg.series(
+        "solve_residual_tape", {"phase": "forward"}).payload()

@@ -11,12 +11,15 @@ could give must fail.  The same holds for the qN library's SASS check
 (canned listings) and the training-trajectory check (canned steps, and
 the recording and replay of forward solves it rests on, at smoke size),
 and the check of a traced train step's phases (canned traces, and two
-traced smoke steps on the CPU).
+traced smoke steps on the CPU), the host-wait counter (an implicit read
+reported as the sync debug mode reports it, and canned arms with a read
+too many or too few) and the spill check (canned ptxas reports).
 """
 
 import dataclasses
 import os
 import sys
+import warnings
 
 import pytest
 import torch
@@ -490,6 +493,84 @@ def test_sync_counter_counts_host_waits():
                     "Stream.synchronize"]
     for owner in (torch.cuda, torch.cuda.Event, torch.cuda.Stream):
         assert owner.synchronize.__name__ == "synchronize"
+
+
+def _read_the_card():
+    """What ``torch.cuda.set_sync_debug_mode("warn")`` does at a read of a
+    card tensor, done by hand (this machine has no card)."""
+    warnings.warn(chip_smoke.SYNC_WARNING, UserWarning)
+
+
+def test_sync_counter_counts_an_implicit_read(monkeypatch):
+    """A read the sync debug mode reports is noted with its file and line;
+    an explicit wait is noted once even when it also warns; any other
+    warning passes through, uncounted."""
+    def fake_synchronize(*a, **k):
+        _read_the_card()
+
+    monkeypatch.setattr(torch.cuda, "synchronize", fake_synchronize)
+    seen = []
+    with pytest.warns(DeprecationWarning, match="unrelated"):
+        with chip_smoke.count_syncs(seen):
+            _read_the_card()
+            _read_the_card()
+            torch.cuda.synchronize()
+            warnings.warn("unrelated", DeprecationWarning)
+    line = _read_the_card.__code__.co_firstlineno + 3
+    site = f"implicit at tests/test_torch_smoke_checks.py:{line}"
+    assert sorted(seen) == sorted([site, site, "torch.cuda.synchronize"])
+
+
+# a Broyden train arm at full width: two steps, each forward solve at its
+# 12-step budget, one metrics read per step
+_ARM_STEPS, _ARM_MAX = [12.0, 12.0], 12
+_ARM = (["implicit at src/repro_torch/core/solvers.py:406"] * 24
+        + ["implicit at src/repro_torch/core/solvers.py:442"] * 24
+        + ["implicit at src/repro_torch/obs/metrics.py:214"] * 2)
+
+
+def test_expected_syncs_counts_the_solver_and_the_interval_reads():
+    assert chip_smoke.expected_syncs(_ARM_STEPS, _ARM_MAX, 2) == len(_ARM)
+    # a solve that stops early makes one more check: 2 x 5 + 1
+    assert chip_smoke.expected_syncs([5], 12, 1) == 12
+    assert chip_smoke.expected_syncs([0], 12, 0) == 1
+
+
+@pytest.mark.parametrize("arm", ["exact", "extra_read", "lost_read"])
+def test_sync_check_rejects_a_kernel_arm_with_an_extra_read(arm):
+    """The check holds an arm to the count exactly: one read more (a
+    telemetry ``int()`` of a card tensor, say) or one fewer fails it."""
+    want = chip_smoke.expected_syncs(_ARM_STEPS, _ARM_MAX, 2)
+    syncs = {"exact": _ARM,
+             "extra_read": _ARM + [
+                 "implicit at src/repro_torch/implicit/fixed_point.py:167"],
+             "lost_read": _ARM[1:]}[arm]
+    if arm == "exact":
+        assert sum(chip_smoke.check_syncs(arm, syncs, want).values()) == 50
+    else:
+        with pytest.raises(AssertionError, match="host waits"):
+            chip_smoke.check_syncs(arm, syncs, want)
+
+
+def _attn_ptxas(spill_mma: int = 0, spill_f32: int = 0) -> dict:
+    line = "{} bytes stack frame, {} bytes spill stores, {} bytes spill loads"
+    return {
+        "flash_attention": {
+            "flash_fwd_mma_kernel<128>": {"spill": line.format(0, spill_mma,
+                                                               spill_mma)},
+            "flash_fwd_f32_kernel<128,64,2>": {
+                "spill": line.format(464, spill_f32, spill_f32)},
+            "decode_split_kernel<128>": {"spill": line.format(0, 0, 0)}},
+        "rmsnorm": {"rmsnorm_vec_kernel<9>": {"spill": line.format(0, 0, 0)}},
+    }
+
+
+def test_spill_check_passes_the_f32_body_and_rejects_a_bf16_spill():
+    got = chip_smoke.check_spills(_attn_ptxas(spill_f32=892))
+    assert got["flash_attention:flash_fwd_f32_kernel<128,64,2>"] == 1784
+    assert got["flash_attention:flash_fwd_mma_kernel<128>"] == 0
+    with pytest.raises(AssertionError, match="spills"):
+        chip_smoke.check_spills(_attn_ptxas(spill_mma=4))
 
 
 def _phase(name, ts, dur):
