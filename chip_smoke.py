@@ -21,8 +21,9 @@ Phases, one line (or a few) each:
      and f32, each bf16 shape timed in turns against ``F.rms_norm``): max
      error
      against the stated tolerance, the kernel's time (CUDA events and
-     profiler device time per kernel; the qN ops each after a 256 MB write
-     that leaves the L2 cold, as the path's block evaluations do), the
+     profiler device time per kernel; the qN ops and rmsnorm each after a
+     256 MB write that leaves the L2 cold, as the byte bound counts it,
+     and back to back beside it), the
      plain version's, and the library call's (events and device time, like
      for like with the kernel's); the qN cases (``QN_CASES``: both
      schedules, m 1/8/30, ragged D, straddling slices, K 1/2/4, refused and
@@ -1208,7 +1209,10 @@ def kernel_rmsnorm(gen) -> dict:
     """The rmsnorm kernel against its plain version at every shape of
     ``RMS_SHAPES`` in bf16 (``TOL_BF16``) and f32 (``TOL_F32``); in bf16
     each shape also timed in turns against ``F.rms_norm`` (the yardstick,
-    never called by the port): kernel, library, library, kernel."""
+    never called by the port): kernel, library, library, kernel, each call
+    after an L2 flush (``device_ms``, ``ms``: x comes from HBM, as the
+    byte bound counts it), then the same turns back to back
+    (``device_ms_warm``: x stays in the L2)."""
     eps = 1e-5
     shapes, err_all = {}, 0.0
     for dt in (torch.bfloat16, torch.float32):
@@ -1227,20 +1231,27 @@ def kernel_rmsnorm(gen) -> dict:
             if dt == torch.bfloat16:
                 kern = lambda: cuda_rms.rmsnorm(x, w, eps)  # noqa: E731
                 lib = lambda: F.rms_norm(x, (d,), w, eps)  # noqa: E731
-                turns = [device_ms(f) for f in (kern, lib, lib, kern)]
+                cold = [sum(device_profile(_cold(f), exclude=FLUSH_KERNEL)
+                            .values()) for f in (kern, lib, lib, kern)]
+                warm = [device_ms(f) for f in (kern, lib, lib, kern)]
                 row.update(
-                    device_ms=min(turns[0], turns[3]),
-                    library_device_ms=min(turns[1], turns[2]),
-                    turns_device_ms=turns, ms=time_ms(kern),
-                    library_ms=time_ms(lib),
-                    plain_ms=time_ms(lambda: ref.rmsnorm_ref(x, w, eps)))
+                    device_ms=min(cold[0], cold[3]),
+                    library_device_ms=min(cold[1], cold[2]),
+                    device_ms_warm=min(warm[0], warm[3]),
+                    library_device_ms_warm=min(warm[1], warm[2]),
+                    turns_device_ms=cold, turns_device_ms_warm=warm,
+                    ms=time_cold_ms(kern), library_ms=time_cold_ms(lib),
+                    plain_ms=time_cold_ms(
+                        lambda: ref.rmsnorm_ref(x, w, eps), iters=5))
                 row["bound_ms"], row["bound_by"] = bound(
                     2 * rows * d * 2 + d * 2, 4 * rows * d, "f32")
             shapes[tag] = row
             say("kernel_case", name="rmsnorm", shape=tag, **row)
     main = shapes["1024x2304 bfloat16"]
     out = {k: main[k] for k in ("ms", "device_ms", "plain_ms", "library_ms",
-                                "library_device_ms", "bound_ms", "bound_by")}
+                                "library_device_ms", "device_ms_warm",
+                                "library_device_ms_warm", "bound_ms",
+                                "bound_by")}
     out.update(max_abs_err=err_all, shape="rows=1024 D=2304 bf16",
                shapes=shapes)
     say("kernel", name="rmsnorm", **{k: v for k, v in out.items()
@@ -2221,6 +2232,8 @@ def main() -> int:
                "library_ms": r.get("library_ms"),
                "library_device_ms": r.get("library_device_ms"),
                "device_ms": r["device_ms"], "shape": r["shape"],
+               **{k: r[k] for k in ("device_ms_warm",
+                                    "library_device_ms_warm") if k in r},
                "launches_serve": serve_counts[name],
                "launches_per_serve_solve": serve_counts[name] / n_solves,
                "launches_train": train_counts[name],

@@ -752,6 +752,22 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const int* k
   return cudaGetLastError();
 }
 
+// The prefill kernel's opt-in to more than 48 KB of dynamic shared memory,
+// set once per device (the attribute lasts for the process).
+template <int HD>
+cudaError_t opt_in_smem(int smem) {
+  constexpr int kMaxDevices = 64;
+  static bool done[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(flash_fwd_mma_kernel<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return err;
+}
+
 template <int HD>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, const int* kv_len,
                         void* out, float* partial, int B, int S, int Tk, int H, int KV,
@@ -760,8 +776,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const int* 
   if (!decode) {
     constexpr int smem = Mma<HD>::SMEM;
     if (smem > 48 * 1024) {  // past the static limit: opt in to more
-      const cudaError_t err = cudaFuncSetAttribute(
-          flash_fwd_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      const cudaError_t err = opt_in_smem<HD>(smem);
       if (err != cudaSuccess) return err;
     }
     flash_fwd_mma_kernel<HD><<<dim3(H, B, (S + Mma<HD>::BQ - 1) / Mma<HD>::BQ), 128, smem, st>>>(

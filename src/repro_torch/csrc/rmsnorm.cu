@@ -23,10 +23,9 @@
 //   * the weight loaded once per warp and held in registers across the
 //     warp's rows, packed in its own dtype (half the registers of f32; the
 //     conversion is one instruction per element);
-//   * a persistent grid-stride loop over rows: the next row's loads are
-//     issued before the current row's reduction where a lane's share of a
-//     row is small (PER <= 6); at PER 9-12 the second row's registers cost
-//     more than they give (at the paths' 1024 rows a warp has one row);
+//   * a persistent grid-stride loop over rows, a warp's next row loaded
+//     after its current row is stored (at the paths' 1024 rows, and at few
+//     rows, a warp has one row: the grid covers the rows in one pass);
 //   * the sum of squares reduced by __shfl_xor_sync within a warp; across
 //     the W warps of a row through 8 floats of shared memory and one
 //     barrier a row (none at W = 1).
@@ -102,9 +101,6 @@ rmsnorm_vec_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restri
   using V = Vec<T>;
   constexpr long long D = (long long)PER * W * 32 * V::N;
   constexpr int vs = W * 32;         // vectors between a lane's own
-  // registers for the next row's vectors: at PER 9-12 they cost more than
-  // they give (at the paths' 1024 rows a warp has one row)
-  constexpr bool PREF = PER <= 6;
   __shared__ float red[2][8];        // warp partials of the row, by step parity
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int grp = warp / W;
@@ -127,12 +123,8 @@ rmsnorm_vec_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restri
   uint4 xa[PER];
   if (base + grp < rows) load(xa, base + grp);
   for (int it = 0;; ++it) {
-    const int row = base + grp, next = row + step;
+    const int row = base + grp;
     const bool live = row < rows;
-    uint4 xb[PREF ? PER : 1];
-    if constexpr (PREF) {
-      if (next < rows) load(xb, next);
-    }
     float ss = 0.f;
     if (live) {
 #pragma unroll
@@ -171,12 +163,7 @@ rmsnorm_vec_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restri
     }
     base += step;
     if (base >= rows) break;
-    if constexpr (PREF) {
-#pragma unroll
-      for (int j = 0; j < PER; ++j) xa[j] = xb[j];
-    } else {
-      if (next < rows) load(xa, next);
-    }
+    if (base + grp < rows) load(xa, base + grp);
   }
 }
 
