@@ -38,7 +38,10 @@ Phases, one line (or a few) each:
      autograd wrappers (kernel forward, plain recompute backward) against
      plain autograd at the same shapes; and ``qn_apply_multi`` at the
      adjoint-Broyden path's shape (f32 ring, m=8, B=4, D=256x2304, the
-     mixed pair (False, True) and (True,); ``kernel_qn_adjoint``);
+     mixed pair (False, True) and (True,); ``kernel_qn_adjoint``); and
+     both qN kernels at the prefill shape with a warm ring as a prefix
+     wave gives it (``PREFILL_WARM``: counts 0, 3, 8, 8, two rows zero
+     past position 128);
   3. end-to-end checks at a small size, card against CPU: the smoke config
      in f32 served (same tokens, matching logits) and trained for three
      steps (same solver steps, matching loss and grad norm), the training
@@ -54,7 +57,21 @@ Phases, one line (or a few) each:
      scaled by 0.3): 8 requests, 4 slots, prompts of 128 and 256 tokens, 16
      new tokens each, a 1024-token cache -- through ``ServeLoop``, with the
      kernel launch counts reset just before and read just after; every
-     kernel of the path must have launched;
+     kernel of the path must have launched; then the async pipeline and
+     the prefix caches at the same width (``phase_serve_prefix``, solves
+     stopped at a relative residual of 1e-2, above the ~2.5e-3 where a
+     bf16 solve levels off, ``residual_floor``): 12
+     requests (four 128-token bases, each alone, repeated, and with a
+     128-token suffix) through (a) the sync loop, (b) the sync loop with
+     the host prefix index, (c) the async pipeline (depth 2) with the
+     device prefix store and (d) as (c) with admission reordering: every
+     request served in full; c and d give b's tokens and c b's step
+     sequences; b and c hit >= 4 times, save iterations and spend fewer
+     prefill iterations than a; c launches every serve-path kernel, a
+     prefill-shaped ``broyden_step`` with a warm ring among them, counts
+     no blocking read, and waits on the card only for the solver's reads
+     and one clock wait (``count_syncs``, ``async_expected_syncs``); then
+     b and c again without record mode, timed in turns (``prefix_timing``);
   5. a profiled window at full width (torch.profiler: device busy time,
      idle share, top kernels) for one prefill tick and one decode tick;
   6. training at the full width of MiniCPM-2B (the same weights, DEQ with
@@ -89,7 +106,8 @@ Phases, one line (or a few) each:
      as many host waits as the untraced ones (metrics on): the solver's and
      the trainer's, nothing more (``count_syncs``);
   9. a ``{"kernels": [...]}`` line (with each kernel's launches in the
-     step 8 arms), then the last line ``{"ok": true, "device": {...}}``.
+     step 8 arms and in arm c of step 4), then the last line ``{"ok":
+     true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the last
 line.  It imports nothing of JAX; it needs the repository's ``src/`` beside
@@ -207,13 +225,14 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn, iters: int = 10, tries: int = 3, exclude: str = "",
+def device_profile(fn, iters: int = 10, tries: int = 6, exclude: str = "",
                    with_calls: bool = False):
     """Device time per call of each kernel ``fn`` launches (its profiler
     self time over ``iters`` calls), keyed by the kernel's short name;
     kernels whose name holds ``exclude`` are left out.  With
     ``with_calls``, also each kernel's launches per call.  A trace that
-    holds fewer kernels than calls lost events and is taken again."""
+    holds fewer kernels than calls lost events and is taken again (three
+    traces in a row have been seen to lose them)."""
     fn()
     torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
@@ -642,18 +661,49 @@ def _straddles(p, bsz, dim) -> bool:
                for f0, f1 in cuda_qn.slices(p, bsz, dim))
 
 
-def qn_case(tag, m, bsz, dim, dtype, schedule, gen) -> float:
+# the prefill shape with a warm ring, as a prefix-cache wave gives it: rows
+# enter with counts PREFILL_WARM_COUNTS (a miss, a partial ring, two full
+# ones) and the rows of PREFILL_WARM_SUFFIX hold zeros past position
+# PREFILL_WARM_PREFIX (a partial hit's suffix)
+PREFILL_WARM = ("prefill_warm", 8, 4, 256 * 2304)
+PREFILL_WARM_COUNTS = (0, 3, 8, 8)
+PREFILL_WARM_SUFFIX = (1, 3)
+PREFILL_WARM_PREFIX = 128
+
+
+def qn_prefill_warm_inputs(gen):
+    """``qn_case_inputs`` for ``PREFILL_WARM`` (bf16 ring, every row
+    active)."""
+    _, m, bsz, dim = PREFILL_WARM
+    u, v, _, _ = _ring(m, bsz, dim, gen)
+    for b in PREFILL_WARM_SUFFIX:
+        u[:, b, PREFILL_WARM_PREFIX * 2304:] = 0
+        v[:, b, PREFILL_WARM_PREFIX * 2304:] = 0
+    count = torch.tensor(PREFILL_WARM_COUNTS, dtype=torch.int32,
+                         device="cuda")
+    mask = (torch.arange(m, device="cuda")[:, None]
+            < torch.clamp(count, max=m)[None, :]).float()
+    active = torch.ones(bsz, dtype=torch.bool, device="cuda")
+    g = torch.randn(bsz, dim, device="cuda", generator=gen)
+    s = 0.1 * torch.randn(bsz, dim, device="cuda", generator=gen)
+    hg = torch.randn(bsz, dim, device="cuda", generator=gen)
+    return u, v, mask, (count % m).int(), active, g, s, hg
+
+
+def qn_case(tag, m, bsz, dim, dtype, schedule, gen, inputs=None) -> float:
     """``broyden_step`` and ``qn_apply_multi`` (K = 1, 2 mixed, 4) on one
     case against their plain versions: the evicted rows and every unwritten
     ring row bit for bit, the rest at the row tolerance; two calls on clones
-    of the same inputs bit for bit.  The plan must be ``schedule``, and a
-    streaming case's slices must straddle a sample boundary."""
-    u, v, mask, slot, active, g, s, hg = qn_case_inputs(m, bsz, dim, dtype,
-                                                        gen)
+    of the same inputs bit for bit.  The plan must be ``schedule`` (None:
+    whichever the planner picks), and a streaming case's slices must
+    straddle a sample boundary.  ``inputs`` replaces the drawn
+    ``qn_case_inputs``."""
+    u, v, mask, slot, active, g, s, hg = inputs or qn_case_inputs(
+        m, bsz, dim, dtype, gen)
     vec = dim % (16 // u.element_size()) == 0
     for op, k in (("broyden", 1), ("qn", 1), ("qn", 4)):
         p = cuda_qn._plan_call(op, u, bsz, dim, k, vec)
-        if p.schedule != schedule:
+        if schedule is not None and p.schedule != schedule:
             raise AssertionError(f"qn case {tag}: {op} planned {p}")
         if p.coop and not _straddles(p, bsz, dim):
             raise AssertionError(f"qn case {tag}: no slice straddles")
@@ -691,8 +741,15 @@ def kernel_qn_cases(gen) -> dict:
         for dtype in (torch.bfloat16, torch.float32):
             err = qn_case(tag, m, bsz, dim, dtype, schedule, gen)
             out[f"{tag},{str(dtype)[6:]}"] = err
+    tag, m, bsz, dim = PREFILL_WARM
+    out[f"{tag},bfloat16"] = qn_case(tag, m, bsz, dim, torch.bfloat16, None,
+                                     gen, qn_prefill_warm_inputs(gen))
     say("kernel_cases", name="broyden_step, qn_apply_multi",
-        cases={t: f"m={m} B={b} D={d} {s}" for t, m, b, d, s in QN_CASES},
+        cases={**{t: f"m={m} B={b} D={d} {s}" for t, m, b, d, s in QN_CASES},
+               tag: f"m={m} B={bsz} D=256x2304 bf16, counts "
+               f"{list(PREFILL_WARM_COUNTS)}, rows "
+               f"{list(PREFILL_WARM_SUFFIX)} zero past position "
+               f"{PREFILL_WARM_PREFIX}"},
         flags=[list(f) for f in QN_FLAGS], max_abs_err=out,
         checked="evicted, refused and unwritten ring rows bit for bit; "
         "two calls on clones bit for bit; the rest at rtol 1e-3, atol 1e-4 "
@@ -1569,6 +1626,273 @@ def phase_serve_configs(smi: str) -> dict:
     return out
 
 
+# phase_serve_prefix: the arms, one after another on the same card and
+# weights (DEQ 4 blocks x0.3, bf16, ring bf16 m=8), each a ServeLoop over 4
+# slots and a 1024-token cache.  A prefix block of 128 publishes each
+# prompt at 128 and its full length, so 16 entries (sync) or rows (async)
+# hold the whole stream.  The solves stop at a relative residual of
+# PREFIX_TOL: a full-width bf16 solve levels off at ~2.5e-3
+# (``residual_floor``), under the DEQSettings default of 1e-3, where every
+# solve, cold or seeded, runs to max_steps and no warm start can save an
+# iteration; at 1e-2 a cold prefill stops after ~6.
+PREFIX_TOL = 1e-2
+PREFIX_KW = dict(prefix_cache=True, prefix_cache_slots=16, prefix_block=128)
+PREFIX_ARMS = {
+    "a_sync": dict(pipeline="sync"),
+    "b_sync_prefix": dict(pipeline="sync", record=True, **PREFIX_KW),
+    "c_async_prefix": dict(pipeline="async", async_depth=2, record=True,
+                           **PREFIX_KW),
+    "d_async_prefix_reorder": dict(pipeline="async", async_depth=2,
+                                   reorder=True, **PREFIX_KW),
+}
+ASYNC_ARMS = ("c_async_prefix", "d_async_prefix_reorder")
+
+
+def prefix_stream(vocab: int, seed: int = 0) -> list[list[int]]:
+    """12 prompts: four random 128-token bases, sent alone, then again as
+    exact repeats, then each with a random 128-token suffix."""
+    rng = np.random.default_rng(seed)
+    bases = [rng.integers(2, vocab, size=128).tolist() for _ in range(4)]
+    return bases + [list(b) for b in bases] + [
+        b + rng.integers(2, vocab, size=128).tolist() for b in bases]
+
+
+@contextlib.contextmanager
+def _record_prefill_solves(out: list):
+    """Note every Broyden solve at a prefill shape (S > 1) made inside the
+    block: its rows, length, steps, its ``broyden_step`` launches, and the
+    ring count each row entered with (0 for a cold row), kept on the card
+    and read after the block."""
+    orig = implicit_solvers.broyden_solve
+
+    def recorded(g, z0, cfg, *, carry=None, **kw):
+        if z0.ndim < 3 or z0.shape[1] == 1:
+            return orig(g, z0, cfg, carry=carry, **kw)
+        counts = None if carry is None else torch.where(
+            carry.warm, carry.lowrank.count,
+            torch.zeros_like(carry.lowrank.count))
+        n0 = launches.counts()["broyden_step"]
+        res = orig(g, z0, cfg, carry=carry, **kw)
+        out.append({"rows": z0.shape[0], "seq": z0.shape[1],
+                    "steps": res.n_steps, "counts": counts,
+                    "broyden_step": launches.counts()["broyden_step"] - n0})
+        return res
+
+    with mock.patch.object(implicit_solvers, "broyden_solve", recorded):
+        yield
+
+
+def residual_floor(params, cfg, prompts: list, steps: int = 30) -> list:
+    """The mean relative residual (``||g(z)|| / max(||z0||, 1)``) after
+    each of ``steps`` Broyden iterations of one cold prefill of
+    ``prompts`` with no stop test: where the solve levels off."""
+    traces = []
+    orig = implicit_solvers.broyden_solve
+
+    def recorded(g, z0, scfg, **kw):
+        res = orig(g, z0, scfg, **kw)
+        zn = z0.float().flatten(1).norm(dim=1).clamp(min=1.0)
+        traces.append((res.trace / zn).mean(dim=1))
+        return res
+
+    fcfg = dataclasses.replace(cfg, deq=dataclasses.replace(
+        cfg.deq, tol=0.0, max_steps=steps))
+    toks = torch.tensor(prompts, dtype=torch.int32, device="cuda")
+    with mock.patch.object(implicit_solvers, "broyden_solve", recorded):
+        lm.prefill(params, {"tokens": toks}, fcfg, 1024)
+    return traces[0].tolist()
+
+
+def async_expected_syncs(solve_log: list, max_steps: int) -> int:
+    """The host waits an async drain makes: the solver's own reads for
+    every solve of the drain (``expected_syncs`` with no loop read) and the
+    one wait that pins the card's clock for the TTFT stamps."""
+    return expected_syncs([s["steps"] for s in solve_log], max_steps, 0) + 1
+
+
+def check_prefix_arms(arms: dict) -> None:
+    """What ``phase_serve_prefix`` holds across its arms, from each arm's
+    record: every request served in full (``max_new`` tokens, or ending at
+    EOS) without an error; the async arms give the sync prefix arm's
+    tokens, and arm c its per-request prefill and decode step sequences;
+    the prefix arms b and c hit at least 4 times, save iterations and spend
+    fewer prefill iterations than the cold arm a; arm c launches every
+    serve-path kernel and no arm an off-path one; arm c's loop counts no
+    blocking read; and in arm c a Broyden solve at the prefill shape with a
+    warm ring (some row entered with a count > 0) launched
+    ``broyden_step``."""
+    for name, a in arms.items():
+        for uid, (out, err) in enumerate(zip(a["tokens"], a["errors"])):
+            full = len(out) == a["max_new"] or (out and out[-1] == a["eos"])
+            if not full or err is not None:
+                raise AssertionError(f"{name} request {uid}: {len(out)} "
+                                     f"tokens, error {err}")
+        off = {k: a["launches"][k] for k in OFF_PATH if a["launches"][k]}
+        if off:
+            raise AssertionError(f"{name} launched off-path kernels {off}")
+    b, c = arms["b_sync_prefix"], arms["c_async_prefix"]
+    for name in ASYNC_ARMS:
+        for uid, (got, want) in enumerate(zip(arms[name]["tokens"],
+                                              b["tokens"])):
+            if got != want:
+                raise AssertionError(f"{name} request {uid}: tokens {got}, "
+                                     f"the sync prefix arm's {want}")
+    if c["steps"] != b["steps"]:
+        diff = {u: (c["steps"].get(u), s) for u, s in b["steps"].items()
+                if c["steps"].get(u) != s}
+        raise AssertionError(f"c_async_prefix step sequences differ from "
+                             f"b_sync_prefix's (c, b): {diff}")
+    for name in ("b_sync_prefix", "c_async_prefix"):
+        a = arms[name]
+        if not (a["hits"] >= 4 and a["saved_iters"] > 0
+                and a["prefill_iters"] < arms["a_sync"]["prefill_iters"]):
+            raise AssertionError(
+                f"{name}: {a['hits']} hits, {a['saved_iters']} saved, "
+                f"{a['prefill_iters']} prefill iterations against the cold "
+                f"arm's {arms['a_sync']['prefill_iters']}")
+    missing = [k for k in SERVE_PATH if c["launches"][k] == 0]
+    if missing:
+        raise AssertionError(f"c_async_prefix: kernels not launched: "
+                             f"{missing}")
+    if c["host_syncs"]:
+        raise AssertionError(f"c_async_prefix counted blocking reads "
+                             f"{c['host_syncs']}")
+    if not any(w["broyden_step"] and max(w["counts"]) > 0
+               for w in c["prefill_solves"]):
+        raise AssertionError(f"c_async_prefix: no prefill-shaped "
+                             f"broyden_step with a warm ring: "
+                             f"{c['prefill_solves']}")
+
+
+def _serve_prefix_arm(params, cfg, prompts: list, kw: dict) -> tuple:
+    """One drain of ``prompts`` (16 new tokens each) through a fresh
+    ``ServeLoop(**kw)``, with the metrics registry and launch counts reset
+    just before, the host waits counted (``count_syncs``) and the
+    prefill-shaped solves recorded; returns the loop, the requests, the
+    seconds, the waits, the launch counts and the prefill solves."""
+    loop = ServeLoop(params, cfg, slots=4, max_len=1024, **kw)
+    reqs = [Request(uid=i, prompt=list(p), max_new_tokens=16)
+            for i, p in enumerate(prompts)]
+    obs_metrics.default_registry().reset()
+    syncs, solves = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    t0 = time.perf_counter()
+    with count_syncs(syncs), _record_prefill_solves(solves):
+        loop.drain(reqs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launches.counts()
+    for w in solves:
+        w["counts"] = [] if w["counts"] is None else w["counts"].tolist()
+    return loop, reqs, secs, syncs, counts, solves
+
+
+TIMING_ORDER = ("b_sync_prefix", "c_async_prefix", "c_async_prefix",
+                "b_sync_prefix")
+
+
+def prefix_timing(params, cfg, prompts: list, ref: dict) -> list:
+    """Sync against async like for like: arms b and c again without record
+    mode (whose sync arm reads every tick's logits), in the order
+    ``TIMING_ORDER``; each must serve every request with ``ref``'s tokens,
+    and the async runs must wait only for the solver and the clock."""
+    out = []
+    for name in TIMING_ORDER:
+        loop, reqs, secs, syncs, _, _ = _serve_prefix_arm(
+            params, cfg, prompts, {**PREFIX_ARMS[name], "record": False})
+        got = [r.out for r in reqs]
+        if got != ref["tokens"] or any(r.error for r in reqs):
+            raise AssertionError(f"{name} without record mode: tokens "
+                                 f"{got}, the record run's {ref['tokens']}")
+        if name in ASYNC_ARMS:
+            check_syncs(f"{name} without record mode", syncs,
+                        async_expected_syncs(loop.solve_log,
+                                             cfg.deq.max_steps))
+        ttft = obs_metrics.default_registry().histogram("serve_ttft_ms")
+        out.append(dict(arm=name, seconds=secs,
+                        tok_per_s=sum(len(t) for t in got) / secs,
+                        ttft_ms_mean=ttft.sum / ttft.count,
+                        ttft_ms_max=ttft.max, host_waits=len(syncs)))
+    return out
+
+
+def phase_serve_prefix(params, cfg, smi: str) -> dict:
+    """The async pipeline and the prefix caches at full width, the arms of
+    ``PREFIX_ARMS`` over ``prefix_stream``: (a) sync without a prefix
+    cache, (b) sync with the host prefix index, (c) async (depth 2) with
+    the device prefix store, (d) as (c) with admission reordering.  Holds
+    ``check_prefix_arms`` and, in the async arms, exactly the solver's own
+    host reads plus the one clock wait (``async_expected_syncs``); prints
+    each arm's rate, TTFT, prefill iterations, host waits by site, peak
+    memory and store bytes; then times b and c like for like
+    (``prefix_timing``).  The solves stop at ``PREFIX_TOL``; first the
+    residual a cold prefill of the four bases levels off at
+    (``residual_floor``).  Returns arm c's launch counts."""
+    prompts = prefix_stream(cfg.vocab_size)
+    floor = residual_floor(params, cfg, prompts[:4])
+    say("serve_prefix_floor", card=smi, prompts="4 x 128, cold, no stop test",
+        relative_residual=[float(f"{r:.4g}") for r in floor])
+    cfg = dataclasses.replace(cfg, deq=dataclasses.replace(cfg.deq,
+                                                           tol=PREFIX_TOL))
+    arms = {}
+    for name, kw in PREFIX_ARMS.items():
+        loop, reqs, secs, syncs, counts, solves = _serve_prefix_arm(
+            params, cfg, prompts, kw)
+        reg = obs_metrics.default_registry()
+        ttft = reg.histogram("serve_ttft_ms")
+        host_syncs = {dict(m["labels"])["site"]: m["value"]
+                      for m in reg.snapshot()["metrics"]
+                      if m["name"] == "host_syncs_total"}
+        cache = loop.prefix if loop.prefix is not None else loop.prefix_store
+        stats = cache.stats() if cache is not None else None
+        pf = [s["steps"] for s in loop.solve_log if s["phase"] == "prefill"]
+        waits = dict(collections.Counter(syncs))
+        if name in ASYNC_ARMS:
+            waits = check_syncs(f"{name} drain", syncs, async_expected_syncs(
+                loop.solve_log, cfg.deq.max_steps))
+        arms[name] = dict(
+            tokens=[r.out for r in reqs], errors=[r.error for r in reqs],
+            max_new=16, eos=loop.eos, steps=loop.recorded_steps,
+            hits=stats["hits"] if stats else 0,
+            saved_iters=loop.saved_iters, prefill_iters=sum(pf),
+            launches=counts, host_syncs=host_syncs,
+            prefill_solves=solves)
+        say("serve_prefix", arm=name, card=smi, tol=PREFIX_TOL,
+            pipeline=kw["pipeline"], seconds=secs,
+            tok_per_s=sum(len(r.out) for r in reqs) / secs,
+            ttft_ms_mean=ttft.sum / ttft.count, ttft_ms_max=ttft.max,
+            prefill_steps=pf, prefill_iters=sum(pf),
+            loop_prefill_iters=loop.prefill_iters,
+            saved_iters=loop.saved_iters, prefix_stats=stats,
+            host_syncs_total=host_syncs, engine_waits=waits,
+            decode_steps=[s["steps"] for s in loop.solve_log
+                          if s["phase"] == "decode"],
+            prefill_solves=[{k: w[k] for k in ("rows", "seq", "steps",
+                                               "counts", "broyden_step")}
+                            for w in solves],
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            store_bytes=(loop.prefix_store.nbytes()
+                         if loop.prefix_store is not None else None),
+            launches={k: n for k, n in counts.items() if n})
+        # the next arm's peak must not hold this arm's store
+        del loop, cache
+        torch.cuda.empty_cache()
+    check_prefix_arms(arms)
+    timing = prefix_timing(params, cfg, prompts, arms["b_sync_prefix"])
+    say("serve_prefix_timing", card=smi, tol=PREFIX_TOL,
+        order=[t["arm"] for t in timing], runs=timing)
+    say("serve_prefix_checks", card=smi, passed=(
+        "all requests served in full, no errors; c and d give b's tokens, c "
+        "b's step sequences; b and c: hits >= 4, saved > 0, fewer prefill "
+        "iterations than a; c: every serve-path kernel, a warm-ring "
+        "prefill broyden_step, 0 counted blocking reads; c and d: host "
+        "waits = the solver's reads + 1 clock wait; no off-path launch"))
+    obs_metrics.default_registry().reset()
+    return arms["c_async_prefix"]["launches"]
+
+
 def _profile_window(fn) -> dict:
     """Run ``fn`` under torch.profiler: wall time, device busy time (sum of
     kernel self time on the one stream), idle share and the top kernels."""
@@ -2215,6 +2539,7 @@ def main() -> int:
         phase_train_parity(arch=arch)
     drains = phase_serve_configs(smi)
     serve_counts, n_solves, params, cfg = phase_serve(smi)
+    prefix_counts = phase_serve_prefix(params, cfg, smi)
     phase_profile(params, cfg, smi)
     train_counts = phase_train(params, cfg, smi)
     phase_refine_carry(params, cfg, smi)
@@ -2225,7 +2550,8 @@ def main() -> int:
         r = res[name]
         row = {"name": name, "route": route, "source": source,
                "replaces": replaces,
-               "launches": serve_counts[name] + train_counts[name],
+               "launches": (serve_counts[name] + prefix_counts[name]
+                            + train_counts[name]),
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"],
@@ -2235,6 +2561,7 @@ def main() -> int:
                **{k: r[k] for k in ("device_ms_warm",
                                     "library_device_ms_warm") if k in r},
                "launches_serve": serve_counts[name],
+               "launches_serve_prefix_async": prefix_counts[name],
                "launches_per_serve_solve": serve_counts[name] / n_solves,
                "launches_train": train_counts[name],
                "launches_per_train_step": train_counts[name] / 4,

@@ -2,10 +2,16 @@
 
 The port of ``repro/launch/serve.py``: builds the model (random weights from
 ``--seed``), drains a synthetic request stream through the fixed-slot
-``ServeLoop`` and prints the rate and the first requests' outputs.  It
-runs the sync pipeline only, so it has no ``--pipeline`` flag until the
-async pipeline is ported.  The prompts are drawn exactly as the JAX launcher draws them
-(``np.random.default_rng(seed)``), so both launchers serve the same stream.
+``ServeLoop`` and prints the rate and the first requests' outputs.  As in
+the reference, ``--pipeline async`` (the default) runs the completion-queue
+pipeline with the slot state and the prefix store on the device, and
+``--pipeline sync`` the blocking loop; ``--prefix-cache`` seeds each
+prefill from the longest cached prompt prefix, ``--reorder`` groups queued
+requests by prefix.  The summary gives the prefix cache's hits, entries and
+prefill iterations, and the blocking host reads the loop counted
+(``host_syncs_total``).  The prompts are drawn exactly as the JAX launcher
+draws them (``np.random.default_rng(seed)``), so both launchers serve the
+same stream.
 
 Runs on the card by default; ``--device cpu`` runs the plain PyTorch path.
 The default model is the full published config (``get_config``);
@@ -60,6 +66,38 @@ def main(argv=None) -> None:
     ap.add_argument("--carry-max-age", type=int, default=None,
                     help="DEQ carry staleness bound: evict per-slot solve "
                          "state older than this many solves")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="cross-request prefix carry cache: seed each "
+                         "prefill solve from the longest cached prompt "
+                         "prefix instead of cold-starting")
+    ap.add_argument("--prefix-cache-slots", type=int, default=32,
+                    help="prefix-cache capacity (entries; device rows for "
+                         "the async pipeline); 0 = always-miss cold "
+                         "accounting arm")
+    ap.add_argument("--prefix-block", type=int, default=4,
+                    help="prefix-cache publication granularity: entries are "
+                         "stored at multiples of this many tokens (plus the "
+                         "full prompt length)")
+    ap.add_argument("--prefix-max-age", type=int, default=None,
+                    help="prefix-cache staleness bound: evict entries not "
+                         "republished within this many cache operations")
+    ap.add_argument("--pipeline", default="async", choices=("async", "sync"),
+                    help="serving pipeline: 'async' (default) lands waves "
+                         "and ticks through a completion queue with the "
+                         "slot state and prefix store on the device and no "
+                         "blocking host read of its own; 'sync' blocks on "
+                         "every wave and tick")
+    ap.add_argument("--async-depth", type=int, default=2,
+                    help="async pipeline: entries in flight before dispatch "
+                         "waits for the oldest to land")
+    ap.add_argument("--reorder", action="store_true",
+                    help="prefix-aware admission: stable-sort queued "
+                         "requests by matched prefix so prompts sharing a "
+                         "cached prefix land in one wave")
+    ap.add_argument("--reorder-age-bound", type=int, default=8,
+                    help="fairness bound for --reorder: a request passed "
+                         "over this many admission rounds is admitted FIFO "
+                         "ahead of any grouping")
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="synthetic prompt stream: all prompts share this "
                          "many leading tokens; 0 = fully random prompts")
@@ -102,7 +140,14 @@ def main(argv=None) -> None:
     params = lm.init_params(cfg, seed=args.seed, device=device)
 
     loop = ServeLoop(params, cfg, slots=args.slots, max_len=args.max_len,
-                     carry_max_age=args.carry_max_age)
+                     carry_max_age=args.carry_max_age,
+                     prefix_cache=args.prefix_cache,
+                     prefix_cache_slots=args.prefix_cache_slots,
+                     prefix_block=args.prefix_block,
+                     prefix_max_age=args.prefix_max_age,
+                     pipeline=args.pipeline, async_depth=args.async_depth,
+                     reorder=args.reorder,
+                     reorder_age_bound=args.reorder_age_bound)
     rng = np.random.default_rng(args.seed)
     prompts = make_prompts(rng, cfg.vocab_size, args.requests,
                            args.shared_prefix)
@@ -121,6 +166,18 @@ def main(argv=None) -> None:
           f"{tokens} tokens in {dt:.2f}s ({tokens / dt:.1f} tok/s)")
     for r in reqs[:4]:
         print(f"  req {r.uid}: prompt[{len(r.prompt)}] -> {r.out}")
+    cache = loop.prefix if loop.prefix is not None else loop.prefix_store
+    if cache is not None:
+        st = cache.stats()
+        print(f"prefix cache: {st['hits']}/{st['lookups']} lookups hit, "
+              f"{st['entries']} entries ({st['tokens']} tokens) held, "
+              f"evictions={st['evictions']}; prefill iters "
+              f"{loop.prefill_iters:.0f} total, {loop.saved_iters:.0f} saved")
+    syncs = {dict(m["labels"])["site"]: m["value"]
+             for m in obs_metrics.default_registry().snapshot()["metrics"]
+             if m["name"] == "host_syncs_total"}
+    print(f"{args.pipeline} pipeline: {sum(syncs.values()):.0f} blocking "
+          f"host syncs recorded {syncs}")
     if args.metrics_out:
         obs_metrics.default_registry().write_json(args.metrics_out)
         print(f"metrics snapshot -> {args.metrics_out}")

@@ -11,7 +11,9 @@ SHINE's shared object).  Training: :func:`forward` and :func:`loss_fn`
 solve the whole sequence causally, and the backward runs the configured
 SHINE-family estimator (``implicit_fixed_point``).  Serving:
 :func:`prefill` solves the prompt's equilibrium against a fresh KV cache
-and seeds the decode carry with its last token; :func:`decode_step` solves
+(cold, or seeded from a cross-request prefix-cache snapshot assembled by
+:func:`prefix_seed_carry` or :func:`prefix_gather_carry`) and seeds the
+decode carry with its last token; :func:`decode_step` solves
 one new token per row against the frozen cache (inactive rows frozen in the
 batched solve), warm started from the carried equilibrium and quasi-Newton
 ring, then refreshes the cache once at ``z*``.  The other families come
@@ -30,8 +32,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.lowrank import LowRank
 from repro_torch.core.solvers import SolveCarry, init_solve_carry, seed_carry
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_device
 from repro_torch.implicit.config import ImplicitConfig
 from repro_torch.implicit.engine import batched_solve
 from repro_torch.implicit.fixed_point import implicit_fixed_point
@@ -318,18 +321,126 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
                                 torch.zeros(shape, dtype=dt, device=dev))}
 
 
+def prefix_seed_carry(cfg: ModelConfig, batch: int, seq: int,
+                      snapshots: list, device=None) -> tuple[SolveCarry,
+                                                            torch.Tensor]:
+    """A PREFILL-shaped carry from per-row prefix-cache snapshots.
+
+    ``snapshots``: one entry per row, ``None`` for a miss (the row stays
+    cold, bit for bit a carryless prefill) or a host tuple ``(z, u, v,
+    count)``: ``z (L, d)`` the cached prefix equilibrium, ``u``/``v (m, L,
+    d)`` the donor's ring over the prefix positions (``None``/``count=0``
+    for an iterate-only seed).  Suffix positions (``>= L``) are zero here;
+    :func:`prefill` starts them at the live ``x_emb``, and the zero ring
+    pairs act as the identity on them.  Built on the host and copied to
+    ``device`` without a wait.  Returns ``(carry, prefix_len (B,) int32)``.
+
+    ``count`` is the donor's as it stands, as :func:`prefix_gather_carry`
+    takes it from the device store.  (The JAX package clamps it to ``m``
+    here but not in its gather, so once a donor's ring has wrapped its two
+    pipelines write the next pair to different ring slots and part bit for
+    bit; the port's two do not.)
+    """
+    if len(snapshots) != batch:
+        raise ValueError(f"{len(snapshots)} snapshots for batch {batch}")
+    dev = resolve_device(device)
+    tmpl = deq_solve_carry(cfg, batch, seq, "cpu")
+    m = tmpl.memory
+    z, u, v = tmpl.z, tmpl.lowrank.u, tmpl.lowrank.v
+    count, warm = tmpl.lowrank.count, tmpl.warm
+    plen = torch.zeros((batch,), dtype=torch.int32)
+    for i, snap in enumerate(snapshots):
+        if snap is None:
+            continue
+        sz, su, sv, sc = snap
+        sz = torch.as_tensor(sz)
+        length = sz.shape[0]
+        if length > seq:
+            raise ValueError(f"snapshot row {i}: prefix {length} > seq {seq}")
+        warm[i] = True
+        plen[i] = length
+        z[i, :length] = sz.to(z.dtype)
+        if su is not None and sv is not None and sc:
+            su, sv = torch.as_tensor(su), torch.as_tensor(sv)
+            if su.shape[0] != m:
+                raise ValueError(
+                    f"snapshot row {i}: ring memory {su.shape[0]} != {m}")
+            u[:, i, :length] = su.to(u.dtype)
+            v[:, i, :length] = sv.to(v.dtype)
+            count[i] = int(sc)
+    carry = SolveCarry(
+        z=to_device(z, dev),
+        lowrank=LowRank(
+            alpha=torch.ones((), dtype=torch.float32, device=dev),
+            u=to_device(u, dev), v=to_device(v, dev),
+            count=to_device(count, dev)),
+        warm=to_device(warm, dev),
+        age=torch.zeros((batch,), dtype=torch.int32, device=dev))
+    return carry, to_device(plen, dev)
+
+
+def prefix_gather_carry(cfg: ModelConfig, batch: int, seq: int, arrays,
+                        slot_ids: torch.Tensor,
+                        prefix_len: torch.Tensor) -> tuple[SolveCarry,
+                                                           torch.Tensor]:
+    """A PREFILL-shaped carry gathered from the device prefix store's rows
+    (:class:`~repro_torch.implicit.DevicePrefixStore`), on the device:
+    ``arrays`` the store's ``(z, u, v, count)``, ``slot_ids (B,)`` the donor
+    rows and ``prefix_len (B,)`` the matched lengths (0 = a miss: the row
+    comes out cold, bit for bit a carryless prefill).  Positions past the
+    matched length hold a donor's tail in the store and are zeroed here,
+    as :func:`prefix_seed_carry` zero-pads."""
+    z_s, u_s, v_s, c_s = arrays
+    if u_s.shape[0] != cfg.deq.memory:
+        raise ValueError(
+            f"store ring memory {u_s.shape[0]} != cfg {cfg.deq.memory}")
+    if z_s.shape[1] < seq:
+        raise ValueError(f"store seq {z_s.shape[1]} < prompt seq {seq}")
+    dev = z_s.device
+    idx = slot_ids.to(device=dev, dtype=torch.long)
+    pmask = (torch.arange(seq, dtype=torch.int32, device=dev)[None, :]
+             < prefix_len[:, None])[..., None]
+    z = torch.where(pmask, z_s.narrow(1, 0, seq).index_select(0, idx).to(
+        act_dtype(cfg)), torch.zeros((), dtype=act_dtype(cfg), device=dev))
+    zr = torch.zeros((), dtype=u_s.dtype, device=dev)
+    u = torch.where(pmask[None], u_s.narrow(2, 0, seq).index_select(1, idx),
+                    zr)
+    v = torch.where(pmask[None], v_s.narrow(2, 0, seq).index_select(1, idx),
+                    zr)
+    warm = prefix_len > 0
+    count = torch.where(warm, c_s.index_select(0, idx),
+                        torch.zeros_like(prefix_len)).int()
+    carry = SolveCarry(
+        z=z,
+        lowrank=LowRank(alpha=torch.ones((), dtype=torch.float32,
+                                         device=dev), u=u, v=v, count=count),
+        warm=warm,
+        age=torch.zeros((batch,), dtype=torch.int32, device=dev))
+    return carry, prefix_len
+
+
 @torch.no_grad()
 def prefill(params, batch: dict, cfg: ModelConfig, max_len: int, *,
-            carry: SolveCarry | None = None, return_steps: bool = False,
-            return_status: bool = False):
+            carry: SolveCarry | None = None,
+            prefix_carry: SolveCarry | None = None,
+            prefix_len: torch.Tensor | None = None,
+            return_steps: bool = False, return_status: bool = False):
     """Encode a prompt ``batch["tokens"] (B, S)``; returns ``(logits (B, S,
     V), caches, lengths)``.
 
     ``carry`` (a decode-shaped ``deq_solve_carry(cfg, B, 1)``) is seeded
     with the last token's equilibrium and appended to the return, so the
-    first decode step warm-starts.  ``return_steps`` appends the prefill
-    solve's step count and ``return_status`` its per-row health codes
-    (``core.solvers.STATUS_*``)."""
+    first decode step warm-starts.
+
+    ``prefix_carry`` + ``prefix_len`` seed the prefill solve itself from a
+    prefix-cache snapshot: warm rows start at ``where(pos < prefix_len,
+    cached_z, x_emb)`` with the cached ring, cold rows are bit for bit a
+    carryless prefill.  The return then gains ``(solve_carry, deq_steps)``:
+    the converged prefill carry (to publish) and the solve's step count.
+
+    ``return_steps`` appends the prefill solve's step count and
+    ``return_status`` its per-row health codes (``core.solvers.STATUS_*``).
+    """
     _check_family(cfg)
     dev = params_device(params)
     tokens = batch["tokens"].to(dev)
@@ -338,7 +449,18 @@ def prefill(params, batch: dict, cfg: ModelConfig, max_len: int, *,
     pos = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
     caches = init_cache(cfg, b, max_len, dev)
     idx0 = torch.zeros((b,), dtype=torch.int32, device=dev)
-    z, caches, aux = _apply_deq(params, x, cfg, pos, caches, idx0)
+    solve_carry = None
+    if prefix_carry is not None:
+        if prefix_len is None:
+            raise ValueError("prefix_carry requires prefix_len")
+        # cached prefix positions start at the donor equilibrium, the live
+        # suffix at the injection
+        pmask = (pos < prefix_len[:, None])[..., None]
+        solve_carry = dataclasses.replace(
+            prefix_carry,
+            z=torch.where(pmask, prefix_carry.z.to(x.dtype), x))
+    z, caches, aux = _apply_deq(params, x, cfg, pos, caches, idx0,
+                                carry=solve_carry)
     z_last = z[:, -1:, :]
     x = rmsnorm(params["final_norm"], z, cfg.norm_eps)
     logits = lm_logits(params["embed"], x, cfg)
@@ -346,6 +468,8 @@ def prefill(params, batch: dict, cfg: ModelConfig, max_len: int, *,
     out = (logits, caches, lengths)
     if carry is not None:
         out = out + (seed_carry(carry, z_last),)
+    if prefix_carry is not None:
+        out = out + (aux["solve_carry"], aux["deq_steps"])
     if return_steps:
         out = out + (aux["deq_steps"],)
     if return_status:

@@ -6,8 +6,9 @@ Prometheus text (:meth:`MetricsRegistry.to_prom`, written atomically by
 :meth:`MetricsRegistry.write_prom` and refreshed by a :class:`PromFlusher`
 thread).
 
-Host-side recording (serving counters, qN stream counters, checkpoint
-bytes) is plain Python arithmetic and unconditional, as in the reference.
+Host-side recording (serving counters, the prefix cache's records, qN
+stream counters, checkpoint bytes) is plain Python arithmetic and
+unconditional, as in the reference.
 The bridge -- :func:`emit_scalar`, :func:`record_solve`,
 :func:`record_backward` -- carries values computed on the device.  It is
 gated on :func:`enabled` (off by default): switched off it returns at once
@@ -18,7 +19,10 @@ they land all at once at the next read the program already makes --
 :func:`read` (the trainer's interval read, the serving loop's per-tick
 read) copies them to the host in the same transfer as the program's own
 values -- or at :meth:`MetricsRegistry.flush`, which ``snapshot``,
-``to_prom`` and ``write_json`` call first.
+``to_prom`` and ``write_json`` call first.  The async serving pipeline,
+which makes no read, takes them over (:meth:`MetricsRegistry.take_pending`),
+copies them to pinned host memory with each entry's outputs and lands them
+with the entry (:func:`land_host`).
 """
 
 from __future__ import annotations
@@ -34,8 +38,11 @@ import numpy as np
 import torch
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "PromFlusher",
-           "Series", "default_registry", "emit_scalar", "enabled", "read",
-           "record_backward", "record_solve", "set_enabled"]
+           "Series", "default_registry", "emit_scalar", "enabled",
+           "land_host", "read",
+           "record_backward", "record_prefix_lookup",
+           "record_prefix_occupancy", "record_prefix_saved_iters",
+           "record_solve", "set_enabled"]
 
 _LabelsKey = tuple[tuple[str, str], ...]
 
@@ -183,6 +190,13 @@ class MetricsRegistry:
     def flush(self) -> None:
         """Land every pending value (one transfer)."""
         self.read()
+
+    def take_pending(self) -> list[tuple[Callable, tuple[torch.Tensor, ...]]]:
+        """Hand the pending values over to a caller that copies them to the
+        host without a wait and lands them itself (:func:`land_host`)."""
+        with self._lock:
+            pending, self._pending = self._pending, []
+        return pending
 
     # -- export ------------------------------------------------------------
 
@@ -365,6 +379,13 @@ def read(*tensors: torch.Tensor) -> list:
     return _REGISTRY.read(*tensors)
 
 
+def land_host(land: Callable, host: list[torch.Tensor]) -> None:
+    """Land a pending value from :meth:`MetricsRegistry.take_pending` whose
+    tensors are now host copies, as :meth:`MetricsRegistry.read` lands it."""
+    land(*[t.float().numpy() if t.is_floating_point() else t.numpy()
+           for t in host])
+
+
 def snapshot() -> dict:
     """Snapshot of the default registry."""
     return _REGISTRY.snapshot()
@@ -484,3 +505,34 @@ def record_backward(estimator: str, adj) -> None:
     n = int(adj.n_steps)
     _REGISTRY.defer(lambda res, fb: _land_backward(estimator, n, res, fb),
                     adj.residual, adj.fallback_mask)
+
+
+# -- prefix carry cache (host-side: plain Python, unconditional) ------------
+
+
+def record_prefix_lookup(outcome: str, *, matched_tokens: int = 0,
+                         prompt_tokens: int = 0) -> None:
+    """One prefix-cache admission lookup: ``outcome`` is ``hit`` (the whole
+    prompt matched), ``partial`` (a shorter stored boundary) or ``miss``;
+    the token totals give the hit coverage (matched / prompt tokens)."""
+    reg = _REGISTRY
+    reg.counter("prefix_cache_lookups_total", {"outcome": outcome}).inc()
+    if matched_tokens:
+        reg.counter("prefix_cache_matched_tokens_total").inc(
+            float(matched_tokens))
+    if prompt_tokens:
+        reg.counter("prefix_cache_prompt_tokens_total").inc(
+            float(prompt_tokens))
+
+
+def record_prefix_occupancy(entries: int, tokens: int) -> None:
+    """Mirror a prefix cache's occupancy into gauges."""
+    reg = _REGISTRY
+    reg.gauge("prefix_cache_entries").set(float(entries))
+    reg.gauge("prefix_cache_tokens").set(float(tokens))
+
+
+def record_prefix_saved_iters(saved) -> None:
+    """Broyden iterations a seeded prefill saved against the cold
+    reference, as the ``prefix_cache_saved_iters`` series."""
+    _REGISTRY.series("prefix_cache_saved_iters").record(saved)

@@ -18,7 +18,9 @@ refine backward that must leave a carried ring as the forward left it, the
 span tracer's device phases on two traced train steps, and the host waits
 of train steps (``chip_smoke.count_syncs``): the solver's two reads per
 iteration and the one metrics read per interval, nothing more, with
-metrics off and on, traced and untraced.
+metrics off and on, traced and untraced; and the async serving pipeline
+with the prefix store on the card: the sync loop's tokens, logits and step
+sequences, and no host read of its own (landings read host buffers only).
 """
 
 import os
@@ -415,3 +417,94 @@ def test_traced_train_steps_tile_on_the_card(dev, solver):
     assert len(steps) == 2
     for st in steps:
         assert all(st[p] > 0 for p in chip_smoke.TRAIN_PHASES)
+
+
+def _smoke_serve(dev, **kw):
+    """A smoke-size DEQ ServeLoop on the card (blocks x0.3, f32, ring of
+    16, tol 1e-5) over an overlapping-prefix stream of 6 requests, 3 new
+    tokens each; returns the loop and the requests after the drain, and
+    the host waits it made (``chip_smoke.count_syncs``)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.models import lm
+    from repro_torch.runtime.serving import Request, ServeLoop
+    cfg = smoke_config("minicpm-2b", deq=True)
+    cfg = dataclasses.replace(
+        cfg, d_model=32, num_heads=2, num_kv_heads=2, d_ff=64,
+        vocab_size=128, head_dim=16, dtype="float32",
+        deq=dataclasses.replace(cfg.deq, max_steps=100, tol=1e-5, memory=16))
+    params = lm.init_params(cfg, seed=0, device=dev)
+    params["deq_blocks"] = _tree(lambda t: t * 0.3, params["deq_blocks"])
+    rng = np.random.default_rng(7)
+    base = rng.integers(2, 128, size=8).tolist()
+    prompts = [base + rng.integers(2, 128, size=4).tolist()
+               for _ in range(6)]
+    loop = ServeLoop(params, cfg, slots=3, max_len=64, eos_id=-1,
+                     prefix_cache=True, prefix_cache_slots=16, record=True,
+                     **kw)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=3)
+            for i, p in enumerate(prompts)]
+    syncs = []
+    with chip_smoke.count_syncs(syncs):
+        loop.drain(reqs)
+    return cfg, loop, reqs, syncs
+
+
+@pytest.mark.cuda
+def test_async_drain_with_the_device_store_equals_the_sync_drain(dev):
+    """The async pipeline with the prefix store on the card gives the sync
+    loop's tokens, recorded logits bit for bit and step sequences, counts
+    no blocking read, and waits on the card only for the solver's own
+    reads and the one clock wait (``chip_smoke.async_expected_syncs``)."""
+    from repro_torch.obs import metrics as obs_metrics
+    _, loop_s, reqs_s, _ = _smoke_serve(dev, pipeline="sync")
+    reg = obs_metrics.default_registry()
+    reg.reset()
+    cfg, loop_a, reqs_a, syncs = _smoke_serve(dev, pipeline="async",
+                                              async_depth=2)
+    assert not [m for m in reg.snapshot()["metrics"]
+                if m["name"] == "host_syncs_total"]
+    assert [r.out for r in reqs_a] == [r.out for r in reqs_s]
+    assert loop_a.recorded_steps == loop_s.recorded_steps
+    for uid, want in loop_s.recorded_logits.items():
+        for a, b in zip(loop_a.recorded_logits[uid], want):
+            np.testing.assert_array_equal(a, b)
+    assert loop_a.prefix_store.z.is_cuda
+    assert loop_a.prefix_store.stats()["hits"] >= 1
+    assert loop_a.saved_iters > 0
+    chip_smoke.check_syncs("async drain", syncs,
+                           chip_smoke.async_expected_syncs(
+                               loop_a.solve_log, cfg.deq.max_steps))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metrics", [False, True])
+def test_async_landing_reads_no_card_tensor(dev, metrics):
+    """Every landing of an async drain on the card reads host buffers only:
+    no host wait on the card inside ``ServeLoop._land``, with the metrics
+    bridge off and on (on, its values ride each entry to the host); the
+    drain's waits are the solver's and the clock's."""
+    from unittest import mock
+
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.runtime.serving import ServeLoop
+    inside = []
+    orig = ServeLoop._land
+
+    def land(self, e):
+        with chip_smoke.count_syncs(inside):
+            return orig(self, e)
+
+    obs_metrics.set_enabled(metrics)
+    try:
+        with mock.patch.object(ServeLoop, "_land", land):
+            cfg, loop, reqs, syncs = _smoke_serve(dev, pipeline="async")
+        assert not obs_metrics.default_registry()._pending
+    finally:
+        obs_metrics.set_enabled(False)
+    assert all(len(r.out) == 3 for r in reqs)
+    assert inside == []
+    chip_smoke.check_syncs("async drain", syncs,
+                           chip_smoke.async_expected_syncs(
+                               loop.solve_log, cfg.deq.max_steps))

@@ -304,8 +304,9 @@ def test_serve_launcher_traces_the_drain(tmp_path):
     before = obs_metrics.default_registry().counter(
         "serve_requests_completed").value
     tserve.main(["--smoke", "--deq", "--device", "cpu", "--requests", "3",
-                 "--slots", "2", "--max-new-tokens", "3", "--trace-out",
-                 str(trace), "--metrics-prom-out", str(prom)])
+                 "--slots", "2", "--max-new-tokens", "3", "--pipeline",
+                 "sync", "--trace-out", str(trace), "--metrics-prom-out",
+                 str(prom)])
     ev = _check_schema(json.loads(trace.read_text()))
     drain = _window(ev, "drain")
     spans = {e["name"] for e in ev if e["ph"] == "B"}
