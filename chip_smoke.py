@@ -41,7 +41,9 @@ Phases, one line (or a few) each:
      mixed pair (False, True) and (True,); ``kernel_qn_adjoint``); and
      both qN kernels at the prefill shape with a warm ring as a prefix
      wave gives it (``PREFILL_WARM``: counts 0, 3, 8, 8, two rows zero
-     past position 128);
+     past position 128); and both at the MDEQ path's ring (``MDEQ_QN``:
+     m=18, B=128, D=36864, f32 state, bf16 ring; the case checks, then
+     timed cold and warm on a full ring; ``kernel_qn_mdeq``);
   3. end-to-end checks at a small size, card against CPU: the smoke config
      in f32 served (same tokens, matching logits) and trained for three
      steps (same solver steps, matching loss and grad norm), the training
@@ -105,9 +107,34 @@ Phases, one line (or a few) each:
      (``check_trace_phases``), and the traced steps (metrics off) must make
      as many host waits as the untraced ones (metrics on): the solver's and
      the trainer's, nothing more (``count_syncs``);
-  9. a ``{"kernels": [...]}`` line (with each kernel's launches in the
-     step 8 arms and in arm c of step 4), then the last line ``{"ok":
-     true, "device": {...}}``.
+  9. fault injection at the full width of MiniCPM-2B (``phase_chaos``,
+     after step 4): through ``lm.prefill`` at B=4 x 256 (the qN kernels'
+     streaming schedule, slices straddling samples) and B=4 x 1 (the
+     resident one), a ``nonfinite`` and a ``diverge`` fault at row 1 from
+     step 2 and a warm carry with a NaN ring row 2: the faulted row ends
+     with its class's status and a finite best iterate, every other row's
+     iterate and logits bit for bit the fault-free run's; a poisoned
+     device prefix store slot in the async pipeline: the seeded request is
+     retried cold and evicted as poisoned, the others' tokens are an
+     unpoisoned drain's; and a prefill before ``faultinject`` is imported
+     and after it was armed and disarmed: the same iterate, launches and
+     host waits;
+ 10. the multiscale DEQ at ``MDEQConfig()`` (``phase_mdeq``): batch 128 of
+     ``synthetic_cifar``, a forward held to the solver's host reads, 8 SGD
+     steps with ``shine_fallback`` whose loss must fall (both qN kernels
+     launched, counts reset and read), the cosine of the ``full`` and
+     ``shine_fallback`` gradients above 0.5, and a small config card
+     against CPU (same steps, logits within 1e-4 of their scale);
+ 11. HOAG on a logistic regression at real-sim's 20,958 features
+     (``phase_bilevel``; 5000 / 1000 / 1000 samples): the step-0
+     hypergradient by SHINE within 0.5 of CG's, then 8 outer steps of
+     ``full_cg``, ``shine``, ``shine_opa`` and ``jfb``: the validation loss
+     falls, the shine modes make no backward HVP, and the host waits are
+     exactly the L-BFGS, line-search and CG stop tests and three record
+     reads an outer step (``hoag_expected_syncs``);
+ 12. a ``{"kernels": [...]}`` line (with each kernel's launches in the
+     step 8 arms, in arm c of step 4 and in the MDEQ SGD steps), then the
+     last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the last
 line.  It imports nothing of JAX; it needs the repository's ``src/`` beside
@@ -138,7 +165,11 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs.base import TrainConfig  # noqa: E402
+from repro_torch.configs.mdeq_cifar import MDEQConfig  # noqa: E402
 from repro_torch.configs.registry import get_config, smoke_config  # noqa: E402
+from repro_torch.core import bilevel  # noqa: E402
+from repro_torch.core import solvers as core_solvers  # noqa: E402
+from repro_torch.core.deq import DEQConfig  # noqa: E402
 from repro_torch.data.pipeline import (  # noqa: E402
     SyntheticTokenDataset,
     make_lm_batch_iterator,
@@ -147,10 +178,11 @@ from repro_torch.kernels import build, launches, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as cuda_fa  # noqa: E402
 from repro_torch.kernels import qn_apply as cuda_qn  # noqa: E402
 from repro_torch.kernels import rmsnorm as cuda_rms  # noqa: E402
+from repro_torch.implicit import ImplicitConfig  # noqa: E402
 from repro_torch.implicit import fixed_point as implicit_fp  # noqa: E402
 from repro_torch.implicit import solvers as implicit_solvers  # noqa: E402
 from repro_torch.launch import steps as train_steps  # noqa: E402
-from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import lm, mdeq  # noqa: E402
 from repro_torch.obs import metrics as obs_metrics  # noqa: E402
 from repro_torch.obs import tracing as obs_tracing  # noqa: E402
 from repro_torch.runtime.serving import Request, ServeLoop, serve_summary  # noqa: E402
@@ -1227,6 +1259,7 @@ def kernel_attention_head_dims(gen) -> dict:
             "causal bf16", max_abs_err=err, ms=time_ms(kern),
             device_ms=device_ms(kern),
             plain_ms=time_ms(lambda: ref.attention_ref(q, k, v, causal=True)),
+            library_ms=time_ms(lambda: _sdpa(q, k, v, causal=True)),
             library_device_ms=device_ms(lambda: _sdpa(q, k, v, causal=True)),
             bound_ms=b_ms, bound_by=b_by)
         say("kernel_case", name="flash_attention", case=f"hd{hd}", **row)
@@ -1248,6 +1281,8 @@ def kernel_attention_head_dims(gen) -> dict:
             ms=time_ms(kern), device_ms=device_ms(kern),
             plain_ms=time_ms(lambda: ref.decode_attention_ref(q, k, v,
                                                               lens)),
+            library_ms=time_ms(lambda: _sdpa(q[:, None], k, v, causal=False,
+                                             mask=amask)),
             library_device_ms=device_ms(lambda: _sdpa(
                 q[:, None], k, v, causal=False, mask=amask)),
             bound_ms=b_ms, bound_by=b_by)
@@ -1377,11 +1412,65 @@ def phase_kernels() -> dict:
                     "plain_ms", "launches_per_call", "shape"):
             q[f"adjoint_{tag}_{key}"] = row[key]
     kernel_qn_cases(gen)
+    for name, row in kernel_qn_mdeq(gen).items():
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"],
+                                       row["max_abs_err"])
+        for key in ("ms", "device_ms", "device_ms_warm", "bound_ms",
+                    "bound_by", "plain_ms", "launches_per_call", "shape"):
+            res[name][f"mdeq_{key}"] = row[key]
     res.update(kernel_attention(gen))
     res.update(kernel_rmsnorm(gen))
     kernel_grads(gen)
     torch.cuda.synchronize()
     return res
+
+
+# the MDEQ path's ring (MDEQConfig(): memory 18; per sample a state of
+# 32x32x24 + 16x16x48 = 36864 f32; batch 128; bf16 ring): m=18 takes the
+# M=32 template, and the streaming schedule cuts B*D into slices that
+# straddle samples
+MDEQ_QN = ("mdeq", 18, 128, 36864)
+
+
+def kernel_qn_mdeq(gen) -> dict:
+    """Both qN kernels at ``MDEQ_QN``: the checks of ``qn_case`` (the
+    streaming schedule, slices that straddle samples, the row kinds of
+    ``QN_CASES``), then each timed with a cold L2 (and warm) on a full ring
+    (18 live slots a row, every row active): ``broyden_step``, whose
+    append then evicts slot 0 (the most an MDEQ iteration can move), and
+    ``qn_apply_multi`` as the SHINE backward calls it, ``(True,)``.  The
+    bounds count the 18 rows the ring holds, not the template's 32."""
+    tag, m, bsz, dim = MDEQ_QN
+    err = qn_case(tag, m, bsz, dim, torch.bfloat16, "streaming", gen)
+    u, v, _, _ = _ring(m, bsz, dim, gen)
+    mask = torch.ones(m, bsz, device="cuda")
+    slot = torch.zeros(bsz, dtype=torch.int32, device="cuda")
+    active = torch.ones(bsz, dtype=torch.bool, device="cuda")
+    g, s, hg = (torch.randn(bsz, dim, device="cuda", generator=gen)
+                for _ in range(3))
+    s = 0.1 * s
+    alpha = torch.tensor(1.0, device="cuda")
+    vec32 = bsz * dim * 4
+    ring = 2 * m * bsz * dim * 2
+    shape = f"m={m} B={bsz} D={dim} f32 state, bf16 ring"
+    uu, vv = u.clone(), v.clone()
+    rows = {"broyden_step": qn_timing(
+        "broyden_step[mdeq]",
+        lambda: cuda_qn.broyden_step(uu, vv, g, s, hg, alpha, mask, slot,
+                                     active, 1e-8),
+        lambda: ref.broyden_step_ref(u, v, g, s, hg, alpha, mask, slot,
+                                     active, 1e-8),
+        # ring, g/s/hg read, hg_new/b written, evicted and slot rows
+        ring + 3 * vec32 + 2 * vec32 + 2 * bsz * dim * 2
+        + 2 * bsz * dim * 2, 8 * m * bsz * dim, shape, max_abs_err=err)}
+    xs = g[None]
+    rows["qn_apply_multi"] = qn_timing(
+        "qn_apply_multi[mdeq]",
+        lambda: cuda_qn.qn_apply_multi(u, v, xs, alpha, mask, (True,)),
+        lambda: ref.qn_apply_multi_ref(u, v, xs, alpha, mask, (True,)),
+        ring + 2 * vec32, 4 * m * bsz * dim, f"{shape}, K=1 (True,)",
+        max_abs_err=err)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -2520,6 +2609,464 @@ def phase_train_solvers(params, cfg, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# fault injection at full width (the chaos suite's classes on the card)
+# ---------------------------------------------------------------------------
+
+
+FAULTINJECT = "repro_torch.runtime.faultinject"
+CHAOS_SEQS = (256, 1)   # the streaming (prefill) and resident (decode) qN schedules
+CHAOS_FAULT_ROW, CHAOS_RING_ROW = 1, 2
+
+
+def _solve_prefill(params, cfg, tokens, **kw) -> tuple:
+    """One ``lm.prefill`` of ``tokens`` (no gradient): a copy of its forward
+    solve's result and the prefill's outputs."""
+    rec = []
+    with torch.no_grad(), _record_solves(rec):
+        out = lm.prefill(params, {"tokens": tokens}, cfg, tokens.shape[1],
+                         **kw)
+    if len(rec) != 1:
+        raise AssertionError(f"{len(rec)} forward solves in one prefill")
+    return rec[0], out
+
+
+def check_rows_equal(name: str, got: tuple, want: tuple, rows) -> None:
+    """Rows ``rows`` of the solve's iterate and of the logits of ``got``
+    (a ``_solve_prefill`` return) bit for bit those of ``want``."""
+    for r in rows:
+        for what, a, b in (("iterate", got[0].z[r], want[0].z[r]),
+                           ("logits", got[1][0][r], want[1][0][r])):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"{name}: healthy row {r}'s {what} differs from the "
+                    f"fault-free run's by {float((a - b).abs().max()):.3e}")
+
+
+def _chaos_faults(fi, params, cfg, seq: int, gen) -> dict:
+    """At ``B=4 x seq``: a ``nonfinite`` and a ``diverge`` fault at row
+    CHAOS_FAULT_ROW from step 2 on (for ever), and a warm carry whose ring
+    row CHAOS_RING_ROW is NaN.  The faulted row ends with the class's
+    status and a finite best iterate (the NaN ring: a finite residual after
+    its restart); every other row's iterate and logits are the fault-free
+    run's bit for bit."""
+    V = cfg.vocab_size
+    toks = [torch.randint(2, V, (4, seq), device="cuda", generator=gen)
+            for _ in range(2)]
+    clean = _solve_prefill(params, cfg, toks[0])
+    out = {}
+    healthy = [r for r in range(4) if r != CHAOS_FAULT_ROW]
+    for kind, code in (("nonfinite", core_solvers.STATUS_NONFINITE),
+                       ("diverge", core_solvers.STATUS_DIVERGED)):
+        with fi.inject(fi.FaultPlan(kind, sample=CHAOS_FAULT_ROW, step=2)):
+            got = _solve_prefill(params, cfg, toks[0])
+        st = got[0].status.tolist()
+        if st[CHAOS_FAULT_ROW] != code or not bool(
+                torch.isfinite(got[0].z[CHAOS_FAULT_ROW]).all()):
+            raise AssertionError(f"chaos {kind} S={seq}: statuses {st}, "
+                                 f"finite best iterate "
+                                 f"{bool(torch.isfinite(got[0].z).all())}")
+        check_rows_equal(f"chaos {kind} S={seq}", got, clean, healthy)
+        out[kind] = dict(statuses=st, steps=got[0].n_steps,
+                         clean_steps=clean[0].n_steps)
+    # a warm carry: the first batch's converged state, then a second batch
+    # started from it (the whole prompt seeded), once clean, once with a
+    # NaN ring row
+    cold = lm.deq_solve_carry(cfg, 4, seq, device="cuda")
+    zeros = torch.zeros(4, dtype=torch.int32, device="cuda")
+    full = torch.full((4,), seq, dtype=torch.int32, device="cuda")
+    warm = _solve_prefill(params, cfg, toks[0], prefix_carry=cold,
+                          prefix_len=zeros)[1][3]
+    ref_run = _solve_prefill(params, cfg, toks[1],
+                             prefix_carry=_clone(warm),
+                             prefix_len=full)
+    bad = fi.corrupt_carry_ring(_clone(warm), rows=[CHAOS_RING_ROW])
+    got = _solve_prefill(params, cfg, toks[1], prefix_carry=bad,
+                         prefix_len=full)
+    res = got[0]
+    st = res.status.tolist()
+    ok = (st[CHAOS_RING_ROW] >= core_solvers.STATUS_DIVERGED
+          and bool(torch.isfinite(res.z).all())
+          and bool(torch.isfinite(res.residual[CHAOS_RING_ROW])))
+    if not ok or ref_run[0].n_steps == 0:
+        raise AssertionError(f"chaos ring S={seq}: statuses {st}, residual "
+                             f"{res.residual.tolist()}, reference steps "
+                             f"{ref_run[0].n_steps}")
+    check_rows_equal(f"chaos ring S={seq}", got, ref_run,
+                     [r for r in range(4) if r != CHAOS_RING_ROW])
+    out["ring"] = dict(statuses=st, residual=res.residual.tolist(),
+                       warm_counts=warm.lowrank.count.tolist())
+    return out
+
+
+def _chaos_store(fi, params, cfg) -> dict:
+    """The async pipeline with the device prefix store (arm c of
+    ``phase_serve_prefix``, 5 requests): two 128-token bases drained, then
+    a repeat of each and a fresh prompt.  With base 0's store slot poisoned
+    before the second drain, its repeat is retried cold and evicted with
+    reason "poisoned", and the other two requests' tokens equal an
+    unpoisoned drain's."""
+    pcfg = dataclasses.replace(cfg, deq=dataclasses.replace(cfg.deq,
+                                                           tol=PREFIX_TOL))
+    rng = np.random.default_rng(5)
+    bases = [rng.integers(2, cfg.vocab_size, size=128).tolist()
+             for _ in range(2)]
+    fresh = rng.integers(2, cfg.vocab_size, size=128).tolist()
+    kw = dict(PREFIX_ARMS["c_async_prefix"], record=False)
+    runs = {}
+    reg = obs_metrics.default_registry()
+    for poison in (False, True):
+        loop = ServeLoop(params, pcfg, slots=4, max_len=1024, **kw)
+        loop.drain([Request(uid=i, prompt=list(b), max_new_tokens=4)
+                    for i, b in enumerate(bases)])
+        slots = {}
+        for e in loop.prefix_store._entries.values():
+            for i, b in enumerate(bases):
+                if tuple(b[:len(e.tokens)]) == tuple(e.tokens):
+                    slots.setdefault(i, set()).add(e.slot)
+        if set(slots) != {0, 1} or slots[0] & slots[1]:
+            raise AssertionError(f"chaos store: base slots {slots}")
+        if poison:
+            for slot in slots[0]:
+                fi.poison_prefix_store_slot(loop.prefix_store, slot)
+        ev0 = reg.counter("prefix_cache_evictions_total",
+                          {"reason": "poisoned"}).value
+        reqs = [Request(uid=10 + i, prompt=list(p), max_new_tokens=8)
+                for i, p in enumerate(bases + [fresh])]
+        loop.drain(reqs)
+        runs[poison] = dict(
+            tokens=[r.out for r in reqs], retried=[r.retried for r in reqs],
+            errors=[r.error for r in reqs],
+            evicted=loop.prefix_store.evictions_by_reason["poisoned"],
+            evicted_metric=reg.counter("prefix_cache_evictions_total",
+                                       {"reason": "poisoned"}).value - ev0)
+        del loop
+    got, want = runs[True], runs[False]
+    if not (got["retried"][0] and not any(got["retried"][1:])
+            and got["errors"] == [None] * 3
+            and all(len(t) == 8 for t in got["tokens"])
+            and got["evicted"] >= 1 and got["evicted_metric"] >= 1):
+        raise AssertionError(f"chaos store: {got}")
+    if got["tokens"][1:] != want["tokens"][1:]:
+        raise AssertionError(f"chaos store: the healthy requests' tokens "
+                             f"{got['tokens'][1:]}, unpoisoned "
+                             f"{want['tokens'][1:]}")
+    return dict(poisoned=got, clean=want)
+
+
+def phase_chaos(params, cfg, smi: str) -> None:
+    """The chaos suite's fault classes at the full width of MiniCPM-2B
+    (the weights of ``phase_serve``), through ``lm.prefill`` at B=4 x 256
+    (the qN kernels' streaming schedule, whose slices straddle samples) and
+    at B=4 x 1 (the resident schedule): ``_chaos_faults`` for each, then
+    the poisoned prefix store in the async pipeline (``_chaos_store``).
+    First a prefill with ``faultinject`` never imported; once it has been
+    imported, armed and disarmed, the same prefill gives the same iterate
+    bit for bit, the same launch counts and the same host waits."""
+    if FAULTINJECT in sys.modules:
+        raise AssertionError(f"{FAULTINJECT} imported before phase_chaos")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    toks = torch.randint(2, cfg.vocab_size, (4, 256), device="cuda",
+                         generator=gen)
+
+    def counted_prefill():
+        syncs = []
+        torch.cuda.synchronize()
+        launches.reset()
+        with count_syncs(syncs):
+            run = _solve_prefill(params, cfg, toks)
+        torch.cuda.synchronize()
+        return run, launches.counts(), syncs
+
+    before = counted_prefill()
+    import importlib
+    fi = importlib.import_module(FAULTINJECT)
+    out = {f"S={seq}": _chaos_faults(fi, params, cfg, seq, gen)
+           for seq in CHAOS_SEQS}
+    with fi.inject(fi.FaultPlan("nonfinite", step=10 ** 6)):
+        pass
+    after = counted_prefill()
+    if not torch.equal(after[0][0].z, before[0][0].z) or \
+            after[1] != before[1] or len(after[2]) != len(before[2]):
+        raise AssertionError(
+            f"unarmed faultinject changed the prefill: launches {after[1]} "
+            f"vs {before[1]}, host waits {len(after[2])} vs "
+            f"{len(before[2])}")
+    out["store"] = _chaos_store(fi, params, cfg)
+    say("chaos", card=smi, config="minicpm-2b DEQ full width, 4 blocks "
+        "x0.3, bf16, ring bf16 m=8", plans="FaultPlan(kind, sample=1, "
+        "step=2), corrupt_carry_ring(rows=[2]), poison_prefix_store_slot",
+        unarmed=dict(launches={k: n for k, n in before[1].items() if n},
+                     host_waits=len(before[2])),
+        **out, checked="faulted rows: the class's status, finite best "
+        "iterate; every other row's iterate and logits bit for bit the "
+        "fault-free run's, at S=256 (streaming) and S=1 (resident); the "
+        "poisoned seed retried cold and evicted as poisoned, the other "
+        "requests' tokens as unpoisoned; unarmed = never imported")
+
+
+# ---------------------------------------------------------------------------
+# the multiscale DEQ (the paper's CIFAR model) at MDEQConfig()
+# ---------------------------------------------------------------------------
+
+
+MDEQ_BATCH = 128     # cut from CIFAR's 50,000 training images
+MDEQ_SGD_STEPS, MDEQ_LR = 8, 0.05
+MDEQ_ALIGN = 0.5     # tests/test_mdeq.py::test_shine_vs_full_gradient_alignment
+MDEQ_PARITY = dict(image_size=12, channels=(8, 16), max_steps=12, memory=12)
+MDEQ_PARITY_TOL = 1e-4
+
+
+def _leaves(tree: dict) -> list:
+    return [x for v in tree.values()
+            for x in (_leaves(v) if isinstance(v, dict) else [v])]
+
+
+def _mdeq_grad(params, batch, cfg, deq_cfg):
+    """``(loss, aux, grads)`` of ``mdeq_loss`` at ``params``."""
+    leaves = _map(lambda t: t.detach().requires_grad_(True), params)
+    loss, aux = mdeq.mdeq_loss(leaves, batch, cfg, deq_cfg)
+    loss.backward()
+    return loss.detach(), aux, _map(lambda t: t.grad, leaves)
+
+
+def phase_mdeq(smi: str) -> dict:
+    """``MDEQConfig()`` (32 x 32, channels 24/48, Broyden 18 steps, memory
+    18, tol 1e-3) at batch MDEQ_BATCH of ``synthetic_cifar(seed=0)``,
+    random weights (seed 0): a forward, held to the solver's host reads,
+    then MDEQ_SGD_STEPS SGD steps with ``shine_fallback`` (the recipe of
+    ``tests/test_mdeq.py::test_mdeq_trains_with_shine``), whose loss must
+    fall, launch counts reset just before and read just after (both qN
+    kernels must launch); one gradient each with ``full`` and
+    ``shine_fallback`` (the recipe of its alignment test), cosine above
+    MDEQ_ALIGN; then the parity config on the card and on the CPU: the same
+    solver steps, logits within MDEQ_PARITY_TOL of their scale.  Returns
+    the forward's and the SGD steps' launch counts."""
+    cfg = MDEQConfig()
+    params = mdeq.init_mdeq(cfg, seed=0, device="cuda")
+    images, labels = mdeq.synthetic_cifar(MDEQ_BATCH, cfg, seed=0,
+                                          device="cuda")
+    batch = {"images": images, "labels": labels}
+    syncs = []
+    torch.cuda.synchronize()
+    launches.reset()
+    t0 = time.perf_counter()
+    with torch.no_grad(), count_syncs(syncs):
+        logits, stats = mdeq.mdeq_forward(params, images, cfg)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    fwd = launches.counts()
+    waits = check_syncs("mdeq forward", syncs, expected_syncs(
+        [stats.n_steps], cfg.max_steps, 0))
+    if tuple(logits.shape) != (MDEQ_BATCH, cfg.num_classes) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"mdeq forward: logits {tuple(logits.shape)}")
+    if fwd["broyden_step"] != stats.n_steps or fwd["qn_apply_multi"] < 1:
+        raise AssertionError(f"mdeq forward: {stats.n_steps} steps, "
+                             f"launches {fwd}")
+    say("mdeq_forward", card=smi, config="MDEQConfig() (32x32, channels "
+        f"24/48, Broyden 18 steps, memory 18, tol 1e-3, bf16 ring), batch "
+        f"{MDEQ_BATCH}", steps=stats.n_steps,
+        statuses=sorted(set(stats.status.tolist())),
+        residual_mean=float(stats.residual.mean()), ms=fwd_ms,
+        host_waits=waits, launches={k: n for k, n in fwd.items() if n})
+
+    deq_cfg = DEQConfig(max_steps=cfg.max_steps, tol=cfg.tol,
+                        memory=cfg.memory, backward="shine_fallback")
+    p = params
+    log = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    for i in range(MDEQ_SGD_STEPS):
+        t0 = time.perf_counter()
+        loss, aux, grads = _mdeq_grad(p, batch, cfg, deq_cfg)
+        p = _sgd(p, grads, MDEQ_LR)
+        loss = float(loss)
+        log.append(dict(step=i, loss=loss, forward_steps=aux["deq_steps"],
+                        step_ms=(time.perf_counter() - t0) * 1e3))
+    torch.cuda.synchronize()
+    sgd = launches.counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [r["loss"] for r in log]
+    missing = [k for k in ("broyden_step", "qn_apply_multi") if not sgd[k]]
+    off = {k: sgd[k] for k in OFF_PATH if sgd[k]}
+    if missing or off or not losses[-1] < losses[0] or not all(
+            np.isfinite(losses)):
+        raise AssertionError(f"mdeq SGD: losses {losses}, launches {sgd}")
+    say("mdeq_train", card=smi, backward="shine_fallback", lr=MDEQ_LR,
+        steps=log, peak_mem_gib=peak, launches=sgd,
+        launches_per_step={k: n / MDEQ_SGD_STEPS for k, n in sgd.items()
+                           if n})
+
+    align = {}
+    for backward in ("full", "shine_fallback"):
+        dcfg = DEQConfig(max_steps=25, tol=1e-6, memory=25,
+                         backward=backward, backward_max_steps=40,
+                         backward_tol=1e-8)
+        align[backward] = _leaves(_mdeq_grad(params, batch, cfg, dcfg)[2])
+    num = sum(float((a * b).sum()) for a, b in zip(*align.values()))
+    na, nb = (float(sum((x * x).sum() for x in g)) ** 0.5
+              for g in align.values())
+    cos = num / (na * nb)
+    if not cos > MDEQ_ALIGN:
+        raise AssertionError(f"mdeq: cos(full, shine_fallback) = {cos}")
+
+    small = MDEQConfig(**MDEQ_PARITY)
+    icfg = ImplicitConfig.from_strings(max_steps=12, tol=1e-3, memory=12,
+                                       qn_dtype="float32")
+    cpu_params = mdeq.init_mdeq(small, seed=1, device="cpu")
+    imgs, _ = mdeq.synthetic_cifar(8, small, seed=0, device="cpu")
+    with torch.no_grad():
+        lc, sc = mdeq.mdeq_forward(cpu_params, imgs, small, icfg)
+        lg, sg = mdeq.mdeq_forward(_map(lambda t: t.to("cuda"), cpu_params),
+                                   imgs.to("cuda"), small, icfg)
+    err = float((lg.cpu() - lc).abs().max())
+    scale = float(lc.abs().max())
+    if sg.n_steps != sc.n_steps or err > MDEQ_PARITY_TOL * max(scale, 1.0):
+        raise AssertionError(f"mdeq parity: steps {sg.n_steps} vs "
+                             f"{sc.n_steps}, logits differ by {err:.3e}")
+    say("mdeq_checks", card=smi, grad_cosine_full_vs_shine_fallback=cos,
+        bound=MDEQ_ALIGN, parity=dict(config=str(small), f32_ring=True,
+                                      steps=sg.n_steps, max_abs_err=err,
+                                      scale=scale, tol=MDEQ_PARITY_TOL))
+    return {"forward": fwd, "sgd": sgd, "forward_steps": stats.n_steps}
+
+
+def _sgd(params: dict, grads: dict, lr: float) -> dict:
+    return {k: (_sgd(v, grads[k], lr) if isinstance(v, dict) else
+                (v - lr * grads[k]).detach()) for k, v in params.items()}
+
+
+# ---------------------------------------------------------------------------
+# bi-level hyperparameter optimisation (HOAG with SHINE)
+# ---------------------------------------------------------------------------
+
+
+# real-sim's feature count; its 72,309 samples cut to 5000 / 1000 / 1000;
+# the density of benchmarks/bench_bilevel.py's "realsim-like" problem
+BILEVEL_PROBLEM = dict(n_train=5000, n_val=1000, n_test=1000, dim=20958,
+                       density=0.15, seed=0)
+# mode -> tol_decrease, as benchmarks/bench_bilevel.py's HOAG configs
+BILEVEL_MODES = {"full_cg": 0.99, "shine": 0.78, "shine_opa": 0.78,
+                 "jfb": 0.78}
+BILEVEL_INNER = dict(max_steps=300, tol=1e-4, memory=30)
+BILEVEL_OUTER = dict(outer_steps=8, outer_lr=20.0)
+BILEVEL_THETA0 = 1.0
+BILEVEL_REL = 0.5    # tests/test_bilevel.py::test_shine_hypergrad_matches_cg
+
+
+@contextlib.contextmanager
+def _count_line_search(out: list):
+    """Note one entry in ``out`` per Armijo test (a value evaluation of
+    ``core.solvers._line_search``) made inside the block."""
+    orig = core_solvers._line_search
+
+    def counted(value_fn, *a, **kw):
+        def value(z):
+            out.append(1)
+            return value_fn(z)
+        return orig(value, *a, **kw)
+
+    with mock.patch.object(core_solvers, "_line_search", counted):
+        yield
+
+
+def hoag_expected_syncs(hist, ls_tests: int, hcfg) -> int:
+    """The host waits of a ``run_hoag``: per outer step the inner L-BFGS
+    solve's stop test per iteration (and one more when it stops before its
+    budget), CG's per iteration (and one more when it stops early) where
+    the mode runs CG, and the record's three scalars; plus one per
+    line-search test over the run."""
+    est, _ = bilevel.resolve_hoag_mode(hcfg.mode)
+    cg_budget = {"full": hcfg.cg_steps, "shine_refine": hcfg.refine_steps,
+                 "jfb_refine": hcfg.refine_steps}.get(est)
+    n = ls_tests
+    for r in hist:
+        n += r.inner_steps + (r.inner_steps < hcfg.inner.max_steps) + 3
+        if cg_budget is not None:
+            k = r.backward_hvp_calls
+            n += k + (k < cg_budget)
+    return n
+
+
+def phase_bilevel(smi: str) -> None:
+    """``run_hoag`` on ``make_logreg_problem(**BILEVEL_PROBLEM)`` on the
+    card, each mode of BILEVEL_MODES for BILEVEL_OUTER's steps from
+    theta BILEVEL_THETA0: the validation loss falls in every mode, the
+    shine modes make 0 backward HVP calls (full CG some), and the host
+    waits are exactly ``hoag_expected_syncs``.  First, at theta0, the
+    inner solve of step 0 and its hypergradient by CG, SHINE and JFB:
+    SHINE's has CG's sign and is within BILEVEL_REL of it.  Plain PyTorch:
+    the JAX package runs no Pallas kernel here either."""
+    t0 = time.perf_counter()
+    problem = bilevel.make_logreg_problem(**BILEVEL_PROBLEM, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    theta = torch.full((), BILEVEL_THETA0, device="cuda")
+    res = core_solvers.lbfgs_solve(
+        lambda z: problem.inner_grad(z, theta),
+        torch.zeros(problem.dim, device="cuda"),
+        core_solvers.SolverConfig(**BILEVEL_INNER),
+        value_fn=lambda z: problem.inner_value(z, theta))
+    hg = {m: float(bilevel.hypergradient(problem, theta, res.z, res.memory,
+                                         bilevel.HOAGConfig(mode=m))[0])
+          for m in ("full_cg", "shine", "jfb")}
+    rel = {m: abs(hg[m] - hg["full_cg"]) / (abs(hg["full_cg"]) + 1e-12)
+           for m in ("shine", "jfb")}
+    if np.sign(hg["shine"]) != np.sign(hg["full_cg"]) or \
+            not rel["shine"] < BILEVEL_REL:
+        raise AssertionError(f"step-0 hypergradients {hg}")
+    say("bilevel_hypergrad", card=smi, step0_inner_steps=res.n_steps,
+        hypergrad=hg, rel_to_cg=rel, bound=BILEVEL_REL)
+    runs = {}
+    for mode, dec in BILEVEL_MODES.items():
+        hcfg = bilevel.HOAGConfig(
+            mode=mode, tol_decrease=dec,
+            inner=core_solvers.SolverConfig(**BILEVEL_INNER),
+            **BILEVEL_OUTER)
+        syncs, ls = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with count_syncs(syncs), _count_line_search(ls):
+            hist = bilevel.run_hoag(problem, BILEVEL_THETA0, hcfg)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        waits = check_syncs(f"hoag {mode}", syncs,
+                            hoag_expected_syncs(hist, len(ls), hcfg))
+        hvp = [r.backward_hvp_calls for r in hist]
+        if not hist[-1].val_loss < hist[0].val_loss or (
+                mode.startswith("shine") and any(hvp)) or (
+                mode == "full_cg" and not any(hvp)):
+            raise AssertionError(f"hoag {mode}: {hist}")
+        inner = sum(r.inner_steps for r in hist)
+        runs[mode] = dict(seconds=secs, val_loss=[r.val_loss for r in hist],
+                          theta=[r.theta for r in hist],
+                          test_loss=hist[-1].test_loss,
+                          inner_steps=[r.inner_steps for r in hist],
+                          backward_hvp_calls=hvp, line_search_tests=len(ls),
+                          host_waits=sum(waits.values()),
+                          host_waits_per_inner_iteration=(
+                              (inner + len(ls)) / max(inner, 1)))
+        say("bilevel", card=smi, mode=mode, **runs[mode])
+    say("bilevel_summary", card=smi, problem=BILEVEL_PROBLEM,
+        setup_seconds=setup_s, outer=BILEVEL_OUTER, inner=BILEVEL_INNER,
+        theta0=BILEVEL_THETA0,
+        seconds={m: r["seconds"] for m, r in runs.items()},
+        host_waits={m: r["host_waits"] for m, r in runs.items()})
+
+
+def timed(smi: str, name: str, fn, *args):
+    """``fn(*args)`` with its wall time, to the card's last kernel, in a
+    ``phase_time`` line."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    say("phase_time", phase=name, card=smi,
+        seconds=time.perf_counter() - t0)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2540,18 +3087,24 @@ def main() -> int:
     drains = phase_serve_configs(smi)
     serve_counts, n_solves, params, cfg = phase_serve(smi)
     prefix_counts = phase_serve_prefix(params, cfg, smi)
+    timed(smi, "chaos", phase_chaos, params, cfg, smi)
     phase_profile(params, cfg, smi)
     train_counts = phase_train(params, cfg, smi)
     phase_refine_carry(params, cfg, smi)
     phase_skip_carry(params, cfg, smi)
     solver_counts = phase_train_solvers(params, cfg, smi)
+    del params
+    torch.cuda.empty_cache()
+    mdeq_counts = timed(smi, "mdeq", phase_mdeq, smi)
+    timed(smi, "bilevel", phase_bilevel, smi)
     rows = []
     for name, (route, source, replaces) in KERNELS.items():
         r = res[name]
         row = {"name": name, "route": route, "source": source,
                "replaces": replaces,
                "launches": (serve_counts[name] + prefix_counts[name]
-                            + train_counts[name]),
+                            + train_counts[name]
+                            + mdeq_counts["sgd"][name]),
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"],
@@ -2567,11 +3120,16 @@ def main() -> int:
                "launches_per_train_step": train_counts[name] / 4,
                **{f"launches_train_{solver}": c[name]
                   for solver, c in solver_counts.items()},
+               "launches_mdeq_forward": mdeq_counts["forward"][name],
+               "launches_mdeq_sgd": mdeq_counts["sgd"][name],
+               "launches_per_mdeq_sgd_step": (mdeq_counts["sgd"][name]
+                                              / MDEQ_SGD_STEPS),
                **{k: r[k] for k in ("launches_per_call", "decode_ms",
                                     "decode_device_ms", "decode_bound_ms",
                                     "decode_launches_per_call",
                                     "composition_device_ms") if k in r},
-               **{k: v for k, v in r.items() if k.startswith("adjoint_")},
+               **{k: v for k, v in r.items()
+                  if k.startswith(("adjoint_", "mdeq_"))},
                **{k: r[k] for k in ("head_dims", "shapes") if k in r}}
         if name in OFF_PATH:
             if row["launches"]:

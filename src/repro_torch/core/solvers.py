@@ -12,8 +12,10 @@ The port of the DEQ solvers of ``repro/core/solvers.py``:
 with everything that rides their loops: the persistent :class:`SolveCarry`
 and its helpers, per-sample freeze masks, the residual trace, the
 :class:`~repro_torch.obs.tape.SolveTape` and the fault guard (per-sample
-STATUS codes, entry repair of a poisoned warm start, one restart round).
-L-BFGS serves the bi-level workloads and comes with them.
+STATUS codes, entry repair of a poisoned warm start, one restart round);
+and ``lbfgs_solve``, L-BFGS with OPA's extra secant pairs, the inner solver
+of the bi-level (HOAG) workloads, with its two-loop recursion, the inverse
+estimate the hypergradient shares.
 
 Eager PyTorch runs each loop on the host: the whole-batch early exit
 (``all(converged)``) and, where a restart scrubs solver memory, the guard's
@@ -51,6 +53,11 @@ STATUS_NAMES = {
     STATUS_STALLED: "stalled",
 }
 
+# Armed by repro_torch.runtime.faultinject (chaos testing): when set, every
+# batched solver perturbs its post-step iterate through this hook.  None
+# costs a solver iteration one ``is not None`` test.
+_FAULT_HOOK = None
+
 
 def torch_dtype(name: str | torch.dtype) -> torch.dtype:
     """``"bfloat16"`` / ``"float32"`` (the configs' spelling) -> dtype."""
@@ -77,14 +84,16 @@ class _GuardState(NamedTuple):
     stepscale: Tensor  # (B,) f32: damping multiplier (1.0 until a restart)
 
 
-def _guard_init(bsz: int, device) -> _GuardState:
+def _guard_init(bsz: int | None, device) -> _GuardState:
+    """``bsz=None``: the scalar state of L-BFGS's one problem."""
+    shape = () if bsz is None else (bsz,)
     return _GuardState(
-        sick=torch.zeros((bsz,), dtype=torch.bool, device=device),
-        status=torch.full((bsz,), STATUS_MAX_ITERS, dtype=torch.int32,
+        sick=torch.zeros(shape, dtype=torch.bool, device=device),
+        status=torch.full(shape, STATUS_MAX_ITERS, dtype=torch.int32,
                           device=device),
-        stall=torch.zeros((bsz,), dtype=torch.int32, device=device),
-        restarts=torch.zeros((bsz,), dtype=torch.int32, device=device),
-        stepscale=torch.ones((bsz,), dtype=torch.float32, device=device),
+        stall=torch.zeros(shape, dtype=torch.int32, device=device),
+        restarts=torch.zeros(shape, dtype=torch.int32, device=device),
+        stepscale=torch.ones(shape, dtype=torch.float32, device=device),
     )
 
 
@@ -413,6 +422,8 @@ def broyden_solve(
             active = ~conv
         am = _expand(active, z)
         z_new = torch.where(am, z + cfg.step_size * p.to(z.dtype), z)
+        if _FAULT_HOOK is not None:
+            z_new = _FAULT_HOOK(z_new, k, z)
         gz_new = torch.where(am, g(z_new), gz)
 
         s = (z_new - z).float()
@@ -536,6 +547,8 @@ def fixed_point_solve(
             z_pic = torch.where(_expand(gs.stepscale < 1.0, z), z_dampd,
                                 z_pic)
         z_new = torch.where(_expand(done, z), z, z_pic)
+        if _FAULT_HOOK is not None:
+            z_new = _FAULT_HOOK(z_new, k, z)
         res = bnorm(fz - z)
         step_n = bnorm(z_new - z)
         status_k = None
@@ -635,6 +648,8 @@ def anderson_solve(
             mix_ok = torch.isfinite(z_mix.reshape(bsz, -1)).all(dim=-1)
             z_mix = torch.where(_expand(mix_ok, z), z_mix, fz)
         z_new = torch.where(_expand(done, z), z, z_mix)
+        if _FAULT_HOOK is not None:
+            z_new = _FAULT_HOOK(z_new, k, z)
         res = bnorm(r)
         step_n = bnorm(z_new - z)
         status_k = None
@@ -774,6 +789,8 @@ def adjoint_broyden_solve(
         if cfg.guard:
             p = _damped(p, gs)
         z_new = torch.where(am, z + cfg.step_size * p.to(z.dtype), z)
+        if _FAULT_HOOK is not None:
+            z_new = _FAULT_HOOK(z_new, k, z)
         g_at, vjp = _g_with_vjp(g, z_new)
         gz_new = torch.where(am, g_at, gz)
 
@@ -825,3 +842,212 @@ def adjoint_broyden_solve(
     return SolveResult(z, H, final_res, k, conv, trace, aux,
                        _finish_carry(carry, z, H, freeze_mask, gs, bsz, dev),
                        tape, _exit_status(conv, gs))
+
+
+# ---------------------------------------------------------------------------
+# (L)BFGS with OPA extra secant pairs (paper Alg. LBFGS, Thm 3)
+# ---------------------------------------------------------------------------
+
+
+class LBFGSMemory(NamedTuple):
+    s: Tensor      # (m, D) f32
+    y: Tensor      # (m, D) f32
+    rho: Tensor    # (m,) f32
+    count: Tensor  # () int32: total pairs ever stored (ring)
+
+
+def empty_lbfgs_memory(memory: int, dim: int,
+                       device: torch.device | str = "cpu") -> LBFGSMemory:
+    return LBFGSMemory(
+        s=torch.zeros((memory, dim), dtype=torch.float32, device=device),
+        y=torch.zeros((memory, dim), dtype=torch.float32, device=device),
+        rho=torch.zeros((memory,), dtype=torch.float32, device=device),
+        count=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def lbfgs_two_loop_multi(mem: LBFGSMemory, vs, gamma=1.0) -> tuple:
+    """Apply the L-BFGS inverse-Hessian estimate ``H`` to K vectors in one
+    pass over the ``(m, D)`` memory, newest pair to oldest and back (``H``
+    is symmetric: there is no transposed variant).
+
+    The ring is put in newest-to-oldest order once, by a gather on the
+    device, so the recursion indexes it with host ints: no host read.  A
+    slot past the valid count contributes exactly zero, as in the JAX
+    package's masked scan."""
+    m = mem.s.shape[0]
+    dev = mem.s.device
+    ar = torch.arange(m, device=dev)
+    order = ((mem.count - 1 - ar) % m).long()
+    valid = ar < torch.clamp(mem.count, max=m)                     # (m,)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    S = torch.where(valid[:, None], mem.s.index_select(0, order), zero)
+    Y = torch.where(valid[:, None], mem.y.index_select(0, order), zero)
+    rho = mem.rho.index_select(0, order)
+    q = torch.stack([v.float() for v in vs])                       # (K, D)
+    alphas = []
+    for i in range(m):
+        alpha = torch.where(valid[i], rho[i] * (q @ S[i]), zero)   # (K,)
+        q = q - alpha[:, None] * Y[i][None, :]
+        alphas.append(alpha)
+    r = gamma * q
+    for j in reversed(range(m)):
+        beta = torch.where(valid[j], rho[j] * (r @ Y[j]), zero)
+        r = r + (alphas[j] - beta)[:, None] * S[j][None, :]
+    return tuple(r[k] for k in range(r.shape[0]))
+
+
+def lbfgs_two_loop(mem: LBFGSMemory, v: Tensor, gamma=1.0) -> Tensor:
+    """Apply the L-BFGS inverse-Hessian estimate to ``v`` (the two-loop
+    recursion): the SHINE operation of the bi-level setting, sharing ``H``
+    with the hypergradient instead of a fresh CG solve."""
+    return lbfgs_two_loop_multi(mem, (v,), gamma)[0]
+
+
+def _mem_push(mem: LBFGSMemory, s: Tensor, y: Tensor, accept) -> LBFGSMemory:
+    """Write the pair into slot ``count % m`` when ``accept`` and the
+    curvature ``s^T y`` is positive; new buffers (the caller's memory, e.g.
+    HOAG's warm start, stays as it was)."""
+    sy = torch.dot(s, y)
+    ok = (sy > 1e-12) & accept
+    slot = (mem.count % mem.s.shape[0]).long().reshape(1)
+    s_new = torch.where(ok, s, mem.s.index_select(0, slot)[0])
+    y_new = torch.where(ok, y, mem.y.index_select(0, slot)[0])
+    rho_new = torch.where(ok, 1.0 / torch.clamp(sy, min=1e-12),
+                          mem.rho.index_select(0, slot)[0])
+    return LBFGSMemory(
+        s=mem.s.index_copy(0, slot, s_new[None]),
+        y=mem.y.index_copy(0, slot, y_new[None]),
+        rho=mem.rho.index_copy(0, slot, rho_new.reshape(1)),
+        count=mem.count + ok.int())
+
+
+def _lbfgs_gamma(mem: LBFGSMemory) -> Tensor:
+    """Standard ``H0`` scaling ``gamma = s'y / y'y`` of the newest pair."""
+    has = mem.count > 0
+    idx = ((mem.count - 1) % mem.s.shape[0]).long().reshape(1)
+    s = mem.s.index_select(0, idx)[0]
+    y = mem.y.index_select(0, idx)[0]
+    sy, yy = torch.dot(s, y), torch.dot(y, y)
+    return torch.where(has & (yy > 1e-12),
+                       torch.clamp(sy, min=1e-12) / torch.clamp(yy, min=1e-12),
+                       torch.ones_like(sy))
+
+
+class LBFGSResult(NamedTuple):
+    z: Tensor
+    memory: LBFGSMemory
+    grad_norm: Tensor
+    n_steps: int
+    converged: Tensor
+    trace: Tensor
+    tape: SolveTape | None = None   # (max_steps,) scalar-problem tape
+    status: Tensor | None = None    # () int32 STATUS_*
+
+
+def _line_search(value_fn, z: Tensor, p: Tensor, gz: Tensor, fz: Tensor,
+                 max_ls: int) -> float:
+    """Backtracking Armijo; returns the step length.  Each test is a host
+    read (the JAX package's inner ``while_loop``)."""
+    gp = torch.dot(gz, p)
+    alpha = 1.0
+    for _ in range(max_ls):
+        fa = value_fn(z + alpha * p)
+        if bool(fa <= fz + 1e-4 * alpha * gp):
+            break
+        alpha *= 0.5
+    return alpha
+
+
+def lbfgs_solve(
+    grad_fn: Callable[[Tensor], Tensor],
+    z0: Tensor,                       # (D,)
+    cfg: SolverConfig,
+    *,
+    value_fn: Callable[[Tensor], Tensor] | None = None,
+    dg_dtheta: Callable[[Tensor], Tensor] | None = None,
+    max_ls: int = 20,
+    mem0: LBFGSMemory | None = None,
+) -> LBFGSResult:
+    """L-BFGS minimisation through the gradient ``grad_fn`` (``g_theta`` of
+    the paper's Eq. 2), in f32.
+
+    ``mem0`` warm-starts the secant memory (HOAG passes the previous outer
+    iterate's, so the inner solve and the inverse estimate the
+    hypergradient shares both resume).  Line search: backtracking Armijo
+    on ``value_fn`` when given, else the fixed ``cfg.step_size``.  OPA
+    (``cfg.opa_freq = M > 0`` with ``dg_dtheta``): every M steps an extra
+    pair ``(e, g(z + e) - g(z))`` with ``e = t H dg/dtheta``, ``t =
+    min(||s||, opa_t0)``, goes into the same memory.
+
+    Host reads: one stop test per iteration (and the one that ends an
+    early stop) plus one per line-search test; the guard's restart is a
+    masked select, no read."""
+    dim, m, dev = z0.shape[0], cfg.memory, z0.device
+    if mem0 is None:
+        mem0 = empty_lbfgs_memory(m, dim, dev)
+    elif tuple(mem0.s.shape) != (m, dim):
+        raise ValueError(f"mem0 holds {tuple(mem0.s.shape)} but the solver "
+                         f"needs ({m}, {dim})")
+    g0 = grad_fn(z0)
+    gn0 = torch.linalg.vector_norm(g0)
+    z0f, g0f = z0.float(), g0.float()
+    trace = torch.full((max(cfg.max_steps, 1),), float("inf"),
+                       dtype=torch.float32, device=dev)
+    tape = empty_tape(cfg.max_steps, None, dev)
+    gs = _guard_init(None, dev) if cfg.guard else None
+    live = torch.ones((), dtype=torch.bool, device=dev)
+    k, z, gz, mem, done = 0, z0f, g0f, mem0, gn0 < cfg.tol
+
+    while k < cfg.max_steps:
+        if bool((done | gs.sick) if cfg.guard else done):
+            break
+        p = -lbfgs_two_loop(mem, gz, _lbfgs_gamma(mem))
+        if value_fn is not None:
+            alpha = _line_search(value_fn, z, p, gz, value_fn(z), max_ls)
+        else:
+            alpha = cfg.step_size
+        if cfg.guard:
+            alpha = torch.where(gs.stepscale < 1.0, gs.stepscale * alpha,
+                                torch.full_like(gs.stepscale, alpha))
+        z_new = z + alpha * p
+        g_new = grad_fn(z_new).float()
+        s = z_new - z
+        mem = _mem_push(mem, s, g_new - gz, True)
+        if dg_dtheta is not None and cfg.opa_freq > 0 and \
+                k % cfg.opa_freq == cfg.opa_freq - 1:
+            t_n = torch.clamp(torch.linalg.vector_norm(s), max=cfg.opa_t0)
+            d = dg_dtheta(z_new).float()
+            e = t_n * lbfgs_two_loop(mem, d, _lbfgs_gamma(mem))
+            mem = _mem_push(mem, e, grad_fn(z_new + e).float() - g_new, True)
+
+        gn = torch.linalg.vector_norm(g_new)
+        s_norm = torch.linalg.vector_norm(s)
+        status_k = None
+        if cfg.guard:
+            # one problem: the loop runs only while it is live
+            gs, do_rs, code, gn = _guard_detect(gs, cfg, live, gn, s_norm,
+                                                gn0)
+            zero = torch.zeros((), dtype=torch.float32, device=dev)
+            mem = LBFGSMemory(torch.where(do_rs, zero, mem.s),
+                              torch.where(do_rs, zero, mem.y),
+                              torch.where(do_rs, zero, mem.rho),
+                              torch.where(do_rs, torch.zeros_like(mem.count),
+                                          mem.count))
+            z_new = torch.where(do_rs, z0f, z_new)
+            g_new = torch.where(do_rs, g0f, g_new)
+            gn = torch.where(do_rs, gn0, gn)
+            status_k = torch.where(do_rs, code, gs.status)
+        trace[k] = gn
+        tape_record(tape, k, live, gn, s_norm, torch.clamp(mem.count, max=m),
+                    status=status_k)
+        done = gn < cfg.tol
+        z, gz = z_new, g_new
+        k += 1
+
+    final_gn = torch.linalg.vector_norm(gz)
+    if cfg.guard:
+        final_gn = torch.where(gs.sick, torch.full_like(final_gn,
+                                                        float("inf")),
+                               final_gn)
+    return LBFGSResult(z, mem, final_gn, k, done, trace, tape,
+                       _exit_status(done, gs))

@@ -17,7 +17,16 @@ from repro_torch.implicit.config import (
 from repro_torch.implicit.estimators import (
     AdjointResult,
     EstimatorContext,
+    adjoint_system,
+    bilevel_context,
+    deq_context,
     estimate_cotangent,
+    estimate_hypergrad_cotangent,
+    fallback_cotangent,
+    jfb_cotangent,
+    shine_cotangent,
+    shine_cotangent_multi,
+    solve_adjoint,
 )
 from repro_torch.implicit.engine import (
     CarryCache,
@@ -39,6 +48,7 @@ from repro_torch.implicit.fixed_point import (
     ImplicitStats,
     implicit_fixed_point,
 )
+from repro_torch.implicit.pytree import pack_state, ravel_state
 from repro_torch.implicit.registry import (
     ESTIMATORS,
     SOLVERS,
@@ -50,12 +60,14 @@ from repro_torch.implicit.registry import (
 __all__ = [
     "AdjointResult", "BackwardConfig", "CarryCache", "CoalescedBatch",
     "DevEntry", "DevPrefixMatch", "DevicePrefixStore", "ESTIMATORS",
-    "EstimatorContext", "ForwardConfig", "estimate_cotangent",
-    "ImplicitConfig", "ImplicitStats", "PrefixCarryIndex", "PrefixEntry",
-    "PrefixMatch", "Registry", "SOLVERS", "SolveCarry",
-    "batched_solve", "coalesce_states", "implicit_fixed_point",
-    "init_solve_carry", "prefix_hashes", "prefix_store_scatter",
-    "register_estimator", "register_solver",
-    "reset_carry_rows", "seed_carry", "write_carry_rows",
-    "write_carry_slot",
+    "EstimatorContext", "ForwardConfig", "ImplicitConfig", "ImplicitStats",
+    "PrefixCarryIndex", "PrefixEntry", "PrefixMatch", "Registry", "SOLVERS",
+    "SolveCarry", "adjoint_system", "batched_solve", "bilevel_context",
+    "coalesce_states", "deq_context", "estimate_cotangent",
+    "estimate_hypergrad_cotangent", "fallback_cotangent",
+    "implicit_fixed_point", "init_solve_carry", "jfb_cotangent",
+    "pack_state", "prefix_hashes", "prefix_store_scatter", "ravel_state",
+    "register_estimator", "register_solver", "reset_carry_rows",
+    "seed_carry", "shine_cotangent", "shine_cotangent_multi",
+    "solve_adjoint", "write_carry_rows", "write_carry_slot",
 ]

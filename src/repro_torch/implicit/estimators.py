@@ -1,12 +1,13 @@
 """Backward-pass cotangent estimators (paper §2) behind the registry.
 
-The port of the DEQ half of ``repro/implicit/estimators.py``.  Given the
+The port of ``repro/implicit/estimators.py``.  Given the
 fixed point ``z* = f(z*)`` (``g(z) = z - f(z) = 0``) and the loss cotangent
 ``w = dL/dz*``, the hypergradient needs ``u^T = w^T J_g(z*)^{-1}`` (then
 ``dL/dtheta = u^T df/dtheta``).  Registered estimators, each returning an
 :class:`AdjointResult`:
 
-  * ``full``            solve the adjoint system iteratively (Broyden).
+  * ``full``            solve the adjoint system iteratively (Broyden; CG
+                        in the bi-level problem).
   * ``shine``           ``u = H^T w`` with the forward solve's quasi-Newton
                         inverse ``H``: one ``qn_apply_multi`` with
                         ``transpose=(True,)``, no extra solve.
@@ -23,8 +24,11 @@ fixed point ``z* = f(z*)`` (``g(z) = z - f(z) = 0``) and the loss cotangent
                         or is non-finite, refine from the JFB start with the
                         healthy rows frozen.
 
-The bi-level context (CG on the Hessian with the L-BFGS inverse) comes with
-the paper-workloads slice.
+The estimators are written once against an :class:`EstimatorContext` and
+serve both problem classes: the DEQ adjoint (batched Broyden on ``(I -
+J_f)^T u = w`` with a ``LowRank`` shared inverse, :func:`deq_context`) and
+the bi-level hypergradient (CG on ``Hess q = w`` with the shared L-BFGS
+two-loop inverse, :func:`bilevel_context`).
 """
 
 from __future__ import annotations
@@ -37,9 +41,12 @@ import torch
 from repro_torch.core.lowrank import LowRank, _expand, bnorm
 from repro_torch.core.solvers import (
     STATUS_DIVERGED,
+    LBFGSMemory,
     SolveResult,
     SolverConfig,
+    _lbfgs_gamma,
     broyden_solve,
+    lbfgs_two_loop,
 )
 from repro_torch.implicit.registry import ESTIMATORS, register_estimator
 from repro_torch.obs import metrics as obs_metrics
@@ -86,6 +93,15 @@ def shine_cotangent(H: LowRank, w: Tensor) -> Tensor:
     return H.rmatvec(w)
 
 
+def shine_cotangent_multi(H: LowRank, ws) -> tuple[Tensor, ...]:
+    """``(H^T w_1, ..., H^T w_K)`` in one stream over the forward chain."""
+    return H.matvec_multi(tuple(ws), (True,) * len(ws))
+
+
+def jfb_cotangent(w: Tensor) -> Tensor:
+    return w
+
+
 def _select(mask: Tensor, a: Tensor, b: Tensor) -> Tensor:
     return torch.where(_expand(mask, a), a, b)
 
@@ -97,6 +113,13 @@ def _fallback_rule(apply_inverse, norm, select, w: Tensor,
     u_shine = apply_inverse(w)
     bad = norm(u_shine) > ratio * norm(w)
     return select(bad, w, u_shine), bad
+
+
+def fallback_cotangent(H: LowRank, w: Tensor,
+                       ratio: float = 1.3) -> tuple[Tensor, Tensor]:
+    """The guard applied to a ``LowRank`` shared inverse (batched form)."""
+    return _fallback_rule(lambda v: shine_cotangent(H, v), bnorm, _select, w,
+                          ratio)
 
 
 def adjoint_system(vjp_z: Callable[[Tensor], Tensor],
@@ -191,7 +214,7 @@ def _shine_cascade(cfg: "ImplicitConfig",
 
 
 # ---------------------------------------------------------------------------
-# The DEQ context and dispatch
+# The estimator contexts of the two problem classes, and dispatch
 # ---------------------------------------------------------------------------
 
 
@@ -243,6 +266,52 @@ def deq_context(cfg: "ImplicitConfig", vjp_z: Callable[[Tensor], Tensor],
     )
 
 
+def bilevel_context(cfg: "ImplicitConfig", hvp: Callable[[Tensor], Tensor],
+                    w: Tensor, mem: LBFGSMemory) -> EstimatorContext:
+    """Bi-level hypergradient: CG on ``Hess q = w``; the shared inverse is
+    the forward L-BFGS memory applied by the two-loop recursion (``H`` is
+    symmetric).  ``n_steps`` counts HVP calls."""
+    gamma = _lbfgs_gamma(mem)
+
+    def solve(b, u0, steps, warm, freeze_mask=None):
+        # one problem: freeze_mask has no per-sample meaning here
+        x0 = torch.zeros_like(b) if u0 is None else u0
+        q, k = _cg(hvp, b, x0, steps, cfg.backward.tol)
+        return q, torch.full((), float("nan"), device=b.device), k
+
+    return EstimatorContext(
+        w=w,
+        apply_inverse=lambda v: lbfgs_two_loop(mem, v, gamma),
+        solve=solve,
+        norm=torch.linalg.vector_norm,
+        select=torch.where,
+        no_fallback=torch.zeros((), dtype=torch.bool, device=w.device),
+        nan_residual=torch.full((), float("nan"), device=w.device),
+    )
+
+
+def _cg(hvp: Callable[[Tensor], Tensor], b: Tensor, x0: Tensor, steps: int,
+        tol: float) -> tuple[Tensor, int]:
+    """Plain conjugate gradient on a PD system; returns ``(x, iters)``.
+    Host reads: one stop test per iteration, and one that ends an early
+    stop."""
+    r = b - hvp(x0)
+    x, p, k = x0, r, 0
+    done = torch.linalg.vector_norm(r) < tol
+    while k < steps and not bool(done):
+        hp = hvp(p)
+        rr = torch.dot(r, r)
+        alpha = rr / torch.clamp(torch.dot(p, hp), min=1e-30)
+        x = x + alpha * p
+        r_new = r - alpha * hp
+        beta = torch.dot(r_new, r_new) / torch.clamp(rr, min=1e-30)
+        p = r_new + beta * p
+        r = r_new
+        done = torch.linalg.vector_norm(r_new) < tol
+        k += 1
+    return x, k
+
+
 def estimate_cotangent(cfg: "ImplicitConfig",
                        vjp_z: Callable[[Tensor], Tensor], w: Tensor,
                        H: LowRank,
@@ -252,3 +321,11 @@ def estimate_cotangent(cfg: "ImplicitConfig",
     estimator = ESTIMATORS.get(cfg.backward.estimator)
     return estimator(cfg, deq_context(cfg, vjp_z, w, H,
                                       forward_status=forward_status))
+
+
+def estimate_hypergrad_cotangent(cfg: "ImplicitConfig",
+                                 hvp: Callable[[Tensor], Tensor], w: Tensor,
+                                 mem: LBFGSMemory) -> AdjointResult:
+    """Run the configured estimator on the bi-level hypergradient problem."""
+    estimator = ESTIMATORS.get(cfg.backward.estimator)
+    return estimator(cfg, bilevel_context(cfg, hvp, w, mem))

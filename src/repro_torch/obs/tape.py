@@ -24,9 +24,12 @@ class SolveTape(NamedTuple):
     status: torch.Tensor | None = None  # int32, -1 = unrecorded
 
 
-def empty_tape(max_steps: int, batch: int,
+def empty_tape(max_steps: int, batch: int | None,
                device: torch.device | str = "cpu") -> SolveTape:
-    shape = (max(max_steps, 1), batch)
+    """An all-unrecorded tape (``batch=None`` for the scalar L-BFGS
+    form)."""
+    shape = (max(max_steps, 1),) if batch is None \
+        else (max(max_steps, 1), batch)
     return SolveTape(
         residual=torch.full(shape, float("inf"), dtype=torch.float32,
                             device=device),

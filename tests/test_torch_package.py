@@ -10,6 +10,7 @@
 
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 
@@ -89,3 +90,44 @@ def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch):
     assert params["embed"]["embedding"].device.type == "cpu"
     assert params["embed"]["embedding"].shape == (cfg.padded_vocab,
                                                   cfg.d_model)
+
+
+NEW_MODULES = ("runtime/faultinject.py", "core/bilevel.py", "core/deq.py",
+               "core/hypergrad.py", "models/mdeq.py", "configs/mdeq_cifar.py")
+
+
+@pytest.mark.parametrize("path", NEW_MODULES)
+def test_fault_bilevel_and_mdeq_modules_import_neither_jax_nor_repro(path):
+    src = open(os.path.join(REPO, "src", "repro_torch", path)).read()
+    assert not re.search(r"^\s*(import|from) (jax|repro)\b", src, re.M), path
+
+
+def _fields(cls) -> list:
+    return [(f.name, str(f.type)) for f in dataclasses.fields(cls)]
+
+
+@pytest.mark.parametrize("pair", ["mdeq", "hoag", "deq", "hypergrad"])
+def test_paper_workload_configs_equal_the_jax_package(pair):
+    from repro.configs import mdeq_cifar as jmdeq
+    from repro.core import bilevel as jbil
+    from repro.core import deq as jdeq
+    from repro.core import hypergrad as jhyp
+    from repro_torch.configs import mdeq_cifar as tmdeq
+    from repro_torch.core import bilevel as tbil
+    from repro_torch.core import deq as tdeq
+    from repro_torch.core import hypergrad as thyp
+    want, got = {"mdeq": (jmdeq.MDEQConfig, tmdeq.MDEQConfig),
+                 "hoag": (jbil.HOAGConfig, tbil.HOAGConfig),
+                 "deq": (jdeq.DEQConfig, tdeq.DEQConfig),
+                 "hypergrad": (jhyp.BackwardConfig, thyp.BackwardConfig),
+                 }[pair]
+    assert _fields(got) == _fields(want)
+    assert dataclasses.asdict(got()) == dataclasses.asdict(want())
+    if pair == "mdeq":
+        assert tmdeq.CONFIG == tmdeq.MDEQConfig()
+    if pair == "hoag":
+        # the nested inner SolverConfig, field by field
+        assert _fields(type(got().inner)) == _fields(type(want().inner))
+    if hasattr(want(), "to_implicit"):
+        assert dataclasses.asdict(got().to_implicit()) == \
+            dataclasses.asdict(want().to_implicit())
