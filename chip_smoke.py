@@ -31,9 +31,11 @@ Phases, one line (or a few) each:
      spills (``check_qn_sass``); then the
      attention edge cases (``PREFILL_CASES``, ``DECODE_CASES``: GQA groups
      1/3/4, ragged S and T, kv_length 0 and inside a tile or at the split
-     chunk's edges, head dims 16, 64, 80, 96 and 128 in bf16 and f32), each
-     through ``check_attention``, and each registered config's head dim at
-     its heads timed (``kernel_attention_head_dims``); then the gradients of
+     chunk's edges, head dims 16, 64, 80, 96, 128 and 192 in bf16 and
+     f32), each through ``check_attention``, and each head dim past 64 at
+     its config's heads (``ATTN_HEAD_DIMS``; 192 is DeepSeek-V2-Lite's MLA,
+     qk 128 + 64 with v padded) timed cold beside SDPA and the bound
+     (``kernel_attention_head_dims``); then the gradients of
      the attention and rmsnorm
      autograd wrappers (kernel forward, plain recompute backward) against
      plain autograd at the same shapes; and ``qn_apply_multi`` at the
@@ -132,9 +134,30 @@ Phases, one line (or a few) each:
      falls, the shine modes make no backward HVP, and the host waits are
      exactly the L-BFGS, line-search and CG stop tests and three record
      reads an outer step (``hoag_expected_syncs``);
- 12. a ``{"kernels": [...]}`` line (with each kernel's launches in the
-     step 8 arms, in arm c of step 4 and in the MDEQ SGD steps), then the
-     last line ``{"ok": true, "device": {...}}``.
+ 12. the layer stack with MLA and the fine-grained MoE (``phase_moe``):
+     DeepSeek-V2-Lite at its published widths and full depth (27 layers,
+     bf16, random weights from seed 0, no DEQ): 4 requests of 128/256 tokens over 4 slots, 16 new tokens, a 512-token
+     cache, a sync drain and an async drain (logits recorded: every
+     request served, finite logits; the async tokens the sync ones bit for
+     bit; the async drain's only host wait the clock wait) and an async
+     drain unrecorded for the rate, each with the launch counts reset
+     just before and read just after (both attention kernels and rmsnorm
+     must launch); a profiled prefill tick and decode tick (device busy
+     time and idle share); prefill over 128 tokens and one decode step
+     against a full forward over 129 (``tests/test_archs.py``'s 3e-2 /
+     4e-2; at a capacity factor that drops no token) for each token seed
+     of ``CACHE_SEEDS``, then at 4 layers in bf16 and in f32 (at
+     ``TOL_F32``); a drain of DeepSeekMoE-16B at
+     published widths and full depth (28 layers); V2-Lite with the DEQ
+     (``DEQSettings`` defaults, 4 tied ``attn_moe`` blocks x0.3): every
+     serve-path kernel launches, the solve statuses reported; and both
+     MoE configs at smoke size in f32, card against CPU (same tokens,
+     logits within 1e-3 of their scale; the MLA config at qk 48 + 16, a
+     head dim the kernels instantiate, where the smoke 16 + 8 is not);
+ 13. a ``{"kernels": [...]}`` line (with each kernel's launches in the
+     step 8 arms, in arm c of step 4, in the MDEQ SGD steps and in the
+     V2-Lite async drain of step 12), then the last line ``{"ok": true,
+     "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the last
 line.  It imports nothing of JAX; it needs the repository's ``src/`` beside
@@ -257,17 +280,21 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn, iters: int = 10, tries: int = 6, exclude: str = "",
+def device_profile(fn, iters: int = 10, tries: int = 10, exclude: str = "",
                    with_calls: bool = False):
     """Device time per call of each kernel ``fn`` launches (its profiler
     self time over ``iters`` calls), keyed by the kernel's short name;
     kernels whose name holds ``exclude`` are left out.  With
     ``with_calls``, also each kernel's launches per call.  A trace that
-    holds fewer kernels than calls lost events and is taken again (three
-    traces in a row have been seen to lose them)."""
+    holds fewer kernels than calls lost events (seen at the short rmsnorm
+    kernels, some traces holding 7-9 of 10, six in a row once): it is
+    reported (``profiler_retry``, what it held) and taken again, up to
+    ``tries`` times, then the run fails; an incomplete trace is never
+    used."""
     fn()
     torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
+    seen = []
     for _ in range(tries):
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -276,16 +303,18 @@ def device_profile(fn, iters: int = 10, tries: int = 6, exclude: str = "",
             torch.cuda.synchronize()
         kern = [e for e in prof.key_averages() if e.device_type == cuda
                 and not (exclude and exclude in e.key)]
+        name = {e.key: re.sub(r"^void |\(anonymous namespace\)::", "",
+                              e.key).split("(")[0] for e in kern}
         if sum(e.count for e in kern) >= iters:
-            name = {e.key: re.sub(r"^void |\(anonymous namespace\)::", "",
-                                  e.key).split("(")[0] for e in kern}
             ms = {name[e.key]: e.self_device_time_total / 1e3 / iters
                   for e in kern}
             if not with_calls:
                 return ms
             return ms, {name[e.key]: e.count / iters for e in kern}
+        seen.append({name[e.key]: e.count for e in kern})
+        say("profiler_retry", calls=iters, traced=seen[-1])
     raise RuntimeError(f"profiler traced fewer than {iters} kernels in "
-                       f"{tries} tries")
+                       f"{tries} tries: {seen}")
 
 
 def device_ms(fn, iters: int = 10) -> float:
@@ -806,6 +835,12 @@ def _cold(fn):
     return run
 
 
+def cold_device_ms(fn) -> float:
+    """Device time per call of ``fn``'s kernels, each call after an L2
+    flush (the flush left out)."""
+    return sum(device_profile(_cold(fn), exclude=FLUSH_KERNEL).values())
+
+
 def time_cold_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """CUDA-event time of ``fn`` alone per call, each call after an L2
     flush (the events bracket ``fn``, not the flush)."""
@@ -900,8 +935,7 @@ def time_qn_ops(inp: dict) -> dict:
     q_bytes, q_flops = ring + 2 * bsz * dim * 4, 4 * m * bsz * dim
     mask_t = mask.t()[:, :, None].to(u.dtype)
     comp = lambda: _qn_composition(u, v, g, 1.0, mask_t)  # noqa: E731
-    comp_dev = sum(device_profile(_cold(comp), exclude=FLUSH_KERNEL
-                                  ).values())
+    comp_dev = cold_device_ms(comp)
     rows["qn_apply_multi"] = qn_timing(
         "qn_apply_multi",
         lambda: cuda_qn.qn_apply_multi(u, v, xs, alpha, mask, (False,)),
@@ -921,8 +955,7 @@ def time_qn_ops(inp: dict) -> dict:
     # a (B, D) result), the pattern of the qN kernels' tiles
     reads = {"linear": lambda: u.sum(dtype=torch.float32),
              "rows_in_lockstep": lambda: u.sum(0)}
-    ring_read = {k: sum(device_profile(_cold(f), exclude=FLUSH_KERNEL
-                                       ).values()) for k, f in reads.items()}
+    ring_read = {k: cold_device_ms(f) for k, f in reads.items()}
     say("ring_read", shape=f"u: {shape} bf16", bytes=ring // 2,
         device_ms=ring_read, tb_per_s={k: ring / 2 / t / 1e9
                                        for k, t in ring_read.items()})
@@ -1062,7 +1095,8 @@ def _lens(vals):
 # prefill cases besides "main" (the reported shape): (tag, B, S, T, H, KV,
 # hd, dtype, kv_length, causal) -- GQA groups 1, 3, 4 and 6 (InternLM2's
 # 48/8), ragged S and T, a kv_length 0 row and lengths inside a tile, head
-# dims 16, 64, 80, 96 and 128 in bf16 and f32
+# dims 16, 64, 80, 96, 128 and 192 in bf16 and f32 (192 also at
+# DeepSeek-V2-Lite's prefill shape, B=4 S=T=256 16/16 heads)
 PREFILL_CASES = [
     ("gqa3", 4, 256, 256, 36, 12, 64, torch.bfloat16, None, True),
     ("gqa4", 2, 256, 256, 36, 9, 64, torch.bfloat16, None, True),
@@ -1080,12 +1114,14 @@ PREFILL_CASES = [
     ("hd96_f32", 2, 130, 130, 8, 8, 96, torch.float32, [100, 0], True),
     ("hd128_gqa", 2, 197, 230, 48, 8, 128, torch.bfloat16, [230, 0], True),
     ("hd128_f32", 2, 130, 197, 48, 8, 128, torch.float32, [150, 0], True),
+    ("hd192", 2, 197, 230, 16, 16, 192, torch.bfloat16, [230, 0], True),
+    ("hd192_f32", 4, 256, 256, 16, 16, 192, torch.float32, None, True),
 ]
 # decode cases besides "main": (tag, B, H, KV, hd, T, dtype, kv_length) --
 # kv_length at the split chunk's edges (CH-1, CH, CH+1, T) and 0, a cache
-# shorter than one chunk, GQA (H=36, KV=12; 48/8), head dims 16, 64, 80, 96
-# and 128 (bf16 and f32); the "chunk_edges" cases also take the kv_length
-# +-1 guard
+# shorter than one chunk, GQA (H=36, KV=12; 48/8), head dims 16, 64, 80,
+# 96, 128 and 192 (bf16 and f32; 192 over V2-Lite's 512-token serving
+# cache); the "chunk_edges" cases also take the kv_length +-1 guard
 _CH = cuda_fa.DECODE_CHUNK
 DECODE_CASES = [
     ("chunk_edges", 4, 36, 36, 64, 1024, torch.bfloat16,
@@ -1104,6 +1140,10 @@ DECODE_CASES = [
     ("hd128_chunk_edges", 4, 48, 8, 128, 1024, torch.bfloat16,
      [_CH - 1, _CH, _CH + 1, 0]),
     ("hd128_f32", 3, 48, 8, 128, 300, torch.float32, [300, 0, _CH + 1]),
+    ("hd192_chunk_edges", 4, 16, 16, 192, 512, torch.bfloat16,
+     [_CH - 1, _CH, _CH + 1, 512]),
+    ("hd192_f32_chunk_edges", 4, 16, 16, 192, 512, torch.float32,
+     [_CH - 1, _CH, _CH + 1, 512]),
 ]
 
 
@@ -1236,19 +1276,27 @@ def kernel_attention(gen) -> dict:
 # the registry's other head dims, each at its config's heads (H, KV)
 HEAD_DIM_CONFIGS = {80: ("stablelm-3b", 32, 32), 96: ("phi3-mini-3.8b", 32, 32),
                     128: ("internlm2-20b", 48, 8)}
+# the attention kernels' head dims past 64, timed: each config's heads and
+# decode cache length T (1024; V2-Lite's MLA at qk 128 + 64, v padded, over
+# its 512-token serving cache)
+ATTN_HEAD_DIMS = {hd: (arch, h, kvh, 1024)
+                  for hd, (arch, h, kvh) in HEAD_DIM_CONFIGS.items()}
+ATTN_HEAD_DIMS[192] = ("deepseek-v2-lite-16b", 16, 16, 512)
 
 
 def kernel_attention_head_dims(gen) -> dict:
-    """Prefill (B=4, S=T=256, causal) and decode (B=4 over a 1024-token
-    cache, the main decode case's lengths) at each head dim of
-    ``HEAD_DIM_CONFIGS`` with its config's heads, bf16: checked against the
-    plain version and timed beside SDPA and the bound."""
+    """Prefill (B=4, S=T=256, causal) and decode (B=4 over a T-token cache,
+    lengths 129, 257, 200 and T) at each head dim of ``ATTN_HEAD_DIMS``
+    with its config's heads, bf16: checked against the plain version and
+    timed cold (event and device time after an L2 flush) beside SDPA
+    (masked for decode) and the bound."""
     bf = torch.bfloat16
     out = {"flash_attention": {}, "decode_attention": {}}
-    for hd, (arch, h, kvh) in HEAD_DIM_CONFIGS.items():
+    for hd, (arch, h, kvh, t) in ATTN_HEAD_DIMS.items():
         bsz, seq = 4, 256
         q, k, v = _attn_inputs(gen, bsz, seq, seq, h, kvh, hd, bf)
         kern = lambda: cuda_fa.flash_attention(q, k, v, causal=True)  # noqa: E731
+        lib = lambda: _sdpa(q, k, v, causal=True)  # noqa: E731
         err = check_attention(f"flash_attention[{arch}]", kern(),
                               ref.attention_ref(q, k, v, causal=True),
                               q, k, v, None, TOL_BF16)
@@ -1256,45 +1304,46 @@ def kernel_attention_head_dims(gen) -> dict:
                            4 * bsz * h * hd * seq * (seq + 1) / 2, "bf16")
         row = out["flash_attention"][str(hd)] = dict(
             config=arch, shape=f"B={bsz} S=T={seq} H={h} KV={kvh} hd={hd} "
-            "causal bf16", max_abs_err=err, ms=time_ms(kern),
-            device_ms=device_ms(kern),
+            "causal bf16", max_abs_err=err, ms=time_cold_ms(kern),
+            device_ms=cold_device_ms(kern),
             plain_ms=time_ms(lambda: ref.attention_ref(q, k, v, causal=True)),
-            library_ms=time_ms(lambda: _sdpa(q, k, v, causal=True)),
-            library_device_ms=device_ms(lambda: _sdpa(q, k, v, causal=True)),
+            library_ms=time_cold_ms(lib),
+            library_device_ms=cold_device_ms(lib),
             bound_ms=b_ms, bound_by=b_by)
         say("kernel_case", name="flash_attention", case=f"hd{hd}", **row)
-        t = 1024
-        lens = _lens([129, 257, 200, 1024])
+        lens = _lens([129, 257, 200, t])
         q, k, v = _decode_inputs(gen, bsz, h, kvh, hd, t, bf)
         kern = lambda: cuda_fa.decode_attention(q, k, v, lens)  # noqa: E731
+        amask = (torch.arange(t, device="cuda")[None, :] < lens[:, None]
+                 )[:, None, None, :]
+        lib = lambda: _sdpa(q[:, None], k, v, causal=False,  # noqa: E731
+                            mask=amask)
         err = check_attention(f"decode_attention[{arch}]", kern(),
                               ref.decode_attention_ref(q, k, v, lens),
                               q, k, v, lens, TOL_DECODE)
-        amask = (torch.arange(t, device="cuda")[None, :] < lens[:, None]
-                 )[:, None, None, :]
         live = int(lens.sum())
         b_ms, b_by = bound(2 * q.numel() * 2 + 2 * live * kvh * hd * 2
                            + bsz * 4, 4 * h * hd * live, "bf16")
         row = out["decode_attention"][str(hd)] = dict(
             config=arch, shape=f"B={bsz} H={h} KV={kvh} hd={hd} T={t} "
             f"kv_length={lens.tolist()} bf16", max_abs_err=err,
-            ms=time_ms(kern), device_ms=device_ms(kern),
+            ms=time_cold_ms(kern), device_ms=cold_device_ms(kern),
             plain_ms=time_ms(lambda: ref.decode_attention_ref(q, k, v,
                                                               lens)),
-            library_ms=time_ms(lambda: _sdpa(q[:, None], k, v, causal=False,
-                                             mask=amask)),
-            library_device_ms=device_ms(lambda: _sdpa(
-                q[:, None], k, v, causal=False, mask=amask)),
-            bound_ms=b_ms, bound_by=b_by)
+            library_ms=time_cold_ms(lib),
+            library_device_ms=cold_device_ms(lib),
+            bound_ms=b_ms, bound_by=b_by, launches_per_call=2)
         say("kernel_case", name="decode_attention", case=f"hd{hd}", **row)
     return out
 
 
 # rmsnorm shapes (rows, D): the registry's widths at the paths' 1024 rows
-# (B=4 x S=256), the decode shape (4 slots), a ragged row count and a width
-# with no vector instance (the generic kernel); the first is the reported row
+# (B=4 x S=256) and at the decode shape (4 slots) -- DeepSeek's 2048 and
+# MLA's kv_norm 512 among them -- a ragged row count and a width with no
+# vector instance (the generic kernel); the first is the reported row
 RMS_SHAPES = [(1024, 2304), (1024, 2560), (1024, 3072), (1024, 6144),
-              (4, 2304), (4, 6144), (1000, 2304), (1024, 64)]
+              (1024, 2048), (1024, 512), (4, 2304), (4, 6144), (4, 2048),
+              (4, 512), (1000, 2304), (1024, 64)]
 
 
 def kernel_rmsnorm(gen) -> dict:
@@ -1323,8 +1372,7 @@ def kernel_rmsnorm(gen) -> dict:
             if dt == torch.bfloat16:
                 kern = lambda: cuda_rms.rmsnorm(x, w, eps)  # noqa: E731
                 lib = lambda: F.rms_norm(x, (d,), w, eps)  # noqa: E731
-                cold = [sum(device_profile(_cold(f), exclude=FLUSH_KERNEL)
-                            .values()) for f in (kern, lib, lib, kern)]
+                cold = [cold_device_ms(f) for f in (kern, lib, lib, kern)]
                 warm = [device_ms(f) for f in (kern, lib, lib, kern)]
                 row.update(
                     device_ms=min(cold[0], cold[3]),
@@ -2016,7 +2064,7 @@ def phase_profile(params, cfg, smi: str) -> None:
                                                 size=256).tolist()))
     for tag in ("prefill_tick", "decode_tick"):
         prof = _profile_window(loop.step)
-        say("profile", window=tag, card=smi,
+        say("profile", window=tag, config=cfg.name, card=smi,
             solves=[(s["phase"], s["steps"]) for s in loop.solve_log], **prof)
         loop.solve_log.clear()
 
@@ -3056,6 +3104,269 @@ def phase_bilevel(smi: str) -> None:
         host_waits={m: r["host_waits"] for m, r in runs.items()})
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the layer stack with MLA and the fine-grained MoE
+# ---------------------------------------------------------------------------
+
+MOE_ARCH, MOE_GQA_ARCH = "deepseek-v2-lite-16b", "deepseek-moe-16b"
+MOE_PLENS = (128, 256, 128, 256)
+MOE_MAX_LEN = 512
+MOE_NEW = 16
+CACHE_TOL = (dict(rtol=3e-2, atol=3e-2), dict(rtol=4e-2, atol=4e-2))
+CACHE_SEEDS = (1, 2, 3, 4, 5)
+# the cache check again at a cut depth (the dense layer and 3 MoE layers,
+# full width), in bf16 and in f32 (at TOL_F32): how the bf16 error grows
+# with depth, and that the cache path is exact to f32 rounding
+CACHE_CUT_LAYERS = 4
+# the card's MLA instance at smoke widths: the smoke qk (16 + 8 = 24) is no
+# head dim the kernels instantiate, so the card-vs-CPU check runs 48 + 16
+MLA_SMOKE_QK = dict(qk_nope_dim=48, qk_rope_dim=16)
+
+
+def _moe_drain(params, cfg, pipeline: str, record: bool) -> dict:
+    """One drain of MOE_PLENS prompts over 4 slots (MOE_NEW new tokens, a
+    MOE_MAX_LEN cache) with the launch counts reset just before and the
+    host waits counted; every request must be served in full with no
+    fault (and, recorded, finite logits)."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, cfg.vocab_size, size=n).tolist()
+               for n in MOE_PLENS]
+    loop = ServeLoop(params, cfg, slots=4, max_len=MOE_MAX_LEN,
+                     pipeline=pipeline, record=record)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=MOE_NEW)
+            for i, p in enumerate(prompts)]
+    obs_metrics.default_registry().reset()
+    syncs = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    t0 = time.perf_counter()
+    with count_syncs(syncs):
+        loop.drain(reqs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launches.counts()
+    for r in reqs:
+        if len(r.out) != r.max_new_tokens or r.error is not None:
+            raise AssertionError(f"{cfg.name} {pipeline} request {r.uid}: "
+                                 f"{len(r.out)} tokens, error {r.error}")
+        if record and not all(np.isfinite(x).all()
+                              for x in loop.recorded_logits[r.uid]):
+            raise AssertionError(f"{cfg.name} {pipeline} request {r.uid}: "
+                                 f"non-finite logits")
+    summ = serve_summary(loop, reqs, secs)
+    return dict(tokens=[r.out for r in reqs], counts=counts, syncs=syncs,
+                host_waits=dict(collections.Counter(syncs)),
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                statuses=sorted({c for s in loop.solve_log
+                                 for c in (s["status"] or [])}),
+                solve_steps=[(s["phase"], s["steps"])
+                             for s in loop.solve_log],
+                **{k: summ[k] for k in ("tok_per_s", "ttft_ms_mean",
+                                        "ttft_ms_max", "seconds",
+                                        "prefill_calls")})
+
+
+def _dropless(cfg):
+    """``cfg`` with a capacity factor at which no expert drops a token."""
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+
+
+def limit_share(got: torch.Tensor, want: torch.Tensor, tol: dict) -> float:
+    """Largest ``|got - want| / (atol + rtol * |want|)``: the share of its
+    elementwise limit the worst element takes (> 1 is a miss)."""
+    g, w = got.float(), want.float()
+    return ((g - w).abs() / (tol["atol"] + tol["rtol"] * w.abs())
+            ).max().item()
+
+
+def check_cache_against_forward(params, cfg, bsz: int = 2,
+                                seq: int = 128, tol=CACHE_TOL) -> dict:
+    """``tests/test_archs.py::test_prefill_decode_matches_forward`` at full
+    width on the card, for each token seed of ``CACHE_SEEDS``: prefill over
+    S tokens then one decode step against a full forward over S + 1 (last
+    prefill logits at 3e-2, the decode step's at 4e-2, or ``tol``), in
+    the config's dtype; each seed's largest error and share of the limit
+    reported.  Dropless
+    (``_dropless``): experts keep tokens first come first served in the
+    flattened batch order, so S and S + 1 tokens would drop different
+    ones.  The launch counts are the first seed's."""
+    cfg = _dropless(cfg)
+    seeds, counts = {}, {}
+    for seed in CACHE_SEEDS:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        toks = torch.randint(2, cfg.vocab_size, (bsz, seq + 1),
+                             device="cuda", generator=gen)
+        with torch.no_grad():
+            full, _ = lm.forward(params, {"tokens": toks}, cfg)
+        launches.reset()
+        pre, caches, lens = lm.prefill(params, {"tokens": toks[:, :seq]},
+                                       cfg, MOE_MAX_LEN)
+        counts.setdefault("prefill", launches.counts())
+        launches.reset()
+        dec, _ = lm.decode_step(params, caches, toks[:, seq], lens, cfg)
+        counts.setdefault("decode", launches.counts())
+        row = seeds[seed] = {}
+        for tag, got, want, t in (("prefill", pre[:, -1], full[:, seq - 1],
+                                   tol[0]),
+                                  ("decode", dec, full[:, seq], tol[1])):
+            row[tag] = dict(
+                max_abs_err=check_close(f"{cfg.name} {cfg.num_layers} layers "
+                                        f"{cfg.dtype} {tag} vs forward "
+                                        f"(seed {seed})", got, want, t),
+                limit_share=limit_share(got, want, t),
+                logit_scale=want.float().abs().max().item())
+    return dict(batch=bsz, seq=seq, seeds=seeds, tol=tol,
+                capacity_factor=cfg.moe.capacity_factor,
+                launches_per_prefill={k: n for k, n in counts["prefill"].items()
+                                      if n},
+                launches_per_decode={k: n for k, n in counts["decode"].items()
+                                     if n})
+
+
+def moe_parity(arch: str) -> dict:
+    """``arch``'s smoke config, layer stack, f32, served on the card and on
+    the CPU from the same weights (seed 1): the same tokens and logits
+    within 1e-3 of their scale.  The MLA config at ``MLA_SMOKE_QK``."""
+    cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+    if cfg.attn_type == "mla":
+        cfg = dataclasses.replace(cfg, mla=dataclasses.replace(
+            cfg.mla, **MLA_SMOKE_QK))
+    cpu_params = lm.init_params(cfg, seed=1, device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, cfg.vocab_size, size=n).tolist()
+               for n in (5, 9, 5, 12)]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        params = _map(lambda t: t.to(dev), cpu_params)
+        loop = ServeLoop(params, cfg, slots=2, max_len=32, record=True)
+        reqs = [Request(uid=i, prompt=list(p), max_new_tokens=5)
+                for i, p in enumerate(prompts)]
+        loop.drain(reqs)
+        outs[dev] = (reqs, loop)
+    (rg, lg), (rc, lc) = outs["cuda"], outs["cpu"]
+    if [r.out for r in rg] != [r.out for r in rc]:
+        raise AssertionError(f"{arch}: card and CPU tokens differ")
+    err = max(float(np.abs(a - b).max()) for uid in lc.recorded_logits
+              for a, b in zip(lg.recorded_logits[uid],
+                              lc.recorded_logits[uid]))
+    scale = max(float(np.abs(b).max()) for v in lc.recorded_logits.values()
+                for b in v)
+    if err > 1e-3 * max(scale, 1.0):
+        raise AssertionError(f"{arch}: card vs CPU logits differ by "
+                             f"{err:.3e} (scale {scale:.3e})")
+    return dict(config=f"{arch} smoke f32 layer stack (d=64, "
+                f"{cfg.num_layers} layers, {cfg.moe.num_experts} experts "
+                f"top-{cfg.moe.top_k}" + (f", MLA qk {cfg.mla.qk_nope_dim} "
+                                          f"+ {cfg.mla.qk_rope_dim}"
+                                          if cfg.attn_type == "mla" else "")
+                + ")", tokens_identical=True, max_abs_logit_err=err,
+                logit_scale=scale)
+
+
+def phase_moe(smi: str) -> dict:
+    """The slice's main path: DeepSeek-V2-Lite at its published widths and
+    full depth (27 layers, the first dense; MLA; 64 routed experts top-6 +
+    2 shared), the layer stack, bf16, random weights (seed 0), served by
+    ``ServeLoop`` (4 requests of 128/256 tokens over 4 slots, MOE_NEW new
+    tokens, a MOE_MAX_LEN cache): sync with logits recorded, async with
+    logits recorded (its tokens must be the sync drain's bit for bit, and
+    its host waits only the one clock wait), then async unrecorded for
+    the rate; the attention kernels (at head dim 192) and rmsnorm must
+    launch; a profiled prefill tick and decode tick (``phase_profile``);
+    the cache check against a full forward (``CACHE_SEEDS``; again at
+    ``CACHE_CUT_LAYERS`` in bf16 and f32); then DeepSeekMoE-16B
+    (GQA at hd 128) at published widths, V2-Lite as a DEQ (the
+    ``DEQSettings`` defaults, 4 tied ``attn_moe`` blocks x0.3) and the
+    card-vs-CPU parity of both MoE configs at smoke size.  (The kernels at
+    the slice's new shapes are held and timed in phase 2.)  Returns the
+    main drain's launch counts, the DEQ drain's and the per-call counts
+    of the cache check."""
+    out = {}
+    cfg = get_config(MOE_ARCH)
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    drains = {"sync": _moe_drain(params, cfg, "sync", record=True),
+              "async": _moe_drain(params, cfg, "async", record=True)}
+    if drains["async"]["tokens"] != drains["sync"]["tokens"]:
+        raise AssertionError(f"{MOE_ARCH}: async tokens "
+                             f"{drains['async']['tokens']} != sync "
+                             f"{drains['sync']['tokens']}")
+    # no read of the pipeline's own: the one wait pins the card's clock
+    check_syncs(f"{MOE_ARCH} async drain", drains["async"]["syncs"], 1)
+    drains["async_timed"] = _moe_drain(params, cfg, "async", record=False)
+    for name, d in drains.items():
+        missing = [k for k in ("flash_attention", "decode_attention",
+                               "rmsnorm") if d["counts"][k] == 0]
+        if missing:
+            raise AssertionError(f"{MOE_ARCH} {name}: kernels not launched: "
+                                 f"{missing}")
+        say("moe_serve", config=f"{MOE_ARCH} layer stack (27 layers, d=2048, "
+            "MLA 16 heads qk 128+64 v 128 rank 512, 64 experts top-6 + 2 "
+            "shared, ff 1408, dense ff 10944, vocab 102400, bf16, seed 0)",
+            pipeline=name, card=smi, params=n_params,
+            init_seconds=round(t_init, 2), prompt_lens=MOE_PLENS,
+            **{k: v for k, v in d.items() if k not in ("tokens", "syncs")},
+            peak_mem_gib_over_base=(d["peak_mem_gib"]
+                                    - base / 2 ** 30))
+    phase_profile(params, cfg, smi)
+    cache = check_cache_against_forward(params, cfg)
+    say("moe_cache_check", config=f"{MOE_ARCH} 27 layers bf16", card=smi,
+        **cache)
+    out["drain"] = drains["async"]
+    out["cache"] = cache
+    del params
+    torch.cuda.empty_cache()
+    for dt, tol in (("bfloat16", CACHE_TOL), ("float32", (TOL_F32, TOL_F32))):
+        cut = dataclasses.replace(cfg, num_layers=CACHE_CUT_LAYERS, dtype=dt)
+        params = lm.init_params(cut, seed=0, device="cuda")
+        say("moe_cache_check", config=f"{MOE_ARCH} {CACHE_CUT_LAYERS} layers "
+            f"{dt}", card=smi,
+            **check_cache_against_forward(params, cut, tol=tol))
+        del params
+        torch.cuda.empty_cache()
+
+    cfg = get_config(MOE_GQA_ARCH)
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    d = _moe_drain(params, cfg, "async", record=True)
+    if d["counts"]["flash_attention"] == 0 or \
+            d["counts"]["decode_attention"] == 0:
+        raise AssertionError(f"{MOE_GQA_ARCH}: attention kernels not "
+                             f"launched: {d['counts']}")
+    say("moe_serve", config=f"{MOE_GQA_ARCH} layer stack (28 layers, "
+        "d=2048, 16/16 heads x 128, 64 experts top-6 + 2 shared), bf16, "
+        "seed 0; full depth", pipeline="async", card=smi,
+        params=sum(t.numel() for t in _leaves(params)),
+        **{k: v for k, v in d.items() if k not in ("tokens", "syncs")})
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = get_config(MOE_ARCH, deq=True)
+    params = _scaled_blocks(lm.init_params(cfg, seed=0, device="cuda"), 0.3)
+    d = _moe_drain(params, cfg, "async", record=True)
+    missing = [k for k in SERVE_PATH if d["counts"][k] == 0]
+    if missing:
+        raise AssertionError(f"{MOE_ARCH} DEQ: kernels not launched: "
+                             f"{missing}")
+    say("moe_serve", config=f"{MOE_ARCH} DEQ (DEQSettings defaults: 4 tied "
+        "attn_moe blocks x0.3, Broyden 12 steps, tol 1e-3, ring bf16 m=8)",
+        pipeline="async", card=smi,
+        params=sum(t.numel() for t in _leaves(params)),
+        **{k: v for k, v in d.items() if k not in ("tokens", "syncs")})
+    out["deq_counts"] = d["counts"]
+    del params
+    torch.cuda.empty_cache()
+
+    for arch in (MOE_ARCH, MOE_GQA_ARCH):
+        say("moe_parity", card=smi, **moe_parity(arch))
+    return out
+
+
 def timed(smi: str, name: str, fn, *args):
     """``fn(*args)`` with its wall time, to the card's last kernel, in a
     ``phase_time`` line."""
@@ -3097,6 +3408,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     mdeq_counts = timed(smi, "mdeq", phase_mdeq, smi)
     timed(smi, "bilevel", phase_bilevel, smi)
+    torch.cuda.empty_cache()
+    moe = timed(smi, "moe", phase_moe, smi)
+    moe_counts = moe["drain"]["counts"]
     rows = []
     for name, (route, source, replaces) in KERNELS.items():
         r = res[name]
@@ -3104,7 +3418,7 @@ def main() -> int:
                "replaces": replaces,
                "launches": (serve_counts[name] + prefix_counts[name]
                             + train_counts[name]
-                            + mdeq_counts["sgd"][name]),
+                            + mdeq_counts["sgd"][name] + moe_counts[name]),
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"],
@@ -3124,6 +3438,12 @@ def main() -> int:
                "launches_mdeq_sgd": mdeq_counts["sgd"][name],
                "launches_per_mdeq_sgd_step": (mdeq_counts["sgd"][name]
                                               / MDEQ_SGD_STEPS),
+               "launches_moe_serve": moe_counts[name],
+               "launches_moe_deq_serve": moe["deq_counts"][name],
+               "launches_moe_per_prefill": moe["cache"][
+                   "launches_per_prefill"].get(name, 0),
+               "launches_moe_per_decode": moe["cache"][
+                   "launches_per_decode"].get(name, 0),
                **{k: r[k] for k in ("launches_per_call", "decode_ms",
                                     "decode_device_ms", "decode_bound_ms",
                                     "decode_launches_per_call",

@@ -1,15 +1,25 @@
 """Architecture registry: ``--arch <id>`` resolution + reduced smoke configs.
 
-The port's copy of ``repro/configs/registry.py`` for the dense family (the
-family this slice serves); the other families join with their slices.
+The port's copy of ``repro/configs/registry.py`` for the dense and MoE
+families (DeepSeekMoE-16B with GQA, DeepSeek-V2-Lite with MLA); the hybrid,
+SSM, audio and VLM families join with their slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import minicpm_2b
-from repro_torch.configs.base import DEQSettings, ModelConfig
+from repro_torch.configs import (
+    deepseek_moe_16b,
+    deepseek_v2_lite_16b,
+    minicpm_2b,
+)
+from repro_torch.configs.base import (
+    DEQSettings,
+    MLAConfig,
+    MoEConfig,
+    ModelConfig,
+)
 
 # Dense entries besides MiniCPM, as published (see the JAX package's
 # configs/ for the sources): Phi-3-mini [arXiv:2404.14219], StableLM-3B
@@ -32,7 +42,8 @@ _INTERNLM2_20B = ModelConfig(
 
 ARCHS: dict[str, ModelConfig] = {
     c.name: c
-    for c in [minicpm_2b.CONFIG, _PHI3_MINI, _STABLELM_3B, _INTERNLM2_20B]
+    for c in [minicpm_2b.CONFIG, _PHI3_MINI, _STABLELM_3B, _INTERNLM2_20B,
+              deepseek_v2_lite_16b.CONFIG, deepseek_moe_16b.CONFIG]
 }
 
 
@@ -48,13 +59,12 @@ def get_config(name: str, *, deq: bool = False, **overrides) -> ModelConfig:
 
 
 def smoke_config(name: str, *, deq: bool = False) -> ModelConfig:
-    """Reduced same-family config: small widths/layers, tiny vocab (the
-    dense branch of the JAX package's ``smoke_config``)."""
+    """Reduced same-family config: small widths/layers/experts, tiny vocab
+    (the dense and MoE branches of the JAX package's ``smoke_config``)."""
     if name not in ARCHS:
         raise ValueError(f"unknown arch {name!r}; have {sorted(ARCHS)}")
     cfg = ARCHS[name]
-    out = dataclasses.replace(
-        cfg,
+    kw: dict = dict(
         d_model=64,
         num_heads=4,
         num_kv_heads=(2 if cfg.num_kv_heads < cfg.num_heads else 4),
@@ -64,6 +74,17 @@ def smoke_config(name: str, *, deq: bool = False) -> ModelConfig:
         max_seq=64,
         num_layers=2,
     )
+    if cfg.family == "moe":
+        kw["num_layers"] = 3
+        kw["moe"] = MoEConfig(
+            num_experts=8, num_shared=1, top_k=2, expert_d_ff=32,
+            first_k_dense=1, dense_d_ff=128, norm_topk=cfg.moe.norm_topk,
+        )
+    if cfg.attn_type == "mla":
+        kw["mla"] = MLAConfig(kv_lora_rank=32, qk_nope_dim=16, qk_rope_dim=8,
+                              v_head_dim=16)
+        kw["head_dim"] = 0
+    out = dataclasses.replace(cfg, **kw)
     if deq:
         out = dataclasses.replace(
             out,

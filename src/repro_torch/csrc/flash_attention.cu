@@ -50,22 +50,27 @@
 //     need them.  The epilogue stages O through the warp's own Q rows in
 //     shared memory and stores 16-byte rows.  Registers are capped per head
 //     dim (the O accumulator is HD / 2 f32 a thread): 128 a thread (4 CTAs
-//     per SM) up to hd 64, 170 (3) at 80 and 96, 255 (2) at 128, where the
-//     tiles also take 51 KB of dynamic shared memory.
+//     per SM) up to hd 64, 170 (3) at 80 and 96, 255 (2) at 128 and 192,
+//     where the tiles also take 51 KB and 77 KB of dynamic shared memory.
+//     At hd 192 (MLA: q and k are 128 + 64 wide, v zero-padded to 192) the
+//     Q fragments are read from the Q tile in shared memory every key tile
+//     instead of being held: 96 f32 of O plus 48 registers of Q would not
+//     fit the 255.
 //   * decode, split-K flash-decode in two launches: decode_split_kernel,
 //     grid (ceil(T/128), KV, B) -- the grid comes from T, never from
 //     kv_length, which lives on the device -- takes the H/KV query rows of
 //     one kv head over a 128-key chunk, so K/V is read once per group,
 //     16 bytes per lane (8 lanes per 64-dim row; 10 or 12 of a group of 16
-//     at hd 80 and 96, struct Dec), and writes an f32 partial
+//     at hd 80 and 96, 24 of a whole warp at hd 192, struct Dec), and
+//     writes an f32 partial
 //     (m, l, acc[hd]) per row (an empty one, l = 0, past the row's live
 //     keys); decode_combine_kernel, grid (H, B), merges the partials.  This
 //     part is bandwidth-bound, so it stays on the FMA pipes.
 // Float32 inputs (the card-vs-CPU parity checks at smoke widths) take the
 // FMA body flash_fwd_f32_kernel, one query row per thread pair (prefill) or
 // one row per block (decode): TF32 products would break those checks.  It
-// keeps a row's q and accumulator in registers, so at hd 128 it spills
-// (ptxas reports how much); it is right, and off the paths' bf16.
+// keeps a row's q and accumulator in registers, so at hd 128 and 192 it
+// spills (ptxas reports how much); it is right, and off the paths' bf16.
 //
 // Left for later: wgmma (mma.sync keeps the causal product below the byte
 // bound at these shapes), two 16-row m-tiles per warp for long prompts (each
@@ -88,8 +93,10 @@ constexpr int kDecodeChunk = 128;     // keys per split-K decode CTA
 // float32: the FMA body
 // ---------------------------------------------------------------------------
 
+// BK keys per shared tile: 2 x BK x (HD + 1) f32 of K and V stay under the
+// 48 KB of static shared memory (16 keys at hd 192)
 template <int HD> struct Tile {
-  static constexpr int BK = HD <= 64 ? 64 : 32;  // keys per shared tile
+  static constexpr int BK = HD <= 64 ? 64 : HD <= 128 ? 32 : 16;
 };
 
 // BQ query rows per block, KSPLIT threads splitting one row's keys.
@@ -103,6 +110,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int NT = BQ * KSPLIT;
   constexpr int NJ = BK / KSPLIT;  // keys of a tile per thread
   static_assert(NJ >= 1, "KSPLIT must not exceed the key tile");
+  // the lanes of a block narrower than a warp (decode at hd 192: 16 threads)
+  constexpr unsigned FULL = NT >= 32 ? 0xffffffffu : (1u << NT) - 1u;
   __shared__ float ks[BK][HD + 1];
   __shared__ float vs[BK][HD + 1];
 
@@ -186,14 +195,14 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int WL = KSPLIT < 32 ? KSPLIT : 32;
 #pragma unroll
   for (int off = WL / 2; off > 0; off >>= 1) {
-    const float m_o = __shfl_xor_sync(0xffffffffu, m_i, off);
-    const float l_o = __shfl_xor_sync(0xffffffffu, l_i, off);
+    const float m_o = __shfl_xor_sync(FULL, m_i, off);
+    const float l_o = __shfl_xor_sync(FULL, l_i, off);
     const float m_n = fmaxf(m_i, m_o);
     const float c1 = expf(m_i - m_n), c2 = expf(m_o - m_n);
     l_i = l_i * c1 + l_o * c2;
 #pragma unroll
     for (int d = 0; d < HD; ++d) {
-      const float a_o = __shfl_xor_sync(0xffffffffu, acc[d], off);
+      const float a_o = __shfl_xor_sync(FULL, acc[d], off);
       acc[d] = acc[d] * c1 + a_o * c2;
     }
     m_i = m_n;
@@ -310,12 +319,15 @@ __device__ __forceinline__ void unpack8(const uint4& w, float (&f)[8]) {
 // 32 keys at hd 16 is less than one 16-byte copy per thread), MINB CTAs per
 // SM the registers are capped for (the O accumulator is HD / 2 f32 a thread:
 // 128 registers hold it without spills up to hd 64, 170 up to 96, 255 at
-// 128), SMEM bytes of dynamic shared memory (Q, then 2 stages of K and V;
-// over 48 KB at hd 128).
+// 128 and 192), SMEM bytes of dynamic shared memory (Q, then 2 stages of K
+// and V; over 48 KB at hd 128: 51 KB, and 77 KB at 192).
 template <int HD> struct Mma {
   static constexpr int BQ = 64, STAGES = 2;
   static constexpr int BK = HD >= 32 ? 32 : 64;
   static constexpr int MINB = HD <= 64 ? 4 : (HD <= 96 ? 3 : 2);
+  // Q's A-fragments live in registers up to hd 128; at 192 (96 f32 of O a
+  // thread) they are read from the Q tile in shared memory every key tile
+  static constexpr bool QREG = HD <= 128;
   static constexpr int LD = HD + 8;  // shared row stride (elements): +16 B, ldmatrix conflict-free
   static constexpr int SMEM = (BQ + 2 * STAGES * BK) * LD * 2;
 };
@@ -421,7 +433,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int t = 0; t < STAGES - 1; ++t) issue(t);  // Q joins tile 0's group
 
-  uint32_t qa[KSTEPS][4];
+  uint32_t qa[Mma<HD>::QREG ? KSTEPS : 1][4];
   float o[DT][4];
 #pragma unroll
   for (int dt = 0; dt < DT; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
@@ -433,11 +445,12 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     issue(j + STAGES - 1);
     cp_async_wait<STAGES - 1>();  // tile j (and Q) have landed
     __syncthreads();
-    if (j == 0) {
+    const uint32_t q_row = smem_u32(&qs[(warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8]);
+    if constexpr (Mma<HD>::QREG) {
+      if (j == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk)
-        ldsm_x4(qa[kk], smem_u32(&qs[(warp * 16 + (lane & 15)) * LD + kk * 16 +
-                                     (lane >> 4) * 8]));
+        for (int kk = 0; kk < KSTEPS; ++kk) ldsm_x4(qa[kk], q_row + kk * 32);
+      }
     }
     const __nv_bfloat16* kt = ks + (j % STAGES) * BK * LD;
     const __nv_bfloat16* vt = vs + (j % STAGES) * BK * LD;
@@ -445,20 +458,40 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     // S = Q K^T, 16 x BK per warp
     float sc[NT][4];
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-      const int key = nt * 8 + (lane & 7);
+    for (int nt = 0; nt < NT; ++nt) sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
+    if constexpr (Mma<HD>::QREG) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int key = nt * 8 + (lane & 7);
+#pragma unroll
+        for (int kp = 0; kp < KSTEPS / 2; ++kp) {
+          uint32_t bf[4];
+          ldsm_x4(bf, smem_u32(&kt[key * LD + kp * 32 + (lane >> 3) * 8]));
+          mma_bf16(sc[nt], qa[2 * kp], bf[0], bf[1]);
+          mma_bf16(sc[nt], qa[2 * kp + 1], bf[2], bf[3]);
+        }
+        if constexpr (KSTEPS % 2) {  // hd 16 and 80: one k-step left
+          uint32_t bf[2];
+          ldsm_x2(bf, smem_u32(&kt[key * LD + (KSTEPS - 1) * 16 + ((lane >> 3) & 1) * 8]));
+          mma_bf16(sc[nt], qa[KSTEPS - 1], bf[0], bf[1]);
+        }
+      }
+    } else {
+      // Q from shared memory, two k-steps at a time; each sc[nt] takes the
+      // k-steps in the same order as above
+      static_assert(KSTEPS % 2 == 0, "Q from shared memory: an even number of k-steps");
 #pragma unroll
       for (int kp = 0; kp < KSTEPS / 2; ++kp) {
-        uint32_t bf[4];
-        ldsm_x4(bf, smem_u32(&kt[key * LD + kp * 32 + (lane >> 3) * 8]));
-        mma_bf16(sc[nt], qa[2 * kp], bf[0], bf[1]);
-        mma_bf16(sc[nt], qa[2 * kp + 1], bf[2], bf[3]);
-      }
-      if constexpr (KSTEPS % 2) {  // hd 16 and 80: one k-step left
-        uint32_t bf[2];
-        ldsm_x2(bf, smem_u32(&kt[key * LD + (KSTEPS - 1) * 16 + ((lane >> 3) & 1) * 8]));
-        mma_bf16(sc[nt], qa[KSTEPS - 1], bf[0], bf[1]);
+        uint32_t q0[4], q1[4];
+        ldsm_x4(q0, q_row + kp * 64);
+        ldsm_x4(q1, q_row + kp * 64 + 32);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          uint32_t bf[4];
+          ldsm_x4(bf, smem_u32(&kt[(nt * 8 + (lane & 7)) * LD + kp * 32 + (lane >> 3) * 8]));
+          mma_bf16(sc[nt], q0, bf[0], bf[1]);
+          mma_bf16(sc[nt], q1, bf[2], bf[3]);
+        }
       }
     }
 
@@ -570,16 +603,21 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // The decode split kernel's shape per head dim: a key row is LPR = HD / 8
 // 16-byte chunks, held by a group of LP lanes (LPR rounded up to a power of
 // two, so that a row's dot product and the key groups of a warp reduce by
-// xor shuffles; at hd 80 and 96 the lanes past LPR hold nothing); NKG key
-// groups of LP lanes, KPT keys a thread, NTH threads in NW warps (256 at
-// LP 16, so that a thread's keys stay at 8: 64 registers of K and V).
+// xor shuffles; at hd 80, 96 and 192 the lanes past LPR hold nothing); NKG
+// key groups of LP lanes, KPT keys a thread, NTH threads in NW warps (256
+// at LP 16 and 512 at LP 32, a whole warp a row at hd 192, so that a
+// thread's keys stay at 8: 64 registers of K and V).
 template <int HD> struct Dec {
   static constexpr int LPR = HD / 8;
-  static constexpr int LP = LPR <= 2 ? 2 : LPR <= 4 ? 4 : LPR <= 8 ? 8 : 16;
+  static constexpr int LP = LPR <= 2 ? 2 : LPR <= 4 ? 4 : LPR <= 8 ? 8 : LPR <= 16 ? 16 : 32;
   static constexpr int NTH = LP * 16 > 128 ? LP * 16 : 128;
   static constexpr int NKG = NTH / LP;
   static constexpr int KPT = kDecodeChunk / NKG;
   static constexpr int NW = NTH / 32;
+  // V rows held in registers beside K (up to hd 128); at hd 192 the 512
+  // threads have 128 registers each, and a thread loads its V rows where it
+  // weighs them (G = 1 at DeepSeek-V2-Lite's 16/16 heads: each is read once)
+  static constexpr bool VHOLD = HD <= 128;
 };
 
 // Partials: (B, H, n_chunks, HD + 2) f32, each (m, l, acc[HD]) with acc
@@ -618,14 +656,17 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
   const bool row_lane = li < LPR;  // holds a 16-byte chunk of the row
   const long long kv_stride = (long long)KV * HD;
   const long long base = ((long long)b * Tk * KV + kvh) * HD + li * 8;
-  uint4 kr[KPT], vr[KPT];
+  constexpr bool VHOLD = Dec<HD>::VHOLD;
+  uint4 kr[KPT], vr[VHOLD ? KPT : 1];
 #pragma unroll
   for (int i = 0; i < KPT; ++i) {
     const int t = t0 + kg + i * NKG;
-    kr[i] = vr[i] = make_uint4(0u, 0u, 0u, 0u);
+    kr[i] = make_uint4(0u, 0u, 0u, 0u);
+    if constexpr (VHOLD) vr[i] = kr[i];
     if (row_lane && t < limit) {
       kr[i] = __ldg(reinterpret_cast<const uint4*>(k + base + t * kv_stride));
-      vr[i] = __ldg(reinterpret_cast<const uint4*>(v + base + t * kv_stride));
+      if constexpr (VHOLD)
+        vr[i] = __ldg(reinterpret_cast<const uint4*>(v + base + t * kv_stride));
     }
   }
 
@@ -658,9 +699,16 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
     for (int e = 0; e < 8; ++e) acc[e] = 0.f;
 #pragma unroll
     for (int i = 0; i < KPT; ++i) {
-      const float p = t0 + kg + i * NKG < limit ? expf(s[i] - m) : 0.f;
+      const int t = t0 + kg + i * NKG;
+      const float p = t < limit ? expf(s[i] - m) : 0.f;
+      uint4 vv = make_uint4(0u, 0u, 0u, 0u);
+      if constexpr (VHOLD) {
+        vv = vr[i];
+      } else if (row_lane && t < limit) {
+        vv = __ldg(reinterpret_cast<const uint4*>(v + base + t * kv_stride));
+      }
       float vf[8];
-      unpack8(vr[i], vf);
+      unpack8(vv, vf);
       l += p;
 #pragma unroll
       for (int e = 0; e < 8; ++e) acc[e] = fmaf(p, vf[e], acc[e]);
@@ -814,7 +862,8 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
       (partial == nullptr || chunk != kDecodeChunk || S != 1 || causal))
     return (int)cudaErrorInvalidValue;
   // the registry's head dims: 16 (smoke configs), 64 (MiniCPM-2B), 80
-  // (StableLM-3B), 96 (Phi-3-mini), 128 (InternLM2-20B)
+  // (StableLM-3B), 96 (Phi-3-mini), 128 (InternLM2-20B, DeepSeekMoE-16B),
+  // 192 (DeepSeek-V2-Lite's MLA: qk_nope 128 + qk_rope 64, v padded to 192)
 #define FA_CASE(D)                                                                      \
   case D:                                                                               \
     return bf16 ? (int)launch_bf16<D>(q, k, v, kv_len, out, partial, B, S, Tk, H, KV,    \
@@ -827,6 +876,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
     FA_CASE(80)
     FA_CASE(96)
     FA_CASE(128)
+    FA_CASE(192)
     default:
       return (int)cudaErrorInvalidValue;
   }

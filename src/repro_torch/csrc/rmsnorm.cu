@@ -12,9 +12,10 @@
 // its load and its use:
 //   * a row is held by W warps (1 to 8; rmsnorm.plan picks): PER 16-byte
 //     vectors per lane, D = PER * W * 32 * 8 in bf16 (* 4 in f32), PER and
-//     W template parameters instantiated for the registry's widths (2304,
-//     2560, 3072, 6144 give PER * W = 9, 10, 12, 24 in bf16), so no lane is
-//     masked and every load and store is a coalesced 16-byte access.  Many
+//     W template parameters instantiated for the registry's widths (2048,
+//     2304, 2560, 3072, 6144 give PER * W = 8, 9, 10, 12, 24 in bf16) and
+//     MLA's kv_norm (512: 2), so no lane is masked and every load and store
+//     is a coalesced 16-byte access.  Many
 //     rows (training, prefill) take the fewest warps a row that keep PER <=
 //     12 (one warp at 2304-3072, two at 6144), which keeps each row in one
 //     warp's registers; few rows (decode) spread a row over more warps (PER
@@ -199,11 +200,12 @@ cudaError_t launch_vec(const void* x, const void* w, void* out, int rows, float 
 }
 
 // The (PER, W) splits of rmsnorm.plan (VEC_SPLITS there): the registry's
-// widths (2304, 2560, 3072, 6144; 9, 10, 12, 24 bf16 vectors a lane of one
-// warp, twice that in f32) over 1-8 warps a row.
+// widths (2048, 2304, 2560, 3072, 6144; 8, 9, 10, 12, 24 bf16 vectors a lane
+// of one warp, twice that in f32) and MLA's kv_norm (512: 2) over 1-8 warps
+// a row.
 #define RMS_SPLITS(X) \
   X(9, 1) X(10, 1) X(12, 1) X(9, 2) X(10, 2) X(12, 2) X(12, 4) X(2, 5) X(3, 3) X(3, 4) \
-  X(3, 6) X(3, 8)
+  X(3, 6) X(3, 8) X(8, 1) X(2, 4) X(8, 2) X(2, 1)
 
 template <typename T>
 cudaError_t launch(const void* x, const void* w, void* out, int rows, int D, float eps,

@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.kernels import build, launches
 
-HEAD_DIMS = (16, 64, 80, 96, 128)  # instantiated in csrc/flash_attention.cu
+HEAD_DIMS = (16, 64, 80, 96, 128, 192)  # instantiated in csrc/flash_attention.cu
 DECODE_CHUNK = 128    # keys per split CTA: kDecodeChunk in the source
 _DTYPES = (torch.float32, torch.bfloat16)
 

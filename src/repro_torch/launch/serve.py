@@ -1,4 +1,4 @@
-"""Serving launcher: ``python -m repro_torch.launch.serve --deq [...]``.
+"""Serving launcher: ``python -m repro_torch.launch.serve [--deq] [...]``.
 
 The port of ``repro/launch/serve.py``: builds the model (random weights from
 ``--seed``), drains a synthetic request stream through the fixed-slot
@@ -15,7 +15,10 @@ same stream.
 
 Runs on the card by default; ``--device cpu`` runs the plain PyTorch path.
 The default model is the full published config (``get_config``);
-``--smoke`` selects the reduced ``smoke_config`` for CPU runs.
+``--smoke`` selects the reduced ``smoke_config`` for CPU runs.  Without
+``--deq`` the model is the layer stack (the reference's default path; the
+MoE configs run their fine-grained MoE, DeepSeek-V2-Lite its MLA); with
+it, the weight-tied DEQ solved by SHINE.
 ``--metrics-prom-out`` keeps a Prometheus text file of the metrics registry
 (rewritten every 10 s and at the end); ``--trace-out`` writes a Chrome
 trace of the drain's spans.
@@ -119,8 +122,6 @@ def main(argv=None) -> None:
                          "(enables span tracing)")
     args = ap.parse_args(argv)
 
-    if not args.deq:
-        raise SystemExit("repro_torch serves the DEQ model so far: pass --deq")
     device = resolve_device(args.device)
     if args.metrics_out or args.metrics_prom_out:
         obs_metrics.set_enabled(True)
@@ -128,8 +129,8 @@ def main(argv=None) -> None:
         obs_tracing.set_enabled(True)
     flusher = (obs_metrics.PromFlusher(args.metrics_prom_out).start()
                if args.metrics_prom_out else None)
-    cfg = (smoke_config(args.arch, deq=True) if args.smoke
-           else get_config(args.arch, deq=True))
+    cfg = (smoke_config(args.arch, deq=args.deq) if args.smoke
+           else get_config(args.arch, deq=args.deq))
     if args.qn_dtype or args.no_guard:
         deq = cfg.deq
         if args.qn_dtype:
@@ -137,6 +138,8 @@ def main(argv=None) -> None:
         if args.no_guard:
             deq = dataclasses.replace(deq, guard=False)
         cfg = dataclasses.replace(cfg, deq=deq)
+    if cfg.family == "audio":
+        raise SystemExit("encoder-only arch: no autoregressive serving")
     params = lm.init_params(cfg, seed=args.seed, device=device)
 
     loop = ServeLoop(params, cfg, slots=args.slots, max_len=args.max_len,

@@ -1,8 +1,17 @@
-"""Grouped-query attention with RoPE and a fixed-capacity KV cache.
+"""Attention variants: grouped-query attention with RoPE and DeepSeek-V2's
+multi-head latent attention (MLA), each with a fixed-capacity cache.
 
-The port of the GQA half of ``repro/models/attention.py`` (MLA comes with
-the MoE slice).  Layouts follow the JAX package: activations ``(B, S, d)``,
-heads ``(B, S, H, hd)``, cache ``(B, T, KV, hd)``.
+The port of ``repro/models/attention.py``.  Layouts follow the JAX package:
+activations ``(B, S, d)``, heads ``(B, S, H, hd)``, GQA cache ``(B, T, KV,
+hd)``, MLA cache the latents ``c_kv (B, T, kv_lora_rank)`` and ``k_pe (B,
+T, qk_rope_dim)``.
+
+MLA has two decode paths, as in the reference: the naive one rebuilds the
+per-head K and V from the cached latents every step and calls the decode
+kernel at head dim ``qk_nope + qk_rope`` (v zero-padded to that width, the
+reference's layout, and sliced after); the absorbed one
+(``cfg.mla.absorbed_decode``) folds ``W_uk`` into the query and ``W_uv``
+after the attention and attends in the latent space with plain einsums.
 """
 
 from __future__ import annotations
@@ -10,15 +19,24 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import ParamDecl, apply_rope
 
 
 class KVCache(NamedTuple):
-    k: torch.Tensor  # (B, T, KV, hd)
-    v: torch.Tensor  # (B, T, KV, hd)
+    k: torch.Tensor  # (B, T, KV, hd)  or MLA: c_kv (B, T, rank)
+    v: torch.Tensor  # (B, T, KV, hd)  or MLA: k_pe (B, T, rope_dim)
+
+
+def gqa_decl(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    return {"wq": ParamDecl((d, cfg.attn_dim)),
+            "wk": ParamDecl((d, cfg.kv_dim)),
+            "wv": ParamDecl((d, cfg.kv_dim)),
+            "wo": ParamDecl((cfg.attn_dim, d))}
 
 
 def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -77,3 +95,105 @@ def gqa_cache_shape(cfg: ModelConfig, batch: int,
                     max_len: int) -> tuple[int, ...]:
     """Shape of one layer's K (and V) cache: ``(B, T, KV, hd)``."""
     return (batch, max_len, cfg.num_kv_heads, cfg.head_dim_)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 family)
+# ---------------------------------------------------------------------------
+
+
+def mla_decl(cfg: ModelConfig) -> dict:
+    d, h, m = cfg.d_model, cfg.num_heads, cfg.mla
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    return {
+        "wq": ParamDecl((d, h * qk)),
+        "w_dkv": ParamDecl((d, m.kv_lora_rank + m.qk_rope_dim)),
+        "kv_norm": ParamDecl((m.kv_lora_rank,), "ones"),
+        "w_uk": ParamDecl((m.kv_lora_rank, h * m.qk_nope_dim)),
+        "w_uv": ParamDecl((m.kv_lora_rank, h * m.v_head_dim)),
+        "wo": ParamDecl((h * m.v_head_dim, d)),
+    }
+
+
+def _mla_compress(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                  positions: torch.Tensor):
+    """x -> (``c_kv`` normalized, ``k_pe`` with RoPE): what the cache holds.
+    ``kv_norm`` is the rmsnorm kernel at width ``kv_lora_rank`` over a
+    strided slice of the ``w_dkv`` output (the op copies it contiguous)."""
+    m = cfg.mla
+    dkv = x @ params["w_dkv"].to(x.dtype)
+    c_kv, k_pe = dkv[..., :m.kv_lora_rank], dkv[..., m.kv_lora_rank:]
+    c_kv = kernel_ops.rmsnorm(c_kv, params["kv_norm"], cfg.norm_eps)
+    k_pe = apply_rope(k_pe[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return c_kv, k_pe
+
+
+def mla_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                  positions: torch.Tensor, cache: KVCache | None = None,
+                  cache_index: torch.Tensor | None = None):
+    """Returns ``(out (B, S, d), new_cache)``.  With a cache, the step's
+    ``(c_kv, k_pe)`` are written at ``cache_index`` IN PLACE.  Prefill
+    (S > 1) attends causally over the step's own latents; decode (S == 1)
+    over the whole cache with ``kv_length = cache_index + 1``."""
+    dt = x.dtype
+    h, m = cfg.num_heads, cfg.mla
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    q = _split_heads(x @ params["wq"].to(dt), h)
+    q_nope, q_pe = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
+    c_kv, k_pe = _mla_compress(params, x, cfg, positions)
+
+    new_cache, kv_len = None, None
+    decode = cache is not None and x.shape[1] == 1
+    if cache is not None:
+        c_all = _cache_write(cache.k, c_kv, cache_index)
+        pe_all = _cache_write(cache.v, k_pe, cache_index)
+        new_cache = KVCache(c_all, pe_all)
+        kv_len = cache_index + x.shape[1]
+        if decode:
+            c_kv, k_pe = c_all, pe_all
+
+    if m.absorbed_decode and decode:
+        # attend in the kv_lora_rank-wide latent space
+        w_uk = params["w_uk"].to(dt).reshape(m.kv_lora_rank, h,
+                                             m.qk_nope_dim)
+        q_lat = torch.einsum("bshn,rhn->bshr", q_nope, w_uk)
+        s_lat = torch.einsum("bshr,btr->bhst", q_lat, c_kv.to(dt))
+        s_pe = torch.einsum("bshp,btp->bhst", q_pe, k_pe.to(dt))
+        logits = (s_lat + s_pe).float() * qk ** -0.5
+        tpos = torch.arange(c_kv.shape[1], device=x.device)
+        mask = tpos[None, None, None, :] < kv_len[:, None, None, None]
+        logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+        probs = torch.softmax(logits, dim=-1).to(dt)
+        o_lat = torch.einsum("bhst,btr->bshr", probs, c_kv.to(dt))
+        w_uv = params["w_uv"].to(dt).reshape(m.kv_lora_rank, h, m.v_head_dim)
+        out = torch.einsum("bshr,rhv->bshv", o_lat, w_uv)
+    else:
+        # naive path: per-head K and V rebuilt from the latents
+        k_nope = _split_heads(c_kv.to(dt) @ params["w_uk"].to(dt), h)
+        v = _split_heads(c_kv.to(dt) @ params["w_uv"].to(dt), h)
+        k_pe_b = k_pe.to(dt)[:, :, None, :].expand(
+            k_nope.shape[:3] + (m.qk_rope_dim,))
+        k_full = torch.cat([k_nope, k_pe_b], dim=-1)
+        q_full = torch.cat([q_nope, q_pe], dim=-1)
+        # v padded to the qk width so one kernel instance serves both
+        # products; the pad is sliced off below
+        v_pad = F.pad(v, (0, qk - m.v_head_dim))
+        if decode:
+            out = kernel_ops.decode_attention(q_full[:, 0], k_full, v_pad,
+                                              kv_len)[:, None]
+        else:
+            out = kernel_ops.attention(q_full, k_full, v_pad,
+                                       causal=cfg.causal)
+        out = out[..., :m.v_head_dim]
+    out = out.reshape(out.shape[:2] + (h * m.v_head_dim,))
+    return out @ params["wo"].to(dt), new_cache
+
+
+def mla_cache_shapes(cfg: ModelConfig, batch: int,
+                     max_len: int) -> tuple[tuple[int, ...], tuple[int, ...]]:
+    """Shapes of one layer's MLA cache: ``c_kv (B, T, rank)`` and ``k_pe
+    (B, T, rope_dim)``."""
+    m = cfg.mla
+    return ((batch, max_len, m.kv_lora_rank),
+            (batch, max_len, m.qk_rope_dim))

@@ -1,18 +1,45 @@
-"""Shared layers: RMSNorm, SwiGLU MLP, rotary embeddings, embedding/head and
-the cross-entropy loss.
+"""Shared layers: parameter declarations, RMSNorm, SwiGLU MLP, rotary
+embeddings, embedding/head and the cross-entropy loss.
 
-The port of ``repro/models/layers.py`` for the dense family.  Parameters are
-plain dicts of tensors laid out as in the JAX package (``(d_in, d_out)``
-projection matrices), so a JAX parameter tree converts leaf for leaf.
+The port of ``repro/models/layers.py``.  Parameters are plain dicts of
+tensors laid out as in the JAX package (``(d_in, d_out)`` projection
+matrices), so a JAX parameter tree converts leaf for leaf.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDecl:
+    """Declaration of one parameter tensor (the JAX package's ParamDecl
+    without the sharding axes and the storage dtype: every leaf takes the
+    model's dtype, as the JAX package's ``init_tree`` casts it)."""
+
+    shape: tuple[int, ...]
+    init: str = "fan_in"  # fan_in | ones | normal
+    scale: float = 1.0
+
+
+def norm_decl(dim: int) -> dict:
+    return {"scale": ParamDecl((dim,), "ones")}
+
+
+def mlp_decl(cfg: ModelConfig, d_ff: int | None = None) -> dict:
+    """SwiGLU (``act == "silu"``) or GELU MLP of width ``d_ff`` (default
+    ``cfg.d_ff``)."""
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.act == "silu":
+        return {"wi_g": ParamDecl((d, ff)), "wi_u": ParamDecl((d, ff)),
+                "wo": ParamDecl((ff, d))}
+    return {"wi": ParamDecl((d, ff)), "wo": ParamDecl((ff, d))}
 
 
 def act_dtype(cfg: ModelConfig) -> torch.dtype:

@@ -1,8 +1,18 @@
-"""The dense-family SHINE DEQ language model: parameters and serving.
+"""The language model: parameters, the layer stack, the SHINE DEQ, serving.
 
-The port of the dense DEQ path of ``repro/models/lm.py``.  The layer stack
-is a weight-tied group of ``cfg.deq.num_blocks`` attention+SwiGLU blocks
-solved to a fixed point with input injection,
+The port of ``repro/models/lm.py`` for the dense and MoE families, with
+GQA or MLA attention.  A model is a list of *stack groups*, each ``count``
+blocks of one kind stored stacked (a leading ``layers`` axis):
+
+  * dense: ``attn_mlp`` blocks (attention + SwiGLU);
+  * moe: ``first_k_dense`` ``attn_mlp`` blocks (of width ``dense_d_ff``),
+    then ``attn_moe`` blocks (attention + fine-grained MoE, whose aux losses
+    the stack sums).
+
+Without the DEQ (``cfg.deq.enabled`` false) the groups run layer by layer
+(:func:`apply_stack`).  With it, the stack is a weight-tied group of
+``cfg.deq.num_blocks`` blocks of the family's kind solved to a fixed point
+with input injection,
 
     z* = x + C(z*),   C(z) = blocks(z) - z,
 
@@ -10,17 +20,19 @@ by the registered forward solver (Broyden, whose inverse estimate is
 SHINE's shared object).  Training: :func:`forward` and :func:`loss_fn`
 solve the whole sequence causally, and the backward runs the configured
 SHINE-family estimator (``implicit_fixed_point``).  Serving:
-:func:`prefill` solves the prompt's equilibrium against a fresh KV cache
-(cold, or seeded from a cross-request prefix-cache snapshot assembled by
-:func:`prefix_seed_carry` or :func:`prefix_gather_carry`) and seeds the
-decode carry with its last token; :func:`decode_step` solves
-one new token per row against the frozen cache (inactive rows frozen in the
-batched solve), warm started from the carried equilibrium and quasi-Newton
-ring, then refreshes the cache once at ``z*``.  The other families come
-with later slices.
+:func:`prefill` runs the prompt against a fresh cache (for the DEQ: solves
+its equilibrium, cold or seeded from a cross-request prefix-cache snapshot
+assembled by :func:`prefix_seed_carry` or :func:`prefix_gather_carry`, and
+seeds the decode carry with its last token); :func:`decode_step` runs one
+new token per row against the cache (for the DEQ: solved with inactive
+rows frozen, warm started from the carried equilibrium and quasi-Newton
+ring, then the cache refreshed once at ``z*``).  The reference's
+``_remat_wrap`` (rematerialisation in training) comes with the MoE training
+slice; the hybrid, SSM, audio and VLM families with theirs.
 
-Parameters are a plain dict with the JAX package's tree and layouts, so
-:func:`params_from_jax` converts a JAX ``init_params`` tree leaf for leaf.
+Parameters are a plain dict with the JAX package's tree and layouts
+(``group{i}`` or ``deq_blocks`` trees), so :func:`params_from_jax` converts
+a JAX ``init_params`` tree leaf for leaf.
 """
 
 from __future__ import annotations
@@ -39,61 +51,75 @@ from repro_torch.implicit.config import ImplicitConfig
 from repro_torch.implicit.engine import batched_solve
 from repro_torch.implicit.fixed_point import implicit_fixed_point
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
+    ParamDecl,
     act_dtype,
     cross_entropy,
     embed_tokens,
     lm_logits,
     mlp,
+    mlp_decl,
+    norm_decl,
     rmsnorm,
 )
 
 # ---------------------------------------------------------------------------
-# Parameters
+# Stack structure and parameters
 # ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)
-class ParamDecl:
-    """Declaration of one parameter tensor (the JAX package's ParamDecl
-    without the sharding axes)."""
-
-    shape: tuple[int, ...]
-    init: str = "fan_in"  # fan_in | ones | normal
-    scale: float = 1.0
+class StackGroup:
+    kind: str       # attn_mlp | attn_moe
+    count: int      # number of stacked blocks
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.attn_type != "gqa":
+    if cfg.family not in ("dense", "moe") or cfg.attn_type not in ("gqa",
+                                                                    "mla"):
         raise NotImplementedError(
-            f"repro_torch serves the dense GQA family so far; {cfg.name} is "
-            f"{cfg.family}/{cfg.attn_type}")
-    if not cfg.deq.enabled:
-        raise NotImplementedError(
-            "repro_torch serves the DEQ model so far (cfg.deq.enabled); the "
-            "layer-stack path comes with a later slice")
+            f"repro_torch serves the dense and MoE families with GQA or MLA "
+            f"so far; {cfg.name} is {cfg.family}/{cfg.attn_type}")
+
+
+def stack_groups(cfg: ModelConfig) -> list[StackGroup]:
+    _check_family(cfg)
+    if cfg.family == "dense":
+        return [StackGroup("attn_mlp", cfg.num_layers)]
+    groups = []
+    if cfg.moe.first_k_dense:
+        groups.append(StackGroup("attn_mlp", cfg.moe.first_k_dense))
+    groups.append(StackGroup("attn_moe",
+                             cfg.num_layers - cfg.moe.first_k_dense))
+    return groups
+
+
+def _deq_kind(cfg: ModelConfig) -> str:
+    return {"dense": "attn_mlp", "moe": "attn_moe"}[cfg.family]
 
 
 def _stack(decl: dict, count: int) -> dict:
+    """Prepend a stacked ``layers`` axis to every declaration of a tree."""
     return {k: (_stack(v, count) if isinstance(v, dict) else
                 ParamDecl((count,) + v.shape, v.init, v.scale))
             for k, v in decl.items()}
 
 
-def _unit_decl(cfg: ModelConfig) -> dict:
-    d, ff = cfg.d_model, cfg.d_ff
-    mlp_decl = ({"wi_g": ParamDecl((d, ff)), "wi_u": ParamDecl((d, ff)),
-                 "wo": ParamDecl((ff, d))} if cfg.act == "silu" else
-                {"wi": ParamDecl((d, ff)), "wo": ParamDecl((ff, d))})
-    return {
-        "ln1": {"scale": ParamDecl((d,), "ones")},
-        "attn": {"wq": ParamDecl((d, cfg.attn_dim)),
-                 "wk": ParamDecl((d, cfg.kv_dim)),
-                 "wv": ParamDecl((d, cfg.kv_dim)),
-                 "wo": ParamDecl((cfg.attn_dim, d))},
-        "ln2": {"scale": ParamDecl((d,), "ones")},
-        "mlp": mlp_decl,
-    }
+def _attn_decl(cfg: ModelConfig) -> dict:
+    return attn.mla_decl(cfg) if cfg.attn_type == "mla" else attn.gqa_decl(cfg)
+
+
+def _unit_decl(cfg: ModelConfig, kind: str) -> dict:
+    if kind == "attn_mlp":
+        ff = (cfg.moe.dense_d_ff if cfg.family == "moe" and cfg.moe.dense_d_ff
+              else cfg.d_ff)
+        return {"ln1": norm_decl(cfg.d_model), "attn": _attn_decl(cfg),
+                "ln2": norm_decl(cfg.d_model), "mlp": mlp_decl(cfg, d_ff=ff)}
+    if kind == "attn_moe":
+        return {"ln1": norm_decl(cfg.d_model), "attn": _attn_decl(cfg),
+                "ln2": norm_decl(cfg.d_model), "moe": moe_mod.moe_decl(cfg)}
+    raise ValueError(kind)
 
 
 def model_decl(cfg: ModelConfig) -> dict:
@@ -102,35 +128,56 @@ def model_decl(cfg: ModelConfig) -> dict:
                                     "normal", 0.02)}
     if not cfg.tie_embeddings:
         embed["lm_head"] = ParamDecl((cfg.d_model, cfg.padded_vocab))
-    return {"embed": embed,
-            "final_norm": {"scale": ParamDecl((cfg.d_model,), "ones")},
-            "deq_blocks": _stack(_unit_decl(cfg), cfg.deq.num_blocks)}
+    decl = {"embed": embed, "final_norm": norm_decl(cfg.d_model)}
+    if cfg.deq.enabled:
+        decl["deq_blocks"] = _stack(_unit_decl(cfg, _deq_kind(cfg)),
+                                    cfg.deq.num_blocks)
+    else:
+        for i, grp in enumerate(stack_groups(cfg)):
+            decl[f"group{i}"] = _stack(_unit_decl(cfg, grp.kind), grp.count)
+    return decl
 
 
-def _init_leaf(d: ParamDecl, gen: torch.Generator, device) -> torch.Tensor:
+def _init_leaf(d: ParamDecl, gen: torch.Generator, device,
+               dtype: torch.dtype) -> torch.Tensor:
+    """One leaf in ``dtype``.  A leaf of 4 or more dims (a stacked layer
+    axis over the experts' weights: DeepSeek-V2-Lite's ``wi_g`` is 26 x 64
+    x 2048 x 1408, 19 GB in f32) is drawn one layer at a time and cast as
+    it goes, so its f32 draw never exists whole; every other leaf is drawn
+    whole in f32 and cast."""
     if d.init == "ones":
-        return torch.ones(d.shape, device=device)
-    if d.init == "normal":
-        return d.scale * torch.randn(d.shape, generator=gen, device=device)
-    if d.init == "fan_in":
-        # fan-in = product of all dims except the last (as the JAX
-        # package's ParamDecl, stacked layer axis included); standard
-        # normal truncated to [-2, 2], scaled
-        fan_in = max(1, math.prod(d.shape[:-1])) if len(d.shape) > 1 \
-            else d.shape[0]
-        std = d.scale / math.sqrt(fan_in)
-        out = torch.empty(d.shape, device=device)
+        return torch.ones(d.shape, device=device, dtype=dtype)
+    if d.init not in ("normal", "fan_in"):
+        raise ValueError(f"unknown init {d.init!r}")
+    # fan-in = product of all dims except the last (as the JAX package's
+    # ParamDecl, stacked layer axis included)
+    fan_in = max(1, math.prod(d.shape[:-1])) if len(d.shape) > 1 \
+        else d.shape[0]
+    std = d.scale / math.sqrt(fan_in)
+
+    def draw(shape):
+        if d.init == "normal":
+            return d.scale * torch.randn(shape, generator=gen, device=device)
+        # standard normal truncated to [-2, 2], scaled
+        out = torch.empty(shape, device=device)
         return torch.nn.init.trunc_normal_(out, 0.0, std, -2.0 * std,
                                            2.0 * std, generator=gen)
-    raise ValueError(f"unknown init {d.init!r}")
+
+    if len(d.shape) < 4:
+        return draw(d.shape).to(dtype)
+    out = torch.empty(d.shape, device=device, dtype=dtype)
+    for i in range(d.shape[0]):
+        out[i] = draw(d.shape[1:])
+    return out
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """Random parameters with the JAX package's shapes and distributions
-    (``fan_in`` truncated normal, ``normal`` 0.02 embedding, ``ones``
-    norms), drawn from a ``torch.Generator`` seeded with ``seed`` on the
-    target device, in the config's dtype.  The numbers differ from JAX's
-    for the same seed; tests carry JAX's over with :func:`params_from_jax`.
+    (``fan_in`` truncated normal, ``normal`` 0.02 embedding and router,
+    ``ones`` norms), drawn from a ``torch.Generator`` seeded with ``seed``
+    on the target device, in the config's dtype.  The numbers differ from
+    JAX's for the same seed; tests carry JAX's over with
+    :func:`params_from_jax`.
     """
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -138,7 +185,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
 
     def build(decl):
         return {k: (build(v) if isinstance(v, dict) else
-                    _init_leaf(v, gen, dev).to(dtype))
+                    _init_leaf(v, gen, dev, dtype))
                 for k, v in decl.items()}
 
     return build(model_decl(cfg))
@@ -171,17 +218,27 @@ def params_device(params: dict) -> torch.device:
 # ---------------------------------------------------------------------------
 
 
+def _apply_attention(params, x, cfg, positions, cache, cache_index):
+    fn = attn.mla_attention if cfg.attn_type == "mla" else attn.gqa_attention
+    return fn(params, x, cfg, positions, cache, cache_index)
+
+
 def apply_unit(kind: str, params: dict, x: torch.Tensor, cfg: ModelConfig,
                positions: torch.Tensor, cache=None, cache_index=None):
-    """One pre-norm attention + SwiGLU block.  Returns ``(x, new_cache)``."""
-    if kind != "attn_mlp":
+    """One pre-norm block: attention, then SwiGLU (``attn_mlp``) or the MoE
+    (``attn_moe``).  Returns ``(x, new_cache, aux)``; ``aux`` holds the
+    MoE's ``moe_aux`` and ``moe_z`` (empty for ``attn_mlp``)."""
+    if kind not in ("attn_mlp", "attn_moe"):
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
-    a_out, new_kv = attn.gqa_attention(
+    a_out, new_kv = _apply_attention(
         params["attn"], rmsnorm(params["ln1"], x, cfg.norm_eps), cfg,
         positions, cache, cache_index)
     x = x + a_out
-    x = x + mlp(params["mlp"], rmsnorm(params["ln2"], x, cfg.norm_eps))
-    return x, new_kv
+    h = rmsnorm(params["ln2"], x, cfg.norm_eps)
+    if kind == "attn_mlp":
+        return x + mlp(params["mlp"], h), new_kv, {}
+    m_out, aux = moe_mod.moe_block(params["moe"], h, cfg)
+    return x + m_out, new_kv, aux
 
 
 def _block(p_blocks: dict, j: int) -> dict:
@@ -219,14 +276,39 @@ def _deq_aux(out, carry) -> dict:
     return aux
 
 
+def apply_stack(params, x, cfg: ModelConfig, positions, caches=None,
+                cache_index=None, active=None, carry=None):
+    """Run every stack group.  Returns ``(x, caches, aux)``.
+
+    Without the DEQ the groups run layer by layer (each layer's cache rows
+    written in place) and ``aux`` holds the MoE losses summed over the
+    layers; ``active`` and ``carry`` are the DEQ's (:func:`_apply_deq`)."""
+    if cfg.deq.enabled:
+        return _apply_deq(params, x, cfg, positions, caches, cache_index,
+                          active=active, carry=carry)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = {"moe_aux": zero, "moe_z": zero}
+    for i, grp in enumerate(stack_groups(cfg)):
+        gp = params[f"group{i}"]
+        gc = None if caches is None else caches[f"group{i}"]
+        for j in range(grp.count):
+            lc = None if gc is None else attn.KVCache(gc.k[j], gc.v[j])
+            x, _, a = apply_unit(grp.kind, _block(gp, j), x, cfg, positions,
+                                 lc, cache_index)
+            aux = {k: aux[k] + a[k] if k in a else aux[k] for k in aux}
+    return x, caches, aux
+
+
 def _apply_deq(params, x_emb, cfg, positions, caches=None, cache_index=None,
                active=None, carry=None):
     """Solve the weight-tied block group's fixed point.  Without caches
     (training) the whole sequence attends causally over its own k/v and the
     solve is differentiable; with caches the new tokens attend over the
-    frozen cache, which is refreshed once at ``z*``.  Returns ``(z*,
-    caches, aux)``."""
+    frozen cache, which is refreshed once at ``z*``.  The blocks' MoE aux
+    losses are not part of the solve's output, as in the reference.
+    Returns ``(z*, caches, aux)``."""
     nb = cfg.deq.num_blocks
+    kind = _deq_kind(cfg)
     # cold start AT the injection: f(x) = x + C(x) is one free Picard step
     z0 = x_emb
     if caches is None:
@@ -234,8 +316,8 @@ def _apply_deq(params, x_emb, cfg, positions, caches=None, cache_index=None,
             x_in, pos = xin
             h = z
             for j in range(nb):
-                h, _ = apply_unit("attn_mlp", _block(p["blocks"], j), h, cfg,
-                                  pos)
+                h, _, _ = apply_unit(kind, _block(p["blocks"], j), h, cfg,
+                                     pos)
             return x_in + (h - z)
 
         out = implicit_fixed_point(f, {"blocks": params["deq_blocks"]},
@@ -250,8 +332,8 @@ def _apply_deq(params, x_emb, cfg, positions, caches=None, cache_index=None,
         x_in, pos, cidx = xin
         h = z
         for j in range(nb):
-            h, _ = apply_unit("attn_mlp", p[j], h, cfg, pos,
-                              attn.KVCache(kc[j], vc[j]), cidx)
+            h, _, _ = apply_unit(kind, p[j], h, cfg, pos,
+                                 attn.KVCache(kc[j], vc[j]), cidx)
         return x_in + (h - z)
 
     xin = (x_emb, positions, cache_index)
@@ -266,8 +348,8 @@ def _apply_deq(params, x_emb, cfg, positions, caches=None, cache_index=None,
     # block-input stream under input injection)
     h = z_star
     for j in range(nb):
-        h, _ = apply_unit("attn_mlp", blocks[j], h, cfg, positions,
-                          attn.KVCache(kc[j], vc[j]), cache_index)
+        h, _, _ = apply_unit(kind, blocks[j], h, cfg, positions,
+                             attn.KVCache(kc[j], vc[j]), cache_index)
     return z_star, caches, _deq_aux(out, carry)
 
 
@@ -287,7 +369,7 @@ def forward(params, batch: dict, cfg: ModelConfig,
     b, s = x.shape[:2]
     pos = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(
         b, s)
-    z, _, aux = _apply_deq(params, x, cfg, pos, carry=carry)
+    z, _, aux = apply_stack(params, x, cfg, pos, carry=carry)
     z = rmsnorm(params["final_norm"], z, cfg.norm_eps)
     return lm_logits(params["embed"], z, cfg), aux
 
@@ -295,11 +377,15 @@ def forward(params, batch: dict, cfg: ModelConfig,
 def loss_fn(params, batch: dict, cfg: ModelConfig, z_loss: float = 1e-4,
             carry: SolveCarry | None = None):
     """Next-token cross entropy (plus z-loss) of ``batch["tokens"]`` against
-    ``batch["targets"]``.  Returns ``(loss, metrics)``; the metrics hold the
-    loss terms and the DEQ solve's aux (``solve_carry`` among them when a
+    ``batch["targets"]``, plus the MoE's weighted load-balance and router
+    z-losses.  Returns ``(loss, metrics)``; the metrics hold the loss terms
+    and the stack's aux (the DEQ solve's, ``solve_carry`` among them when a
     carry is given)."""
     logits, aux = forward(params, batch, cfg, carry=carry)
     loss, metrics = cross_entropy(logits, batch["targets"], z_loss)
+    if "moe_aux" in aux:
+        loss = (loss + cfg.moe.aux_weight * aux["moe_aux"]
+                + cfg.moe.z_weight * aux["moe_z"])
     metrics.update(aux)
     metrics["loss"] = loss
     return loss, metrics
@@ -310,15 +396,31 @@ def loss_fn(params, batch: dict, cfg: ModelConfig, z_loss: float = 1e-4,
 # ---------------------------------------------------------------------------
 
 
+def _unit_cache(cfg: ModelConfig, count: int, batch: int, max_len: int,
+                device) -> attn.KVCache:
+    if cfg.attn_type == "mla":
+        k_shape, v_shape = attn.mla_cache_shapes(cfg, batch, max_len)
+    else:
+        k_shape = v_shape = attn.gqa_cache_shape(cfg, batch, max_len)
+    dt = act_dtype(cfg)
+    return attn.KVCache(
+        torch.zeros((count,) + k_shape, dtype=dt, device=device),
+        torch.zeros((count,) + v_shape, dtype=dt, device=device))
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
-    """``{"deq": KVCache(k, v)}`` with k/v ``(num_blocks, B, max_len, KV,
-    hd)`` zeros."""
+    """Zero caches, one ``KVCache`` per stack: ``{"deq": ...}`` stacked over
+    the DEQ's ``num_blocks``, or ``{"group{i}": ...}`` stacked over each
+    group's layers; GQA holds k/v ``(count, B, max_len, KV, hd)``, MLA the
+    latents ``c_kv (count, B, max_len, rank)`` and ``k_pe (count, B,
+    max_len, rope_dim)``."""
     _check_family(cfg)
     dev = resolve_device(device)
-    shape = (cfg.deq.num_blocks,) + attn.gqa_cache_shape(cfg, batch, max_len)
-    dt = act_dtype(cfg)
-    return {"deq": attn.KVCache(torch.zeros(shape, dtype=dt, device=dev),
-                                torch.zeros(shape, dtype=dt, device=dev))}
+    if cfg.deq.enabled:
+        return {"deq": _unit_cache(cfg, cfg.deq.num_blocks, batch, max_len,
+                                   dev)}
+    return {f"group{i}": _unit_cache(cfg, grp.count, batch, max_len, dev)
+            for i, grp in enumerate(stack_groups(cfg))}
 
 
 def prefix_seed_carry(cfg: ModelConfig, batch: int, seq: int,
@@ -451,6 +553,8 @@ def prefill(params, batch: dict, cfg: ModelConfig, max_len: int, *,
     idx0 = torch.zeros((b,), dtype=torch.int32, device=dev)
     solve_carry = None
     if prefix_carry is not None:
+        if not cfg.deq.enabled:
+            raise ValueError("prefix_carry requires cfg.deq.enabled")
         if prefix_len is None:
             raise ValueError("prefix_carry requires prefix_len")
         # cached prefix positions start at the donor equilibrium, the live
@@ -459,8 +563,9 @@ def prefill(params, batch: dict, cfg: ModelConfig, max_len: int, *,
         solve_carry = dataclasses.replace(
             prefix_carry,
             z=torch.where(pmask, prefix_carry.z.to(x.dtype), x))
-    z, caches, aux = _apply_deq(params, x, cfg, pos, caches, idx0,
-                                carry=solve_carry)
+    z, caches, aux = apply_stack(params, x, cfg, pos, caches, idx0,
+                                 carry=solve_carry)
+    # for the DEQ the stack's output IS the equilibrium z*
     z_last = z[:, -1:, :]
     x = rmsnorm(params["final_norm"], z, cfg.norm_eps)
     logits = lm_logits(params["embed"], x, cfg)
@@ -471,7 +576,7 @@ def prefill(params, batch: dict, cfg: ModelConfig, max_len: int, *,
     if prefix_carry is not None:
         out = out + (aux["solve_carry"], aux["deq_steps"])
     if return_steps:
-        out = out + (aux["deq_steps"],)
+        out = out + (aux.get("deq_steps", 0.0),)
     if return_status:
         out = out + (aux["deq_status"] if "deq_status" in aux else
                      torch.zeros((b,), dtype=torch.int32, device=dev),)
@@ -486,20 +591,21 @@ def decode_step(params, caches, tokens: torch.Tensor,
                 return_status: bool = False):
     """One decode step: tokens ``(B,)`` at ``cache_index (B,)``.  Returns
     ``(logits (B, V), caches)``, plus the updated carry when ``carry`` is
-    given, the solver's step count (``return_steps``) and the per-row
-    health codes (``return_status``).  ``active: (B,) bool`` freezes
-    finished/empty slots in the solve.  The caches are updated in place."""
+    given, the solver's step count (``return_steps``; 0.0 without the DEQ)
+    and the per-row health codes (``return_status``; zeros without the
+    DEQ).  ``active: (B,) bool`` freezes finished/empty slots in the DEQ
+    solve.  The caches are updated in place."""
     _check_family(cfg)
     x = embed_tokens(params["embed"], tokens[:, None], cfg)
     pos = cache_index[:, None].int()
-    z, caches, aux = _apply_deq(params, x, cfg, pos, caches, cache_index,
-                                active=active, carry=carry)
+    z, caches, aux = apply_stack(params, x, cfg, pos, caches, cache_index,
+                                 active=active, carry=carry)
     x = rmsnorm(params["final_norm"], z, cfg.norm_eps)
     logits = lm_logits(params["embed"], x, cfg)
     out = ((logits[:, 0], caches) if carry is None
            else (logits[:, 0], caches, aux.get("solve_carry", carry)))
     if return_steps:
-        out = out + (aux["deq_steps"],)
+        out = out + (aux.get("deq_steps", 0.0),)
     if return_status:
         out = out + (aux["deq_status"] if "deq_status" in aux else
                      torch.zeros((tokens.shape[0],), dtype=torch.int32,

@@ -10,7 +10,7 @@ slots masked) until EOS or ``max_new_tokens``:
   * **Per-sample convergence masking** -- the active-slot mask is passed to
     ``decode_step``; the DEQ solve freezes inactive slots and exits as soon
     as every live slot converges.
-  * **Persistent solve state** -- each slot owns a
+  * **Persistent solve state** (DEQ models) -- each slot owns a
     :class:`~repro_torch.implicit.CarryCache` row: the equilibrium and qN
     ring at token *t* warm-start token *t+1*, the prefill's last-token
     equilibrium seeds token 0, and a recycled slot is evicted cold.
@@ -20,7 +20,8 @@ slots masked) until EOS or ``max_new_tokens``:
     a second fault ends the request with ``error`` set.  A faulted decode
     row keeps generating (the solver already restarted it) with the fault
     recorded on the request.
-  * **Cross-request prefix cache** (``prefix_cache=True``) -- a prefill
+  * **Cross-request prefix cache** (``prefix_cache=True``, DEQ models; a
+    no-op otherwise, as in the reference) -- a prefill
     solve starts from the converged carry (equilibrium and the solve's own
     qN ring) of the longest cached prefix of its prompt, and publishes its
     own; iterations spent and saved against the cold reference of the same
@@ -56,6 +57,11 @@ Pipelines (``pipeline=``):
     The solvers still read the card twice per iteration, so dispatch
     blocks inside every solve; the pipeline overlaps what follows it.  On
     the CPU every entry is ready when it is queued.
+
+A layer-stack model (``cfg.deq.enabled`` false) has no solve state: no
+carries, no prefix cache, no fault containment, and its step counts are
+0.  The caches are written into their slots leaf by leaf, each at its
+batch axis, probed once from the cache shapes as the reference probes it.
 
 Every host read of data the card has not finished counts on
 ``host_syncs_total{site}``; the async steady state records none.  With
@@ -163,6 +169,7 @@ class ServeLoop:
         self.pending: list[Request] = []
         self.active: list[Request | None] = [None] * slots
         self.caches = lm.init_cache(cfg, slots, max_len, self.device)
+        self._cache_axes = cache_batch_axes(cfg)
         self.lengths = self._zeros(torch.int32)
         self.cur_tok = self._zeros(torch.int32)
         self.prefill_calls = 0
@@ -176,15 +183,16 @@ class ServeLoop:
         # every solve the loop ran: phase, live rows, steps, row statuses
         # (an async entry's statuses are filled in when it lands)
         self.solve_log: list[dict[str, Any]] = []
+        deq = cfg.deq.enabled
         self.carries = CarryCache(
             lambda: lm.deq_solve_carry(cfg, slots, 1, self.device), slots,
-            max_age=carry_max_age)
+            max_age=carry_max_age) if deq else None
         # cross-request prefix cache: host snapshots for the sync pipeline,
         # device rows for the async one.  ``prefix_cache_slots=0`` is the
         # cold accounting arm: every lookup misses, iterations still count
         self.prefix: PrefixCarryIndex | None = None
         self.prefix_store: DevicePrefixStore | None = None
-        if prefix_cache:
+        if prefix_cache and deq:
             if pipeline == "sync":
                 self.prefix = PrefixCarryIndex(
                     prefix_cache_slots, block=prefix_block,
@@ -201,7 +209,7 @@ class ServeLoop:
         self.prefill_iters = 0.0
         self.saved_iters = 0.0
         self._cold_prefill_ref: dict[tuple[int, int], float] = {}
-        self._guarded = bool(cfg.deq.guard)
+        self._guarded = bool(deq and cfg.deq.guard)
 
         # -- async pipeline state -----------------------------------------
         # the slot lifecycle on the device: the tick advances it there
@@ -218,6 +226,46 @@ class ServeLoop:
 
     def _zeros(self, dtype) -> torch.Tensor:
         return torch.zeros((self.slots,), dtype=dtype, device=self.device)
+
+    def _prefill(self, toks: torch.Tensor, n: int):
+        """``lm.prefill`` of an ``n``-row wave without a prefix seed:
+        ``(logits, caches, seeded carry, steps, statuses)``; the carry is
+        None without the DEQ."""
+        carry = (None if self.carries is None
+                 else lm.deq_solve_carry(self.cfg, n, 1, self.device))
+        res = lm.prefill(self.params, {"tokens": toks}, self.cfg,
+                         self.max_len, carry=carry, return_steps=True,
+                         return_status=True)
+        if carry is None:
+            res = res[:3] + (None,) + res[3:]
+        logits, cache_new, _lens, seeded, steps, status = res
+        return logits, cache_new, seeded, steps, status
+
+    def _decode(self, active: torch.Tensor):
+        """``lm.decode_step`` over every slot, the caches updated in place:
+        ``(logits, new carry, steps, statuses)``; the carry is None
+        without the DEQ."""
+        carry = None if self.carries is None else self.carries.carry
+        res = lm.decode_step(self.params, self.caches, self.cur_tok,
+                             self.lengths, self.cfg, active=active,
+                             carry=carry, return_steps=True,
+                             return_status=True)
+        if carry is None:
+            res = res[:2] + (None,) + res[2:]
+        logits, self.caches, new_carry, steps, status = res
+        return logits, new_carry, steps, status
+
+    def _release(self, slot: int) -> None:
+        if self.carries is not None:
+            self.carries.release(slot)
+
+    def _write_slot(self, cache_new: dict, slot: int, row: int) -> None:
+        """Write batch row ``row`` of ``cache_new`` into slot ``slot`` of
+        the live caches, leaf by leaf at each leaf's batch axis."""
+        for live, new, ax in zip(cache_leaves(self.caches),
+                                 cache_leaves(cache_new), self._cache_axes):
+            if ax >= 0:
+                live.narrow(ax, slot, 1).copy_(new.narrow(ax, row, 1))
 
     # -- host-sync accounting --------------------------------------------
 
@@ -370,7 +418,6 @@ class ServeLoop:
         # request prefilled again with no prefix seed
         use_prefix = self.prefix is not None and allow_prefix
         toks = self._tokens(group)
-        wave_carry = lm.deq_solve_carry(self.cfg, len(group), 1, self.device)
         matches = None
         with obs_tracing.span("prefill", plen=plen, wave=len(group)):
             if use_prefix:
@@ -380,12 +427,12 @@ class ServeLoop:
                 (logits, cache_new, _lens, seeded, pf_carry, steps,
                  status) = lm.prefill(
                     self.params, {"tokens": toks}, self.cfg, self.max_len,
-                    carry=wave_carry, prefix_carry=pc, prefix_len=pl,
-                    return_status=True)
+                    carry=lm.deq_solve_carry(self.cfg, len(group), 1,
+                                             self.device),
+                    prefix_carry=pc, prefix_len=pl, return_status=True)
             else:
-                logits, cache_new, _lens, seeded, steps, status = lm.prefill(
-                    self.params, {"tokens": toks}, self.cfg, self.max_len,
-                    carry=wave_carry, return_steps=True, return_status=True)
+                logits, cache_new, seeded, steps, status = self._prefill(
+                    toks, len(group))
             last = logits[:, -1].float()
             self._count_sync("prefill_block", last, status)
             # the prefill's one host read (it lands the metrics bridge too)
@@ -405,14 +452,13 @@ class ServeLoop:
         self._prefill_counts(len(group))
         # one batched scatter per wave overwrites every field of the leased
         # rows, so the lease skips its own cold reset
-        for slot, req in group:
-            self.carries.lease(slot, req.uid, reset=False)
-        self.carries.update(write_carry_rows(
-            self.carries.carry, seeded, [slot for slot, _ in group],
-            list(range(len(group)))))
+        if self.carries is not None:
+            for slot, req in group:
+                self.carries.lease(slot, req.uid, reset=False)
+            self.carries.update(write_carry_rows(
+                self.carries.carry, seeded, [slot for slot, _ in group],
+                list(range(len(group)))))
         retry: list[tuple[int, Request]] = []
-        kc, vc = self.caches["deq"]
-        nk, nv = cache_new["deq"]
         for row, (slot, req) in enumerate(group):
             if row in failed:
                 name = STATUS_NAMES.get(failed[row], str(failed[row]))
@@ -428,10 +474,9 @@ class ServeLoop:
                     req.error = name
                     req.done = True
                     self._metrics.counter("serve_requests_completed").inc()
-                    self.carries.release(slot)
+                    self._release(slot)
                 continue
-            kc[:, slot] = nk[:, row]
-            vc[:, slot] = nv[:, row]
+            self._write_slot(cache_new, slot, row)
             nxt = int(nxt_all[row])
             req.out.append(nxt)
             self._metrics.histogram("serve_ttft_ms").observe(
@@ -460,13 +505,11 @@ class ServeLoop:
         mask_t = to_device(torch.tensor(mask, dtype=torch.bool), self.device)
         t0 = time.perf_counter()
         with obs_tracing.span("decode", active=sum(mask)):
-            logits, self.caches, new_carry, steps, status = lm.decode_step(
-                self.params, self.caches, self.cur_tok, self.lengths,
-                self.cfg, active=mask_t, carry=self.carries.carry,
-                return_steps=True, return_status=True)
-            if self.carries.max_age is not None:
-                self._count_sync("carry_stale", new_carry.age)
-            self.carries.update(new_carry)
+            logits, new_carry, steps, status = self._decode(mask_t)
+            if self.carries is not None:
+                if self.carries.max_age is not None:
+                    self._count_sync("carry_stale", new_carry.age)
+                self.carries.update(new_carry)
             nxt = logits.float().argmax(-1).int()
             self._count_sync("decode_fetch", nxt, status)
             # the tick's one host read (it lands the metrics bridge too)
@@ -499,7 +542,7 @@ class ServeLoop:
                 req.done = True
                 self.active[s] = None
                 self._metrics.counter("serve_requests_completed").inc()
-                self.carries.release(s)
+                self._release(s)
         return sum(mask)
 
     # -- async pipeline ---------------------------------------------------
@@ -522,7 +565,6 @@ class ServeLoop:
         meta: dict[str, Any] = {
             "plen": plen, "epochs": {slot: req.epoch for slot, req in group}}
         with obs_tracing.span("prefill_dispatch", plen=plen, wave=n):
-            wave_carry = lm.deq_solve_carry(self.cfg, n, 1, dev)
             ints = [[s for s, _ in group],
                     [req.max_new_tokens for _, req in group]]
             if use_store:
@@ -556,33 +598,35 @@ class ServeLoop:
                 (logits, cache_new, _lens, seeded, pf_carry, steps,
                  status) = lm.prefill(
                     self.params, {"tokens": toks}, self.cfg, self.max_len,
-                    carry=wave_carry, prefix_carry=pc, prefix_len=pl,
-                    return_status=True)
+                    carry=lm.deq_solve_carry(self.cfg, n, 1, dev),
+                    prefix_carry=pc, prefix_len=pl, return_status=True)
                 prefix_store_scatter(self.prefix_store.arrays, pf_carry,
                                      ints_t[4])
                 meta["steps"] = steps
             else:
-                logits, cache_new, _lens, seeded, steps, status = lm.prefill(
-                    self.params, {"tokens": toks}, self.cfg, self.max_len,
-                    carry=wave_carry, return_steps=True, return_status=True)
+                logits, cache_new, seeded, steps, status = self._prefill(
+                    toks, n)
             last = logits[:, -1].float()
             nxt = last.argmax(-1).int()
-            kc, vc = self.caches["deq"]
-            nk, nv = cache_new["deq"]
-            kc.index_copy_(1, slots_t, nk)
-            vc.index_copy_(1, slots_t, nv)
+            for live, new, ax in zip(cache_leaves(self.caches),
+                                     cache_leaves(cache_new),
+                                     self._cache_axes):
+                if ax >= 0:
+                    live.index_copy_(ax, slots_t, new)
             self.lengths.index_fill_(0, slots_t, plen)
             self.cur_tok.index_copy_(0, slots_t, nxt)
             self._dev_active.index_fill_(0, slots_t, True)
             self._ntok.index_fill_(0, slots_t, 1)
             self._max_new.index_copy_(0, slots_t, ints_t[1])
-            self.carries.carry = write_carry_rows(
-                self.carries.carry, seeded, slots_t,
-                torch.arange(n, device=dev))
             for slot, req in group:
                 self.active[slot] = req
                 self._planned[slot] = 1
-                self.carries.lease(slot, req.uid, reset=False)
+            if self.carries is not None:
+                for slot, req in group:
+                    self.carries.lease(slot, req.uid, reset=False)
+                self.carries.carry = write_carry_rows(
+                    self.carries.carry, seeded, slots_t,
+                    torch.arange(n, device=dev))
         self._prefill_counts(n)
         outs = {"nxt": nxt, "status": status}
         if self._record:
@@ -611,10 +655,7 @@ class ServeLoop:
                 self._planned[s] += 1
         with obs_tracing.span("decode_dispatch", active=len(group)):
             active = self._dev_active
-            logits, self.caches, carry, steps, status = lm.decode_step(
-                self.params, self.caches, self.cur_tok, self.lengths,
-                self.cfg, active=active, carry=self.carries.carry,
-                return_steps=True, return_status=True)
+            logits, carry, steps, status = self._decode(active)
             nxt = torch.where(active, logits.float().argmax(-1).int(),
                               self.cur_tok)
             act_i = active.int()
@@ -625,11 +666,12 @@ class ServeLoop:
             self._dev_active = active & ~done_now
             outs = {"nxt": nxt, "emitted": active, "done": done_now,
                     "status": status}
-            if self.carries.max_age is not None:
-                stale = carry.age > self.carries.max_age
-                outs["n_stale"] = stale.sum()
-                carry = reset_carry_rows(carry, stale)
-            self.carries.carry = carry
+            if self.carries is not None:
+                if self.carries.max_age is not None:
+                    stale = carry.age > self.carries.max_age
+                    outs["n_stale"] = stale.sum()
+                    carry = reset_carry_rows(carry, stale)
+                self.carries.carry = carry
         if self._record:
             outs["logits"] = logits.float()
         log = {"phase": "decode", "rows": None, "steps": steps,
@@ -754,7 +796,7 @@ class ServeLoop:
                     self._planned[slot] = 0
                     self._dev_active[slot:slot + 1].fill_(False)
                     self._metrics.counter("serve_requests_completed").inc()
-                    self.carries.release(slot)
+                    self._release(slot)
                 continue
             req.out.append(int(nxt[row]))
             self._metrics.histogram("serve_ttft_ms").observe(
@@ -816,7 +858,7 @@ class ServeLoop:
                 if self.active[slot] is req:
                     self.active[slot] = None
                 self._metrics.counter("serve_requests_completed").inc()
-                self.carries.release(slot)
+                self._release(slot)
         n_stale = int(out.get("n_stale", 0))
         if n_stale:
             self.carries._count("stale", n_stale)
@@ -864,6 +906,21 @@ class ServeLoop:
             if self._inflight:
                 self._drain_ready(force=True)
         return reqs
+
+
+def cache_leaves(caches: dict) -> list[torch.Tensor]:
+    """The tensors of a cache tree (``lm.init_cache``), in a fixed order."""
+    return [t for c in caches.values() for t in c]
+
+
+def cache_batch_axes(cfg: ModelConfig) -> list[int]:
+    """The batch axis of each of :func:`cache_leaves`, probed once from the
+    shapes of a one-row and a two-row cache (-1: a leaf without one), as
+    the reference probes it."""
+    one = cache_leaves(lm.init_cache(cfg, 1, 1, "cpu"))
+    two = cache_leaves(lm.init_cache(cfg, 2, 1, "cpu"))
+    return [next((i for i, (x, y) in enumerate(zip(a.shape, b.shape))
+                  if x != y), -1) for a, b in zip(one, two)]
 
 
 def serve_summary(loop: ServeLoop, reqs: list[Request],

@@ -11,7 +11,7 @@ Shapes are small but ragged (D not a multiple of 4, S not a multiple of the
 query tile, GQA, an empty ring row, a refused append) so each kernel's edge
 handling is exercised, and the qN kernels run every case of
 ``chip_smoke.QN_CASES`` (both schedules), the attention kernels every
-registered head dim (16, 64, 80, 96, 128) and rmsnorm every width of
+registered head dim (16, 64, 80, 96, 128, 192) and rmsnorm every width of
 ``chip_smoke.RMS_SHAPES``; ``chip_smoke.py`` checks the serving and training
 paths' shapes.  Besides the kernels: the autograd wrappers' gradients, a
 refine backward that must leave a carried ring as the forward left it, the
@@ -118,7 +118,7 @@ DECODE = [(2, 4, 2, 70, [1, 0]),
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [16, 64, 80, 96, 128])
+@pytest.mark.parametrize("hd", [16, 64, 80, 96, 128, 192])
 def test_attention_kernels_match_plain_versions(dev, dtype, hd):
     gen = torch.Generator(device=dev).manual_seed(1)
 
@@ -154,9 +154,10 @@ def test_attention_kernels_match_plain_versions(dev, dtype, hd):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_kernel_matches_plain_version(dev, dtype):
     """Every width and row count ``chip_smoke.py`` checks (the registry's
-    widths at 1024 rows, the decode shape, a ragged row count, D = 64),
-    a ragged row count of a width with no vector instance, and a row that
-    is not 16-byte aligned (the generic kernel)."""
+    widths at 1024 rows, the decode shape, a ragged row count, D = 64;
+    DeepSeek's 2048 and MLA's kv_norm 512, at 1024 rows and at decode's
+    4), a ragged row count of a width with no vector instance, and a row
+    that is not 16-byte aligned (the generic kernel)."""
     gen = torch.Generator(device=dev).manual_seed(2)
     shapes = chip_smoke.RMS_SHAPES + [(33, 2304), (5, 100)]
     for rows, d in shapes:

@@ -97,6 +97,11 @@ def test_kernel_head_dims_are_the_registry_s():
     src = (build.CSRC / "flash_attention.cu").read_text()
     cases = tuple(int(d) for d in re.findall(r"FA_CASE\((\d+)\)\n", src))
     assert cases == cuda_fa.HEAD_DIMS
-    want = {cfg.head_dim for cfg in ARCHS.values()} | {
-        smoke_config(name).head_dim for name in ARCHS}
+    # an MLA config attends at qk_nope + qk_rope (v padded to it); its
+    # smoke width (16 + 8 = 24) runs only the plain version on the CPU
+    want = {cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim
+            if cfg.attn_type == "mla" else cfg.head_dim
+            for cfg in ARCHS.values()} | {
+        smoke_config(name).head_dim for name in ARCHS
+        if ARCHS[name].attn_type != "mla"}
     assert want == set(cuda_fa.HEAD_DIMS)

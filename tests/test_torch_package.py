@@ -65,7 +65,7 @@ def test_config_copies_equal_the_jax_package(make, deq):
             == (want.padded_vocab, want.head_dim_, want.attn_dim,
                 want.kv_dim)
     assert set(treg.ARCHS) == {n for n, c in jreg.ARCHS.items()
-                               if c.family == "dense"}
+                               if c.family in ("dense", "moe")}
 
 
 def test_train_config_copy_equals_the_jax_package():

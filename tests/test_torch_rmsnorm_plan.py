@@ -56,7 +56,7 @@ def test_registered_widths_take_the_vector_kernel(name):
     assert rms.plan(4, d, torch.bfloat16, aligned=False).per == 0
 
 
-@pytest.mark.parametrize("d", [64, 100, 1000, 2048, 2305, 2336, 4096])
+@pytest.mark.parametrize("d", [64, 100, 1000, 1792, 2305, 2336, 3584])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_other_widths_take_the_generic_kernel(d, dtype):
     """Widths that are not a whole number of 16-byte vectors per lane, or
