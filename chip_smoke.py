@@ -34,11 +34,13 @@ Phases, one line (or a few) each:
      chunk's edges, head dims 16, 64, 80, 96, 128 and 192 in bf16 and
      f32), each through ``check_attention``, and each head dim past 64 at
      its config's heads (``ATTN_HEAD_DIMS``; 192 is DeepSeek-V2-Lite's MLA,
-     qk 128 + 64 with v padded) timed cold beside SDPA and the bound
+     qk 128 + 64 with v padded; 80 also at Zamba2's prefill S 300 and 512
+     and its decode over T 512) timed cold beside SDPA and the bound
      (``kernel_attention_head_dims``); then the gradients of
      the attention and rmsnorm
      autograd wrappers (kernel forward, plain recompute backward) against
-     plain autograd at the same shapes; and ``qn_apply_multi`` at the
+     plain autograd at the training shapes (``GRAD_ATTN_SHAPES``: head dims
+     64, 192 and 80); and ``qn_apply_multi`` at the
      adjoint-Broyden path's shape (f32 ring, m=8, B=4, D=256x2304, the
      mixed pair (False, True) and (True,); ``kernel_qn_adjoint``); and
      both qN kernels at the prefill shape with a warm ring as a prefix
@@ -154,9 +156,35 @@ Phases, one line (or a few) each:
      MoE configs at smoke size in f32, card against CPU (same tokens,
      logits within 1e-3 of their scale; the MLA config at qk 48 + 16, a
      head dim the kernels instantiate, where the smoke 16 + 8 is not);
- 13. a ``{"kernels": [...]}`` line (with each kernel's launches in the
-     step 8 arms, in arm c of step 4, in the MDEQ SGD steps and in the
-     V2-Lite async drain of step 12), then the last line ``{"ok": true,
+ 13. the hybrid family (``phase_hybrid``): Zamba2-2.7B at its published
+     widths and full depth (54 Mamba2 layers, d 2560, state 64, chunk 256;
+     the shared attention + MLP block, 32 x 80 heads, every 6 layers;
+     2.42 B parameters), bf16, random weights from seed 0, the layer
+     stack: a sync and an async drain of 8 requests (prompt waves of 128,
+     256 and 300 tokens) over 4 slots, 16 new tokens, a 512-token cache
+     (async = sync tokens bit for bit, one host wait; rmsnorm and both
+     attention kernels launch); a profiled prefill and decode tick; the
+     cache check at S 128 and 300 for each token seed, held in f32 at
+     full depth (``TOL_F32``) and reported in bf16 beside the forward's
+     own rounding floor (the same rows forwarded at batch 1 and 2), which
+     at this depth already exceeds the reference's 3e-2 / 4e-2; one
+     layer's chunked SSD against the sequential ``mamba2_scan_ref`` at S
+     300; 4 AdamW steps at 4 x 512 with ``remat="full"`` (step ms, peak
+     memory, launches held to one forward's plus one recompute of every
+     unit: ``_forward_launches``) and a non-zero gradient in the shared
+     block; an async drain of the DEQ form (4 tied ``zamba_unit``s, tied
+     weights x0.3; every serve-path kernel launches, solve steps and
+     statuses reported); the smoke config card against CPU in f32 (a
+     drain, 3 train steps);
+ 14. training the layer stack (``phase_train_stack``): DeepSeek-V2-Lite
+     and DeepSeekMoE-16B at full width cut to 4 layers, 3 AdamW steps of 4
+     x 256 with ``remat="full"`` and again with ``"none"`` from the same
+     weights, held at ``hold_trajectory``'s tolerances; peak memory and
+     launches of both;
+ 15. a ``{"kernels": [...]}`` line (with each kernel's launches in the
+     step 8 arms, in arm c of step 4, in the MDEQ SGD steps, in the
+     V2-Lite async drain of step 12, in the Zamba2 async drain and train
+     steps of step 13), then the last line ``{"ok": true,
      "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the last
@@ -206,6 +234,7 @@ from repro_torch.implicit import fixed_point as implicit_fp  # noqa: E402
 from repro_torch.implicit import solvers as implicit_solvers  # noqa: E402
 from repro_torch.launch import steps as train_steps  # noqa: E402
 from repro_torch.models import lm, mdeq  # noqa: E402
+from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.obs import metrics as obs_metrics  # noqa: E402
 from repro_torch.obs import tracing as obs_tracing  # noqa: E402
 from repro_torch.runtime.serving import Request, ServeLoop, serve_summary  # noqa: E402
@@ -1096,7 +1125,9 @@ def _lens(vals):
 # hd, dtype, kv_length, causal) -- GQA groups 1, 3, 4 and 6 (InternLM2's
 # 48/8), ragged S and T, a kv_length 0 row and lengths inside a tile, head
 # dims 16, 64, 80, 96, 128 and 192 in bf16 and f32 (192 also at
-# DeepSeek-V2-Lite's prefill shape, B=4 S=T=256 16/16 heads)
+# DeepSeek-V2-Lite's prefill shape, B=4 S=T=256 16/16 heads; 80 also at
+# Zamba2's shared block, 32/32 heads, B=4 over its ragged 300-token prompt
+# wave and its 512-token training sequences)
 PREFILL_CASES = [
     ("gqa3", 4, 256, 256, 36, 12, 64, torch.bfloat16, None, True),
     ("gqa4", 2, 256, 256, 36, 9, 64, torch.bfloat16, None, True),
@@ -1116,12 +1147,17 @@ PREFILL_CASES = [
     ("hd128_f32", 2, 130, 197, 48, 8, 128, torch.float32, [150, 0], True),
     ("hd192", 2, 197, 230, 16, 16, 192, torch.bfloat16, [230, 0], True),
     ("hd192_f32", 4, 256, 256, 16, 16, 192, torch.float32, None, True),
+    ("zamba2_s300", 4, 300, 300, 32, 32, 80, torch.bfloat16, None, True),
+    ("zamba2_s300_f32", 4, 300, 300, 32, 32, 80, torch.float32, None, True),
+    ("zamba2_s512", 4, 512, 512, 32, 32, 80, torch.bfloat16, None, True),
+    ("zamba2_s512_f32", 4, 512, 512, 32, 32, 80, torch.float32, None, True),
 ]
 # decode cases besides "main": (tag, B, H, KV, hd, T, dtype, kv_length) --
 # kv_length at the split chunk's edges (CH-1, CH, CH+1, T) and 0, a cache
 # shorter than one chunk, GQA (H=36, KV=12; 48/8), head dims 16, 64, 80,
 # 96, 128 and 192 (bf16 and f32; 192 over V2-Lite's 512-token serving
-# cache); the "chunk_edges" cases also take the kv_length +-1 guard
+# cache, 80 also over Zamba2's, 32/32 heads); the "chunk_edges" cases also
+# take the kv_length +-1 guard
 _CH = cuda_fa.DECODE_CHUNK
 DECODE_CASES = [
     ("chunk_edges", 4, 36, 36, 64, 1024, torch.bfloat16,
@@ -1143,6 +1179,10 @@ DECODE_CASES = [
     ("hd192_chunk_edges", 4, 16, 16, 192, 512, torch.bfloat16,
      [_CH - 1, _CH, _CH + 1, 512]),
     ("hd192_f32_chunk_edges", 4, 16, 16, 192, 512, torch.float32,
+     [_CH - 1, _CH, _CH + 1, 512]),
+    ("zamba2_chunk_edges", 4, 32, 32, 80, 512, torch.bfloat16,
+     [_CH - 1, _CH, _CH + 1, 512]),
+    ("zamba2_f32_chunk_edges", 4, 32, 32, 80, 512, torch.float32,
      [_CH - 1, _CH, _CH + 1, 512]),
 ]
 
@@ -1276,24 +1316,29 @@ def kernel_attention(gen) -> dict:
 # the registry's other head dims, each at its config's heads (H, KV)
 HEAD_DIM_CONFIGS = {80: ("stablelm-3b", 32, 32), 96: ("phi3-mini-3.8b", 32, 32),
                     128: ("internlm2-20b", 48, 8)}
-# the attention kernels' head dims past 64, timed: each config's heads and
-# decode cache length T (1024; V2-Lite's MLA at qk 128 + 64, v padded, over
-# its 512-token serving cache)
-ATTN_HEAD_DIMS = {hd: (arch, h, kvh, 1024)
+# the attention kernels' head dims past 64, timed: key -> (config, H, KV,
+# hd, prefill S = T, decode cache length T); each config's heads at S 256
+# and T 1024 (V2-Lite's MLA at qk 128 + 64, v padded, over its 512-token
+# serving cache), and Zamba2's shared block at hd 80 over its ragged
+# 300-token prompt wave and its 512-token training sequences, decoding
+# over its 512-token serving cache
+ATTN_HEAD_DIMS = {str(hd): (arch, h, kvh, hd, 256, 1024)
                   for hd, (arch, h, kvh) in HEAD_DIM_CONFIGS.items()}
-ATTN_HEAD_DIMS[192] = ("deepseek-v2-lite-16b", 16, 16, 512)
+ATTN_HEAD_DIMS["192"] = ("deepseek-v2-lite-16b", 16, 16, 192, 256, 512)
+ATTN_HEAD_DIMS["80_zamba2_s300"] = ("zamba2-2.7b", 32, 32, 80, 300, 512)
+ATTN_HEAD_DIMS["80_zamba2_s512"] = ("zamba2-2.7b", 32, 32, 80, 512, None)
 
 
 def kernel_attention_head_dims(gen) -> dict:
-    """Prefill (B=4, S=T=256, causal) and decode (B=4 over a T-token cache,
-    lengths 129, 257, 200 and T) at each head dim of ``ATTN_HEAD_DIMS``
+    """Prefill (B=4, S=T, causal) and decode (B=4 over a T-token cache,
+    lengths 129, 257, 200 and T) at each entry of ``ATTN_HEAD_DIMS``
     with its config's heads, bf16: checked against the plain version and
     timed cold (event and device time after an L2 flush) beside SDPA
     (masked for decode) and the bound."""
     bf = torch.bfloat16
     out = {"flash_attention": {}, "decode_attention": {}}
-    for hd, (arch, h, kvh, t) in ATTN_HEAD_DIMS.items():
-        bsz, seq = 4, 256
+    for key, (arch, h, kvh, hd, seq, t) in ATTN_HEAD_DIMS.items():
+        bsz = 4
         q, k, v = _attn_inputs(gen, bsz, seq, seq, h, kvh, hd, bf)
         kern = lambda: cuda_fa.flash_attention(q, k, v, causal=True)  # noqa: E731
         lib = lambda: _sdpa(q, k, v, causal=True)  # noqa: E731
@@ -1302,7 +1347,7 @@ def kernel_attention_head_dims(gen) -> dict:
                               q, k, v, None, TOL_BF16)
         b_ms, b_by = bound(2 * q.numel() * 2 + 2 * k.numel() * 2,
                            4 * bsz * h * hd * seq * (seq + 1) / 2, "bf16")
-        row = out["flash_attention"][str(hd)] = dict(
+        row = out["flash_attention"][key] = dict(
             config=arch, shape=f"B={bsz} S=T={seq} H={h} KV={kvh} hd={hd} "
             "causal bf16", max_abs_err=err, ms=time_cold_ms(kern),
             device_ms=cold_device_ms(kern),
@@ -1310,7 +1355,9 @@ def kernel_attention_head_dims(gen) -> dict:
             library_ms=time_cold_ms(lib),
             library_device_ms=cold_device_ms(lib),
             bound_ms=b_ms, bound_by=b_by)
-        say("kernel_case", name="flash_attention", case=f"hd{hd}", **row)
+        say("kernel_case", name="flash_attention", case=f"hd{key}", **row)
+        if t is None:
+            continue
         lens = _lens([129, 257, 200, t])
         q, k, v = _decode_inputs(gen, bsz, h, kvh, hd, t, bf)
         kern = lambda: cuda_fa.decode_attention(q, k, v, lens)  # noqa: E731
@@ -1324,7 +1371,7 @@ def kernel_attention_head_dims(gen) -> dict:
         live = int(lens.sum())
         b_ms, b_by = bound(2 * q.numel() * 2 + 2 * live * kvh * hd * 2
                            + bsz * 4, 4 * h * hd * live, "bf16")
-        row = out["decode_attention"][str(hd)] = dict(
+        row = out["decode_attention"][key] = dict(
             config=arch, shape=f"B={bsz} H={h} KV={kvh} hd={hd} T={t} "
             f"kv_length={lens.tolist()} bf16", max_abs_err=err,
             ms=time_cold_ms(kern), device_ms=cold_device_ms(kern),
@@ -1333,17 +1380,20 @@ def kernel_attention_head_dims(gen) -> dict:
             library_ms=time_cold_ms(lib),
             library_device_ms=cold_device_ms(lib),
             bound_ms=b_ms, bound_by=b_by, launches_per_call=2)
-        say("kernel_case", name="decode_attention", case=f"hd{hd}", **row)
+        say("kernel_case", name="decode_attention", case=f"hd{key}", **row)
     return out
 
 
 # rmsnorm shapes (rows, D): the registry's widths at the paths' 1024 rows
 # (B=4 x S=256) and at the decode shape (4 slots) -- DeepSeek's 2048 and
-# MLA's kv_norm 512 among them -- a ragged row count and a width with no
-# vector instance (the generic kernel); the first is the reported row
+# MLA's kv_norm 512 among them; Zamba2's 2560 and its Mamba2 gated width
+# 5120 also at 2048 rows (its 4 x 512 training batch) -- a ragged row
+# count and a width with no vector instance (the generic kernel); the
+# first is the reported row
 RMS_SHAPES = [(1024, 2304), (1024, 2560), (1024, 3072), (1024, 6144),
               (1024, 2048), (1024, 512), (4, 2304), (4, 6144), (4, 2048),
-              (4, 512), (1000, 2304), (1024, 64)]
+              (4, 512), (1000, 2304), (1024, 64), (4, 2560), (1024, 5120),
+              (4, 5120), (2048, 2560), (2048, 5120)]
 
 
 def kernel_rmsnorm(gen) -> dict:
@@ -1410,23 +1460,31 @@ def _wrapper_and_plain_grads(op, plain, inputs, cot):
     return res
 
 
+# the attention shapes training takes gradients at: MiniCPM-2B's (B=4,
+# S=256, 36 x 64), DeepSeek-V2-Lite's MLA (16 x 192, v padded) and
+# Zamba2's shared block (B=4, S=512, 32 x 80)
+GRAD_ATTN_SHAPES = [(4, 256, 36, 64), (4, 256, 16, 192), (4, 512, 32, 80)]
+
+
 def kernel_grads(gen) -> None:
     """The gradients training takes through the attention and rmsnorm
-    kernels, at the training shapes (B=4, S=256, 36 x 64 heads; rmsnorm
-    over 1024 x 2304), bf16."""
-    bsz, seq, h, hd = 4, 256, 36, 64
-    q, k, v, g = (torch.randn(bsz, seq, h, hd, device="cuda", generator=gen
-                              ).to(torch.bfloat16) for _ in range(4))
-    (out_w, g_w), (out_p, g_p) = _wrapper_and_plain_grads(
-        lambda *a: ops.attention(*a, causal=True),
-        lambda *a: ref.attention_ref(*a, causal=True), (q, k, v), g)
-    err_f = check_close("attention.forward", out_w, out_p, TOL_BF16)
-    err_a = check_grads("attention", g_w, g_p)
-    say("kernel_grad", name="flash_attention", shape=f"B={bsz} S=T={seq} "
-        f"H=KV={h} hd={hd} causal bf16", forward_err=err_f,
-        max_abs_err=err_a, bitwise_equal=all(
-            torch.equal(a, b) for a, b in zip(g_w, g_p)),
-        tol="rtol 2e-2, atol 2e-3 x max")
+    kernels, at the training shapes (``GRAD_ATTN_SHAPES``; rmsnorm over
+    1024 x 2304), bf16."""
+    for bsz, seq, h, hd in GRAD_ATTN_SHAPES:
+        q, k, v, g = (torch.randn(bsz, seq, h, hd, device="cuda",
+                                  generator=gen).to(torch.bfloat16)
+                      for _ in range(4))
+        (out_w, g_w), (out_p, g_p) = _wrapper_and_plain_grads(
+            lambda *a: ops.attention(*a, causal=True),
+            lambda *a: ref.attention_ref(*a, causal=True), (q, k, v), g)
+        err_f = check_close(f"attention.forward hd{hd}", out_w, out_p,
+                            TOL_BF16)
+        err_a = check_grads(f"attention hd{hd}", g_w, g_p)
+        say("kernel_grad", name="flash_attention", shape=f"B={bsz} "
+            f"S=T={seq} H=KV={h} hd={hd} causal bf16", forward_err=err_f,
+            max_abs_err=err_a, bitwise_equal=all(
+                torch.equal(a, b) for a, b in zip(g_w, g_p)),
+            tol="rtol 2e-2, atol 2e-3 x max")
     rows, d = 1024, 2304
     x = torch.randn(rows, d, device="cuda", generator=gen).to(torch.bfloat16)
     w = (1 + 0.1 * torch.randn(d, device="cuda", generator=gen)
@@ -1533,10 +1591,12 @@ def _map(fn, params: dict) -> dict:
 
 
 def _scaled_blocks(params: dict, scale: float) -> dict:
-    """Scale the weight-tied blocks (a random init is not contractive at
-    scale 1; the JAX package's tests use 0.3)."""
-    return dict(params, deq_blocks=_map(lambda t: t * scale,
-                                        params["deq_blocks"]))
+    """Scale the weight-tied blocks, and the hybrid's shared block that
+    every tied unit calls (a random init is not contractive at scale 1; the
+    JAX package's tests use 0.3)."""
+    return dict(params, **{k: _map(lambda t: t * scale, params[k])
+                           for k in ("deq_blocks", "shared_attn")
+                           if k in params})
 
 
 def _at_head_dim(cfg, arch: str):
@@ -3123,14 +3183,15 @@ CACHE_CUT_LAYERS = 4
 MLA_SMOKE_QK = dict(qk_nope_dim=48, qk_rope_dim=16)
 
 
-def _moe_drain(params, cfg, pipeline: str, record: bool) -> dict:
-    """One drain of MOE_PLENS prompts over 4 slots (MOE_NEW new tokens, a
-    MOE_MAX_LEN cache) with the launch counts reset just before and the
-    host waits counted; every request must be served in full with no
-    fault (and, recorded, finite logits)."""
+def _moe_drain(params, cfg, pipeline: str, record: bool,
+               plens=MOE_PLENS) -> dict:
+    """One drain of ``plens`` prompts (MOE_PLENS) over 4 slots (MOE_NEW new
+    tokens, a MOE_MAX_LEN cache) with the launch counts reset just before
+    and the host waits counted; every request must be served in full with
+    no fault (and, recorded, finite logits)."""
     rng = np.random.default_rng(0)
     prompts = [rng.integers(2, cfg.vocab_size, size=n).tolist()
-               for n in MOE_PLENS]
+               for n in plens]
     loop = ServeLoop(params, cfg, slots=4, max_len=MOE_MAX_LEN,
                      pipeline=pipeline, record=record)
     reqs = [Request(uid=i, prompt=p, max_new_tokens=MOE_NEW)
@@ -3168,7 +3229,10 @@ def _moe_drain(params, cfg, pipeline: str, record: bool) -> dict:
 
 
 def _dropless(cfg):
-    """``cfg`` with a capacity factor at which no expert drops a token."""
+    """``cfg`` with a capacity factor at which no expert drops a token (a
+    config without experts as it is)."""
+    if cfg.family != "moe":
+        return cfg
     return dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
 
@@ -3182,7 +3246,8 @@ def limit_share(got: torch.Tensor, want: torch.Tensor, tol: dict) -> float:
 
 
 def check_cache_against_forward(params, cfg, bsz: int = 2,
-                                seq: int = 128, tol=CACHE_TOL) -> dict:
+                                seq: int = 128, tol=CACHE_TOL, *,
+                                hold: bool = True) -> dict:
     """``tests/test_archs.py::test_prefill_decode_matches_forward`` at full
     width on the card, for each token seed of ``CACHE_SEEDS``: prefill over
     S tokens then one decode step against a full forward over S + 1 (last
@@ -3191,7 +3256,11 @@ def check_cache_against_forward(params, cfg, bsz: int = 2,
     reported.  Dropless
     (``_dropless``): experts keep tokens first come first served in the
     flattened batch order, so S and S + 1 tokens would drop different
-    ones.  The launch counts are the first seed's."""
+    ones.  The launch counts are the first seed's.  ``hold=False`` reports
+    the readings without holding them to ``tol``, beside the rounding
+    floor of the forward itself: each row forwarded alone against the
+    batch's forward at positions S - 1 and S (the same arithmetic at
+    another batch size, whose GEMMs may round in another order)."""
     cfg = _dropless(cfg)
     seeds, counts = {}, {}
     for seed in CACHE_SEEDS:
@@ -3199,7 +3268,8 @@ def check_cache_against_forward(params, cfg, bsz: int = 2,
         toks = torch.randint(2, cfg.vocab_size, (bsz, seq + 1),
                              device="cuda", generator=gen)
         with torch.no_grad():
-            full, _ = lm.forward(params, {"tokens": toks}, cfg)
+            full, _ = lm.forward(params, {"tokens": toks}, cfg,
+                                 train=False)
         launches.reset()
         pre, caches, lens = lm.prefill(params, {"tokens": toks[:, :seq]},
                                        cfg, MOE_MAX_LEN)
@@ -3208,16 +3278,25 @@ def check_cache_against_forward(params, cfg, bsz: int = 2,
         dec, _ = lm.decode_step(params, caches, toks[:, seq], lens, cfg)
         counts.setdefault("decode", launches.counts())
         row = seeds[seed] = {}
-        for tag, got, want, t in (("prefill", pre[:, -1], full[:, seq - 1],
-                                   tol[0]),
-                                  ("decode", dec, full[:, seq], tol[1])):
+        pairs = [("prefill", pre[:, -1], full[:, seq - 1], tol[0]),
+                 ("decode", dec, full[:, seq], tol[1])]
+        if not hold:
+            with torch.no_grad():
+                alone = torch.cat([lm.forward(params, {"tokens": toks[i:i + 1]},
+                                              cfg, train=False)[0]
+                                   for i in range(bsz)])
+            pairs += [("noise_prefill", alone[:, seq - 1], full[:, seq - 1],
+                       tol[0]),
+                      ("noise_decode", alone[:, seq], full[:, seq], tol[1])]
+        for tag, got, want, t in pairs:
+            name = (f"{cfg.name} {cfg.num_layers} layers {cfg.dtype} {tag} "
+                    f"vs forward (seed {seed})")
             row[tag] = dict(
-                max_abs_err=check_close(f"{cfg.name} {cfg.num_layers} layers "
-                                        f"{cfg.dtype} {tag} vs forward "
-                                        f"(seed {seed})", got, want, t),
+                max_abs_err=(check_close(name, got, want, t) if hold else
+                             (got.float() - want.float()).abs().max().item()),
                 limit_share=limit_share(got, want, t),
                 logit_scale=want.float().abs().max().item())
-    return dict(batch=bsz, seq=seq, seeds=seeds, tol=tol,
+    return dict(batch=bsz, seq=seq, seeds=seeds, tol=tol, held=hold,
                 capacity_factor=cfg.moe.capacity_factor,
                 launches_per_prefill={k: n for k, n in counts["prefill"].items()
                                       if n},
@@ -3225,7 +3304,7 @@ def check_cache_against_forward(params, cfg, bsz: int = 2,
                                      if n})
 
 
-def moe_parity(arch: str) -> dict:
+def stack_parity(arch: str) -> dict:
     """``arch``'s smoke config, layer stack, f32, served on the card and on
     the CPU from the same weights (seed 1): the same tokens and logits
     within 1e-3 of their scale.  The MLA config at ``MLA_SMOKE_QK``."""
@@ -3257,11 +3336,14 @@ def moe_parity(arch: str) -> dict:
         raise AssertionError(f"{arch}: card vs CPU logits differ by "
                              f"{err:.3e} (scale {scale:.3e})")
     return dict(config=f"{arch} smoke f32 layer stack (d=64, "
-                f"{cfg.num_layers} layers, {cfg.moe.num_experts} experts "
-                f"top-{cfg.moe.top_k}" + (f", MLA qk {cfg.mla.qk_nope_dim} "
-                                          f"+ {cfg.mla.qk_rope_dim}"
-                                          if cfg.attn_type == "mla" else "")
-                + ")", tokens_identical=True, max_abs_logit_err=err,
+                f"{cfg.num_layers} layers" + (
+                    f", {cfg.moe.num_experts} experts top-{cfg.moe.top_k}"
+                    if cfg.family == "moe" else "") + (
+                    f", MLA qk {cfg.mla.qk_nope_dim} + {cfg.mla.qk_rope_dim}"
+                    if cfg.attn_type == "mla" else "") + (
+                    f", Mamba2 state {cfg.ssm.d_state} chunk {cfg.ssm.chunk}"
+                    if cfg.family == "hybrid" else "") + ")",
+                tokens_identical=True, max_abs_logit_err=err,
                 logit_scale=scale)
 
 
@@ -3363,7 +3445,328 @@ def phase_moe(smi: str) -> dict:
     torch.cuda.empty_cache()
 
     for arch in (MOE_ARCH, MOE_GQA_ARCH):
-        say("moe_parity", card=smi, **moe_parity(arch))
+        say("moe_parity", card=smi, **stack_parity(arch))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the hybrid family (Zamba2-2.7B), served and trained
+# ---------------------------------------------------------------------------
+
+HYBRID_ARCH = "zamba2-2.7b"
+# 8 requests over 4 slots in prompt waves of 128, 256 and 300 tokens: a
+# prompt of 128 is one SSD chunk of 128, 256 one full chunk, 300 pads to
+# two (the second with dt = 0 steps); MOE_NEW new tokens, a MOE_MAX_LEN
+# cache
+HYBRID_PLENS = (128, 128, 256, 256, 300, 300, 128, 256)
+HYBRID_CACHE_SEQS = (128, 300)
+HYBRID_SCAN_SEQ = 300
+# training: 4 AdamW steps of 4 x 512 synthetic tokens (two full chunks)
+HYBRID_TRAIN = dict(steps=4, batch=4, seq=512)
+
+
+def _hybrid_desc(cfg) -> str:
+    s = cfg.ssm
+    return (f"{cfg.name} ({cfg.num_layers} Mamba2 layers, d={cfg.d_model}, "
+            f"state {s.d_state}, conv {s.d_conv}, expand {s.expand}, "
+            f"SSM heads {s.expand * cfg.d_model // s.head_dim} x "
+            f"{s.head_dim}, chunk {s.chunk}; a shared attention + MLP "
+            f"block ({cfg.num_heads}/{cfg.num_kv_heads} heads x "
+            f"{cfg.head_dim}, ff {cfg.d_ff}) every {s.attn_every} layers; "
+            f"vocab {cfg.vocab_size}; {cfg.dtype}, random weights, seed 0)")
+
+
+def _forward_launches(cfg) -> dict:
+    """Launches of one full-sequence forward of the layer stack (no DEQ):
+    rmsnorm twice per block (twice per Mamba layer: its ln and its gated
+    norm; MLA's kv_norm once more) plus the final norm, flash attention
+    once per attention block; ``inside`` the same without the final norm
+    (what a rematerialised unit launches again in the backward)."""
+    if cfg.family == "hybrid":
+        units = cfg.num_layers // cfg.ssm.attn_every
+        norms = 2 * cfg.num_layers + 2 * units
+        attn = units
+    else:
+        attn = cfg.num_layers
+        norms = (3 if cfg.attn_type == "mla" else 2) * cfg.num_layers
+    return {"rmsnorm": norms + 1, "flash_attention": attn,
+            "inside": {"rmsnorm": norms, "flash_attention": attn}}
+
+
+def stack_train(params, cfg, remat: str, *, steps: int, batch: int,
+                seq: int, desc: str, smi: str) -> dict:
+    """``steps`` AdamW steps of the layer stack (``build_train_step``,
+    ``cfg.remat = remat``) from ``params`` (left as they are) on
+    ``make_lm_batch_iterator``'s seed-0 batches, each step timed to the
+    card's last kernel; the launch counts reset before the first step and
+    read after the last (per step they must be one forward's, plus one
+    recompute of every unit under ``full``: ``_forward_launches``); the
+    peak device memory.  Every loss and grad norm finite, no step
+    skipped."""
+    cfg = dataclasses.replace(cfg, remat=remat)
+    tcfg = TrainConfig(steps=steps, global_batch=batch, seq_len=seq,
+                       schedule=cfg.schedule)
+    state = train_steps.init_train_state(cfg, tcfg, params=params)
+    step = train_steps.build_train_step(cfg, tcfg)
+    batches = make_lm_batch_iterator(cfg, batch, seq, seed=0, device="cuda")
+    rows = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    for i in range(steps):
+        b = next(batches)
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        rows.append(dict(step=i + 1, loss=float(m["loss"]),
+                         grad_norm=float(m["grad_norm"]),
+                         skipped=float(m["update_skipped"]),
+                         step_ms=(time.perf_counter() - t0) * 1e3))
+    counts = launches.counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for r in rows:
+        if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+                and r["skipped"] == 0.0):
+            raise AssertionError(f"{desc} remat={remat} step {r['step']}: "
+                                 f"{r}")
+    fwd = _forward_launches(cfg)
+    want = {k: steps * (fwd[k] + (fwd["inside"][k] if remat == "full"
+                                  else 0))
+            for k in ("rmsnorm", "flash_attention")}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{desc} remat={remat}: launches {got}, want "
+                             f"{want}")
+    say("train_stack", config=desc, remat=remat, card=smi,
+        batch=f"{batch} x {seq}", steps=rows, peak_mem_gib=peak,
+        launches=counts, launches_per_step={k: n / steps
+                                            for k, n in counts.items() if n})
+    del state
+    torch.cuda.empty_cache()
+    return dict(rows=rows, counts=counts, peak_mem_gib=peak)
+
+
+def check_scan_ref(params, cfg, seq: int, smi: str) -> None:
+    """One Mamba2 layer of ``params`` (unit 0, layer 0) at its published
+    shapes, chunked SSD against the sequential ``mamba2_scan_ref`` on the
+    card over B=4 x ``seq`` (``seq`` 300 pads the last chunk): in f32 at
+    TOL_F32, and in bf16 reported (the two round the projections'
+    outputs in other orders)."""
+    layer = {k: v[0, 0] for k, v in params["group0"]["mamba"]["m"].items()}
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(4, seq, cfg.d_model, device="cuda", generator=gen)
+    row = {}
+    for dt in (torch.float32, torch.bfloat16):
+        c = dataclasses.replace(cfg, dtype=str(dt)[6:])
+        p = {k: v.to(dt) for k, v in layer.items()}
+        with torch.no_grad():
+            got, _ = ssm_mod.mamba2_block(p, x.to(dt), c)
+            want = ssm_mod.mamba2_scan_ref(p, x.to(dt), c)
+        tol = TOL_F32 if dt == torch.float32 else TOL_BF16
+        tag = f"mamba2_block chunked vs scan_ref {str(dt)[6:]} B=4 S={seq}"
+        row[str(dt)[6:]] = dict(
+            max_abs_err=(check_close(tag, got, want, tol)
+                         if dt == torch.float32 else
+                         (got.float() - want.float()).abs().max().item()),
+            limit_share=limit_share(got, want, tol), tol=tol,
+            scale=want.float().abs().max().item())
+    say("hybrid_scan_ref", config=f"{cfg.name} one layer (d={cfg.d_model}, "
+        f"{cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim} SSM heads, "
+        f"chunk {cfg.ssm.chunk})", card=smi, checked="float32",
+        reported="bfloat16", **row)
+
+
+def shared_grad_norm(params, cfg, seq: int) -> float:
+    """The norm of the loss's gradient in the shared block's weights over
+    one seed-0 batch of 4 x ``seq`` (the train step's loss, remat on)."""
+    shared = _map(lambda t: t.detach().requires_grad_(True),
+                  params["shared_attn"])
+    b = next(make_lm_batch_iterator(cfg, 4, seq, seed=0, device="cuda"))
+    loss, _ = lm.loss_fn(dict(params, shared_attn=shared), b, cfg)
+    grads = torch.autograd.grad(loss, _leaves(shared))
+    return float(torch.sqrt(sum(g.float().square().sum() for g in grads)))
+
+
+def stack_train_parity(arch: str) -> dict:
+    """``arch``'s smoke config, layer stack in f32, 3 AdamW steps on the
+    card and on the CPU from the same weights (seed 1) and batches: loss
+    at rtol 1e-4, grad norm at rtol 2e-3 (as ``phase_train_parity``)."""
+    cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+    tcfg = TrainConfig(steps=3, global_batch=2, seq_len=20, lr=1e-3,
+                       warmup_steps=2)
+    cpu_params = lm.init_params(cfg, seed=1, device="cpu")
+    ds = SyntheticTokenDataset(cfg.vocab_size, 0)
+    seen = {}
+    for dev in ("cuda", "cpu"):
+        state = train_steps.init_train_state(
+            cfg, tcfg, params=_map(lambda t: t.to(dev), cpu_params))
+        step = train_steps.build_train_step(cfg, tcfg)
+        seen[dev] = []
+        for i in range(3):
+            toks = torch.from_numpy(ds.batch(i, 2, 21)).to(dev)
+            state, m = step(state, {"tokens": toks[:, :-1],
+                                    "targets": toks[:, 1:]})
+            seen[dev].append((float(m["loss"]), float(m["grad_norm"])))
+    for i, ((lg, gg), (lc, gc)) in enumerate(zip(seen["cuda"], seen["cpu"])):
+        if abs(lg - lc) > 1e-4 * abs(lc) or abs(gg - gc) > 2e-3 * abs(gc):
+            raise AssertionError(f"{arch} train step {i}: card "
+                                 f"{seen['cuda'][i]} vs CPU {seen['cpu'][i]}")
+    return dict(config=f"{arch} smoke f32 layer stack, remat {cfg.remat}, "
+                "batch 2 x 20, 3 AdamW steps", steps_card=seen["cuda"],
+                steps_cpu=seen["cpu"],
+                tol="loss rtol 1e-4; grad norm rtol 2e-3")
+
+
+def phase_hybrid(smi: str) -> dict:
+    """The hybrid family's main path: Zamba2-2.7B at its published widths
+    and full depth (54 Mamba2 layers, 9 calls of the shared block), bf16,
+    random weights (seed 0), the layer stack:
+
+      * ``ServeLoop`` over 4 slots, HYBRID_PLENS prompts, MOE_NEW new
+        tokens, a MOE_MAX_LEN cache: sync, then async (its tokens the sync
+        drain's bit for bit, its one host wait the clock wait); rmsnorm and
+        both attention kernels must launch;
+      * a profiled prefill tick and decode tick (``phase_profile``);
+      * prefill over S then one decode step against a forward over S + 1
+        for S in HYBRID_CACHE_SEQS at every seed of CACHE_SEEDS: in f32 at
+        full depth, held at TOL_F32; in bf16 reported against CACHE_TOL
+        beside the forward's own rounding floor (two bf16 forwards of the
+        same rows at batch 1 and 2 already differ by more than CACHE_TOL
+        at this depth, so bf16 cannot be held to it);
+      * one layer's chunked SSD against ``mamba2_scan_ref`` at S = 300;
+      * 4 AdamW steps at 4 x 512 with ``remat="full"`` (``stack_train``),
+        then the shared block's gradient norm, which must be non-zero;
+      * an async drain of the DEQ form (4 tied ``zamba_unit``s, tied
+        weights x0.3: ``_scaled_blocks``) with its solve steps and
+        statuses;
+      * card against CPU at the smoke size in f32: a drain and 3 train
+        steps.
+
+    Returns the async drain's, a train step's and the DEQ drain's launch
+    counts."""
+    out = {}
+    cfg = get_config(HYBRID_ARCH)
+    desc = _hybrid_desc(cfg)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    drains = {p: _moe_drain(params, cfg, p, record=True, plens=HYBRID_PLENS)
+              for p in ("sync", "async")}
+    if drains["async"]["tokens"] != drains["sync"]["tokens"]:
+        raise AssertionError(f"{HYBRID_ARCH}: async tokens "
+                             f"{drains['async']['tokens']} != sync "
+                             f"{drains['sync']['tokens']}")
+    check_syncs(f"{HYBRID_ARCH} async drain", drains["async"]["syncs"], 1)
+    for name, d in drains.items():
+        missing = [k for k in ("flash_attention", "decode_attention",
+                               "rmsnorm") if d["counts"][k] == 0]
+        if missing:
+            raise AssertionError(f"{HYBRID_ARCH} {name}: kernels not "
+                                 f"launched: {missing}")
+        say("hybrid_serve", config=desc, pipeline=name, card=smi,
+            params=n_params, init_seconds=t_init, prompt_lens=HYBRID_PLENS,
+            **{k: v for k, v in d.items() if k not in ("tokens", "syncs")})
+    out["drain"] = drains["async"]
+    phase_profile(params, cfg, smi)
+    out["cache"] = {}
+    for seq in HYBRID_CACHE_SEQS:
+        cache = check_cache_against_forward(params, cfg, seq=seq, hold=False)
+        say("hybrid_cache_check", config=f"{HYBRID_ARCH} "
+            f"{cfg.num_layers} layers bf16 (reported)", card=smi, **cache)
+        out["cache"][seq] = cache
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = _map(lambda t: t.float(), params)
+    for seq in HYBRID_CACHE_SEQS:
+        say("hybrid_cache_check", config=f"{HYBRID_ARCH} "
+            f"{cfg.num_layers} layers float32 (held)", card=smi,
+            **check_cache_against_forward(p32, cfg32, seq=seq,
+                                          tol=(TOL_F32, TOL_F32)))
+    del p32
+    torch.cuda.empty_cache()
+    check_scan_ref(params, cfg, HYBRID_SCAN_SEQ, smi)
+    torch.cuda.empty_cache()
+
+    tr = stack_train(params, cfg, "full", steps=HYBRID_TRAIN["steps"],
+                     batch=HYBRID_TRAIN["batch"], seq=HYBRID_TRAIN["seq"],
+                     desc=desc, smi=smi)
+    gnorm = shared_grad_norm(params, cfg, HYBRID_TRAIN["seq"])
+    if not (np.isfinite(gnorm) and gnorm > 0):
+        raise AssertionError(f"{HYBRID_ARCH}: shared_attn gradient norm "
+                             f"{gnorm}")
+    say("hybrid_shared_grad", card=smi, shared_attn_grad_norm=gnorm,
+        batch=f"4 x {HYBRID_TRAIN['seq']}")
+    out["train"] = tr["counts"]
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = get_config(HYBRID_ARCH, deq=True)
+    params = _scaled_blocks(lm.init_params(cfg, seed=0, device="cuda"), 0.3)
+    d = _moe_drain(params, cfg, "async", record=True, plens=HYBRID_PLENS)
+    missing = [k for k in SERVE_PATH if d["counts"][k] == 0]
+    if missing:
+        raise AssertionError(f"{HYBRID_ARCH} DEQ: kernels not launched: "
+                             f"{missing}")
+    say("hybrid_serve", config=f"{HYBRID_ARCH} DEQ (DEQSettings defaults: "
+        "4 tied zamba_units of 6 Mamba2 layers + the shared block, tied "
+        "weights x0.3, Broyden 12 steps, tol 1e-3, ring bf16 m=8)", pipeline="async", card=smi,
+        params=sum(t.numel() for t in _leaves(params)),
+        **{k: v for k, v in d.items() if k not in ("tokens", "syncs")})
+    out["deq_counts"] = d["counts"]
+    del params
+    torch.cuda.empty_cache()
+
+    say("hybrid_parity", card=smi, **stack_parity(HYBRID_ARCH))
+    say("hybrid_train_parity", card=smi, **stack_train_parity(HYBRID_ARCH))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: training the layer stack with and without rematerialisation
+# ---------------------------------------------------------------------------
+
+# full width, depth cut to 4 layers (the dense layer and 3 MoE layers;
+# 2.25 B parameters): params and grads in bf16 and AdamW's f32 moments
+# come to ~27 GB, and 6 layers (3.42 B, ~41 GB before AdamW's temporaries
+# and the MoE's activations) leave the 80 GB card little headroom
+TRAIN_STACK_LAYERS = 4
+TRAIN_STACK = dict(steps=3, batch=4, seq=256)
+
+
+def phase_train_stack(smi: str) -> dict:
+    """DeepSeek-V2-Lite (MLA + MoE) and DeepSeekMoE-16B (GQA + MoE) at
+    their published widths, depth cut to TRAIN_STACK_LAYERS, bf16, seed 0:
+    TRAIN_STACK's AdamW steps with ``remat="full"``, then the same steps
+    from the same weights with ``remat="none"``, held at
+    ``hold_trajectory``'s tolerances (loss rtol 1e-2, grad norm rtol 5e-2
+    at every step: the MoE's gather accumulates with atomics on the card,
+    so the recompute is not bit for bit the forward); peak memory of both.
+    Returns V2-Lite's remat-full launch counts."""
+    out = {}
+    for arch in (MOE_ARCH, MOE_GQA_ARCH):
+        cfg = dataclasses.replace(get_config(arch),
+                                  num_layers=TRAIN_STACK_LAYERS)
+        params = lm.init_params(cfg, seed=0, device="cuda")
+        desc = (f"{arch} layer stack at full width, {TRAIN_STACK_LAYERS} "
+                f"layers (1 dense + {TRAIN_STACK_LAYERS - 1} MoE), bf16, "
+                f"seed 0, {sum(t.numel() for t in _leaves(params))} params")
+        arms = {r: stack_train(params, cfg, r, desc=desc, smi=smi,
+                               **TRAIN_STACK) for r in ("full", "none")}
+        rows = {r: [(0, x["loss"], x["grad_norm"], 0) for x in a["rows"]]
+                for r, a in arms.items()}
+        # no solves in the layer stack: the none arm stands for both of
+        # hold_trajectory's reference arms
+        rel = hold_trajectory(rows["full"], rows["none"], rows["none"])
+        say("train_stack_remat", config=desc, card=smi,
+            rel_diff=rel["replay"], tol="loss rtol 1e-2, grad norm rtol "
+            "5e-2 at every step (hold_trajectory)",
+            peak_mem_gib={r: a["peak_mem_gib"] for r, a in arms.items()},
+            step_ms={r: [x["step_ms"] for x in a["rows"]]
+                     for r, a in arms.items()})
+        out.setdefault("counts", arms["full"]["counts"])
+        del params
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3411,6 +3814,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe = timed(smi, "moe", phase_moe, smi)
     moe_counts = moe["drain"]["counts"]
+    torch.cuda.empty_cache()
+    hybrid = timed(smi, "hybrid", phase_hybrid, smi)
+    torch.cuda.empty_cache()
+    stack = timed(smi, "train_stack", phase_train_stack, smi)
     rows = []
     for name, (route, source, replaces) in KERNELS.items():
         r = res[name]
@@ -3418,7 +3825,9 @@ def main() -> int:
                "replaces": replaces,
                "launches": (serve_counts[name] + prefix_counts[name]
                             + train_counts[name]
-                            + mdeq_counts["sgd"][name] + moe_counts[name]),
+                            + mdeq_counts["sgd"][name] + moe_counts[name]
+                            + hybrid["drain"]["counts"][name]
+                            + hybrid["train"][name]),
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"],
@@ -3444,6 +3853,17 @@ def main() -> int:
                    "launches_per_prefill"].get(name, 0),
                "launches_moe_per_decode": moe["cache"][
                    "launches_per_decode"].get(name, 0),
+               "launches_hybrid_serve": hybrid["drain"]["counts"][name],
+               "launches_hybrid_train": hybrid["train"][name],
+               "launches_hybrid_per_train_step": (hybrid["train"][name]
+                                                  / HYBRID_TRAIN["steps"]),
+               "launches_hybrid_deq_serve": hybrid["deq_counts"][name],
+               **{f"launches_hybrid_per_{k}_s{seq}": c[
+                   f"launches_per_{k}"].get(name, 0)
+                  for seq, c in hybrid["cache"].items()
+                  for k in ("prefill", "decode")},
+               "launches_train_stack_v2_lite_remat_full": stack["counts"][
+                   name],
                **{k: r[k] for k in ("launches_per_call", "decode_ms",
                                     "decode_device_ms", "decode_bound_ms",
                                     "decode_launches_per_call",

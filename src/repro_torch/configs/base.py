@@ -68,7 +68,7 @@ class SSMConfig:
     head_dim: int = 64
     n_groups: int = 1
     chunk: int = 256
-    attn_every: int = 0
+    attn_every: int = 0          # Zamba2: shared attention block period
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,8 +1,9 @@
 """Architecture registry: ``--arch <id>`` resolution + reduced smoke configs.
 
-The port's copy of ``repro/configs/registry.py`` for the dense and MoE
-families (DeepSeekMoE-16B with GQA, DeepSeek-V2-Lite with MLA); the hybrid,
-SSM, audio and VLM families join with their slices.
+The port's copy of ``repro/configs/registry.py`` for the dense, MoE and
+hybrid families (DeepSeekMoE-16B with GQA, DeepSeek-V2-Lite with MLA,
+Zamba2-2.7B's Mamba2 layers with a shared attention block); the SSM, audio
+and VLM families join with their slices.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from repro_torch.configs import (
     deepseek_moe_16b,
     deepseek_v2_lite_16b,
     minicpm_2b,
+    zamba2_2p7b,
 )
 from repro_torch.configs.base import (
     DEQSettings,
@@ -43,7 +45,8 @@ _INTERNLM2_20B = ModelConfig(
 ARCHS: dict[str, ModelConfig] = {
     c.name: c
     for c in [minicpm_2b.CONFIG, _PHI3_MINI, _STABLELM_3B, _INTERNLM2_20B,
-              deepseek_v2_lite_16b.CONFIG, deepseek_moe_16b.CONFIG]
+              deepseek_v2_lite_16b.CONFIG, deepseek_moe_16b.CONFIG,
+              zamba2_2p7b.CONFIG]
 }
 
 
@@ -60,7 +63,8 @@ def get_config(name: str, *, deq: bool = False, **overrides) -> ModelConfig:
 
 def smoke_config(name: str, *, deq: bool = False) -> ModelConfig:
     """Reduced same-family config: small widths/layers/experts, tiny vocab
-    (the dense and MoE branches of the JAX package's ``smoke_config``)."""
+    (the dense, MoE and hybrid branches of the JAX package's
+    ``smoke_config``)."""
     if name not in ARCHS:
         raise ValueError(f"unknown arch {name!r}; have {sorted(ARCHS)}")
     cfg = ARCHS[name]
@@ -79,6 +83,11 @@ def smoke_config(name: str, *, deq: bool = False) -> ModelConfig:
         kw["moe"] = MoEConfig(
             num_experts=8, num_shared=1, top_k=2, expert_d_ff=32,
             first_k_dense=1, dense_d_ff=128, norm_topk=cfg.moe.norm_topk,
+        )
+    elif cfg.family == "hybrid":
+        kw["num_layers"] = 6  # two units of 3
+        kw["ssm"] = dataclasses.replace(
+            cfg.ssm, d_state=16, head_dim=16, chunk=16, attn_every=3
         )
     if cfg.attn_type == "mla":
         kw["mla"] = MLAConfig(kv_lora_rank=32, qk_nope_dim=16, qk_rope_dim=8,

@@ -63,7 +63,11 @@ def _copy_carry(carry: SolveCarry) -> SolveCarry:
 
 
 def _keep(ok: torch.Tensor, new: Tree, old: Tree) -> Tree:
-    return tree_map(lambda n, o: torch.where(ok, n, o), new, old)
+    """``where(ok, new, old)`` leaf by leaf, written into ``new``'s tensors
+    (fresh from the update, referenced nowhere else), so a step holds two
+    copies of the parameters and moments, not three (Zamba2-2.7B: 24 GB
+    each)."""
+    return tree_map(lambda n, o: torch.where(ok, n, o, out=n), new, old)
 
 
 def _keep_carry(ok: torch.Tensor, new: SolveCarry,

@@ -1,7 +1,9 @@
-"""Training launcher: ``python -m repro_torch.launch.train --arch <id> --deq``.
+"""Training launcher: ``python -m repro_torch.launch.train --arch <id> [--deq]``.
 
 The port of ``repro/launch/train.py``: runs the :class:`Trainer` (restore
-or init, checkpoints, rollback, preemption) on synthetic token batches.
+or init, checkpoints, rollback, preemption) on synthetic token batches,
+for the layer stack (rematerialised as the config's ``remat`` says) or,
+with ``--deq``, its DEQ/SHINE form.
 The JAX launcher's flags, minus ``--mesh`` (sharding, a later slice), plus
 ``--device``.  Unknown ``--backward``/``--solver`` values are rejected
 with the registered names.  ``--metrics-prom-out`` keeps a Prometheus text
@@ -77,9 +79,6 @@ def main(argv=None) -> None:
                          "before rolling back to the last checkpoint")
     args = ap.parse_args(argv)
 
-    if not args.deq:
-        raise SystemExit("repro_torch trains the DEQ model so far: pass "
-                         "--deq")
     device = resolve_device(args.device)
     if args.metrics_out or args.metrics_prom_out:
         obs_metrics.set_enabled(True)
@@ -87,18 +86,19 @@ def main(argv=None) -> None:
         obs_tracing.set_enabled(True)
     flusher = (obs_metrics.PromFlusher(args.metrics_prom_out).start()
                if args.metrics_prom_out else None)
-    cfg = smoke_config(args.arch, deq=True) if args.smoke \
-        else get_config(args.arch, deq=True)
-    deq = cfg.deq
-    if args.backward:
-        deq = dataclasses.replace(deq, backward=args.backward)
-    if args.solver:
-        deq = dataclasses.replace(deq, solver=args.solver)
-    if args.qn_dtype:
-        deq = dataclasses.replace(deq, qn_dtype=args.qn_dtype)
-    if args.no_guard:
-        deq = dataclasses.replace(deq, guard=False)
-    cfg = dataclasses.replace(cfg, deq=deq)
+    cfg = smoke_config(args.arch, deq=args.deq) if args.smoke \
+        else get_config(args.arch, deq=args.deq)
+    if args.backward or args.solver or args.qn_dtype or args.no_guard:
+        deq = cfg.deq
+        if args.backward:
+            deq = dataclasses.replace(deq, backward=args.backward)
+        if args.solver:
+            deq = dataclasses.replace(deq, solver=args.solver)
+        if args.qn_dtype:
+            deq = dataclasses.replace(deq, qn_dtype=args.qn_dtype)
+        if args.no_guard:
+            deq = dataclasses.replace(deq, guard=False)
+        cfg = dataclasses.replace(cfg, deq=deq)
 
     tcfg = TrainConfig(
         steps=args.steps, global_batch=args.batch, seq_len=args.seq,
@@ -115,8 +115,11 @@ def main(argv=None) -> None:
              else "cpu")
     n_params = sum(math.prod(d.shape) for d in tree_leaves(
         lm.model_decl(cfg)))
-    print(f"arch={cfg.name} params={n_params / 1e6:.1f}M deq=True "
-          f"backward={cfg.deq.backward} device={where}")
+    print(f"arch={cfg.name} params={n_params / 1e6:.1f}M "
+          f"deq={cfg.deq.enabled} "
+          + (f"backward={cfg.deq.backward} " if cfg.deq.enabled
+             else f"remat={cfg.remat} ")
+          + f"device={where}")
     batches = make_lm_batch_iterator(cfg, args.batch, args.seq,
                                      seed=args.seed, device=device)
     state = trainer.run(batches, steps=args.steps)

@@ -24,7 +24,7 @@ class ParamDecl:
     model's dtype, as the JAX package's ``init_tree`` casts it)."""
 
     shape: tuple[int, ...]
-    init: str = "fan_in"  # fan_in | ones | normal
+    init: str = "fan_in"  # fan_in | ones | zeros | normal
     scale: float = 1.0
 
 

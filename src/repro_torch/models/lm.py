@@ -1,16 +1,22 @@
 """The language model: parameters, the layer stack, the SHINE DEQ, serving.
 
-The port of ``repro/models/lm.py`` for the dense and MoE families, with
-GQA or MLA attention.  A model is a list of *stack groups*, each ``count``
-blocks of one kind stored stacked (a leading ``layers`` axis):
+The port of ``repro/models/lm.py`` for the dense, MoE and hybrid
+families, with GQA or MLA attention.  A model is a list of *stack groups*,
+each ``count`` blocks of one kind stored stacked (a leading ``layers``
+axis):
 
   * dense: ``attn_mlp`` blocks (attention + SwiGLU);
   * moe: ``first_k_dense`` ``attn_mlp`` blocks (of width ``dense_d_ff``),
     then ``attn_moe`` blocks (attention + fine-grained MoE, whose aux losses
-    the stack sums).
+    the stack sums);
+  * hybrid (Zamba2): ``zamba_unit``s, each ``ssm.attn_every`` Mamba2
+    layers (a second stacked axis inside the unit) then one SHARED
+    attention + MLP block (``shared_attn``, weight-tied across units).
 
 Without the DEQ (``cfg.deq.enabled`` false) the groups run layer by layer
-(:func:`apply_stack`).  With it, the stack is a weight-tied group of
+(:func:`apply_stack`); in training each unit is rematerialised as
+``cfg.remat`` says (``_remat_wrap``: ``full`` recomputes the whole unit in
+the backward, ``dots`` keeps only its matmul outputs).  With it, the stack is a weight-tied group of
 ``cfg.deq.num_blocks`` blocks of the family's kind solved to a fixed point
 with input injection,
 
@@ -26,9 +32,12 @@ assembled by :func:`prefix_seed_carry` or :func:`prefix_gather_carry`, and
 seeds the decode carry with its last token); :func:`decode_step` runs one
 new token per row against the cache (for the DEQ: solved with inactive
 rows frozen, warm started from the carried equilibrium and quasi-Newton
-ring, then the cache refreshed once at ``z*``).  The reference's
-``_remat_wrap`` (rematerialisation in training) comes with the MoE training
-slice; the hybrid, SSM, audio and VLM families with theirs.
+ring, then the cache refreshed once at ``z*``).  Attention caches are
+written in place by the attention; a Mamba state is read then replaced,
+so ``mamba2_block`` returns a new one and the stack stores it
+(``_store``): inside a DEQ solve every evaluation starts from the frozen
+state and only the final pass at ``z*`` stores it.  The SSM, audio and
+VLM families come with their slices.
 
 Parameters are a plain dict with the JAX package's tree and layouts
 (``group{i}`` or ``deq_blocks`` trees), so :func:`params_from_jax` converts
@@ -38,10 +47,12 @@ a JAX ``init_params`` tree leaf for leaf.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.lowrank import LowRank
@@ -52,6 +63,7 @@ from repro_torch.implicit.engine import batched_solve
 from repro_torch.implicit.fixed_point import implicit_fixed_point
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     ParamDecl,
     act_dtype,
@@ -71,22 +83,30 @@ from repro_torch.models.layers import (
 
 @dataclasses.dataclass(frozen=True)
 class StackGroup:
-    kind: str       # attn_mlp | attn_moe
+    kind: str       # attn_mlp | attn_moe | zamba_unit
     count: int      # number of stacked blocks
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe") or cfg.attn_type not in ("gqa",
-                                                                    "mla"):
+    if cfg.family not in ("dense", "moe", "hybrid") or cfg.attn_type not in (
+            "gqa", "mla") or (cfg.family == "hybrid"
+                              and cfg.attn_type != "gqa"):
         raise NotImplementedError(
-            f"repro_torch serves the dense and MoE families with GQA or MLA "
-            f"so far; {cfg.name} is {cfg.family}/{cfg.attn_type}")
+            f"repro_torch runs the dense and MoE families with GQA or MLA "
+            f"and the hybrid family with GQA so far; {cfg.name} is "
+            f"{cfg.family}/{cfg.attn_type}")
 
 
 def stack_groups(cfg: ModelConfig) -> list[StackGroup]:
     _check_family(cfg)
     if cfg.family == "dense":
         return [StackGroup("attn_mlp", cfg.num_layers)]
+    if cfg.family == "hybrid":
+        period = cfg.ssm.attn_every or cfg.num_layers
+        if cfg.num_layers % period:
+            raise ValueError(f"{cfg.num_layers} layers are no multiple of "
+                             f"attn_every {period}")
+        return [StackGroup("zamba_unit", cfg.num_layers // period)]
     groups = []
     if cfg.moe.first_k_dense:
         groups.append(StackGroup("attn_mlp", cfg.moe.first_k_dense))
@@ -96,7 +116,8 @@ def stack_groups(cfg: ModelConfig) -> list[StackGroup]:
 
 
 def _deq_kind(cfg: ModelConfig) -> str:
-    return {"dense": "attn_mlp", "moe": "attn_moe"}[cfg.family]
+    return {"dense": "attn_mlp", "moe": "attn_moe",
+            "hybrid": "zamba_unit"}[cfg.family]
 
 
 def _stack(decl: dict, count: int) -> dict:
@@ -119,6 +140,10 @@ def _unit_decl(cfg: ModelConfig, kind: str) -> dict:
     if kind == "attn_moe":
         return {"ln1": norm_decl(cfg.d_model), "attn": _attn_decl(cfg),
                 "ln2": norm_decl(cfg.d_model), "moe": moe_mod.moe_decl(cfg)}
+    if kind == "zamba_unit":
+        return {"mamba": _stack({"ln": norm_decl(cfg.d_model),
+                                 "m": ssm_mod.mamba2_decl(cfg)},
+                                cfg.ssm.attn_every)}
     raise ValueError(kind)
 
 
@@ -135,6 +160,10 @@ def model_decl(cfg: ModelConfig) -> dict:
     else:
         for i, grp in enumerate(stack_groups(cfg)):
             decl[f"group{i}"] = _stack(_unit_decl(cfg, grp.kind), grp.count)
+    if cfg.family == "hybrid":
+        decl["shared_attn"] = {
+            "ln1": norm_decl(cfg.d_model), "attn": _attn_decl(cfg),
+            "ln2": norm_decl(cfg.d_model), "mlp": mlp_decl(cfg)}
     return decl
 
 
@@ -142,11 +171,14 @@ def _init_leaf(d: ParamDecl, gen: torch.Generator, device,
                dtype: torch.dtype) -> torch.Tensor:
     """One leaf in ``dtype``.  A leaf of 4 or more dims (a stacked layer
     axis over the experts' weights: DeepSeek-V2-Lite's ``wi_g`` is 26 x 64
-    x 2048 x 1408, 19 GB in f32) is drawn one layer at a time and cast as
-    it goes, so its f32 draw never exists whole; every other leaf is drawn
-    whole in f32 and cast."""
+    x 2048 x 1408, 19 GB in f32; Zamba2's units over their Mamba layers:
+    ``w_z`` is 9 x 6 x 2560 x 5120) is drawn one layer at a time and cast
+    as it goes, so its f32 draw never exists whole; every other leaf is
+    drawn whole in f32 and cast."""
     if d.init == "ones":
         return torch.ones(d.shape, device=device, dtype=dtype)
+    if d.init == "zeros":
+        return torch.zeros(d.shape, device=device, dtype=dtype)
     if d.init not in ("normal", "fan_in"):
         raise ValueError(f"unknown init {d.init!r}")
     # fan-in = product of all dims except the last (as the JAX package's
@@ -224,10 +256,19 @@ def _apply_attention(params, x, cfg, positions, cache, cache_index):
 
 
 def apply_unit(kind: str, params: dict, x: torch.Tensor, cfg: ModelConfig,
-               positions: torch.Tensor, cache=None, cache_index=None):
-    """One pre-norm block: attention, then SwiGLU (``attn_mlp``) or the MoE
-    (``attn_moe``).  Returns ``(x, new_cache, aux)``; ``aux`` holds the
-    MoE's ``moe_aux`` and ``moe_z`` (empty for ``attn_mlp``)."""
+               positions: torch.Tensor, cache=None, cache_index=None,
+               shared: dict | None = None):
+    """One stack unit.  ``attn_mlp``/``attn_moe``: a pre-norm block,
+    attention then SwiGLU or the MoE.  ``zamba_unit``: ``attn_every``
+    pre-norm Mamba2 layers, then the ``shared`` attention + MLP block.
+    Returns ``(x, new_cache, aux)``; ``aux`` holds the MoE's ``moe_aux`` and
+    ``moe_z`` (empty otherwise).  A zamba unit's ``new_cache`` is ``{"mamba":
+    MambaCache stacked over its layers (new tensors), "attn": the KVCache
+    written in place}``; storing the Mamba part is the caller's
+    (``_store``)."""
+    if kind == "zamba_unit":
+        return _apply_zamba_unit(params, x, cfg, positions, cache,
+                                 cache_index, shared)
     if kind not in ("attn_mlp", "attn_moe"):
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     a_out, new_kv = _apply_attention(
@@ -241,9 +282,82 @@ def apply_unit(kind: str, params: dict, x: torch.Tensor, cfg: ModelConfig,
     return x + m_out, new_kv, aux
 
 
-def _block(p_blocks: dict, j: int) -> dict:
-    return {k: (_block(v, j) if isinstance(v, dict) else v[j])
-            for k, v in p_blocks.items()}
+def _apply_zamba_unit(params, x, cfg, positions, cache, cache_index,
+                      shared):
+    eps = cfg.norm_eps
+    states, convs = [], []
+    for j in range(cfg.ssm.attn_every):
+        pj = _block(params["mamba"], j)
+        cj = None if cache is None else _block(cache["mamba"], j)
+        out, mc = ssm_mod.mamba2_block(pj["m"], rmsnorm(pj["ln"], x, eps),
+                                       cfg, cj)
+        x = x + out
+        if mc is not None:
+            states.append(mc.state)
+            convs.append(mc.conv)
+    a_out, new_kv = _apply_attention(
+        shared["attn"], rmsnorm(shared["ln1"], x, eps), cfg, positions,
+        None if cache is None else cache["attn"], cache_index)
+    x = x + a_out
+    x = x + mlp(shared["mlp"], rmsnorm(shared["ln2"], x, eps))
+    new_cache = None
+    if cache is not None:
+        new_cache = {"mamba": ssm_mod.MambaCache(torch.stack(states),
+                                                 torch.stack(convs)),
+                     "attn": new_kv}
+    return x, new_cache, {}
+
+
+def _block(tree, j: int):
+    """Entry ``j`` of every leaf of a stacked tree (dicts and NamedTuples
+    of tensors, as parameters and caches are), as views."""
+    if isinstance(tree, dict):
+        return {k: _block(v, j) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(_block(v, j) for v in tree))
+    return tree[j]
+
+
+def _store(dst, src) -> None:
+    """Copy a unit's new cache ``src`` into its cache ``dst`` in place,
+    leaf by leaf; a leaf the unit wrote in place (``src`` is ``dst``'s own
+    tensor: the attention's k/v) is left alone."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _store(dst[k], src[k])
+    elif isinstance(dst, tuple):
+        for a, b in zip(dst, src):
+            _store(a, b)
+    elif src is not dst:
+        dst.copy_(src)
+
+
+def _remat_wrap(fn, cfg: ModelConfig, train: bool):
+    """``fn`` rematerialised for training, as ``cfg.remat`` says: ``full``
+    keeps only its inputs and recomputes it in the backward; ``dots``
+    keeps the outputs of its matmuls (``aten.mm``/``bmm``/``addmm``) and
+    recomputes the rest; ``none`` (or ``train=False``) keeps everything."""
+    if not train or cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"remat={cfg.remat!r}; expected none | full | dots")
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            torch.utils.checkpoint.create_selective_checkpoint_contexts,
+            _save_dots)
+    return functools.partial(torch.utils.checkpoint.checkpoint, fn,
+                             use_reentrant=False, **kw)
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``dots`` policy: the counterpart of JAX's ``checkpoint_dots``."""
+    cp = torch.utils.checkpoint.CheckpointPolicy
+    return cp.MUST_SAVE if op in _DOTS else cp.PREFER_RECOMPUTE
 
 
 def _deq_cfg(cfg: ModelConfig) -> ImplicitConfig:
@@ -277,24 +391,34 @@ def _deq_aux(out, carry) -> dict:
 
 
 def apply_stack(params, x, cfg: ModelConfig, positions, caches=None,
-                cache_index=None, active=None, carry=None):
+                cache_index=None, train: bool = True, active=None,
+                carry=None):
     """Run every stack group.  Returns ``(x, caches, aux)``.
 
-    Without the DEQ the groups run layer by layer (each layer's cache rows
-    written in place) and ``aux`` holds the MoE losses summed over the
-    layers; ``active`` and ``carry`` are the DEQ's (:func:`_apply_deq`)."""
+    Without the DEQ the groups run unit by unit (each unit's cache rows
+    stored in place), rematerialised when ``train`` (``_remat_wrap``), and
+    ``aux`` holds the MoE losses summed over the layers; ``active`` and
+    ``carry`` are the DEQ's (:func:`_apply_deq`)."""
     if cfg.deq.enabled:
         return _apply_deq(params, x, cfg, positions, caches, cache_index,
                           active=active, carry=carry)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux = {"moe_aux": zero, "moe_z": zero}
+    shared = params.get("shared_attn")
     for i, grp in enumerate(stack_groups(cfg)):
         gp = params[f"group{i}"]
         gc = None if caches is None else caches[f"group{i}"]
+
+        def body(xc, lp, lc, kind=grp.kind):
+            return apply_unit(kind, lp, xc, cfg, positions, lc, cache_index,
+                              shared)
+
+        wrapped = _remat_wrap(body, cfg, train)
         for j in range(grp.count):
-            lc = None if gc is None else attn.KVCache(gc.k[j], gc.v[j])
-            x, _, a = apply_unit(grp.kind, _block(gp, j), x, cfg, positions,
-                                 lc, cache_index)
+            lc = None if gc is None else _block(gc, j)
+            x, nc, a = wrapped(x, _block(gp, j), lc)
+            if lc is not None:
+                _store(lc, nc)
             aux = {k: aux[k] + a[k] if k in a else aux[k] for k in aux}
     return x, caches, aux
 
@@ -309,6 +433,12 @@ def _apply_deq(params, x_emb, cfg, positions, caches=None, cache_index=None,
     Returns ``(z*, caches, aux)``."""
     nb = cfg.deq.num_blocks
     kind = _deq_kind(cfg)
+    # the shared block is a differentiated parameter of the solve, beside
+    # the tied blocks: reached through f's closure, the implicit backward
+    # would not see it and its gradient would come out zero
+    p_all = {"blocks": params["deq_blocks"]}
+    if "shared_attn" in params:
+        p_all["shared"] = params["shared_attn"]
     # cold start AT the injection: f(x) = x + C(x) is one free Picard step
     z0 = x_emb
     if caches is None:
@@ -317,39 +447,43 @@ def _apply_deq(params, x_emb, cfg, positions, caches=None, cache_index=None,
             h = z
             for j in range(nb):
                 h, _, _ = apply_unit(kind, _block(p["blocks"], j), h, cfg,
-                                     pos)
+                                     pos, shared=p.get("shared"))
             return x_in + (h - z)
 
-        out = implicit_fixed_point(f, {"blocks": params["deq_blocks"]},
-                                   (x_emb, positions), z0, _deq_cfg(cfg),
-                                   carry=carry)
+        out = implicit_fixed_point(f, p_all, (x_emb, positions), z0,
+                                   _deq_cfg(cfg), carry=carry)
         return out[0], None, _deq_aux(out, carry)
 
-    blocks = [_block(params["deq_blocks"], j) for j in range(nb)]
-    kc, vc = caches["deq"]
+    p_dec = dict(p_all, blocks=[_block(params["deq_blocks"], j)
+                                for j in range(nb)])
+    unit_caches = [_block(caches["deq"], j) for j in range(nb)]
 
     def f_dec(p, xin, z):
+        # every evaluation reads the frozen caches: the attention writes
+        # this step's k/v at cidx (the same rows each time), a Mamba
+        # state is not stored
         x_in, pos, cidx = xin
         h = z
         for j in range(nb):
-            h, _, _ = apply_unit(kind, p[j], h, cfg, pos,
-                                 attn.KVCache(kc[j], vc[j]), cidx)
+            h, _, _ = apply_unit(kind, p["blocks"][j], h, cfg, pos,
+                                 unit_caches[j], cidx, p.get("shared"))
         return x_in + (h - z)
 
     xin = (x_emb, positions, cache_index)
     if active is not None:
-        out = batched_solve(f_dec, blocks, xin, z0, _deq_cfg(cfg),
+        out = batched_solve(f_dec, p_dec, xin, z0, _deq_cfg(cfg),
                             valid=active, carry=carry)
     else:
-        out = implicit_fixed_point(f_dec, blocks, xin, z0, _deq_cfg(cfg),
+        out = implicit_fixed_point(f_dec, p_dec, xin, z0, _deq_cfg(cfg),
                                    carry=carry)
     z_star = out[0]
-    # one more pass writes the caches at the fixed point (the state IS the
+    # one more pass stores the caches at the fixed point (the state IS the
     # block-input stream under input injection)
     h = z_star
     for j in range(nb):
-        h, _, _ = apply_unit(kind, blocks[j], h, cfg, positions,
-                             attn.KVCache(kc[j], vc[j]), cache_index)
+        h, nc, _ = apply_unit(kind, p_dec["blocks"][j], h, cfg, positions,
+                              unit_caches[j], cache_index, p_dec.get("shared"))
+        _store(unit_caches[j], nc)
     return z_star, caches, _deq_aux(out, carry)
 
 
@@ -358,18 +492,19 @@ def _apply_deq(params, x_emb, cfg, positions, caches=None, cache_index=None,
 # ---------------------------------------------------------------------------
 
 
-def forward(params, batch: dict, cfg: ModelConfig,
+def forward(params, batch: dict, cfg: ModelConfig, train: bool = True,
             carry: SolveCarry | None = None):
     """Full-sequence forward of ``batch["tokens"] (B, S)``.  Returns
-    ``(logits (B, S, V), aux)``; ``carry`` warm-starts the DEQ solve and
-    the updated one comes back under ``aux["solve_carry"]``."""
+    ``(logits (B, S, V), aux)``; ``train`` rematerialises the layer stack
+    (``cfg.remat``); ``carry`` warm-starts the DEQ solve and the updated
+    one comes back under ``aux["solve_carry"]``."""
     _check_family(cfg)
     tokens = batch["tokens"]
     x = embed_tokens(params["embed"], tokens, cfg)
     b, s = x.shape[:2]
     pos = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(
         b, s)
-    z, _, aux = apply_stack(params, x, cfg, pos, carry=carry)
+    z, _, aux = apply_stack(params, x, cfg, pos, train=train, carry=carry)
     z = rmsnorm(params["final_norm"], z, cfg.norm_eps)
     return lm_logits(params["embed"], z, cfg), aux
 
@@ -381,7 +516,7 @@ def loss_fn(params, batch: dict, cfg: ModelConfig, z_loss: float = 1e-4,
     z-losses.  Returns ``(loss, metrics)``; the metrics hold the loss terms
     and the stack's aux (the DEQ solve's, ``solve_carry`` among them when a
     carry is given)."""
-    logits, aux = forward(params, batch, cfg, carry=carry)
+    logits, aux = forward(params, batch, cfg, train=True, carry=carry)
     loss, metrics = cross_entropy(logits, batch["targets"], z_loss)
     if "moe_aux" in aux:
         loss = (loss + cfg.moe.aux_weight * aux["moe_aux"]
@@ -396,30 +531,42 @@ def loss_fn(params, batch: dict, cfg: ModelConfig, z_loss: float = 1e-4,
 # ---------------------------------------------------------------------------
 
 
-def _unit_cache(cfg: ModelConfig, count: int, batch: int, max_len: int,
-                device) -> attn.KVCache:
+def _unit_cache(cfg: ModelConfig, kind: str, count: int, batch: int,
+                max_len: int, device):
+    """Zero caches of ``count`` stacked units of ``kind``."""
+    dt = act_dtype(cfg)
     if cfg.attn_type == "mla":
         k_shape, v_shape = attn.mla_cache_shapes(cfg, batch, max_len)
     else:
         k_shape = v_shape = attn.gqa_cache_shape(cfg, batch, max_len)
-    dt = act_dtype(cfg)
-    return attn.KVCache(
+    kv = attn.KVCache(
         torch.zeros((count,) + k_shape, dtype=dt, device=device),
         torch.zeros((count,) + v_shape, dtype=dt, device=device))
+    if kind != "zamba_unit":
+        return kv
+    m = ssm_mod.mamba2_cache_shape(cfg, batch, device)
+    lead = (count, cfg.ssm.attn_every)
+    return {"mamba": ssm_mod.MambaCache(
+        *(torch.zeros(lead + tuple(t.shape), dtype=t.dtype, device=device)
+          for t in m)), "attn": kv}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
-    """Zero caches, one ``KVCache`` per stack: ``{"deq": ...}`` stacked over
-    the DEQ's ``num_blocks``, or ``{"group{i}": ...}`` stacked over each
-    group's layers; GQA holds k/v ``(count, B, max_len, KV, hd)``, MLA the
-    latents ``c_kv (count, B, max_len, rank)`` and ``k_pe (count, B,
-    max_len, rope_dim)``."""
+    """Zero caches, one tree per stack: ``{"deq": ...}`` stacked over the
+    DEQ's ``num_blocks``, or ``{"group{i}": ...}`` stacked over each
+    group's units.  An attention unit's is a ``KVCache``: GQA holds k/v
+    ``(count, B, max_len, KV, hd)``, MLA the latents ``c_kv (count, B,
+    max_len, rank)`` and ``k_pe (count, B, max_len, rope_dim)``.  A zamba
+    unit's is ``{"mamba": MambaCache(state (count, attn_every, B, H, P, N)
+    f32, conv (count, attn_every, B, d_conv - 1, conv_dim)), "attn":
+    KVCache}`` (the shared block's k/v per unit)."""
     _check_family(cfg)
     dev = resolve_device(device)
     if cfg.deq.enabled:
-        return {"deq": _unit_cache(cfg, cfg.deq.num_blocks, batch, max_len,
-                                   dev)}
-    return {f"group{i}": _unit_cache(cfg, grp.count, batch, max_len, dev)
+        return {"deq": _unit_cache(cfg, _deq_kind(cfg), cfg.deq.num_blocks,
+                                   batch, max_len, dev)}
+    return {f"group{i}": _unit_cache(cfg, grp.kind, grp.count, batch,
+                                     max_len, dev)
             for i, grp in enumerate(stack_groups(cfg))}
 
 
@@ -564,7 +711,7 @@ def prefill(params, batch: dict, cfg: ModelConfig, max_len: int, *,
             prefix_carry,
             z=torch.where(pmask, prefix_carry.z.to(x.dtype), x))
     z, caches, aux = apply_stack(params, x, cfg, pos, caches, idx0,
-                                 carry=solve_carry)
+                                 train=False, carry=solve_carry)
     # for the DEQ the stack's output IS the equilibrium z*
     z_last = z[:, -1:, :]
     x = rmsnorm(params["final_norm"], z, cfg.norm_eps)
@@ -599,7 +746,7 @@ def decode_step(params, caches, tokens: torch.Tensor,
     x = embed_tokens(params["embed"], tokens[:, None], cfg)
     pos = cache_index[:, None].int()
     z, caches, aux = apply_stack(params, x, cfg, pos, caches, cache_index,
-                                 active=active, carry=carry)
+                                 train=False, active=active, carry=carry)
     x = rmsnorm(params["final_norm"], z, cfg.norm_eps)
     logits = lm_logits(params["embed"], x, cfg)
     out = ((logits[:, 0], caches) if carry is None

@@ -908,15 +908,21 @@ class ServeLoop:
         return reqs
 
 
-def cache_leaves(caches: dict) -> list[torch.Tensor]:
-    """The tensors of a cache tree (``lm.init_cache``), in a fixed order."""
-    return [t for c in caches.values() for t in c]
+def cache_leaves(caches) -> list[torch.Tensor]:
+    """The tensors of a cache tree (``lm.init_cache``: dicts in their
+    insertion order, NamedTuples in their field order), in a fixed order."""
+    if isinstance(caches, dict):
+        return [t for c in caches.values() for t in cache_leaves(c)]
+    if isinstance(caches, tuple):
+        return [t for c in caches for t in cache_leaves(c)]
+    return [caches]
 
 
 def cache_batch_axes(cfg: ModelConfig) -> list[int]:
     """The batch axis of each of :func:`cache_leaves`, probed once from the
     shapes of a one-row and a two-row cache (-1: a leaf without one), as
-    the reference probes it."""
+    the reference probes it: axis 1 under a stacked layer axis, axis 2 for
+    the Mamba leaves under a unit's two stacked axes."""
     one = cache_leaves(lm.init_cache(cfg, 1, 1, "cpu"))
     two = cache_leaves(lm.init_cache(cfg, 2, 1, "cpu"))
     return [next((i for i, (x, y) in enumerate(zip(a.shape, b.shape))

@@ -65,7 +65,23 @@ def test_config_copies_equal_the_jax_package(make, deq):
             == (want.padded_vocab, want.head_dim_, want.attn_dim,
                 want.kv_dim)
     assert set(treg.ARCHS) == {n for n, c in jreg.ARCHS.items()
-                               if c.family in ("dense", "moe")}
+                               if c.family in ("dense", "moe", "hybrid")}
+
+
+@pytest.mark.parametrize("make", ["get_config", "smoke_config"])
+def test_zamba2_config_copy_equals_the_jax_package(make):
+    want = getattr(jreg, make)("zamba2-2.7b")
+    got = getattr(treg, make)("zamba2-2.7b")
+    assert _fields(type(got.ssm)) == _fields(type(want.ssm))
+    assert dataclasses.asdict(got.ssm) == dataclasses.asdict(want.ssm)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.family == "hybrid"
+    if make == "get_config":  # the published widths and depth
+        assert (got.num_layers, got.d_model, got.head_dim_, got.ssm.chunk,
+                got.ssm.attn_every) == (54, 2560, 80, 256, 6)
+    else:  # two units of three, the reference's smoke cut
+        assert (got.num_layers, got.ssm.d_state, got.ssm.head_dim,
+                got.ssm.chunk, got.ssm.attn_every) == (6, 16, 16, 16, 3)
 
 
 def test_train_config_copy_equals_the_jax_package():
@@ -93,7 +109,9 @@ def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch):
 
 
 NEW_MODULES = ("runtime/faultinject.py", "core/bilevel.py", "core/deq.py",
-               "core/hypergrad.py", "models/mdeq.py", "configs/mdeq_cifar.py")
+               "core/hypergrad.py", "models/mdeq.py", "configs/mdeq_cifar.py",
+               "models/ssm.py", "configs/zamba2_2p7b.py", "models/lm.py",
+               "launch/train.py")
 
 
 @pytest.mark.parametrize("path", NEW_MODULES)
@@ -131,3 +149,17 @@ def test_paper_workload_configs_equal_the_jax_package(pair):
     if hasattr(want(), "to_implicit"):
         assert dataclasses.asdict(got().to_implicit()) == \
             dataclasses.asdict(want().to_implicit())
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    """``chip_smoke.py`` copied into a directory that holds nothing else of
+    the repository exits non-zero and prints no result line (it needs the
+    checkout's ``src/``); the same holds wherever there is no card."""
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text(open(os.path.join(REPO, "chip_smoke.py")).read())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, str(alone)], capture_output=True,
+                         text=True, env=env, timeout=120, cwd=tmp_path)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+    assert "repro_torch" in out.stderr

@@ -626,3 +626,34 @@ def test_trace_check_passes_overlapping_steps():
 def test_trace_check_rejects(wrong):
     with pytest.raises(AssertionError):
         chip_smoke.check_trace_phases({"traceEvents": TRACE_MUTANTS[wrong]})
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "deepseek-v2-lite-16b",
+                                  "deepseek-moe-16b"])
+@pytest.mark.parametrize("remat", ["full", "none"])
+def test_forward_launches_count_a_train_step(monkeypatch, arch, remat):
+    """``chip_smoke._forward_launches``, the launch counts the layer-stack
+    train phases hold each step to, against the calls of the kernel ops a
+    smoke train step makes on the CPU (on the card each call is one
+    launch): one forward's, and one recompute of every unit under
+    ``remat="full"``; the autograd wrappers' backwards call no kernel."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    calls = {"rmsnorm": 0, "flash_attention": 0}
+    for op, key in (("rmsnorm", "rmsnorm"), ("attention", "flash_attention")):
+        orig = getattr(ops, op)
+
+        def counted(*a, _orig=orig, _key=key, **k):
+            calls[_key] += 1
+            return _orig(*a, **k)
+
+        monkeypatch.setattr(ops, op, counted)
+    cfg = dataclasses.replace(smoke_config(arch), dtype="float32",
+                              remat=remat)
+    tcfg = TrainConfig(steps=1, global_batch=2, seq_len=16)
+    state = steps.init_train_state(cfg, tcfg, device="cpu")
+    batch = next(make_lm_batch_iterator(cfg, 2, 16, seed=0, device="cpu"))
+    steps.build_train_step(cfg, tcfg)(state, batch)
+    fwd = chip_smoke._forward_launches(cfg)
+    assert calls == {k: fwd[k] + (fwd["inside"][k] if remat == "full"
+                                  else 0) for k in calls}
