@@ -16,7 +16,9 @@ Phases, one line (or a few) each:
      shapes the serving and training paths give it (qN ring m=8, B=4,
      D=S*2304 for S in {1, 256}, bf16: broyden_step, qn_apply_multi with
      (False,), (False, True) and the SHINE backward's (True,), qn_apply,
-     lowrank_append; attention B=4, S=256, 36 heads x 64; decode over a
+     lowrank_append; the same checks, untimed, at the xLSTM DEQ drain's
+     rings, D=S*2048 at (S, B) (1, 4), (64, 2), (128, 2) (``XLSTM_QN``);
+     attention B=4, S=256, 36 heads x 64; decode over a
      1024-token cache with mixed lengths; rmsnorm at ``RMS_SHAPES``, bf16
      and f32, each bf16 shape timed in turns against ``F.rms_norm``): max
      error
@@ -176,16 +178,30 @@ Phases, one line (or a few) each:
      weights x0.3; every serve-path kernel launches, solve steps and
      statuses reported); the smoke config card against CPU in f32 (a
      drain, 3 train steps);
- 14. training the layer stack (``phase_train_stack``): DeepSeek-V2-Lite
+ 14. the SSM family (``phase_xlstm``): xLSTM-1.3B at its published widths
+     and full depth (42 mLSTM and 6 sLSTM layers, d 2048, 4 heads, mLSTM
+     inner 4096 in heads of 1024, chunk 256; 2.02 B parameters), bf16,
+     random weights from seed 0, the layer stack, no attention: the drains,
+     profiled ticks and cache check of step 13 (rmsnorm launches, neither
+     attention kernel does); the chunked mLSTM cell (at unit-scale inputs)
+     and unit 0's hoisted sLSTM against their sequential oracles in f32 at
+     S 300; 4 AdamW steps at 4 x 512 with ``remat="full"`` (launches held
+     to ``_forward_launches``), after which the caller's weights are bit
+     for bit as they were, and one traced at 4 x 64; an
+     async drain of the DEQ form (4 tied ``xlstm_unit``s x0.3, prompts of
+     64 and 128 tokens; both qN kernels launch); the smoke config card
+     against CPU in f32 (a drain, 3 train steps);
+ 15. training the layer stack (``phase_train_stack``): DeepSeek-V2-Lite
      and DeepSeekMoE-16B at full width cut to 4 layers, 3 AdamW steps of 4
      x 256 with ``remat="full"`` and again with ``"none"`` from the same
      weights, held at ``hold_trajectory``'s tolerances; peak memory and
-     launches of both;
- 15. a ``{"kernels": [...]}`` line (with each kernel's launches in the
+     launches of both, each train run's peak printed beside the one
+     measured when AdamW still built a second copy of the state;
+ 16. a ``{"kernels": [...]}`` line (with each kernel's launches in the
      step 8 arms, in arm c of step 4, in the MDEQ SGD steps, in the
      V2-Lite async drain of step 12, in the Zamba2 async drain and train
-     steps of step 13), then the last line ``{"ok": true,
-     "device": {...}}``.
+     steps of step 13, in the xLSTM async drain and train steps of step
+     14), then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the last
 line.  It imports nothing of JAX; it needs the repository's ``src/`` beside
@@ -235,9 +251,11 @@ from repro_torch.implicit import solvers as implicit_solvers  # noqa: E402
 from repro_torch.launch import steps as train_steps  # noqa: E402
 from repro_torch.models import lm, mdeq  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
+from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
 from repro_torch.obs import metrics as obs_metrics  # noqa: E402
 from repro_torch.obs import tracing as obs_tracing  # noqa: E402
-from repro_torch.runtime.serving import Request, ServeLoop, serve_summary  # noqa: E402
+from repro_torch.runtime.serving import (  # noqa: E402
+    Request, ServeLoop, cache_batch_axes, serve_summary)
 from repro_torch.runtime.trainer import Trainer  # noqa: E402
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s and FLOP/s by operand type
@@ -917,10 +935,11 @@ def _qn_composition(u, v, x, beta, mask_t):
     return torch.baddbmm(xb, u.transpose(0, 1).transpose(1, 2), c, beta=beta)
 
 
-def qn_path_inputs(seq: int, gen) -> dict:
-    """The qN ops' inputs at the paths' ring: m=8, B=4, D=seq*2304, bf16
-    (``broyden_step``'s, and ``lowrank_append``'s hy, b, inv_den, upd)."""
-    m, bsz, dim = 8, 4, seq * 2304
+def qn_path_inputs(seq: int, gen, width: int = 2304, bsz: int = 4) -> dict:
+    """The qN ops' inputs at the paths' ring: m=8, ``bsz`` <= 4 rows,
+    D=seq*width, bf16 (``broyden_step``'s, and ``lowrank_append``'s hy, b,
+    inv_den, upd)."""
+    m, dim = 8, seq * width
     u, v, count, mask = _ring(m, bsz, dim, gen)
 
     def draw(*shape):
@@ -930,10 +949,11 @@ def qn_path_inputs(seq: int, gen) -> dict:
                 g=draw(bsz, dim), s=0.1 * draw(bsz, dim), hg=draw(bsz, dim),
                 alpha=torch.tensor(1.0, device="cuda"),
                 slot=(count % m).int(),
-                active=torch.tensor([True, True, False, True], device="cuda"),
+                active=torch.tensor([True, True, False, True][:bsz],
+                                    device="cuda"),
                 eps=1e-8, hy=draw(bsz, dim), bvec=draw(bsz, dim),
                 inv_den=draw(bsz),
-                upd=torch.tensor([1.0, 1.0, 0.0, 1.0], device="cuda"))
+                upd=torch.tensor([1.0, 1.0, 0.0, 1.0][:bsz], device="cuda"))
 
 
 def time_qn_ops(inp: dict) -> dict:
@@ -1010,7 +1030,35 @@ def kernel_qn(seq: int, gen) -> dict:
     """The qN kernels against their plain versions at the paths' ring
     (``qn_path_inputs``), then their cold-L2 times."""
     inp = qn_path_inputs(seq, gen)
-    m, bsz, dim = inp["m"], inp["bsz"], inp["dim"]
+    errs = check_qn_path(inp)
+    rows = time_qn_ops(inp)
+    for name, r in rows.items():
+        r["max_abs_err"] = errs[name]
+    return rows
+
+
+# the xLSTM DEQ drain's rings (d 2048, XLSTM_DEQ_PLENS over 4 slots):
+# (S, B) of decode over the 4 slots, and of the prefill waves of two
+# prompts of 64 and of 128
+XLSTM_QN = (2048, ((1, 4), (64, 2), (128, 2)))
+
+
+def kernel_qn_xlstm(gen) -> dict:
+    """The qN kernels against their plain versions at ``XLSTM_QN``'s rings,
+    at ``kernel_qn``'s tolerances: each kernel's largest error."""
+    width, shapes = XLSTM_QN
+    errs = {}
+    for seq, bsz in shapes:
+        for name, e in check_qn_path(qn_path_inputs(seq, gen, width,
+                                                    bsz)).items():
+            errs[name] = max(errs.get(name, 0.0), e)
+    return errs
+
+
+def check_qn_path(inp: dict) -> dict:
+    """The four qN wrappers on ``qn_path_inputs`` against their plain
+    versions: each one's largest error."""
+    m, bsz, dim, seq = inp["m"], inp["bsz"], inp["dim"], inp["seq"]
     d = dim // seq
     u, v, mask, g, s, hg = (inp[k] for k in ("u", "v", "mask", "g", "s",
                                               "hg"))
@@ -1020,29 +1068,30 @@ def kernel_qn(seq: int, gen) -> dict:
                                 eps)
     got = cuda_qn.broyden_step(u.clone(), v.clone(), g, s, hg, alpha, mask,
                                slot, active, eps)
-    err_b = check_broyden_step(f"broyden_step[S={seq}]", got, want, u, v,
+    tag = f"S={seq},d={d},B={bsz}"
+    err_b = check_broyden_step(f"broyden_step[{tag}]", got, want, u, v,
                                slot, active, eps)
     xs = g[None]
     row = lambda w: row_tol(w, 1e-3, 1e-4)  # noqa: E731
     want_q = ref.qn_apply_multi_ref(u, v, xs, alpha, mask, (False,))
     got_q = cuda_qn.qn_apply_multi(u, v, xs, alpha, mask, (False,))
-    err_q = check_close(f"qn_apply_multi[S={seq}]", got_q, want_q,
+    err_q = check_close(f"qn_apply_multi[{tag}]", got_q, want_q,
                         row(want_q))
     for flags, rhs in (((False, True), torch.stack([g, s])),
                        ((True,), xs)):  # (True,): the SHINE backward H^T w
         want_m = ref.qn_apply_multi_ref(u, v, rhs, alpha, mask, flags)
         got_m = cuda_qn.qn_apply_multi(u, v, rhs, alpha, mask, flags)
         err_q = max(err_q, check_close(
-            f"qn_apply_multi[S={seq},{flags}]", got_m, want_m, row(want_m)))
+            f"qn_apply_multi[{tag},{flags}]", got_m, want_m, row(want_m)))
     want_a = ref.qn_apply_ref(u, v, g, alpha, mask)
     got_a = cuda_qn.qn_apply(u, v, g, alpha, mask)
-    err_a = check_close(f"qn_apply[S={seq}]", got_a, want_a, row(want_a))
+    err_a = check_close(f"qn_apply[{tag}]", got_a, want_a, row(want_a))
     hy, bvec, inv_den, upd = (inp[k] for k in ("hy", "bvec", "inv_den",
                                                "upd"))
     want_l = ref.lowrank_append_ref(u, v, s, hy, bvec, inv_den, slot, upd)
     got_l = cuda_qn.lowrank_append(u.clone(), v.clone(), s, hy, bvec,
                                    inv_den, slot, upd)
-    err_l = check_lowrank_append(f"lowrank_append[S={seq}]", got_l, want_l,
+    err_l = check_lowrank_append(f"lowrank_append[{tag}]", got_l, want_l,
                                  u, v, slot, upd)
     errs = {"broyden_step": err_b, "qn_apply_multi": err_q,
             "qn_apply": err_a, "lowrank_append": err_l}
@@ -1052,10 +1101,7 @@ def kernel_qn(seq: int, gen) -> dict:
         tol={"broyden_step ring": "evicted and unwritten rows equal; slot "
              "rows rtol 2e-2, atol 2e-3 x row max", "outputs":
              "rtol 1e-3, atol 1e-4 x row max", "den": TOL_F32})
-    rows = time_qn_ops(inp)
-    for name, r in rows.items():
-        r["max_abs_err"] = errs[name]
-    return rows
+    return errs
 
 
 def kernel_qn_adjoint(gen) -> dict:
@@ -1387,13 +1433,15 @@ def kernel_attention_head_dims(gen) -> dict:
 # rmsnorm shapes (rows, D): the registry's widths at the paths' 1024 rows
 # (B=4 x S=256) and at the decode shape (4 slots) -- DeepSeek's 2048 and
 # MLA's kv_norm 512 among them; Zamba2's 2560 and its Mamba2 gated width
-# 5120 also at 2048 rows (its 4 x 512 training batch) -- a ragged row
-# count and a width with no vector instance (the generic kernel); the
+# 5120 also at 2048 rows (its 4 x 512 training batch); xLSTM-1.3B's 2048
+# at its 4 x 300 prefill wave and its 4 x 512 training batch -- a ragged
+# row count and a width with no vector instance (the generic kernel); the
 # first is the reported row
 RMS_SHAPES = [(1024, 2304), (1024, 2560), (1024, 3072), (1024, 6144),
               (1024, 2048), (1024, 512), (4, 2304), (4, 6144), (4, 2048),
               (4, 512), (1000, 2304), (1024, 64), (4, 2560), (1024, 5120),
-              (4, 5120), (2048, 2560), (2048, 5120)]
+              (4, 5120), (2048, 2560), (2048, 5120), (1200, 2048),
+              (2048, 2048)]
 
 
 def kernel_rmsnorm(gen) -> dict:
@@ -1517,6 +1565,8 @@ def phase_kernels() -> dict:
         for key in ("ms", "device_ms", "device_ms_warm", "bound_ms",
                     "plain_ms", "launches_per_call", "shape"):
             q[f"adjoint_{tag}_{key}"] = row[key]
+    for name, err in kernel_qn_xlstm(gen).items():
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
     kernel_qn_cases(gen)
     for name, row in kernel_qn_mdeq(gen).items():
         res[name]["max_abs_err"] = max(res[name]["max_abs_err"],
@@ -3247,7 +3297,8 @@ def limit_share(got: torch.Tensor, want: torch.Tensor, tol: dict) -> float:
 
 def check_cache_against_forward(params, cfg, bsz: int = 2,
                                 seq: int = 128, tol=CACHE_TOL, *,
-                                hold: bool = True) -> dict:
+                                hold: bool = True,
+                                leaves: bool = False) -> dict:
     """``tests/test_archs.py::test_prefill_decode_matches_forward`` at full
     width on the card, for each token seed of ``CACHE_SEEDS``: prefill over
     S tokens then one decode step against a full forward over S + 1 (last
@@ -3260,7 +3311,9 @@ def check_cache_against_forward(params, cfg, bsz: int = 2,
     the readings without holding them to ``tol``, beside the rounding
     floor of the forward itself: each row forwarded alone against the
     batch's forward at positions S - 1 and S (the same arithmetic at
-    another batch size, whose GEMMs may round in another order)."""
+    another batch size, whose GEMMs may round in another order).
+    ``leaves`` also holds the caches after the decode step against a
+    prefill over S + 1, layer by layer (``check_cache_leaves``)."""
     cfg = _dropless(cfg)
     seeds, counts = {}, {}
     for seed in CACHE_SEEDS:
@@ -3278,6 +3331,13 @@ def check_cache_against_forward(params, cfg, bsz: int = 2,
         dec, _ = lm.decode_step(params, caches, toks[:, seq], lens, cfg)
         counts.setdefault("decode", launches.counts())
         row = seeds[seed] = {}
+        if leaves:
+            _, want_caches, _ = lm.prefill(params, {"tokens": toks}, cfg,
+                                           MOE_MAX_LEN)
+            row["leaves"] = check_cache_leaves(
+                caches, want_caches, cfg, f"{cfg.name} {cfg.num_layers} "
+                f"layers {cfg.dtype} (seed {seed})")
+            del want_caches
         pairs = [("prefill", pre[:, -1], full[:, seq - 1], tol[0]),
                  ("decode", dec, full[:, seq], tol[1])]
         if not hold:
@@ -3302,6 +3362,43 @@ def check_cache_against_forward(params, cfg, bsz: int = 2,
                                       if n},
                 launches_per_decode={k: n for k, n in counts["decode"].items()
                                      if n})
+
+
+def _named_leaves(tree, path: str = "") -> list:
+    """``(path, tensor)`` for each leaf of a cache tree, in the order of
+    ``serving.cache_leaves``."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in _named_leaves(v, f"{path}{k}.")]
+    if isinstance(tree, tuple):
+        return [x for k, v in zip(tree._fields, tree)
+                for x in _named_leaves(v, f"{path}{k}.")]
+    return [(path.rstrip("."), tree)]
+
+
+def check_cache_leaves(got_tree, want_tree, cfg, name: str) -> dict:
+    """Every layer's slice of every cache leaf (the axes before the batch
+    axis index the layers) of ``got_tree`` against ``want_tree``'s, held
+    at ``_scaled_tol`` of that slice's own largest entry: a layer's state
+    is held whatever it adds to the residual stream.  Returns each leaf's
+    largest error, largest share of its limit and largest scale over its
+    layers."""
+    out = {}
+    for (path, got), (_, want), ax in zip(_named_leaves(got_tree),
+                                          _named_leaves(want_tree),
+                                          cache_batch_axes(cfg)):
+        g, w = got.flatten(0, ax - 1), want.flatten(0, ax - 1)
+        row = out[path] = dict(max_abs_err=0.0, limit_share=0.0, scale=0.0,
+                               layers=g.shape[0])
+        for i in range(g.shape[0]):
+            tol = _scaled_tol(w[i])
+            row["max_abs_err"] = max(row["max_abs_err"], check_close(
+                f"{name} cache {path}[{i}] vs prefill over S + 1", g[i],
+                w[i], tol))
+            row["limit_share"] = max(row["limit_share"],
+                                     limit_share(g[i], w[i], tol))
+            row["scale"] = max(row["scale"], w[i].abs().max().item())
+    return out
 
 
 def stack_parity(arch: str) -> dict:
@@ -3479,13 +3576,16 @@ def _hybrid_desc(cfg) -> str:
 def _forward_launches(cfg) -> dict:
     """Launches of one full-sequence forward of the layer stack (no DEQ):
     rmsnorm twice per block (twice per Mamba layer: its ln and its gated
-    norm; MLA's kv_norm once more) plus the final norm, flash attention
-    once per attention block; ``inside`` the same without the final norm
-    (what a rematerialised unit launches again in the backward)."""
+    norm; MLA's kv_norm once more; once per xLSTM layer) plus the final
+    norm, flash attention once per attention block (none in xLSTM);
+    ``inside`` the same without the final norm (what a rematerialised unit
+    launches again in the backward)."""
     if cfg.family == "hybrid":
         units = cfg.num_layers // cfg.ssm.attn_every
         norms = 2 * cfg.num_layers + 2 * units
         attn = units
+    elif cfg.family == "ssm":   # a pre-norm per mLSTM / sLSTM layer
+        norms, attn = cfg.num_layers, 0
     else:
         attn = cfg.num_layers
         norms = (3 if cfg.attn_type == "mla" else 2) * cfg.num_layers
@@ -3723,13 +3823,268 @@ def phase_hybrid(smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 15: training the layer stack with and without rematerialisation
+# phase 15: the SSM family (xLSTM-1.3B), served, trained and as a DEQ
+# ---------------------------------------------------------------------------
+
+XLSTM_ARCH = "xlstm-1.3b"
+# the hybrid phase's waves: a prompt of 128 is one mLSTM chunk of 128, 256
+# one full chunk, 300 pads to two (the second with state-neutral gates)
+XLSTM_PLENS = HYBRID_PLENS
+XLSTM_CACHE_SEQS = (128, 300)
+# the bf16 cache check is reported, not held: at the padded length only
+XLSTM_CACHE_SEQ_BF16 = 300
+XLSTM_SCAN_SEQ = 300
+XLSTM_TRAIN = dict(steps=4, batch=4, seq=512)
+# the DEQ form reruns its four tied units' sLSTM time loops at every solver
+# evaluation, so its prompts are short
+XLSTM_DEQ_PLENS = (64, 128, 64, 128)
+# the chunked cells against their sequential oracles, in f32
+SCAN_TOL = dict(rtol=1e-4, atol=1e-4)
+# the traced train step: at 4 x 128 the trace held 93 k kernels and took
+# ~65 s to take and read, at 4 x 64 about half
+XLSTM_PROFILE_SEQ = 64
+
+
+def _xlstm_desc(cfg) -> str:
+    x = cfg.xlstm
+    inner = int(cfg.d_model * x.mlstm_proj_factor)
+    n_s = cfg.num_layers // x.slstm_every
+    return (f"{cfg.name} ({cfg.num_layers - n_s} mLSTM + {n_s} sLSTM "
+            f"layers, d={cfg.d_model}, {cfg.num_heads} heads; mLSTM inner "
+            f"{inner} (heads of {inner // cfg.num_heads}), chunk {x.chunk}; "
+            f"sLSTM heads of {cfg.d_model // cfg.num_heads}, ff "
+            f"{xlstm_mod._slstm_ff(cfg)}; vocab {cfg.vocab_size}; "
+            f"{cfg.dtype}, random weights, seed 0)")
+
+
+def _scaled_tol(want: torch.Tensor) -> dict:
+    """SCAN_TOL with its atol scaled to ``want``'s largest entry."""
+    return dict(rtol=SCAN_TOL["rtol"],
+                atol=SCAN_TOL["atol"] * max(want.abs().max().item(), 1e-30))
+
+
+def check_xlstm_cells(params, cfg, seq: int, smi: str) -> None:
+    """The xLSTM cells at their published shapes against their sequential
+    oracles on the card, in f32 over B=4 x ``seq`` (``seq`` 300 pads the
+    mLSTM's last chunk), at SCAN_TOL with the atol scaled to each output's
+    largest entry: the chunked mLSTM cell against ``mlstm_step`` run
+    position by position over unit-scale inputs at its shapes (4 heads of
+    1024; at this init a layer's own projections give outputs near 1e-7,
+    which an unscaled atol could not see), its output and final ``(C, n,
+    m)``; and unit 0's sLSTM block, whose input projection is hoisted over
+    the sequence, against ``slstm_scan_ref``, which projects each step's
+    input and writes the recurrence out apart from ``_slstm_recur``.  q
+    and k are drawn around 1, so that the normaliser ``|q . n|`` stays off
+    0: around 0 the output ``num / den`` magnifies f32 rounding wherever
+    the two sums nearly cancel (at mean 0 the card read 0.73 of the
+    limit)."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    _, h, hd = xlstm_mod._mlstm_dims(cfg)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    q, k = (1 + randn(4, seq, h, hd) for _ in range(2))
+    v = randn(4, seq, h, hd)
+    i_pre, f_pre = 2 * randn(4, seq, h), 2 + 2 * randn(4, seq, h)
+    cache = xlstm_mod.mlstm_cache_shape(cfg, 4, "cuda")
+    s_params = {k_: v_[0].float()
+                for k_, v_ in params["group0"]["slstm"]["s"].items()}
+    x = randn(4, seq, cfg.d_model)
+    with torch.no_grad():
+        y, state = xlstm_mod.mlstm_cell_chunked(q, k, v, i_pre, f_pre, cache,
+                                                cfg.xlstm.chunk)
+        ys = []
+        for t in range(seq):
+            yt, cache = xlstm_mod.mlstm_step(q[:, t], k[:, t], v[:, t],
+                                             i_pre[:, t], f_pre[:, t], cache)
+            ys.append(yt)
+        pairs = {"mlstm_y": (y, torch.stack(ys, dim=1))}
+        pairs.update({f"mlstm_{f}": (getattr(state, f), getattr(cache, f))
+                      for f in xlstm_mod.MLSTMCache._fields})
+        pairs["slstm_out"] = (xlstm_mod.slstm_block(s_params, x, cfg)[0],
+                              xlstm_mod.slstm_scan_ref(s_params, x, cfg))
+    row = {}
+    for name, (got, want) in pairs.items():
+        tol = _scaled_tol(want)
+        row[name] = dict(
+            max_abs_err=check_close(f"{name} vs sequential f32 B=4 S={seq}",
+                                    got, want, tol),
+            limit_share=limit_share(got, want, tol),
+            scale=want.abs().max().item())
+    say("xlstm_scan_ref", config=f"{cfg.name} (mLSTM {h} heads of {hd}, "
+        f"chunk {cfg.xlstm.chunk}; unit 0's sLSTM, d={cfg.d_model})",
+        card=smi, tol=SCAN_TOL, atol="times each output's largest entry",
+        **row)
+
+
+def profile_train_step(params, cfg, *, batch: int, seq: int,
+                       smi: str) -> None:
+    """One train step of the layer stack (``build_train_step``, the
+    config's remat) traced after a warm-up step: device busy time, idle
+    share and launches, at a short ``seq`` (the trace holds every host op
+    and kernel)."""
+    tcfg = TrainConfig(steps=2, global_batch=batch, seq_len=seq,
+                       schedule=cfg.schedule)
+    state = train_steps.init_train_state(cfg, tcfg, params=params)
+    step = train_steps.build_train_step(cfg, tcfg)
+    batches = make_lm_batch_iterator(cfg, batch, seq, seed=0, device="cuda")
+    state, _ = step(state, next(batches))
+    b = next(batches)
+    prof = _profile_window(lambda: step(state, b))
+    say("profile", window=f"train_step {batch} x {seq}", config=cfg.name,
+        remat=cfg.remat, card=smi, **prof)
+    del state
+    torch.cuda.empty_cache()
+
+
+def phase_xlstm(smi: str) -> dict:
+    """The SSM family's main path: xLSTM-1.3B at its published widths and
+    full depth (42 mLSTM and 6 sLSTM layers), bf16, random weights (seed
+    0), the layer stack; no attention, so neither attention kernel may
+    launch:
+
+      * ``ServeLoop`` over 4 slots, XLSTM_PLENS prompts, MOE_NEW new
+        tokens, a MOE_MAX_LEN cache: sync, then async (its tokens the sync
+        drain's bit for bit, its one host wait the clock wait); rmsnorm
+        must launch in both;
+      * a profiled prefill tick and decode tick (``phase_profile``);
+      * prefill over S then one decode step against a forward over S + 1
+        for S in XLSTM_CACHE_SEQS at every seed of CACHE_SEEDS, in f32
+        held at TOL_F32; at this init an mLSTM layer adds ~1e-7 to the
+        residual stream, so the logits see the sLSTM layers and the stack,
+        and each layer's cache leaves (C, n, m; c, n, h, m) are held
+        against a prefill over S + 1 at ``_scaled_tol`` of their own scale
+        (``check_cache_leaves``); in bf16 at XLSTM_CACHE_SEQ_BF16,
+        reported against CACHE_TOL beside the forward's own rounding
+        floor;
+      * unit 0's mLSTM and sLSTM blocks against their sequential oracles
+        (``check_xlstm_cells``);
+      * 4 AdamW steps at 4 x 512 with ``remat="full"`` (``stack_train``),
+        after which the caller's weights must be bit for bit as before
+        (the step updates its own copy in place); one more step at 4 x
+        XLSTM_PROFILE_SEQ traced (``profile_train_step``);
+      * an async drain of the DEQ form (4 tied ``xlstm_unit``s, tied
+        weights x0.3) over XLSTM_DEQ_PLENS: both qN kernels and rmsnorm
+        launch, the attention kernels not; solve steps and statuses;
+      * card against CPU at the smoke size in f32: a drain and 3 train
+        steps.
+
+    Returns the async drain's, the train steps' and the DEQ drain's launch
+    counts, and the f32 cache check's per-call counts; an
+    ``xlstm_phase_split`` line gives each part's seconds, to the card's
+    last kernel."""
+    out, split = {}, {}
+    t_mark = [time.perf_counter()]
+
+    def lap(part: str) -> None:
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        split[part] = now - t_mark[0]
+        t_mark[0] = now
+
+    cfg = get_config(XLSTM_ARCH)
+    desc = _xlstm_desc(cfg)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    drains = {p: _moe_drain(params, cfg, p, record=True, plens=XLSTM_PLENS)
+              for p in ("sync", "async")}
+    if drains["async"]["tokens"] != drains["sync"]["tokens"]:
+        raise AssertionError(f"{XLSTM_ARCH}: async tokens "
+                             f"{drains['async']['tokens']} != sync "
+                             f"{drains['sync']['tokens']}")
+    check_syncs(f"{XLSTM_ARCH} async drain", drains["async"]["syncs"], 1)
+    for name, d in drains.items():
+        attn = {k: d["counts"][k] for k in ("flash_attention",
+                                             "decode_attention")}
+        if d["counts"]["rmsnorm"] == 0 or any(attn.values()):
+            raise AssertionError(f"{XLSTM_ARCH} {name}: launches "
+                                 f"{d['counts']}")
+        say("xlstm_serve", config=desc, pipeline=name, card=smi,
+            params=n_params, init_seconds=t_init, prompt_lens=XLSTM_PLENS,
+            **{k: v for k, v in d.items() if k not in ("tokens", "syncs")})
+    out["drain"] = drains["async"]
+    lap("drains")
+    phase_profile(params, cfg, smi)
+    lap("profile")
+    say("xlstm_cache_check", config=f"{XLSTM_ARCH} {cfg.num_layers} "
+        "layers bf16 (reported)", card=smi, **check_cache_against_forward(
+            params, cfg, seq=XLSTM_CACHE_SEQ_BF16, hold=False))
+    lap("cache_bf16")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = _map(lambda t: t.float(), params)
+    out["cache"] = {}
+    for seq in XLSTM_CACHE_SEQS:
+        cache = check_cache_against_forward(p32, cfg32, seq=seq,
+                                            tol=(TOL_F32, TOL_F32),
+                                            leaves=True)
+        say("xlstm_cache_check", config=f"{XLSTM_ARCH} {cfg.num_layers} "
+            "layers float32 (held; cache leaves at _scaled_tol)", card=smi,
+            **cache)
+        out["cache"][seq] = cache
+    del p32
+    torch.cuda.empty_cache()
+    lap("cache_f32")
+    check_xlstm_cells(params, cfg, XLSTM_SCAN_SEQ, smi)
+    torch.cuda.empty_cache()
+    lap("cells")
+
+    before = _map(lambda t: t.cpu(), params)
+    tr = stack_train(params, cfg, "full", steps=XLSTM_TRAIN["steps"],
+                     batch=XLSTM_TRAIN["batch"], seq=XLSTM_TRAIN["seq"],
+                     desc=desc, smi=smi)
+    changed = [k for k, (a, b) in enumerate(zip(_leaves(before),
+                                                 _leaves(params)))
+               if not torch.equal(a, b.cpu())]
+    if changed:
+        raise AssertionError(f"{XLSTM_ARCH}: training changed the caller's "
+                             f"weights (leaves {changed})")
+    del before
+    out["train"] = tr["counts"]
+    lap("train")
+    profile_train_step(params, dataclasses.replace(cfg, remat="full"),
+                       batch=XLSTM_TRAIN["batch"], seq=XLSTM_PROFILE_SEQ,
+                       smi=smi)
+    del params
+    torch.cuda.empty_cache()
+    lap("train_profile")
+
+    cfg = get_config(XLSTM_ARCH, deq=True)
+    params = _scaled_blocks(lm.init_params(cfg, seed=0, device="cuda"), 0.3)
+    d = _moe_drain(params, cfg, "async", record=True, plens=XLSTM_DEQ_PLENS)
+    want = ("broyden_step", "qn_apply_multi", "rmsnorm")
+    if any(d["counts"][k] == 0 for k in want) or \
+            d["counts"]["flash_attention"] or d["counts"]["decode_attention"]:
+        raise AssertionError(f"{XLSTM_ARCH} DEQ: launches {d['counts']}")
+    say("xlstm_serve", config=f"{XLSTM_ARCH} DEQ (DEQSettings defaults: 4 "
+        "tied xlstm_units of 7 mLSTM + 1 sLSTM layers, tied weights x0.3, "
+        "Broyden 12 steps, tol 1e-3, ring bf16 m=8)", pipeline="async",
+        card=smi, params=sum(t.numel() for t in _leaves(params)),
+        prompt_lens=XLSTM_DEQ_PLENS,
+        **{k: v for k, v in d.items() if k not in ("tokens", "syncs")})
+    out["deq_counts"] = d["counts"]
+    del params
+    torch.cuda.empty_cache()
+    lap("deq")
+
+    say("xlstm_parity", card=smi, **stack_parity(XLSTM_ARCH))
+    say("xlstm_train_parity", card=smi, **stack_train_parity(XLSTM_ARCH))
+    lap("parity")
+    say("xlstm_phase_split", card=smi, seconds=split)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 16: training the layer stack with and without rematerialisation
 # ---------------------------------------------------------------------------
 
 # full width, depth cut to 4 layers (the dense layer and 3 MoE layers;
 # 2.25 B parameters): params and grads in bf16 and AdamW's f32 moments
-# come to ~27 GB, and 6 layers (3.42 B, ~41 GB before AdamW's temporaries
-# and the MoE's activations) leave the 80 GB card little headroom
+# come to ~27 GB, and the step's peak (the state updated in place, the
+# caller's weights, the clipped gradients' copy) to ~37 GiB
 TRAIN_STACK_LAYERS = 4
 TRAIN_STACK = dict(steps=3, batch=4, seq=256)
 
@@ -3817,6 +4172,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     hybrid = timed(smi, "hybrid", phase_hybrid, smi)
     torch.cuda.empty_cache()
+    xlstm = timed(smi, "xlstm", phase_xlstm, smi)
+    torch.cuda.empty_cache()
     stack = timed(smi, "train_stack", phase_train_stack, smi)
     rows = []
     for name, (route, source, replaces) in KERNELS.items():
@@ -3827,7 +4184,9 @@ def main() -> int:
                             + train_counts[name]
                             + mdeq_counts["sgd"][name] + moe_counts[name]
                             + hybrid["drain"]["counts"][name]
-                            + hybrid["train"][name]),
+                            + hybrid["train"][name]
+                            + xlstm["drain"]["counts"][name]
+                            + xlstm["train"][name]),
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"],
@@ -3861,6 +4220,15 @@ def main() -> int:
                **{f"launches_hybrid_per_{k}_s{seq}": c[
                    f"launches_per_{k}"].get(name, 0)
                   for seq, c in hybrid["cache"].items()
+                  for k in ("prefill", "decode")},
+               "launches_xlstm_serve": xlstm["drain"]["counts"][name],
+               "launches_xlstm_train": xlstm["train"][name],
+               "launches_xlstm_per_train_step": (xlstm["train"][name]
+                                                 / XLSTM_TRAIN["steps"]),
+               "launches_xlstm_deq_serve": xlstm["deq_counts"][name],
+               **{f"launches_xlstm_per_{k}_s{seq}": c[
+                   f"launches_per_{k}"].get(name, 0)
+                  for seq, c in xlstm["cache"].items()
                   for k in ("prefill", "decode")},
                "launches_train_stack_v2_lite_remat_full": stack["counts"][
                    name],

@@ -62,10 +62,12 @@ def _flatten(tree: Tree) -> dict[str, np.ndarray]:
     flat: dict[str, np.ndarray] = {}
 
     def put(path, leaf):
-        t = torch.as_tensor(leaf).detach().cpu()
-        if t.dtype == torch.bfloat16:
-            t = t.float()
-        flat[path] = t.numpy()
+        t = torch.as_tensor(leaf).detach()
+        dt = torch.float32 if t.dtype == torch.bfloat16 else t.dtype
+        # always a copy: ``.cpu()`` of a CPU tensor is the tensor itself and
+        # ``.numpy()`` shares its memory, and the train step updates the
+        # state in place while the writer thread runs
+        flat[path] = t.to("cpu", dt, copy=True).numpy()
 
     map_with_path(put, tree)
     return flat

@@ -73,7 +73,7 @@ class SSMConfig:
 
 @dataclasses.dataclass(frozen=True)
 class XLSTMConfig:
-    slstm_every: int = 8
+    slstm_every: int = 8         # 7:1 mLSTM:sLSTM
     mlstm_proj_factor: float = 2.0
     slstm_proj_factor: float = 4.0 / 3.0
     chunk: int = 256

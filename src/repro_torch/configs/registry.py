@@ -1,9 +1,10 @@
 """Architecture registry: ``--arch <id>`` resolution + reduced smoke configs.
 
-The port's copy of ``repro/configs/registry.py`` for the dense, MoE and
-hybrid families (DeepSeekMoE-16B with GQA, DeepSeek-V2-Lite with MLA,
-Zamba2-2.7B's Mamba2 layers with a shared attention block); the SSM, audio
-and VLM families join with their slices.
+The port's copy of ``repro/configs/registry.py`` for the dense, MoE, hybrid
+and SSM families (DeepSeekMoE-16B with GQA, DeepSeek-V2-Lite with MLA,
+Zamba2-2.7B's Mamba2 layers with a shared attention block, xLSTM-1.3B's
+mLSTM and sLSTM blocks); the audio and VLM families join with their
+slices.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from repro_torch.configs import (
     deepseek_moe_16b,
     deepseek_v2_lite_16b,
     minicpm_2b,
+    xlstm_1p3b,
     zamba2_2p7b,
 )
 from repro_torch.configs.base import (
@@ -46,7 +48,7 @@ ARCHS: dict[str, ModelConfig] = {
     c.name: c
     for c in [minicpm_2b.CONFIG, _PHI3_MINI, _STABLELM_3B, _INTERNLM2_20B,
               deepseek_v2_lite_16b.CONFIG, deepseek_moe_16b.CONFIG,
-              zamba2_2p7b.CONFIG]
+              zamba2_2p7b.CONFIG, xlstm_1p3b.CONFIG]
 }
 
 
@@ -63,7 +65,7 @@ def get_config(name: str, *, deq: bool = False, **overrides) -> ModelConfig:
 
 def smoke_config(name: str, *, deq: bool = False) -> ModelConfig:
     """Reduced same-family config: small widths/layers/experts, tiny vocab
-    (the dense, MoE and hybrid branches of the JAX package's
+    (the dense, MoE, hybrid and SSM branches of the JAX package's
     ``smoke_config``)."""
     if name not in ARCHS:
         raise ValueError(f"unknown arch {name!r}; have {sorted(ARCHS)}")
@@ -72,7 +74,7 @@ def smoke_config(name: str, *, deq: bool = False) -> ModelConfig:
         d_model=64,
         num_heads=4,
         num_kv_heads=(2 if cfg.num_kv_heads < cfg.num_heads else 4),
-        d_ff=128,
+        d_ff=(0 if cfg.family == "ssm" else 128),
         vocab_size=503,  # odd on purpose: exercises vocab padding
         head_dim=16,
         max_seq=64,
@@ -89,6 +91,9 @@ def smoke_config(name: str, *, deq: bool = False) -> ModelConfig:
         kw["ssm"] = dataclasses.replace(
             cfg.ssm, d_state=16, head_dim=16, chunk=16, attn_every=3
         )
+    elif cfg.family == "ssm":
+        kw["num_layers"] = 8  # two units of 4
+        kw["xlstm"] = dataclasses.replace(cfg.xlstm, slstm_every=4, chunk=16)
     if cfg.attn_type == "mla":
         kw["mla"] = MLAConfig(kv_lora_rank=32, qk_nope_dim=16, qk_rope_dim=8,
                               v_head_dim=16)

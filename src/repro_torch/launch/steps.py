@@ -5,9 +5,12 @@ The port of the training half of ``repro/launch/steps.py``: ``TrainState``
 ``build_train_step`` and ``init_train_state``.  The sharding and struct
 helpers come with the layout slice.
 
-Eager PyTorch needs no jit: the step is a plain function.  The qN ring of a
-carry is updated in place on the card by the solve that takes it, so the
-step copies it first where the pre-step carry must survive a rejected
+Eager PyTorch needs no jit: the step is a plain function.  It writes the
+new parameters and moments into the state's own tensors (the reference jits
+its step with the state donated), so the state it was given is used up;
+``init_train_state`` copies the parameters it is handed, once.  The qN ring
+of a carry is updated in place on the card by the solve that takes it, so
+the step copies it first where the pre-step carry must survive a rejected
 update (``deq_carry="full"`` with ``skip_nonfinite``).
 """
 
@@ -60,14 +63,6 @@ def train_carry_enabled(cfg: ModelConfig, tcfg: TrainConfig) -> bool:
 
 def _copy_carry(carry: SolveCarry) -> SolveCarry:
     return dataclasses.replace(carry, lowrank=carry.lowrank.clone())
-
-
-def _keep(ok: torch.Tensor, new: Tree, old: Tree) -> Tree:
-    """``where(ok, new, old)`` leaf by leaf, written into ``new``'s tensors
-    (fresh from the update, referenced nowhere else), so a step holds two
-    copies of the parameters and moments, not three (Zamba2-2.7B: 24 GB
-    each)."""
-    return tree_map(lambda n, o: torch.where(ok, n, o, out=n), new, old)
 
 
 def _keep_carry(ok: torch.Tensor, new: SolveCarry,
@@ -144,33 +139,35 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, *,
 
         grads, gnorm = clip_by_global_norm(grads, tcfg.clip_norm)
         lr = sched(state.step)
+        # a non-finite loss or gradient norm rejects the whole update
+        # (params, optimizer state, carry keep their pre-step values) by a
+        # select on the device: no host read on the hot path.  The trainer
+        # reads the consecutive-skip count at its metrics fetch and rolls
+        # back past tcfg.skip_budget.
+        ok = (torch.isfinite(loss) & torch.isfinite(gnorm)
+              if tcfg.skip_nonfinite else None)
+        # the update writes into the state's own tensors (the old state is
+        # gone after it, as the reference's donated one is)
         if tcfg.optimizer == "sgdm":
             new_params, opt = sgdm_update(
-                grads, state.opt, params, lr, weight_decay=tcfg.weight_decay)
+                grads, state.opt, params, lr, weight_decay=tcfg.weight_decay,
+                ok=ok)
         else:
             new_params, opt = adamw_update(
-                grads, state.opt, params, lr, weight_decay=tcfg.weight_decay)
+                grads, state.opt, params, lr, weight_decay=tcfg.weight_decay,
+                ok=ok)
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}
         metrics.update({k: (v.detach() if isinstance(v, torch.Tensor) else v)
                         for k, v in aux.items()
                         if not isinstance(v, torch.Tensor) or v.ndim == 0})
         new_state = TrainState(state.step + 1, new_params, opt, new_carry,
                                state.skips)
-        if tcfg.skip_nonfinite:
-            # a non-finite loss or gradient norm rejects the whole update
-            # (params, optimizer state, carry keep their pre-step values)
-            # by a select on the device: no host read on the hot path.
-            # The trainer reads the consecutive-skip count at its metrics
-            # fetch and rolls back past tcfg.skip_budget.
-            ok = torch.isfinite(loss) & torch.isfinite(gnorm)
+        if ok is not None:
             prev = state.skips if state.skips is not None else \
                 torch.zeros((), dtype=torch.int32, device=ok.device)
             new_state = TrainState(
-                state.step + 1,
-                _keep(ok, new_params, params),
-                OptState(torch.where(ok, opt.step, state.opt.step),
-                         _keep(ok, opt.mu, state.opt.mu),
-                         _keep(ok, opt.nu, state.opt.nu)),
+                state.step + 1, new_params,
+                opt._replace(step=torch.where(ok, opt.step, state.opt.step)),
                 (_keep_carry(ok, new_carry, state.carry)
                  if new_carry is not None else None),
                 torch.where(ok, torch.zeros_like(prev), prev + 1))
@@ -188,11 +185,16 @@ def init_train_state(cfg: ModelConfig, tcfg: TrainConfig, *,
                      seed: int | None = None, params: Tree | None = None,
                      device=None) -> TrainState:
     """A fresh state: parameters drawn from ``seed`` (default
-    ``tcfg.seed``) on ``device``, or the given ``params``; zero moments; a
-    cold carry where ``train_carry_enabled``."""
+    ``tcfg.seed``) on ``device``, or a copy of the given ``params``; zero
+    moments; a cold carry where ``train_carry_enabled``.  The state owns
+    its tensors (the train step updates them in place), so the caller's
+    ``params`` stay as they are."""
     if params is None:
         params = lm.init_params(cfg, seed=tcfg.seed if seed is None else seed,
                                 device=device)
+    else:
+        params = tree_map(lambda p: p.detach().clone(
+            memory_format=torch.contiguous_format), params)
     dev = lm.params_device(params)
     carry = (lm.deq_solve_carry(cfg, tcfg.global_batch, tcfg.seq_len, dev)
              if train_carry_enabled(cfg, tcfg) else None)

@@ -1,6 +1,6 @@
 """The language model: parameters, the layer stack, the SHINE DEQ, serving.
 
-The port of ``repro/models/lm.py`` for the dense, MoE and hybrid
+The port of ``repro/models/lm.py`` for the dense, MoE, hybrid and SSM
 families, with GQA or MLA attention.  A model is a list of *stack groups*,
 each ``count`` blocks of one kind stored stacked (a leading ``layers``
 axis):
@@ -11,7 +11,9 @@ axis):
     the stack sums);
   * hybrid (Zamba2): ``zamba_unit``s, each ``ssm.attn_every`` Mamba2
     layers (a second stacked axis inside the unit) then one SHARED
-    attention + MLP block (``shared_attn``, weight-tied across units).
+    attention + MLP block (``shared_attn``, weight-tied across units);
+  * ssm (xLSTM): ``xlstm_unit``s, each ``xlstm.slstm_every - 1`` pre-norm
+    mLSTM layers (a second stacked axis) then one pre-norm sLSTM layer.
 
 Without the DEQ (``cfg.deq.enabled`` false) the groups run layer by layer
 (:func:`apply_stack`); in training each unit is rematerialised as
@@ -33,11 +35,11 @@ seeds the decode carry with its last token); :func:`decode_step` runs one
 new token per row against the cache (for the DEQ: solved with inactive
 rows frozen, warm started from the carried equilibrium and quasi-Newton
 ring, then the cache refreshed once at ``z*``).  Attention caches are
-written in place by the attention; a Mamba state is read then replaced,
-so ``mamba2_block`` returns a new one and the stack stores it
-(``_store``): inside a DEQ solve every evaluation starts from the frozen
-state and only the final pass at ``z*`` stores it.  The SSM, audio and
-VLM families come with their slices.
+written in place by the attention; a Mamba or xLSTM state is read then
+replaced, so ``mamba2_block`` and the xLSTM blocks return a new one and the
+stack stores it (``_store``): inside a DEQ solve every evaluation starts
+from the frozen state and only the final pass at ``z*`` stores it.  The
+audio and VLM families come with their slices.
 
 Parameters are a plain dict with the JAX package's tree and layouts
 (``group{i}`` or ``deq_blocks`` trees), so :func:`params_from_jax` converts
@@ -64,6 +66,7 @@ from repro_torch.implicit.fixed_point import implicit_fixed_point
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (
     ParamDecl,
     act_dtype,
@@ -83,18 +86,18 @@ from repro_torch.models.layers import (
 
 @dataclasses.dataclass(frozen=True)
 class StackGroup:
-    kind: str       # attn_mlp | attn_moe | zamba_unit
+    kind: str       # attn_mlp | attn_moe | zamba_unit | xlstm_unit
     count: int      # number of stacked blocks
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "hybrid") or cfg.attn_type not in (
-            "gqa", "mla") or (cfg.family == "hybrid"
-                              and cfg.attn_type != "gqa"):
+    if cfg.family not in ("dense", "moe", "hybrid", "ssm") \
+            or cfg.attn_type not in ("gqa", "mla") \
+            or (cfg.family == "hybrid" and cfg.attn_type != "gqa"):
         raise NotImplementedError(
-            f"repro_torch runs the dense and MoE families with GQA or MLA "
-            f"and the hybrid family with GQA so far; {cfg.name} is "
-            f"{cfg.family}/{cfg.attn_type}")
+            f"repro_torch runs the dense and MoE families with GQA or MLA, "
+            f"the hybrid family with GQA and the SSM family so far; "
+            f"{cfg.name} is {cfg.family}/{cfg.attn_type}")
 
 
 def stack_groups(cfg: ModelConfig) -> list[StackGroup]:
@@ -107,6 +110,12 @@ def stack_groups(cfg: ModelConfig) -> list[StackGroup]:
             raise ValueError(f"{cfg.num_layers} layers are no multiple of "
                              f"attn_every {period}")
         return [StackGroup("zamba_unit", cfg.num_layers // period)]
+    if cfg.family == "ssm":
+        period = cfg.xlstm.slstm_every
+        if cfg.num_layers % period:
+            raise ValueError(f"{cfg.num_layers} layers are no multiple of "
+                             f"slstm_every {period}")
+        return [StackGroup("xlstm_unit", cfg.num_layers // period)]
     groups = []
     if cfg.moe.first_k_dense:
         groups.append(StackGroup("attn_mlp", cfg.moe.first_k_dense))
@@ -116,8 +125,8 @@ def stack_groups(cfg: ModelConfig) -> list[StackGroup]:
 
 
 def _deq_kind(cfg: ModelConfig) -> str:
-    return {"dense": "attn_mlp", "moe": "attn_moe",
-            "hybrid": "zamba_unit"}[cfg.family]
+    return {"dense": "attn_mlp", "moe": "attn_moe", "hybrid": "zamba_unit",
+            "ssm": "xlstm_unit"}[cfg.family]
 
 
 def _stack(decl: dict, count: int) -> dict:
@@ -144,6 +153,12 @@ def _unit_decl(cfg: ModelConfig, kind: str) -> dict:
         return {"mamba": _stack({"ln": norm_decl(cfg.d_model),
                                  "m": ssm_mod.mamba2_decl(cfg)},
                                 cfg.ssm.attn_every)}
+    if kind == "xlstm_unit":
+        return {"mlstm": _stack({"ln": norm_decl(cfg.d_model),
+                                 "m": xlstm_mod.mlstm_decl(cfg)},
+                                cfg.xlstm.slstm_every - 1),
+                "slstm": {"ln": norm_decl(cfg.d_model),
+                          "s": xlstm_mod.slstm_decl(cfg)}}
     raise ValueError(kind)
 
 
@@ -261,14 +276,19 @@ def apply_unit(kind: str, params: dict, x: torch.Tensor, cfg: ModelConfig,
     """One stack unit.  ``attn_mlp``/``attn_moe``: a pre-norm block,
     attention then SwiGLU or the MoE.  ``zamba_unit``: ``attn_every``
     pre-norm Mamba2 layers, then the ``shared`` attention + MLP block.
+    ``xlstm_unit``: ``slstm_every - 1`` pre-norm mLSTM layers, then a
+    pre-norm sLSTM layer (no attention, no position).
     Returns ``(x, new_cache, aux)``; ``aux`` holds the MoE's ``moe_aux`` and
     ``moe_z`` (empty otherwise).  A zamba unit's ``new_cache`` is ``{"mamba":
     MambaCache stacked over its layers (new tensors), "attn": the KVCache
-    written in place}``; storing the Mamba part is the caller's
-    (``_store``)."""
+    written in place}``, an xLSTM unit's ``{"mlstm": MLSTMCache stacked
+    over its layers, "slstm": SLSTMCache}`` (new tensors); storing them is
+    the caller's (``_store``)."""
     if kind == "zamba_unit":
         return _apply_zamba_unit(params, x, cfg, positions, cache,
                                  cache_index, shared)
+    if kind == "xlstm_unit":
+        return _apply_xlstm_unit(params, x, cfg, cache)
     if kind not in ("attn_mlp", "attn_moe"):
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     a_out, new_kv = _apply_attention(
@@ -305,6 +325,28 @@ def _apply_zamba_unit(params, x, cfg, positions, cache, cache_index,
         new_cache = {"mamba": ssm_mod.MambaCache(torch.stack(states),
                                                  torch.stack(convs)),
                      "attn": new_kv}
+    return x, new_cache, {}
+
+
+def _apply_xlstm_unit(params, x, cfg, cache):
+    eps = cfg.norm_eps
+    m_caches = []
+    for j in range(cfg.xlstm.slstm_every - 1):
+        pj = _block(params["mlstm"], j)
+        cj = None if cache is None else _block(cache["mlstm"], j)
+        out, mc = xlstm_mod.mlstm_block(pj["m"], rmsnorm(pj["ln"], x, eps),
+                                        cfg, cj)
+        x = x + out
+        if mc is not None:
+            m_caches.append(mc)
+    sp = params["slstm"]
+    out, sc = xlstm_mod.slstm_block(sp["s"], rmsnorm(sp["ln"], x, eps), cfg,
+                                    None if cache is None else cache["slstm"])
+    x = x + out
+    new_cache = None
+    if cache is not None:
+        new_cache = {"mlstm": xlstm_mod.MLSTMCache(
+            *(torch.stack(t) for t in zip(*m_caches))), "slstm": sc}
     return x, new_cache, {}
 
 
@@ -531,9 +573,24 @@ def loss_fn(params, batch: dict, cfg: ModelConfig, z_loss: float = 1e-4,
 # ---------------------------------------------------------------------------
 
 
+def _stacked(cache: tuple, lead: tuple) -> tuple:
+    """``cache`` (a NamedTuple of one layer's tensors) repeated over the
+    stacked axes ``lead``, each leaf its own tensor."""
+    return type(cache)(*(t.expand(lead + tuple(t.shape)).contiguous()
+                         for t in cache))
+
+
 def _unit_cache(cfg: ModelConfig, kind: str, count: int, batch: int,
                 max_len: int, device):
-    """Zero caches of ``count`` stacked units of ``kind``."""
+    """Cold caches of ``count`` stacked units of ``kind``."""
+    if kind == "xlstm_unit":
+        # no attention: the recurrent states only, stabilisers at -1e30
+        return {"mlstm": _stacked(
+                    xlstm_mod.mlstm_cache_shape(cfg, batch, device),
+                    (count, cfg.xlstm.slstm_every - 1)),
+                "slstm": _stacked(
+                    xlstm_mod.slstm_cache_shape(cfg, batch, device),
+                    (count,))}
     dt = act_dtype(cfg)
     if cfg.attn_type == "mla":
         k_shape, v_shape = attn.mla_cache_shapes(cfg, batch, max_len)
@@ -544,22 +601,24 @@ def _unit_cache(cfg: ModelConfig, kind: str, count: int, batch: int,
         torch.zeros((count,) + v_shape, dtype=dt, device=device))
     if kind != "zamba_unit":
         return kv
-    m = ssm_mod.mamba2_cache_shape(cfg, batch, device)
-    lead = (count, cfg.ssm.attn_every)
-    return {"mamba": ssm_mod.MambaCache(
-        *(torch.zeros(lead + tuple(t.shape), dtype=t.dtype, device=device)
-          for t in m)), "attn": kv}
+    return {"mamba": _stacked(ssm_mod.mamba2_cache_shape(cfg, batch, device),
+                              (count, cfg.ssm.attn_every)), "attn": kv}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
-    """Zero caches, one tree per stack: ``{"deq": ...}`` stacked over the
+    """Cold caches, one tree per stack: ``{"deq": ...}`` stacked over the
     DEQ's ``num_blocks``, or ``{"group{i}": ...}`` stacked over each
-    group's units.  An attention unit's is a ``KVCache``: GQA holds k/v
-    ``(count, B, max_len, KV, hd)``, MLA the latents ``c_kv (count, B,
+    group's units.  An attention unit's is a zero ``KVCache``: GQA holds
+    k/v ``(count, B, max_len, KV, hd)``, MLA the latents ``c_kv (count, B,
     max_len, rank)`` and ``k_pe (count, B, max_len, rope_dim)``.  A zamba
     unit's is ``{"mamba": MambaCache(state (count, attn_every, B, H, P, N)
     f32, conv (count, attn_every, B, d_conv - 1, conv_dim)), "attn":
-    KVCache}`` (the shared block's k/v per unit)."""
+    KVCache}`` (the shared block's k/v per unit).  An xLSTM unit's is
+    ``{"mlstm": MLSTMCache(C (count, n_m, B, H, hd, hd), n (count, n_m, B,
+    H, hd), m (count, n_m, B, H)), "slstm": SLSTMCache(c, n, h, m, each
+    (count, B, H, d / H))}``, all f32, ``n_m = slstm_every - 1``, the
+    stabilisers ``m`` at -1e30 (a zero ``m`` would change every first
+    step); it holds no ``KVCache`` and ``max_len`` does not size it."""
     _check_family(cfg)
     dev = resolve_device(device)
     if cfg.deq.enabled:

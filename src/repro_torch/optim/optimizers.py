@@ -3,8 +3,11 @@
 The port of ``repro/optim/optimizers.py``.  Not ``torch.optim``: the same
 arithmetic as the JAX package, step for step, so both trainers produce the
 same numbers.  Parameters, gradients and moments are nested dicts of
-tensors; updates are functional (they return new tensors, which is what
-lets a train step reject a non-finite update by keeping the old ones).
+tensors.  The updates write the new parameters and moments into the
+state's own tensors, as the reference's step updates its donated state, so
+a step never holds a second copy of them: a leaf is updated in flat chunks
+of at most ``CHUNK`` elements (each temporary one chunk), and a rejected
+step (``ok`` false) writes the old values back, bit for bit.
 
 AdamW keeps f32 moments, b2 = 0.95, and decays only tensors with
 ``ndim >= 2``.  Schedules: warmup, then cosine (default), WSD
@@ -52,42 +55,82 @@ def adamw_init(params: Tree) -> OptState:
                     mu=zeros, nu=tree_map(torch.clone, zeros))
 
 
+# the most elements an update temporary holds: xLSTM-1.3B's stacked mLSTM
+# ``w_up`` (6 x 7 x 2048 x 8192) is 705 M elements, a 2.8 GB temporary in
+# f32 if taken whole; a chunk of 2^24 makes it 64 MiB
+CHUNK = 1 << 24
+
+
+def _chunks(p: torch.Tensor, g: torch.Tensor, *moments: torch.Tensor):
+    """Matching flat views of at most ``CHUNK`` elements of a parameter,
+    its gradient and its moments.  The parameter and the moments are
+    written through them, so they must be contiguous (a state's own
+    tensors are: ``init_train_state`` and ``adamw_init`` make them so); a
+    gradient that is not is copied."""
+    if not (p.is_contiguous() and all(m.is_contiguous() for m in moments)):
+        raise ValueError("an in-place update needs contiguous parameters "
+                         "and moments")
+    flat = [p.view(-1), g.reshape(-1), *(m.view(-1) for m in moments)]
+    for i in range(0, p.numel(), CHUNK):
+        yield [t[i:i + CHUNK] for t in flat]
+
+
+def _write(ok: torch.Tensor | None, new: torch.Tensor,
+           dst: torch.Tensor) -> None:
+    """``dst = new``, or ``where(ok, new, dst)`` under a step's verdict."""
+    if ok is None:
+        dst.copy_(new)
+    else:
+        torch.where(ok, new, dst, out=dst)
+
+
 def adamw_update(grads: Tree, state: OptState, params: Tree,
                  lr: torch.Tensor, *, b1: float = 0.9, b2: float = 0.95,
-                 eps: float = 1e-8,
-                 weight_decay: float = 0.1) -> tuple[Tree, OptState]:
+                 eps: float = 1e-8, weight_decay: float = 0.1,
+                 ok: torch.Tensor | None = None) -> tuple[Tree, OptState]:
+    """One AdamW step written into ``params`` and ``state``'s moments,
+    which come back as the new trees.  With ``ok`` (a 0-d bool on the
+    device) false every leaf keeps its old value; the returned step is
+    ``state.step + 1`` either way."""
     step = state.step + 1
     t = step.float()
     c1 = 1.0 - b1 ** t
     c2 = 1.0 - b2 ** t
 
     def upd(p, g, m, v):
-        gf = g.float()
-        m2 = b1 * m + (1 - b1) * gf
-        v2 = b2 * v + (1 - b2) * gf * gf
-        delta = (m2 / c1) / (torch.sqrt(v2 / c2) + eps)
-        if p.ndim >= 2:  # decoupled weight decay on matrices only
-            delta = delta + weight_decay * p.float()
-        return (p.float() - lr * delta).to(p.dtype), m2, v2
+        decay = p.ndim >= 2  # decoupled weight decay on matrices only
+        for pc, gc, mc, vc in _chunks(p, g, m, v):
+            gf = gc.float()
+            m2 = b1 * mc + (1 - b1) * gf
+            v2 = b2 * vc + (1 - b2) * gf * gf
+            delta = (m2 / c1) / (torch.sqrt(v2 / c2) + eps)
+            if decay:
+                delta = delta + weight_decay * pc.float()
+            _write(ok, (pc.float() - lr * delta).to(pc.dtype), pc)
+            _write(ok, m2, mc)
+            _write(ok, v2, vc)
 
-    out = tree_map(upd, params, grads, state.mu, state.nu)
-    pick = lambda i: tree_map(lambda t3: t3[i], out)  # noqa: E731
-    return pick(0), OptState(step, pick(1), pick(2))
+    tree_map(upd, params, grads, state.mu, state.nu)
+    return params, OptState(step, state.mu, state.nu)
 
 
 def sgdm_update(grads: Tree, state: OptState, params: Tree,
                 lr: torch.Tensor, *, momentum: float = 0.9,
-                weight_decay: float = 0.0) -> tuple[Tree, OptState]:
+                weight_decay: float = 0.0,
+                ok: torch.Tensor | None = None) -> tuple[Tree, OptState]:
+    """One SGD-with-momentum step, in place as :func:`adamw_update`."""
     def upd(p, g, m):
-        gf = g.float()
-        if p.ndim >= 2 and weight_decay:
-            gf = gf + weight_decay * p.float()
-        m2 = momentum * m + gf
-        return (p.float() - lr * m2).to(p.dtype), m2
+        decay = p.ndim >= 2 and weight_decay
+        for pc, gc, mc in _chunks(p, g, m):
+            gf = gc.float()
+            if decay:
+                gf = gf + weight_decay * pc.float()
+            m2 = momentum * mc + gf
+            _write(ok, (pc.float() - lr * m2).to(pc.dtype), pc)
+            _write(ok, m2, mc)
 
-    out = tree_map(upd, params, grads, state.mu)
-    pick = lambda i: tree_map(lambda t2: t2[i], out)  # noqa: E731
-    return pick(0), OptState(state.step + 1, pick(1), state.nu)
+    tree_map(upd, params, grads, state.mu)
+    return params, OptState(state.step + 1, state.mu, state.nu)
 
 
 def clip_by_global_norm(grads: Tree,

@@ -65,7 +65,8 @@ def test_config_copies_equal_the_jax_package(make, deq):
             == (want.padded_vocab, want.head_dim_, want.attn_dim,
                 want.kv_dim)
     assert set(treg.ARCHS) == {n for n, c in jreg.ARCHS.items()
-                               if c.family in ("dense", "moe", "hybrid")}
+                               if c.family in ("dense", "moe", "hybrid",
+                                               "ssm")}
 
 
 @pytest.mark.parametrize("make", ["get_config", "smoke_config"])
@@ -82,6 +83,26 @@ def test_zamba2_config_copy_equals_the_jax_package(make):
     else:  # two units of three, the reference's smoke cut
         assert (got.num_layers, got.ssm.d_state, got.ssm.head_dim,
                 got.ssm.chunk, got.ssm.attn_every) == (6, 16, 16, 16, 3)
+
+
+@pytest.mark.parametrize("make", ["get_config", "smoke_config"])
+def test_xlstm_config_copy_equals_the_jax_package(make):
+    assert _fields(tbase.XLSTMConfig) == _fields(jbase.XLSTMConfig)
+    assert dataclasses.asdict(tbase.XLSTMConfig()) == \
+        dataclasses.asdict(jbase.XLSTMConfig())
+    want = getattr(jreg, make)("xlstm-1.3b")
+    got = getattr(treg, make)("xlstm-1.3b")
+    assert dataclasses.asdict(got.xlstm) == dataclasses.asdict(want.xlstm)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.family == "ssm" and got.d_ff == 0
+    if make == "get_config":  # the published widths and depth
+        assert (got.num_layers, got.d_model, got.xlstm.slstm_every,
+                got.xlstm.chunk) == (48, 2048, 8, 256)
+        assert (got.num_heads, got.vocab_size, got.xlstm.mlstm_proj_factor,
+                got.xlstm.slstm_proj_factor) == (4, 50304, 2.0, 4.0 / 3.0)
+    else:  # two units of four, the reference's smoke cut
+        assert (got.num_layers, got.xlstm.slstm_every,
+                got.xlstm.chunk) == (8, 4, 16)
 
 
 def test_train_config_copy_equals_the_jax_package():
@@ -111,7 +132,8 @@ def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch):
 NEW_MODULES = ("runtime/faultinject.py", "core/bilevel.py", "core/deq.py",
                "core/hypergrad.py", "models/mdeq.py", "configs/mdeq_cifar.py",
                "models/ssm.py", "configs/zamba2_2p7b.py", "models/lm.py",
-               "launch/train.py")
+               "launch/train.py", "models/xlstm.py", "configs/xlstm_1p3b.py",
+               "optim/optimizers.py", "launch/steps.py")
 
 
 @pytest.mark.parametrize("path", NEW_MODULES)

@@ -13,7 +13,12 @@ the recording and replay of forward solves it rests on, at smoke size),
 and the check of a traced train step's phases (canned traces, and two
 traced smoke steps on the CPU), the host-wait counter (an implicit read
 reported as the sync debug mode reports it, and canned arms with a read
-too many or too few) and the spill check (canned ptxas reports).
+too many or too few) and the spill check (canned ptxas reports).  The
+layer-stack train phases' launch counts (``_forward_launches``) are held
+against a smoke train step's kernel-op calls, the xLSTM cell check's
+output-scaled tolerance directly, and the per-layer cache-leaf check on
+the xLSTM smoke model's caches (a prefill then a decode step against a
+prefill over one more token; swapped or stale layers must fail).
 """
 
 import dataclasses
@@ -21,6 +26,7 @@ import os
 import sys
 import warnings
 
+import numpy as np
 import pytest
 import torch
 
@@ -629,7 +635,7 @@ def test_trace_check_rejects(wrong):
 
 
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "deepseek-v2-lite-16b",
-                                  "deepseek-moe-16b"])
+                                  "deepseek-moe-16b", "xlstm-1.3b"])
 @pytest.mark.parametrize("remat", ["full", "none"])
 def test_forward_launches_count_a_train_step(monkeypatch, arch, remat):
     """``chip_smoke._forward_launches``, the launch counts the layer-stack
@@ -657,3 +663,71 @@ def test_forward_launches_count_a_train_step(monkeypatch, arch, remat):
     fwd = chip_smoke._forward_launches(cfg)
     assert calls == {k: fwd[k] + (fwd["inside"][k] if remat == "full"
                                   else 0) for k in calls}
+
+
+def test_scaled_tolerance_follows_the_output():
+    want = torch.tensor([1e-7, -3e-7])
+    tol = chip_smoke._scaled_tol(want)
+    assert tol["rtol"] == chip_smoke.SCAN_TOL["rtol"]
+    assert tol["atol"] == pytest.approx(chip_smoke.SCAN_TOL["atol"] * 3e-7)
+    # an error of 1e-3 of the output's scale is caught, 1e-5 is not
+    assert chip_smoke.excess(want + 3e-10, want, tol) > 0
+    assert chip_smoke.excess(want + 3e-12, want, tol) <= 0
+
+
+@pytest.fixture(scope="module")
+def xlstm_caches():
+    """The xLSTM smoke model (f32, B=2) after a prefill over 20 tokens and
+    one decode step, the same after the prefill alone, and a prefill over
+    all 21 tokens."""
+    cfg = dataclasses.replace(smoke_config("xlstm-1.3b"), dtype="float32")
+    params = lm.init_params(cfg, seed=1, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        2, cfg.vocab_size, size=(2, 21)))
+    with torch.no_grad():
+        _, caches, lens = lm.prefill(params, {"tokens": toks[:, :20]}, cfg,
+                                     32)
+        stale = _clone_tree(caches)
+        lm.decode_step(params, caches, toks[:, 20], lens, cfg)
+        _, want, _ = lm.prefill(params, {"tokens": toks}, cfg, 32)
+    return cfg, caches, stale, want
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(_clone_tree(v) for v in tree))
+    return tree.clone()
+
+
+def test_cache_leaf_check_passes_prefill_then_decode(xlstm_caches):
+    cfg, got, _, want = xlstm_caches
+    rows = chip_smoke.check_cache_leaves(got, want, cfg, "xlstm smoke")
+    n_units = cfg.num_layers // cfg.xlstm.slstm_every
+    n_m = cfg.xlstm.slstm_every - 1
+    assert {k: r["layers"] for k, r in rows.items()} == {
+        **{f"group0.mlstm.{f}": n_units * n_m for f in ("C", "n", "m")},
+        **{f"group0.slstm.{f}": n_units for f in ("c", "n", "h", "m")}}
+    assert all(r["limit_share"] <= 1 for r in rows.values())
+
+
+@pytest.mark.parametrize("wrong", ["swapped_mlstm_layers", "stale_mlstm_C",
+                                   "stale_slstm_h", "stale_mlstm_m"])
+def test_cache_leaf_check_rejects(xlstm_caches, wrong):
+    """A wrong layer index or a layer whose state the decode step did not
+    advance fails, however little that layer adds to the logits."""
+    cfg, got, stale, want = xlstm_caches
+    bad = _clone_tree(got)
+    m_bad, s_bad = bad["group0"]["mlstm"], bad["group0"]["slstm"]
+    m_old, s_old = stale["group0"]["mlstm"], stale["group0"]["slstm"]
+    if wrong == "swapped_mlstm_layers":
+        m_bad.C[0, [0, 1]] = m_bad.C[0, [1, 0]].clone()
+    elif wrong == "stale_mlstm_C":
+        m_bad.C[1, 2] = m_old.C[1, 2]
+    elif wrong == "stale_mlstm_m":
+        m_bad.m[0, 1] = m_old.m[0, 1]
+    else:
+        s_bad.h[1] = s_old.h[1]
+    with pytest.raises(AssertionError):
+        chip_smoke.check_cache_leaves(bad, want, cfg, "xlstm smoke")

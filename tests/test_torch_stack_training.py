@@ -4,13 +4,14 @@ rematerialisation, against the JAX package, on the CPU.
   * ``remat`` none / full / dots give the same loss and the same gradient
     leaves in f32 (to 1e-6): rematerialisation changes what is kept for the
     backward, not what is computed; for ``deepseek-v2-lite-16b`` (MLA +
-    MoE) and ``zamba2-2.7b`` (Mamba2 + the shared block) smoke configs;
+    MoE), ``zamba2-2.7b`` (Mamba2 + the shared block) and ``xlstm-1.3b``
+    (mLSTM + sLSTM) smoke configs;
   * ``build_train_step`` against the JAX package's for 3 AdamW steps
     (loss rtol 1e-4, grad norm 2e-3, lr 1e-6, and the updated parameters)
-    for ``deepseek-v2-lite-16b``, ``deepseek-moe-16b`` and ``zamba2-2.7b``
-    without the DEQ, and ``deepseek-moe-16b`` with it (the same solver
-    steps every step; the weight-tied blocks scaled by 0.3 and an f32 ring,
-    as in ``tests/test_torch_training.py``);
+    for ``deepseek-v2-lite-16b``, ``deepseek-moe-16b``, ``zamba2-2.7b`` and
+    ``xlstm-1.3b`` without the DEQ, and ``deepseek-moe-16b`` with it (the
+    same solver steps every step; the weight-tied blocks scaled by 0.3 and
+    an f32 ring, as in ``tests/test_torch_training.py``);
   * ``python -m repro_torch.launch.train`` without ``--deq`` on the CPU
     ends with ``finished at step 2``; with ``--device`` left at the card it
     raises here.
@@ -85,7 +86,8 @@ def _batch(index, vocab):
              "targets": torch.from_numpy(toks[:, 1:])})
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "zamba2-2.7b",
+                                  "xlstm-1.3b"])
 def test_remat_modes_give_the_same_loss_and_gradients(arch):
     _, tcfg = _cfgs(arch)
     _, npp = _params(_cfgs(arch)[0])
@@ -163,7 +165,8 @@ def _jax_state(jp, jcfg, jtcfg):
 @pytest.mark.parametrize("arch,deq", [("deepseek-v2-lite-16b", False),
                                       ("deepseek-moe-16b", False),
                                       ("zamba2-2.7b", False),
-                                      ("deepseek-moe-16b", True)])
+                                      ("deepseek-moe-16b", True),
+                                      ("xlstm-1.3b", False)])
 def test_three_train_steps_match_jax(arch, deq):
     jcfg, tcfg = _cfgs(arch, deq)
     jp, npp = _params(jcfg, deq)
@@ -197,7 +200,8 @@ def test_three_train_steps_match_jax(arch, deq):
                                    err_msg=path)
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "zamba2-2.7b",
+                                  "xlstm-1.3b"])
 def test_train_launcher_runs_without_deq(arch):
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
