@@ -17,7 +17,9 @@ Phases, one line (or a few) each:
      D=S*2304 for S in {1, 256}, bf16: broyden_step, qn_apply_multi with
      (False,), (False, True) and the SHINE backward's (True,), qn_apply,
      lowrank_append; the same checks, untimed, at the xLSTM DEQ drain's
-     rings, D=S*2048 at (S, B) (1, 4), (64, 2), (128, 2) (``XLSTM_QN``);
+     rings, D=S*2048 at (S, B) (1, 4), (64, 2), (128, 2) (``XLSTM_QN``),
+     and at the HuBERT-XLarge DEQ step's, D=1000*1280, B=4
+     (``AUDIO_QN``);
      attention B=4, S=256, 36 heads x 64; decode over a
      1024-token cache with mixed lengths; rmsnorm at ``RMS_SHAPES``, bf16
      and f32, each bf16 shape timed in turns against ``F.rms_norm``): max
@@ -37,7 +39,10 @@ Phases, one line (or a few) each:
      f32), each through ``check_attention``, and each head dim past 64 at
      its config's heads (``ATTN_HEAD_DIMS``; 192 is DeepSeek-V2-Lite's MLA,
      qk 128 + 64 with v padded; 80 also at Zamba2's prefill S 300 and 512
-     and its decode over T 512) timed cold beside SDPA and the bound
+     and its decode over T 512, and at HuBERT-XLarge's non-causal encoder,
+     B=4 S=T=1000 16 heads; 128 also at Pixtral-12B's image prompt, B=2
+     S=T=1152 32/8 heads, and its decode over T 2048) timed cold and warm
+     beside SDPA and the bound
      (``kernel_attention_head_dims``); then the gradients of
      the attention and rmsnorm
      autograd wrappers (kernel forward, plain recompute backward) against
@@ -197,11 +202,33 @@ Phases, one line (or a few) each:
      weights, held at ``hold_trajectory``'s tolerances; peak memory and
      launches of both, each train run's peak printed beside the one
      measured when AdamW still built a second copy of the state;
- 16. a ``{"kernels": [...]}`` line (with each kernel's launches in the
+ 16. the audio and vlm families (``phase_audio_vlm``), bf16, random
+     weights from seed 0, published widths: HuBERT-XLarge at full depth
+     (48 layers, d 1280, 16 x 80 heads not causal, GELU ff 5120, 504
+     classes; 0.95 B parameters), 3 AdamW steps of the layer stack at 4 x
+     1000 stub frames with ``remat="full"`` (launches held to
+     ``_forward_launches``, no decode launch) and a profiled step, then 2
+     steps of its DEQ form (4 tied ``attn_mlp`` blocks x0.3: both qN
+     kernels and the non-causal prefill kernel launch; solve steps and
+     statuses); Pixtral-12B at full depth (40 layers, d 5120, 32/8 x 128,
+     ff 14336, vocab 131072; 12.25 B parameters): a sync and an async
+     drain of 8 text requests (128 and 256 tokens) over 4 slots with a
+     2048-token cache (async = sync bit for bit, one host wait), the
+     cache check with its 1024 image tokens (prefill over images + 128
+     tokens and one decode step against a forward; bf16 reported beside
+     its rounding floor, f32 held at ``TOL_F32``), and 2 AdamW steps at
+     full width cut to 6 layers over 2 x (1024 image + 512 text) with the
+     attention kernel and again with the chunked ``flash_xla`` path
+     (``hold_trajectory``; both peaks); the smoke configs card against CPU
+     in f32 (HuBERT's layer stack and DEQ train steps, a Pixtral drain and
+     train steps with images); an ``audio_vlm_phase_split`` line;
+ 17. a ``{"kernels": [...]}`` line (with each kernel's launches in the
      step 8 arms, in arm c of step 4, in the MDEQ SGD steps, in the
      V2-Lite async drain of step 12, in the Zamba2 async drain and train
      steps of step 13, in the xLSTM async drain and train steps of step
-     14), then the last line ``{"ok": true, "device": {...}}``.
+     14, in the HuBERT train and DEQ steps, the Pixtral async drain and
+     its kernel-arm train steps of step 16), then the last line
+     ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the last
 line.  It imports nothing of JAX; it needs the repository's ``src/`` beside
@@ -213,6 +240,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import itertools
 import json
 import os
 import re
@@ -240,6 +268,7 @@ from repro_torch.core.deq import DEQConfig  # noqa: E402
 from repro_torch.data.pipeline import (  # noqa: E402
     SyntheticTokenDataset,
     make_lm_batch_iterator,
+    stub_batch,
 )
 from repro_torch.kernels import build, launches, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as cuda_fa  # noqa: E402
@@ -1041,12 +1070,17 @@ def kernel_qn(seq: int, gen) -> dict:
 # (S, B) of decode over the 4 slots, and of the prefill waves of two
 # prompts of 64 and of 128
 XLSTM_QN = (2048, ((1, 4), (64, 2), (128, 2)))
+# the HuBERT-XLarge DEQ train step's ring (d 1280, AUDIO_DEQ_TRAIN's 4 x
+# 1000 frames): broyden_step, the initial H g and the SHINE backward H^T w
+AUDIO_QN = (1280, ((1000, 4),))
 
 
-def kernel_qn_xlstm(gen) -> dict:
-    """The qN kernels against their plain versions at ``XLSTM_QN``'s rings,
-    at ``kernel_qn``'s tolerances: each kernel's largest error."""
-    width, shapes = XLSTM_QN
+def kernel_qn_rings(gen, spec=XLSTM_QN) -> dict:
+    """The qN kernels against their plain versions at the rings of
+    ``spec`` (``XLSTM_QN``, ``AUDIO_QN``: the width and the (S, B) of
+    each ring), at ``kernel_qn``'s tolerances: each kernel's largest
+    error."""
+    width, shapes = spec
     errs = {}
     for seq, bsz in shapes:
         for name, e in check_qn_path(qn_path_inputs(seq, gen, width,
@@ -1169,41 +1203,50 @@ def _lens(vals):
 
 # prefill cases besides "main" (the reported shape): (tag, B, S, T, H, KV,
 # hd, dtype, kv_length, causal) -- GQA groups 1, 3, 4 and 6 (InternLM2's
-# 48/8), ragged S and T, a kv_length 0 row and lengths inside a tile, head
+# 48/8), ragged S and T (causal only with S >= T: the wrapper refuses
+# causal T > S), a kv_length 0 row and lengths inside a tile, head
 # dims 16, 64, 80, 96, 128 and 192 in bf16 and f32 (192 also at
 # DeepSeek-V2-Lite's prefill shape, B=4 S=T=256 16/16 heads; 80 also at
 # Zamba2's shared block, 32/32 heads, B=4 over its ragged 300-token prompt
-# wave and its 512-token training sequences)
+# wave and its 512-token training sequences, and at HuBERT-XLarge's
+# non-causal encoder, 16/16 heads over B=4 x 1000 frames; 128 also at
+# Pixtral-12B's image prompt, 32/8 heads, B=2 x (1024 image + 128 text))
 PREFILL_CASES = [
     ("gqa3", 4, 256, 256, 36, 12, 64, torch.bfloat16, None, True),
     ("gqa4", 2, 256, 256, 36, 9, 64, torch.bfloat16, None, True),
     ("ragged", 3, 197, 197, 36, 36, 64, torch.bfloat16, None, True),
-    ("ragged_s_ne_t", 2, 197, 230, 36, 12, 64, torch.bfloat16, None, True),
+    ("ragged_s_ne_t", 2, 230, 197, 36, 12, 64, torch.bfloat16, None, True),
     ("kv_length", 4, 256, 256, 36, 36, 64, torch.bfloat16,
      [256, 0, 37, 200], True),
     ("not_causal", 2, 130, 197, 36, 9, 64, torch.bfloat16, [150, 0], False),
     ("hd16", 3, 197, 197, 8, 2, 16, torch.bfloat16, [197, 0, 70], True),
     ("hd16_f32", 3, 197, 197, 8, 2, 16, torch.float32, [197, 0, 70], True),
     ("hd64_f32", 2, 197, 197, 8, 8, 64, torch.float32, [100, 0], True),
-    ("hd80", 2, 197, 230, 32, 32, 80, torch.bfloat16, [230, 0], True),
-    ("hd80_f32", 2, 130, 197, 8, 4, 80, torch.float32, [150, 0], True),
+    ("hd80", 2, 230, 197, 32, 32, 80, torch.bfloat16, [197, 0], True),
+    ("hd80_f32", 2, 197, 130, 8, 4, 80, torch.float32, [130, 0], True),
     ("hd96", 3, 197, 197, 32, 32, 96, torch.bfloat16, [197, 0, 37], True),
     ("hd96_f32", 2, 130, 130, 8, 8, 96, torch.float32, [100, 0], True),
-    ("hd128_gqa", 2, 197, 230, 48, 8, 128, torch.bfloat16, [230, 0], True),
-    ("hd128_f32", 2, 130, 197, 48, 8, 128, torch.float32, [150, 0], True),
-    ("hd192", 2, 197, 230, 16, 16, 192, torch.bfloat16, [230, 0], True),
+    ("hd128_gqa", 2, 230, 197, 48, 8, 128, torch.bfloat16, [197, 0], True),
+    ("hd128_f32", 2, 197, 130, 48, 8, 128, torch.float32, [130, 0], True),
+    ("hd192", 2, 230, 197, 16, 16, 192, torch.bfloat16, [197, 0], True),
     ("hd192_f32", 4, 256, 256, 16, 16, 192, torch.float32, None, True),
     ("zamba2_s300", 4, 300, 300, 32, 32, 80, torch.bfloat16, None, True),
     ("zamba2_s300_f32", 4, 300, 300, 32, 32, 80, torch.float32, None, True),
     ("zamba2_s512", 4, 512, 512, 32, 32, 80, torch.bfloat16, None, True),
     ("zamba2_s512_f32", 4, 512, 512, 32, 32, 80, torch.float32, None, True),
+    ("hubert_noncausal", 4, 1000, 1000, 16, 16, 80, torch.bfloat16, None,
+     False),
+    ("hubert_noncausal_f32", 4, 1000, 1000, 16, 16, 80, torch.float32, None,
+     False),
+    ("pixtral_img", 2, 1152, 1152, 32, 8, 128, torch.bfloat16, None, True),
 ]
 # decode cases besides "main": (tag, B, H, KV, hd, T, dtype, kv_length) --
 # kv_length at the split chunk's edges (CH-1, CH, CH+1, T) and 0, a cache
 # shorter than one chunk, GQA (H=36, KV=12; 48/8), head dims 16, 64, 80,
 # 96, 128 and 192 (bf16 and f32; 192 over V2-Lite's 512-token serving
-# cache, 80 also over Zamba2's, 32/32 heads); the "chunk_edges" cases also
-# take the kv_length +-1 guard
+# cache, 80 also over Zamba2's, 32/32 heads, 128 over Pixtral-12B's
+# 2048-token cache, 32/8 heads); the "chunk_edges" cases also take the
+# kv_length +-1 guard
 _CH = cuda_fa.DECODE_CHUNK
 DECODE_CASES = [
     ("chunk_edges", 4, 36, 36, 64, 1024, torch.bfloat16,
@@ -1230,6 +1273,8 @@ DECODE_CASES = [
      [_CH - 1, _CH, _CH + 1, 512]),
     ("zamba2_f32_chunk_edges", 4, 32, 32, 80, 512, torch.float32,
      [_CH - 1, _CH, _CH + 1, 512]),
+    ("pixtral_chunk_edges", 4, 32, 8, 128, 2048, torch.bfloat16,
+     [_CH - 1, _CH, _CH + 1, 2048]),
 ]
 
 
@@ -1363,47 +1408,65 @@ def kernel_attention(gen) -> dict:
 HEAD_DIM_CONFIGS = {80: ("stablelm-3b", 32, 32), 96: ("phi3-mini-3.8b", 32, 32),
                     128: ("internlm2-20b", 48, 8)}
 # the attention kernels' head dims past 64, timed: key -> (config, H, KV,
-# hd, prefill S = T, decode cache length T); each config's heads at S 256
-# and T 1024 (V2-Lite's MLA at qk 128 + 64, v padded, over its 512-token
-# serving cache), and Zamba2's shared block at hd 80 over its ragged
-# 300-token prompt wave and its 512-token training sequences, decoding
-# over its 512-token serving cache
-ATTN_HEAD_DIMS = {str(hd): (arch, h, kvh, hd, 256, 1024)
+# hd, prefill S = T, decode cache length T, prefill B, causal); each
+# config's heads at B=4 S 256 and T 1024 (V2-Lite's MLA at qk 128 + 64, v
+# padded, over its 512-token serving cache), Zamba2's shared block at hd
+# 80 over its ragged 300-token prompt wave and its 512-token training
+# sequences, decoding over its 512-token serving cache; HuBERT-XLarge's
+# encoder at hd 80, not causal, over B=4 x 1000 frames; Pixtral-12B at
+# hd 128 (32/8 heads) over B=2 x (1024 image + 128 text) tokens and
+# decoding over its 2048-token serving cache
+ATTN_HEAD_DIMS = {str(hd): (arch, h, kvh, hd, 256, 1024, 4, True)
                   for hd, (arch, h, kvh) in HEAD_DIM_CONFIGS.items()}
-ATTN_HEAD_DIMS["192"] = ("deepseek-v2-lite-16b", 16, 16, 192, 256, 512)
-ATTN_HEAD_DIMS["80_zamba2_s300"] = ("zamba2-2.7b", 32, 32, 80, 300, 512)
-ATTN_HEAD_DIMS["80_zamba2_s512"] = ("zamba2-2.7b", 32, 32, 80, 512, None)
+ATTN_HEAD_DIMS["192"] = ("deepseek-v2-lite-16b", 16, 16, 192, 256, 512, 4,
+                         True)
+ATTN_HEAD_DIMS["80_zamba2_s300"] = ("zamba2-2.7b", 32, 32, 80, 300, 512, 4,
+                                    True)
+ATTN_HEAD_DIMS["80_zamba2_s512"] = ("zamba2-2.7b", 32, 32, 80, 512, None, 4,
+                                    True)
+ATTN_HEAD_DIMS["80_hubert_noncausal"] = ("hubert-xlarge", 16, 16, 80, 1000,
+                                         None, 4, False)
+ATTN_HEAD_DIMS["128_pixtral"] = ("pixtral-12b", 32, 8, 128, 1152, 2048, 2,
+                                 True)
 
 
 def kernel_attention_head_dims(gen) -> dict:
-    """Prefill (B=4, S=T, causal) and decode (B=4 over a T-token cache,
-    lengths 129, 257, 200 and T) at each entry of ``ATTN_HEAD_DIMS``
-    with its config's heads, bf16: checked against the plain version and
-    timed cold (event and device time after an L2 flush) beside SDPA
-    (masked for decode) and the bound."""
+    """Prefill (the entry's B, S=T, causal or not) and decode (B=4 over a
+    T-token cache, lengths 129, 257, 200 and T) at each entry of
+    ``ATTN_HEAD_DIMS`` with its config's heads, bf16: checked against the
+    plain version and timed cold (event and device time after an L2
+    flush) and warm (device time back to back) beside SDPA (masked for
+    decode) and the bound (a causal product counts the cells on and under
+    the diagonal)."""
     bf = torch.bfloat16
     out = {"flash_attention": {}, "decode_attention": {}}
-    for key, (arch, h, kvh, hd, seq, t) in ATTN_HEAD_DIMS.items():
-        bsz = 4
-        q, k, v = _attn_inputs(gen, bsz, seq, seq, h, kvh, hd, bf)
-        kern = lambda: cuda_fa.flash_attention(q, k, v, causal=True)  # noqa: E731
-        lib = lambda: _sdpa(q, k, v, causal=True)  # noqa: E731
+    for key, (arch, h, kvh, hd, seq, t, pbsz, causal) in \
+            ATTN_HEAD_DIMS.items():
+        q, k, v = _attn_inputs(gen, pbsz, seq, seq, h, kvh, hd, bf)
+        kern = lambda: cuda_fa.flash_attention(  # noqa: E731
+            q, k, v, causal=causal)
+        lib = lambda: _sdpa(q, k, v, causal=causal)  # noqa: E731
         err = check_attention(f"flash_attention[{arch}]", kern(),
-                              ref.attention_ref(q, k, v, causal=True),
+                              ref.attention_ref(q, k, v, causal=causal),
                               q, k, v, None, TOL_BF16)
+        cells = seq * (seq + 1) / 2 if causal else seq * seq
         b_ms, b_by = bound(2 * q.numel() * 2 + 2 * k.numel() * 2,
-                           4 * bsz * h * hd * seq * (seq + 1) / 2, "bf16")
+                           4 * pbsz * h * hd * cells, "bf16")
         row = out["flash_attention"][key] = dict(
-            config=arch, shape=f"B={bsz} S=T={seq} H={h} KV={kvh} hd={hd} "
-            "causal bf16", max_abs_err=err, ms=time_cold_ms(kern),
-            device_ms=cold_device_ms(kern),
-            plain_ms=time_ms(lambda: ref.attention_ref(q, k, v, causal=True)),
+            config=arch, shape=f"B={pbsz} S=T={seq} H={h} KV={kvh} hd={hd} "
+            f"{'causal' if causal else 'not causal'} bf16", max_abs_err=err,
+            ms=time_cold_ms(kern), device_ms=cold_device_ms(kern),
+            device_ms_warm=device_ms(kern),
+            plain_ms=time_ms(lambda: ref.attention_ref(q, k, v,
+                                                       causal=causal)),
             library_ms=time_cold_ms(lib),
             library_device_ms=cold_device_ms(lib),
+            library_device_ms_warm=device_ms(lib),
             bound_ms=b_ms, bound_by=b_by)
         say("kernel_case", name="flash_attention", case=f"hd{key}", **row)
         if t is None:
             continue
+        bsz = 4
         lens = _lens([129, 257, 200, t])
         q, k, v = _decode_inputs(gen, bsz, h, kvh, hd, t, bf)
         kern = lambda: cuda_fa.decode_attention(q, k, v, lens)  # noqa: E731
@@ -1421,10 +1484,12 @@ def kernel_attention_head_dims(gen) -> dict:
             config=arch, shape=f"B={bsz} H={h} KV={kvh} hd={hd} T={t} "
             f"kv_length={lens.tolist()} bf16", max_abs_err=err,
             ms=time_cold_ms(kern), device_ms=cold_device_ms(kern),
+            device_ms_warm=device_ms(kern),
             plain_ms=time_ms(lambda: ref.decode_attention_ref(q, k, v,
                                                               lens)),
             library_ms=time_cold_ms(lib),
             library_device_ms=cold_device_ms(lib),
+            library_device_ms_warm=device_ms(lib),
             bound_ms=b_ms, bound_by=b_by, launches_per_call=2)
         say("kernel_case", name="decode_attention", case=f"hd{key}", **row)
     return out
@@ -1434,14 +1499,17 @@ def kernel_attention_head_dims(gen) -> dict:
 # (B=4 x S=256) and at the decode shape (4 slots) -- DeepSeek's 2048 and
 # MLA's kv_norm 512 among them; Zamba2's 2560 and its Mamba2 gated width
 # 5120 also at 2048 rows (its 4 x 512 training batch); xLSTM-1.3B's 2048
-# at its 4 x 300 prefill wave and its 4 x 512 training batch -- a ragged
-# row count and a width with no vector instance (the generic kernel); the
-# first is the reported row
+# at its 4 x 300 prefill wave and its 4 x 512 training batch;
+# HuBERT-XLarge's 1280 at its 4 x 1000 training batch (and 4 rows);
+# Pixtral-12B's 5120 at its 2 x 1152 image prompt and its 2 x 1536 training
+# batch -- a ragged row count and a width with no vector instance (the
+# generic kernel); the first is the reported row
 RMS_SHAPES = [(1024, 2304), (1024, 2560), (1024, 3072), (1024, 6144),
               (1024, 2048), (1024, 512), (4, 2304), (4, 6144), (4, 2048),
               (4, 512), (1000, 2304), (1024, 64), (4, 2560), (1024, 5120),
               (4, 5120), (2048, 2560), (2048, 5120), (1200, 2048),
-              (2048, 2048)]
+              (2048, 2048), (4000, 1280), (4, 1280), (2304, 5120),
+              (3072, 5120)]
 
 
 def kernel_rmsnorm(gen) -> dict:
@@ -1565,8 +1633,9 @@ def phase_kernels() -> dict:
         for key in ("ms", "device_ms", "device_ms_warm", "bound_ms",
                     "plain_ms", "launches_per_call", "shape"):
             q[f"adjoint_{tag}_{key}"] = row[key]
-    for name, err in kernel_qn_xlstm(gen).items():
-        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+    for spec in (XLSTM_QN, AUDIO_QN):
+        for name, err in kernel_qn_rings(gen, spec).items():
+            res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
     kernel_qn_cases(gen)
     for name, row in kernel_qn_mdeq(gen).items():
         res[name]["max_abs_err"] = max(res[name]["max_abs_err"],
@@ -3234,15 +3303,15 @@ MLA_SMOKE_QK = dict(qk_nope_dim=48, qk_rope_dim=16)
 
 
 def _moe_drain(params, cfg, pipeline: str, record: bool,
-               plens=MOE_PLENS) -> dict:
+               plens=MOE_PLENS, max_len: int = MOE_MAX_LEN) -> dict:
     """One drain of ``plens`` prompts (MOE_PLENS) over 4 slots (MOE_NEW new
-    tokens, a MOE_MAX_LEN cache) with the launch counts reset just before
+    tokens, a ``max_len`` cache) with the launch counts reset just before
     and the host waits counted; every request must be served in full with
     no fault (and, recorded, finite logits)."""
     rng = np.random.default_rng(0)
     prompts = [rng.integers(2, cfg.vocab_size, size=n).tolist()
                for n in plens]
-    loop = ServeLoop(params, cfg, slots=4, max_len=MOE_MAX_LEN,
+    loop = ServeLoop(params, cfg, slots=4, max_len=max_len,
                      pipeline=pipeline, record=record)
     reqs = [Request(uid=i, prompt=p, max_new_tokens=MOE_NEW)
             for i, p in enumerate(prompts)]
@@ -3579,7 +3648,8 @@ def _forward_launches(cfg) -> dict:
     norm; MLA's kv_norm once more; once per xLSTM layer) plus the final
     norm, flash attention once per attention block (none in xLSTM);
     ``inside`` the same without the final norm (what a rematerialised unit
-    launches again in the backward)."""
+    launches again in the backward); the flash_xla and plain attention
+    routes (``cfg.attn_impl``) launch no attention kernel."""
     if cfg.family == "hybrid":
         units = cfg.num_layers // cfg.ssm.attn_every
         norms = 2 * cfg.num_layers + 2 * units
@@ -3589,26 +3659,39 @@ def _forward_launches(cfg) -> dict:
     else:
         attn = cfg.num_layers
         norms = (3 if cfg.attn_type == "mla" else 2) * cfg.num_layers
+    if cfg.attn_impl in ("flash_xla", "ref"):
+        attn = 0
     return {"rmsnorm": norms + 1, "flash_attention": attn,
             "inside": {"rmsnorm": norms, "flash_attention": attn}}
+
+
+def _batches(cfg, batch: int, seq: int):
+    """Seed-0 training batches of ``seq`` positions: the synthetic token
+    stream, or for the audio and vlm families the stub frontends' random
+    batches (``stub_batch``, seed = the step)."""
+    if cfg.family in ("audio", "vlm"):
+        return (stub_batch(cfg, batch, seq, seed=i, device="cuda")
+                for i in itertools.count())
+    return make_lm_batch_iterator(cfg, batch, seq, seed=0, device="cuda")
 
 
 def stack_train(params, cfg, remat: str, *, steps: int, batch: int,
                 seq: int, desc: str, smi: str) -> dict:
     """``steps`` AdamW steps of the layer stack (``build_train_step``,
     ``cfg.remat = remat``) from ``params`` (left as they are) on
-    ``make_lm_batch_iterator``'s seed-0 batches, each step timed to the
-    card's last kernel; the launch counts reset before the first step and
-    read after the last (per step they must be one forward's, plus one
-    recompute of every unit under ``full``: ``_forward_launches``); the
-    peak device memory.  Every loss and grad norm finite, no step
-    skipped."""
+    ``_batches``' seed-0 batches, each step timed to the card's last
+    kernel; the launch counts reset before the first step and read after
+    the last (per step they must be one forward's, plus one recompute of
+    every unit under ``full``: ``_forward_launches``; a DEQ model's are
+    reported, and its solve steps and statuses); the peak device memory.
+    Every loss and grad norm finite, no step skipped."""
     cfg = dataclasses.replace(cfg, remat=remat)
     tcfg = TrainConfig(steps=steps, global_batch=batch, seq_len=seq,
                        schedule=cfg.schedule)
     state = train_steps.init_train_state(cfg, tcfg, params=params)
     step = train_steps.build_train_step(cfg, tcfg)
-    batches = make_lm_batch_iterator(cfg, batch, seq, seed=0, device="cuda")
+    batches = _batches(cfg, batch, seq)
+    solves = []
     rows = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3616,7 +3699,8 @@ def stack_train(params, cfg, remat: str, *, steps: int, batch: int,
     for i in range(steps):
         b = next(batches)
         t0 = time.perf_counter()
-        state, m = step(state, b)
+        with _record_forward(solves):
+            state, m = step(state, b)
         torch.cuda.synchronize()
         rows.append(dict(step=i + 1, loss=float(m["loss"]),
                          grad_norm=float(m["grad_norm"]),
@@ -3629,21 +3713,25 @@ def stack_train(params, cfg, remat: str, *, steps: int, batch: int,
                 and r["skipped"] == 0.0):
             raise AssertionError(f"{desc} remat={remat} step {r['step']}: "
                                  f"{r}")
-    fwd = _forward_launches(cfg)
-    want = {k: steps * (fwd[k] + (fwd["inside"][k] if remat == "full"
-                                  else 0))
-            for k in ("rmsnorm", "flash_attention")}
-    got = {k: counts[k] for k in want}
-    if got != want:
-        raise AssertionError(f"{desc} remat={remat}: launches {got}, want "
-                             f"{want}")
+    if not cfg.deq.enabled:
+        fwd = _forward_launches(cfg)
+        want = {k: steps * (fwd[k] + (fwd["inside"][k] if remat == "full"
+                                      else 0))
+                for k in ("rmsnorm", "flash_attention")}
+        got = {k: counts[k] for k in want}
+        if got != want:
+            raise AssertionError(f"{desc} remat={remat}: launches {got}, "
+                                 f"want {want}")
     say("train_stack", config=desc, remat=remat, card=smi,
-        batch=f"{batch} x {seq}", steps=rows, peak_mem_gib=peak,
+        attn_impl=cfg.attn_impl, batch=f"{batch} x {seq}", steps=rows,
+        solves=[(int(n), st.tolist()) for n, st in solves],
+        peak_mem_gib=peak,
         launches=counts, launches_per_step={k: n / steps
                                             for k, n in counts.items() if n})
     del state
     torch.cuda.empty_cache()
-    return dict(rows=rows, counts=counts, peak_mem_gib=peak)
+    return dict(rows=rows, counts=counts, peak_mem_gib=peak,
+                solves=[(int(n), st.tolist()) for n, st in solves])
 
 
 def check_scan_ref(params, cfg, seq: int, smi: str) -> None:
@@ -3687,15 +3775,30 @@ def shared_grad_norm(params, cfg, seq: int) -> float:
     return float(torch.sqrt(sum(g.float().square().sum() for g in grads)))
 
 
-def stack_train_parity(arch: str) -> dict:
-    """``arch``'s smoke config, layer stack in f32, 3 AdamW steps on the
-    card and on the CPU from the same weights (seed 1) and batches: loss
-    at rtol 1e-4, grad norm at rtol 2e-3 (as ``phase_train_parity``)."""
-    cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+def stack_train_parity(arch: str, deq: bool = False) -> dict:
+    """``arch``'s smoke config in f32 (the layer stack, or with ``deq`` its
+    DEQ form: tied blocks x0.3, an f32 ring), 3 AdamW steps on the card and
+    on the CPU from the same weights (seed 1) and batches of 2 x 20 (the
+    synthetic token stream; for the audio and vlm families ``stub_batch``,
+    the vlm's 8 image tokens among the 20 positions): the same forward
+    solver steps, loss at rtol 1e-4, grad norm at rtol 2e-3 (as
+    ``phase_train_parity``)."""
+    cfg = dataclasses.replace(smoke_config(arch, deq=deq), dtype="float32")
     tcfg = TrainConfig(steps=3, global_batch=2, seq_len=20, lr=1e-3,
                        warmup_steps=2)
     cpu_params = lm.init_params(cfg, seed=1, device="cpu")
+    if deq:
+        cfg = dataclasses.replace(cfg, deq=dataclasses.replace(
+            cfg.deq, qn_dtype="float32"))
+        cpu_params = _scaled_blocks(cpu_params, 0.3)
     ds = SyntheticTokenDataset(cfg.vocab_size, 0)
+
+    def batch(i, dev):
+        if cfg.family in ("audio", "vlm"):
+            return stub_batch(cfg, 2, 20, seed=i, device=dev)
+        toks = torch.from_numpy(ds.batch(i, 2, 21)).to(dev)
+        return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
     seen = {}
     for dev in ("cuda", "cpu"):
         state = train_steps.init_train_state(
@@ -3703,18 +3806,20 @@ def stack_train_parity(arch: str) -> dict:
         step = train_steps.build_train_step(cfg, tcfg)
         seen[dev] = []
         for i in range(3):
-            toks = torch.from_numpy(ds.batch(i, 2, 21)).to(dev)
-            state, m = step(state, {"tokens": toks[:, :-1],
-                                    "targets": toks[:, 1:]})
-            seen[dev].append((float(m["loss"]), float(m["grad_norm"])))
-    for i, ((lg, gg), (lc, gc)) in enumerate(zip(seen["cuda"], seen["cpu"])):
-        if abs(lg - lc) > 1e-4 * abs(lc) or abs(gg - gc) > 2e-3 * abs(gc):
-            raise AssertionError(f"{arch} train step {i}: card "
+            state, m = step(state, batch(i, dev))
+            seen[dev].append((m.get("deq_steps", 0.0), float(m["loss"]),
+                              float(m["grad_norm"])))
+    for i, ((sg, lg, gg), (sc, lc, gc)) in enumerate(zip(seen["cuda"],
+                                                         seen["cpu"])):
+        if sg != sc or abs(lg - lc) > 1e-4 * abs(lc) \
+                or abs(gg - gc) > 2e-3 * abs(gc):
+            raise AssertionError(f"{arch} (deq={deq}) train step {i}: card "
                                  f"{seen['cuda'][i]} vs CPU {seen['cpu'][i]}")
-    return dict(config=f"{arch} smoke f32 layer stack, remat {cfg.remat}, "
-                "batch 2 x 20, 3 AdamW steps", steps_card=seen["cuda"],
-                steps_cpu=seen["cpu"],
-                tol="loss rtol 1e-4; grad norm rtol 2e-3")
+    return dict(config=f"{arch} smoke f32 " + (
+        "DEQ (2 blocks x0.3, ring f32)" if deq else
+        f"layer stack, remat {cfg.remat}") + ", batch 2 x 20, 3 AdamW steps",
+        steps_card=seen["cuda"], steps_cpu=seen["cpu"],
+        tol="same solver steps; loss rtol 1e-4; grad norm rtol 2e-3")
 
 
 def phase_hybrid(smi: str) -> dict:
@@ -3928,7 +4033,7 @@ def profile_train_step(params, cfg, *, batch: int, seq: int,
                        schedule=cfg.schedule)
     state = train_steps.init_train_state(cfg, tcfg, params=params)
     step = train_steps.build_train_step(cfg, tcfg)
-    batches = make_lm_batch_iterator(cfg, batch, seq, seed=0, device="cuda")
+    batches = _batches(cfg, batch, seq)
     state, _ = step(state, next(batches))
     b = next(batches)
     prof = _profile_window(lambda: step(state, b))
@@ -4125,6 +4230,264 @@ def phase_train_stack(smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the audio and VLM families (HuBERT-XLarge, Pixtral-12B)
+# ---------------------------------------------------------------------------
+
+AUDIO_ARCH = "hubert-xlarge"
+VLM_ARCH = "pixtral-12b"
+# HuBERT-XLarge: 3 AdamW steps of the layer stack at 4 x 1000 stub frames
+# (20 s of audio at 50 frames a second), remat full; 2 steps of the DEQ form
+AUDIO_TRAIN = dict(steps=3, batch=4, seq=1000)
+AUDIO_DEQ_TRAIN = dict(steps=2, batch=4, seq=1000)
+# Pixtral-12B serves text only (the reference's ServeLoop): 8 requests over
+# 4 slots, prompts of 128 and 256 tokens, MOE_NEW new tokens, a 2048-token
+# cache; the cache check with images: prefill over the 1024 image
+# embeddings + VLM_CACHE_TEXT tokens and one decode step, at each seed of
+# VLM_CACHE_SEEDS
+VLM_PLENS = (128, 256, 128, 256, 128, 256, 128, 256)
+VLM_MAX_LEN = 2048
+VLM_CACHE_TEXT = 128
+VLM_CACHE_SEEDS = (1, 2)
+# training at full width, depth cut to 6 layers (1.34 B of embedding and
+# head + 6 x 0.27 B; 40 layers would need ~196 GB of state at 16 B a
+# parameter): 2 AdamW steps of 2 x (1024 image + 512 text) tokens, with
+# the kernel (attn_impl "auto") and again with the chunked flash_xla path
+VLM_TRAIN_LAYERS = 6
+VLM_TRAIN = dict(steps=2, batch=2, seq=1024 + 512)
+
+
+def _frontend_desc(cfg) -> str:
+    audio = cfg.family == "audio"
+    return (f"{cfg.name} ({cfg.num_layers} layers, d={cfg.d_model}, "
+            f"{cfg.num_heads}/{cfg.num_kv_heads} heads x {cfg.head_dim}, "
+            f"ff {cfg.d_ff} {'GELU' if cfg.act == 'gelu' else 'SwiGLU'}, "
+            f"{'causal' if cfg.causal else 'not causal'}, "
+            f"{cfg.padded_vocab} {'classes' if audio else 'vocab'}"
+            + ("" if audio else f", {cfg.num_image_tokens} image tokens")
+            + f"; {cfg.dtype}, random weights, seed 0)")
+
+
+def check_image_cache(params, cfg, tol, *, hold: bool) -> dict:
+    """Prefill over ``cfg.num_image_tokens`` image embeddings +
+    VLM_CACHE_TEXT tokens, then one decode step, against a forward over
+    the images + VLM_CACHE_TEXT + 1 tokens (``stub_batch``, B=2, each seed
+    of VLM_CACHE_SEEDS): the last prefill logits at ``tol[0]``, the decode
+    step's at ``tol[1]``; the prefill's lengths must count the image
+    tokens.  ``hold=False`` reports the readings beside the forward's own
+    rounding floor (each row forwarded alone against the batch)."""
+    n, text = cfg.num_image_tokens, VLM_CACHE_TEXT
+    seeds, counts = {}, {}
+    for seed in VLM_CACHE_SEEDS:
+        b = stub_batch(cfg, 2, n + text + 1, seed=seed, device="cuda")
+        img, toks = b["image_embeds"], b["tokens"]
+        with torch.no_grad():
+            full, _ = lm.forward(params, {"tokens": toks,
+                                          "image_embeds": img}, cfg,
+                                 train=False)
+        launches.reset()
+        pre, caches, lens = lm.prefill(
+            params, {"tokens": toks[:, :text], "image_embeds": img}, cfg,
+            VLM_MAX_LEN)
+        counts.setdefault("prefill", launches.counts())
+        if lens.tolist() != [n + text] * 2:
+            raise AssertionError(f"{cfg.name}: prefill lengths "
+                                 f"{lens.tolist()}, want {n + text}")
+        launches.reset()
+        dec, _ = lm.decode_step(params, caches, toks[:, text], lens, cfg)
+        counts.setdefault("decode", launches.counts())
+        del caches
+        pairs = [("prefill", pre[:, -1], full[:, n + text - 1], tol[0]),
+                 ("decode", dec, full[:, n + text], tol[1])]
+        if not hold:
+            with torch.no_grad():
+                alone = torch.cat([lm.forward(
+                    params, {"tokens": toks[i:i + 1],
+                             "image_embeds": img[i:i + 1]}, cfg,
+                    train=False)[0][:, n + text - 1:] for i in range(2)])
+            pairs += [("noise_prefill", alone[:, 0], full[:, n + text - 1],
+                       tol[0]),
+                      ("noise_decode", alone[:, 1], full[:, n + text],
+                       tol[1])]
+        row = seeds[seed] = {}
+        for tag, got, want, t in pairs:
+            name = (f"{cfg.name} {cfg.num_layers} layers {cfg.dtype} {tag} "
+                    f"with {n} image tokens vs forward (seed {seed})")
+            row[tag] = dict(
+                max_abs_err=(check_close(name, got, want, t) if hold else
+                             (got.float() - want.float()).abs().max().item()),
+                limit_share=limit_share(got, want, t),
+                logit_scale=want.float().abs().max().item())
+        del full, pre
+    return dict(batch=2, image_tokens=n, text=text, seeds=seeds, tol=tol,
+                held=hold,
+                launches_per_prefill={k: c for k, c in
+                                      counts["prefill"].items() if c},
+                launches_per_decode={k: c for k, c in
+                                     counts["decode"].items() if c})
+
+
+def _to_f32_in_place(tree: dict) -> None:
+    """Every leaf of a parameter tree cast to f32, one leaf at a time (the
+    bf16 leaf freed as its f32 copy is made)."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _to_f32_in_place(v)
+        else:
+            tree[k] = v.float()
+
+
+def phase_audio_vlm(smi: str) -> dict:
+    """The audio and vlm families' main paths, bf16, random weights (seed
+    0), at their published widths:
+
+      * HuBERT-XLarge (48 layers, d 1280, 16 x 80 heads not causal, GELU
+        ff 5120, 504 classes), the layer stack: AUDIO_TRAIN's AdamW steps
+        at 4 x 1000 stub frames with ``remat="full"`` (``stack_train``:
+        launches held to ``_forward_launches``, no decode launch) and one
+        profiled step; the DEQ form (``DEQSettings`` defaults: 4 tied
+        ``attn_mlp`` blocks x0.3, Broyden, ``shine_fallback``):
+        AUDIO_DEQ_TRAIN's steps, both qN kernels and the non-causal
+        prefill kernel launch, solve steps and statuses printed;
+      * Pixtral-12B (40 layers, d 5120, 32/8 x 128 heads, ff 14336, vocab
+        131072), text-only serving: a sync and an async drain of VLM_PLENS
+        over 4 slots (async = sync bit for bit, one host wait; both
+        attention kernels and rmsnorm launch); the cache check with its
+        1024 image tokens (``check_image_cache``) in bf16, reported beside
+        its rounding floor, then in f32 at full depth, held at TOL_F32;
+      * Pixtral-12B training at full width cut to VLM_TRAIN_LAYERS layers:
+        VLM_TRAIN's steps with ``attn_impl="auto"`` (the kernel forward)
+        and again from the same weights with ``"flash_xla"`` (the chunked
+        torch path, no kernel launch), held at ``hold_trajectory``'s
+        tolerances, both peaks printed;
+      * card against CPU at the smoke sizes in f32: a HuBERT train step
+        pair of the layer stack and of the DEQ, a Pixtral drain (text) and
+        2 train steps with images.
+
+    Returns the launch counts of the HuBERT train steps, its DEQ steps,
+    the Pixtral async drain and the auto train steps; an
+    ``audio_vlm_phase_split`` line gives each part's seconds."""
+    out, split = {}, {}
+    t_mark = [time.perf_counter()]
+
+    def lap(part: str) -> None:
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        split[part] = now - t_mark[0]
+        t_mark[0] = now
+
+    cfg = get_config(AUDIO_ARCH)
+    desc = _frontend_desc(cfg)
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    say("audio_params", config=desc, card=smi,
+        params=sum(t.numel() for t in _leaves(params)))
+    tr = stack_train(params, cfg, "full", desc=desc, smi=smi, **AUDIO_TRAIN)
+    if tr["counts"]["decode_attention"]:
+        raise AssertionError(f"{AUDIO_ARCH}: decode launches {tr['counts']}")
+    out["audio_train"] = tr["counts"]
+    lap("audio_train")
+    profile_train_step(params, cfg, batch=AUDIO_TRAIN["batch"],
+                       seq=AUDIO_TRAIN["seq"], smi=smi)
+    del params
+    torch.cuda.empty_cache()
+    lap("audio_profile")
+
+    cfg = get_config(AUDIO_ARCH, deq=True)
+    params = _scaled_blocks(lm.init_params(cfg, seed=0, device="cuda"), 0.3)
+    deq_desc = (f"{AUDIO_ARCH} DEQ (DEQSettings defaults: 4 tied attn_mlp "
+                "blocks x0.3, Broyden 12 steps, tol 1e-3, ring bf16 m=8, "
+                "shine_fallback; not causal)")
+    tr = stack_train(params, cfg, "full", desc=deq_desc, smi=smi,
+                     **AUDIO_DEQ_TRAIN)
+    c = tr["counts"]
+    if any(c[k] == 0 for k in ("broyden_step", "qn_apply_multi",
+                               "flash_attention", "rmsnorm")) \
+            or c["decode_attention"]:
+        raise AssertionError(f"{AUDIO_ARCH} DEQ: launches {c}")
+    out["audio_deq_train"] = c
+    del params
+    torch.cuda.empty_cache()
+    lap("audio_deq")
+
+    cfg = get_config(VLM_ARCH)
+    desc = _frontend_desc(cfg)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    drains = {p: _moe_drain(params, cfg, p, record=True, plens=VLM_PLENS,
+                            max_len=VLM_MAX_LEN)
+              for p in ("sync", "async")}
+    if drains["async"]["tokens"] != drains["sync"]["tokens"]:
+        raise AssertionError(f"{VLM_ARCH}: async tokens "
+                             f"{drains['async']['tokens']} != sync "
+                             f"{drains['sync']['tokens']}")
+    check_syncs(f"{VLM_ARCH} async drain", drains["async"]["syncs"], 1)
+    for name, d in drains.items():
+        missing = [k for k in ("flash_attention", "decode_attention",
+                               "rmsnorm") if d["counts"][k] == 0]
+        if missing:
+            raise AssertionError(f"{VLM_ARCH} {name}: kernels not "
+                                 f"launched: {missing}")
+        say("vlm_serve", config=desc, pipeline=name, card=smi,
+            params=n_params, init_seconds=t_init, prompt_lens=VLM_PLENS,
+            max_len=VLM_MAX_LEN,
+            **{k: v for k, v in d.items() if k not in ("tokens", "syncs")})
+    out["vlm_drain"] = drains["async"]["counts"]
+    lap("vlm_drains")
+    say("vlm_cache_check", config=f"{VLM_ARCH} {cfg.num_layers} layers "
+        "bf16 (reported)", card=smi,
+        **check_image_cache(params, cfg, CACHE_TOL, hold=False))
+    lap("vlm_cache_bf16")
+    _to_f32_in_place(params)
+    torch.cuda.empty_cache()
+    say("vlm_cache_check", config=f"{VLM_ARCH} {cfg.num_layers} layers "
+        "float32 (held)", card=smi, **check_image_cache(
+            params, dataclasses.replace(cfg, dtype="float32"),
+            (TOL_F32, TOL_F32), hold=True))
+    del params
+    torch.cuda.empty_cache()
+    lap("vlm_cache_f32")
+
+    cfg = dataclasses.replace(get_config(VLM_ARCH),
+                              num_layers=VLM_TRAIN_LAYERS)
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    desc = (f"{VLM_ARCH} layer stack at full width, {VLM_TRAIN_LAYERS} "
+            f"layers, bf16, seed 0, "
+            f"{sum(t.numel() for t in _leaves(params))} params, batch of "
+            f"{cfg.num_image_tokens} image + "
+            f"{VLM_TRAIN['seq'] - cfg.num_image_tokens} text tokens")
+    arms = {impl: stack_train(params, dataclasses.replace(
+        cfg, attn_impl=impl), "full", desc=desc, smi=smi, **VLM_TRAIN)
+        for impl in ("auto", "flash_xla")}
+    if arms["flash_xla"]["counts"]["flash_attention"]:
+        raise AssertionError(f"{VLM_ARCH} flash_xla arm: kernel launches "
+                             f"{arms['flash_xla']['counts']}")
+    rows = {r: [(0, x["loss"], x["grad_norm"], 0) for x in a["rows"]]
+            for r, a in arms.items()}
+    rel = hold_trajectory(rows["auto"], rows["flash_xla"], rows["flash_xla"])
+    say("vlm_train_flash_xla", config=desc, card=smi, rel_diff=rel["replay"],
+        tol="loss rtol 1e-2, grad norm rtol 5e-2 at every step "
+        "(hold_trajectory)",
+        peak_mem_gib={r: a["peak_mem_gib"] for r, a in arms.items()},
+        step_ms={r: [x["step_ms"] for x in a["rows"]]
+                 for r, a in arms.items()})
+    out["vlm_train"] = arms["auto"]["counts"]
+    del params
+    torch.cuda.empty_cache()
+    lap("vlm_train")
+
+    say("audio_train_parity", card=smi, **stack_train_parity(AUDIO_ARCH))
+    say("audio_train_parity", card=smi, **stack_train_parity(AUDIO_ARCH,
+                                                             deq=True))
+    say("vlm_parity", card=smi, **stack_parity(VLM_ARCH))
+    say("vlm_train_parity", card=smi, **stack_train_parity(VLM_ARCH))
+    lap("parity")
+    say("audio_vlm_phase_split", card=smi, seconds=split)
+    return out
+
+
 def timed(smi: str, name: str, fn, *args):
     """``fn(*args)`` with its wall time, to the card's last kernel, in a
     ``phase_time`` line."""
@@ -4175,6 +4538,8 @@ def main() -> int:
     xlstm = timed(smi, "xlstm", phase_xlstm, smi)
     torch.cuda.empty_cache()
     stack = timed(smi, "train_stack", phase_train_stack, smi)
+    torch.cuda.empty_cache()
+    av = timed(smi, "audio_vlm", phase_audio_vlm, smi)
     rows = []
     for name, (route, source, replaces) in KERNELS.items():
         r = res[name]
@@ -4186,7 +4551,8 @@ def main() -> int:
                             + hybrid["drain"]["counts"][name]
                             + hybrid["train"][name]
                             + xlstm["drain"]["counts"][name]
-                            + xlstm["train"][name]),
+                            + xlstm["train"][name]
+                            + sum(c[name] for c in av.values())),
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"],
@@ -4232,6 +4598,14 @@ def main() -> int:
                   for k in ("prefill", "decode")},
                "launches_train_stack_v2_lite_remat_full": stack["counts"][
                    name],
+               "launches_audio_train": av["audio_train"][name],
+               "launches_audio_per_train_step": (av["audio_train"][name]
+                                                 / AUDIO_TRAIN["steps"]),
+               "launches_audio_deq_train": av["audio_deq_train"][name],
+               "launches_audio_deq_per_train_step": (
+                   av["audio_deq_train"][name] / AUDIO_DEQ_TRAIN["steps"]),
+               "launches_vlm_serve": av["vlm_drain"][name],
+               "launches_vlm_train": av["vlm_train"][name],
                **{k: r[k] for k in ("launches_per_call", "decode_ms",
                                     "decode_device_ms", "decode_bound_ms",
                                     "decode_launches_per_call",

@@ -1,10 +1,11 @@
 """Architecture registry: ``--arch <id>`` resolution + reduced smoke configs.
 
-The port's copy of ``repro/configs/registry.py`` for the dense, MoE, hybrid
-and SSM families (DeepSeekMoE-16B with GQA, DeepSeek-V2-Lite with MLA,
-Zamba2-2.7B's Mamba2 layers with a shared attention block, xLSTM-1.3B's
-mLSTM and sLSTM blocks); the audio and VLM families join with their
-slices.
+The port's copy of ``repro/configs/registry.py``: all ten configs, in the
+reference's order (the dense family, DeepSeek-V2-Lite with MLA,
+DeepSeekMoE-16B with GQA, the HuBERT-XLarge encoder over stub frame
+embeddings, Zamba2-2.7B's Mamba2 layers with a shared attention block,
+xLSTM-1.3B's mLSTM and sLSTM blocks, Pixtral-12B over stub patch
+embeddings).
 """
 
 from __future__ import annotations
@@ -14,7 +15,9 @@ import dataclasses
 from repro_torch.configs import (
     deepseek_moe_16b,
     deepseek_v2_lite_16b,
+    hubert_xlarge,
     minicpm_2b,
+    pixtral_12b,
     xlstm_1p3b,
     zamba2_2p7b,
 )
@@ -48,7 +51,8 @@ ARCHS: dict[str, ModelConfig] = {
     c.name: c
     for c in [minicpm_2b.CONFIG, _PHI3_MINI, _STABLELM_3B, _INTERNLM2_20B,
               deepseek_v2_lite_16b.CONFIG, deepseek_moe_16b.CONFIG,
-              zamba2_2p7b.CONFIG, xlstm_1p3b.CONFIG]
+              hubert_xlarge.CONFIG, zamba2_2p7b.CONFIG, xlstm_1p3b.CONFIG,
+              pixtral_12b.CONFIG]
 }
 
 
@@ -65,8 +69,8 @@ def get_config(name: str, *, deq: bool = False, **overrides) -> ModelConfig:
 
 def smoke_config(name: str, *, deq: bool = False) -> ModelConfig:
     """Reduced same-family config: small widths/layers/experts, tiny vocab
-    (the dense, MoE, hybrid and SSM branches of the JAX package's
-    ``smoke_config``)."""
+    (the JAX package's ``smoke_config``: the vlm family keeps 8 image
+    tokens)."""
     if name not in ARCHS:
         raise ValueError(f"unknown arch {name!r}; have {sorted(ARCHS)}")
     cfg = ARCHS[name]
@@ -94,6 +98,8 @@ def smoke_config(name: str, *, deq: bool = False) -> ModelConfig:
     elif cfg.family == "ssm":
         kw["num_layers"] = 8  # two units of 4
         kw["xlstm"] = dataclasses.replace(cfg.xlstm, slstm_every=4, chunk=16)
+    if cfg.family == "vlm":
+        kw["num_image_tokens"] = 8
     if cfg.attn_type == "mla":
         kw["mla"] = MLAConfig(kv_lora_rank=32, qk_nope_dim=16, qk_rope_dim=8,
                               v_head_dim=16)

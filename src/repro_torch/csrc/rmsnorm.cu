@@ -10,16 +10,16 @@
 // once (~3 flops each): at the paths' 1024 x 2304 bf16 that is 9.4 MB, 0.0028
 // ms at 3.35 TB/s.  The design keeps every byte of x and w on chip between
 // its load and its use:
-//   * a row is held by W warps (1 to 8; rmsnorm.plan picks): PER 16-byte
+//   * a row is held by W warps (1 to 10; rmsnorm.plan picks): PER 16-byte
 //     vectors per lane, D = PER * W * 32 * 8 in bf16 (* 4 in f32), PER and
-//     W template parameters instantiated for the registry's widths (2048,
-//     2304, 2560, 3072, 6144 give PER * W = 8, 9, 10, 12, 24 in bf16) and
-//     MLA's kv_norm (512: 2), so no lane is masked and every load and store
-//     is a coalesced 16-byte access.  Many
+//     W template parameters instantiated for the registry's widths (1280,
+//     2048, 2304, 2560, 3072, 5120, 6144 give PER * W = 5, 8, 9, 10, 12,
+//     20, 24 in bf16) and MLA's kv_norm (512: 2), so no lane is masked and
+//     every load and store is a coalesced 16-byte access.  Many
 //     rows (training, prefill) take the fewest warps a row that keep PER <=
 //     12 (one warp at 2304-3072, two at 6144), which keeps each row in one
 //     warp's registers; few rows (decode) spread a row over more warps (PER
-//     2-3), so that the latency of one row's loads and its serial
+//     1-3; 10 warps, 320 threads, at 5120), so that the latency of one row's loads and its serial
 //     arithmetic is short;
 //   * the weight loaded once per warp and held in registers across the
 //     warp's rows, packed in its own dtype (half the registers of f32; the
@@ -95,14 +95,18 @@ __device__ __forceinline__ void from_f32(__nv_bfloat16& d, float x) {
 // b + g + gridDim.x * R, ... for block b's group g; every group of a block
 // walks the same number of steps (a group past the last row idles), so the
 // cross-warp sum (W > 1) may take a barrier.
+// A block holds at most 256 threads, or one row group of W > 8 warps.
+template <int W>
+constexpr int kMaxThreads = W > 8 ? 32 * W : 256;
+
 template <typename T, int PER, int W>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kMaxThreads<W>)
 rmsnorm_vec_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
                    int rows, float eps) {
   using V = Vec<T>;
   constexpr long long D = (long long)PER * W * 32 * V::N;
   constexpr int vs = W * 32;         // vectors between a lane's own
-  __shared__ float red[2][8];        // warp partials of the row, by step parity
+  __shared__ float red[2][kMaxThreads<W> / 32];  // warp partials, by step parity
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int grp = warp / W;
   const int per_block = (blockDim.x >> 5) / W;  // R
@@ -193,19 +197,19 @@ rmsnorm_generic_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __re
 template <typename T, int PER, int W>
 cudaError_t launch_vec(const void* x, const void* w, void* out, int rows, float eps, int n_cta,
                        int threads, cudaStream_t st) {
-  if (threads % (32 * W)) return cudaErrorInvalidValue;
+  if (threads % (32 * W) || threads > kMaxThreads<W>) return cudaErrorInvalidValue;
   rmsnorm_vec_kernel<T, PER, W><<<n_cta, threads, 0, st>>>((const T*)x, (const T*)w,
                                                              (T*)out, rows, eps);
   return cudaGetLastError();
 }
 
 // The (PER, W) splits of rmsnorm.plan (VEC_SPLITS there): the registry's
-// widths (2048, 2304, 2560, 3072, 6144; 8, 9, 10, 12, 24 bf16 vectors a lane
-// of one warp, twice that in f32) and MLA's kv_norm (512: 2) over 1-8 warps
-// a row.
+// widths (1280, 2048, 2304, 2560, 3072, 5120, 6144; 5, 8, 9, 10, 12, 20, 24
+// bf16 vectors a lane of one warp, twice that in f32) and MLA's kv_norm
+// (512: 2) over 1-10 warps a row.
 #define RMS_SPLITS(X) \
   X(9, 1) X(10, 1) X(12, 1) X(9, 2) X(10, 2) X(12, 2) X(12, 4) X(2, 5) X(3, 3) X(3, 4) \
-  X(3, 6) X(3, 8) X(8, 1) X(2, 4) X(8, 2) X(2, 1)
+  X(3, 6) X(3, 8) X(8, 1) X(2, 4) X(8, 2) X(2, 1) X(5, 1) X(1, 5) X(2, 10) X(10, 4)
 
 template <typename T>
 cudaError_t launch(const void* x, const void* w, void* out, int rows, int D, float eps,
@@ -231,12 +235,12 @@ extern "C" {
 // float32).  `per` 16-byte vectors per lane over `wpr` warps per row select
 // the width's instance (then x, w and out must be 16-byte aligned), `per` 0
 // the generic kernel (one warp per row); `n_cta` blocks of `threads` (a
-// multiple of 32 * wpr, at most 256) threads.  Returns a cudaError_t (0 =
-// launched).
+// multiple of 32 * wpr, at most 256, or 32 * wpr past 8 warps) threads.
+// Returns a cudaError_t (0 = launched).
 int rmsnorm_launch(const void* x, const void* w, void* out, int rows, int D, float eps,
                    int bf16, int per, int wpr, int n_cta, int threads, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (rows < 1 || D < 1 || n_cta < 1 || threads < 32 || threads > 256 || threads % 32)
+  if (rows < 1 || D < 1 || n_cta < 1 || threads < 32 || threads > 320 || threads % 32)
     return (int)cudaErrorInvalidValue;
   return bf16 ? (int)launch<__nv_bfloat16>(x, w, out, rows, D, eps, per, wpr, n_cta, threads,
                                            st)

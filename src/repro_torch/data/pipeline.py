@@ -1,4 +1,5 @@
-"""Deterministic synthetic token batches.
+"""Deterministic synthetic token batches, and the audio and vlm stub
+frontends' random batches (``stub_batch``).
 
 The port of ``repro/data/pipeline.py``: the same counter-mode recipe in
 numpy, so both packages draw the same batches, placed on the given device.
@@ -63,3 +64,35 @@ def make_lm_batch_iterator(cfg: ModelConfig, batch: int, seq: int, *,
     pairs, from step ``start_step`` on, on ``device`` (default the card)."""
     return _Batches(SyntheticTokenDataset(cfg.vocab_size, seed), batch, seq,
                     start_step, resolve_device(device))
+
+
+def stub_batch(cfg: ModelConfig, batch: int, seq: int, *, seed: int = 0,
+               device=None) -> dict:
+    """A random batch of ``seq`` positions for ``cfg``'s frontend (the
+    batches of the JAX package's ``tests/test_archs.py``), drawn with
+    numpy from ``seed``: audio ``{embeds (B, S, d) f32, targets (B, S)}``
+    (the stub's frame embeddings, standard normal); vlm ``{tokens (B, S -
+    N), image_embeds (B, N, d) f32, targets (B, S - N)}`` with ``N =
+    cfg.num_image_tokens`` (the stub's patch embeddings); any other family
+    ``{tokens, targets}`` of ``(B, S)``.  Tokens and targets are uniform
+    over ``[0, vocab_size)``, int32, on ``device`` (default the card)."""
+    rng = np.random.default_rng(seed)
+    dev = resolve_device(device)
+
+    def ints(*shape):
+        return to_device(torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, size=shape).astype(np.int32)), dev)
+
+    def normal(*shape):
+        return to_device(torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)), dev)
+
+    if cfg.family == "audio":
+        return {"embeds": normal(batch, seq, cfg.d_model),
+                "targets": ints(batch, seq)}
+    if cfg.family == "vlm":
+        n = cfg.num_image_tokens
+        return {"tokens": ints(batch, seq - n),
+                "image_embeds": normal(batch, n, cfg.d_model),
+                "targets": ints(batch, seq - n)}
+    return {"tokens": ints(batch, seq), "targets": ints(batch, seq)}

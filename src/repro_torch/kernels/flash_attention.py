@@ -67,7 +67,16 @@ def _launch(q, k, v, kv_length, *, causal: bool, scale,
 def flash_attention(q, k, v, kv_length=None, *, causal: bool = True,
                     scale: float | None = None) -> torch.Tensor:
     """q ``(B, S, H, hd)``, k/v ``(B, T, KV, hd)`` -> ``(B, S, H, hd)``;
-    under ``causal`` query row s sees keys 0..s."""
+    under ``causal`` query row s sees keys 0..s (the rows aligned to the
+    first key, as the plain version at ``q_offset=0``).  Causal with more
+    keys than queries raises: the JAX package's Pallas kernel aligns such
+    queries to the last keys, its plain version to the first, and no
+    ported path reaches the case."""
+    if causal and k.shape[1] > q.shape[1]:
+        raise ValueError(f"causal attention with T={k.shape[1]} > "
+                         f"S={q.shape[1]}: the kernel aligns query row 0 to "
+                         f"key 0 (the plain version at q_offset=0), the "
+                         f"reference's Pallas kernel to key T - S")
     out = _launch(q, k, v, kv_length, causal=causal, scale=scale,
                   decode=False)
     launches.bump("flash_attention")

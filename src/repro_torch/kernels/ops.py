@@ -6,9 +6,19 @@
     cuda          | the hand-written Hopper kernel (csrc/), or it raises
 
 There is no other route and no fallback: a CUDA tensor never reaches a
-plain version, and a failed build or launch raises.  (The JAX package's
-``flash_xla`` route and its TPU sublane pad of the ring memory axis have no
-counterpart here: the CUDA kernels mask the ragged edges themselves.)
+plain version unless the caller asks for one (``attention``'s ``impl``),
+and a failed build or launch raises.  (The JAX package's TPU sublane pad
+of the ring memory axis has no counterpart here: the CUDA kernels mask the
+ragged edges themselves.)
+
+``attention`` also takes the JAX package's ``impl`` policy: ``auto`` (the
+kernel on the card; on the CPU the plain version below ``FLASH_XLA_CELLS``
+score cells and the chunked ``flash_xla`` path at or above them, where the
+reference's CPU policy switches), ``flash_xla`` (the chunked path on
+either device), ``ref`` (the plain version on either device), ``pallas``
+(the Hopper kernel; CPU tensors raise) and ``pallas_interpret`` (the
+reference's CPU stand-in for its kernel: the plain version, CPU tensors
+only).
 
 Ops: ``qn_apply`` (single-RHS ``H x``), ``qn_apply_multi`` (K stacked RHS,
 per-RHS H vs H^T, one U/V stream), ``lowrank_append`` (the guarded ring-slot
@@ -37,6 +47,7 @@ from typing import Sequence
 import torch
 
 from repro_torch.kernels import flash_attention as cuda_fa
+from repro_torch.kernels import flash_xla
 from repro_torch.kernels import qn_apply as cuda_qn
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as cuda_rms
@@ -231,10 +242,52 @@ def _attention_fwd(q, k, v, kv_length, causal, scale):
                                    scale=scale)
 
 
+IMPLS = ("auto", "ref", "flash_xla", "pallas", "pallas_interpret")
+# at or above this many score cells (S * T) the CPU ``auto`` policy takes
+# the chunked flash_xla path (the JAX package's _FLASH_XLA_CELLS)
+FLASH_XLA_CELLS = 1 << 20
+
+
+def attention_route(impl: str | None, q: torch.Tensor,
+                    k: torch.Tensor) -> str:
+    """The route ``attention`` takes: ``kernel``, ``plain`` or
+    ``flash_xla`` (the ``impl`` policy of the module docstring)."""
+    impl = impl or "auto"
+    if impl not in IMPLS:
+        raise ValueError(f"impl={impl!r}; expected one of {IMPLS}")
+    card = _on_card(q, k)
+    if impl == "auto":
+        if card:
+            return "kernel"
+        return ("flash_xla" if q.shape[1] * k.shape[1] >= FLASH_XLA_CELLS
+                else "plain")
+    if impl == "pallas" and not card:
+        raise ValueError("impl='pallas' is the Hopper kernel: it takes CUDA "
+                         "tensors (pallas_interpret is the plain version "
+                         "on the CPU)")
+    if impl == "pallas_interpret" and card:
+        raise ValueError("impl='pallas_interpret' is the CPU stand-in of "
+                         "the kernel; on the card ask for 'pallas'")
+    return {"ref": "plain", "flash_xla": "flash_xla", "pallas": "kernel",
+            "pallas_interpret": "plain"}[impl]
+
+
 def attention(q, k, v, *, causal: bool = True, kv_length=None,
-              scale: float | None = None) -> torch.Tensor:
+              scale: float | None = None, impl: str | None = None,
+              block_q: int = 512, block_kv: int = 1024,
+              unroll: bool = False) -> torch.Tensor:
     """Differentiable multi-head attention (B,S,H,hd) x (B,T,KV,hd) ->
-    (B,S,H,hd)."""
+    (B,S,H,hd) by the route ``impl`` selects (``attention_route``);
+    ``block_q``/``block_kv``/``unroll`` apply to the flash_xla path
+    only."""
+    route = attention_route(impl, q, k)
+    if route == "flash_xla":
+        return flash_xla.flash_attention_xla(
+            q, k, v, causal=causal, kv_length=kv_length, scale=scale,
+            block_q=block_q, block_kv=block_kv, unroll=unroll)
+    if route == "plain" and _on_card(q, k, v):
+        return ref.attention_ref(q, k, v, causal=causal, kv_length=kv_length,
+                                 scale=scale)
     if _needs_grad(q, k, v):
         return _Attention.apply(q, k, v, kv_length, causal, scale)
     return _attention_fwd(q, k, v, kv_length, causal, scale)

@@ -105,21 +105,27 @@ def _gqa_expand(k: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 def attention_ref(q, k, v, *, causal: bool = True,
                   kv_length: torch.Tensor | None = None,
-                  scale: float | None = None) -> torch.Tensor:
+                  q_offset: int = 0, scale: float | None = None,
+                  logits_soft_cap: float | None = None) -> torch.Tensor:
     """Masked multi-head attention with GQA broadcast and f32 softmax.
 
-    q ``(B, S, H, hd)``, k/v ``(B, T, KV, hd)``; masked scores are the
-    finite ``NEG_INF``, so a row whose every key is masked averages all
-    keys uniformly instead of producing NaN."""
+    q ``(B, S, H, hd)``, k/v ``(B, T, KV, hd)``; ``q_offset`` is the
+    position of ``q[:, 0]`` on the key axis (causal row s sees keys
+    ``0..s + q_offset``); ``logits_soft_cap`` caps the scaled scores at
+    ``cap * tanh(x / cap)``.  Masked scores are the finite ``NEG_INF``,
+    so a row whose every key is masked averages all keys uniformly
+    instead of producing NaN."""
     b, s, h, hd = q.shape
     t = k.shape[1]
     scale = (hd ** -0.5) if scale is None else scale
     k = _gqa_expand(k, h)
     v = _gqa_expand(v, h)
     logits = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
+    if logits_soft_cap is not None:
+        logits = logits_soft_cap * torch.tanh(logits / logits_soft_cap)
     mask = torch.ones((b, 1, s, t), dtype=torch.bool, device=q.device)
     if causal:
-        qpos = torch.arange(s, device=q.device)[:, None]
+        qpos = torch.arange(s, device=q.device)[:, None] + q_offset
         kpos = torch.arange(t, device=q.device)[None, :]
         mask = mask & (kpos <= qpos)[None, None]
     if kv_length is not None:
@@ -130,6 +136,50 @@ def attention_ref(q, k, v, *, causal: bool = True,
     out = torch.einsum("bhst,bthd->bshd", probs.to(v.dtype).float(),
                        v.float())
     return out.to(q.dtype)
+
+
+def attention_blocked_ref(q, k, v, *, causal: bool = True,
+                          kv_length: torch.Tensor | None = None,
+                          scale: float | None = None,
+                          block: int = 2048) -> torch.Tensor:
+    """Online-softmax attention over KV blocks of ``block`` keys, all in
+    f32 (the probabilities are not rounded to the value dtype): the flash
+    recurrence without the S x T score tensor.  The keys are zero-padded
+    to whole blocks and masked, as in the JAX package."""
+    b, s, h, hd = q.shape
+    t = k.shape[1]
+    scale = (hd ** -0.5) if scale is None else scale
+    k = _gqa_expand(k, h).float()
+    v = _gqa_expand(v, h).float()
+    if kv_length is None:
+        kv_length = torch.full((b,), t, dtype=torch.int32, device=q.device)
+    nb = -(-t // block)
+    pad = nb * block - t
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    qf = q.float() * scale
+    qpos = torch.arange(s, device=q.device)
+    m = torch.full((b, h, s), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, s), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, s, hd), dtype=torch.float32, device=q.device)
+    for i in range(nb):
+        kc = k[:, i * block:(i + 1) * block]
+        vc = v[:, i * block:(i + 1) * block]
+        sc = torch.einsum("bshd,bthd->bhst", qf, kc)
+        kpos = i * block + torch.arange(block, device=q.device)
+        valid = (kpos[None, :] < kv_length.reshape(b, 1))[:, None, None, :]
+        if causal:
+            valid = valid & (kpos[None, :] <= qpos[:, None])[None, None]
+        sc = torch.where(valid, sc, torch.full_like(sc, NEG_INF))
+        m_new = torch.maximum(m, sc.amax(-1))
+        p = torch.exp(sc - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = corr * l + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("bhst,bthd->bhsd", p, vc)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def decode_attention_ref(q, k, v, kv_length, *, scale=None):

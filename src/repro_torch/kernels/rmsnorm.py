@@ -20,7 +20,7 @@ from repro_torch.kernels import build, launches
 # for both dtypes: per 16-byte vectors per lane over wpr warps a row
 VEC_SPLITS = ((9, 1), (10, 1), (12, 1), (9, 2), (10, 2), (12, 2), (12, 4),
               (2, 5), (3, 3), (3, 4), (3, 6), (3, 8), (8, 1), (2, 4), (8, 2),
-              (2, 1))
+              (2, 1), (5, 1), (1, 5), (2, 10), (10, 4))
 MAX_PER = 12       # a row's vectors in one warp's registers at most
 FEW_PER = 3        # a lane's vectors when rows are few
 SMS = 132          # an H100 SXM's streaming multiprocessors

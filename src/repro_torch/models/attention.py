@@ -43,6 +43,13 @@ def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
     return x.reshape(x.shape[:-1] + (n, x.shape[-1] // n))
 
 
+def _attn_kw(cfg: ModelConfig) -> dict:
+    """The config's attention route and flash_xla tiling (``ops.attention``
+    ``impl``, ``block_q``, ``block_kv``, ``unroll``)."""
+    return dict(impl=cfg.attn_impl, block_q=cfg.attn_block_q,
+                block_kv=cfg.attn_block_kv, unroll=cfg.attn_unroll)
+
+
 def _cache_write(cache: torch.Tensor, new: torch.Tensor,
                  cache_index: torch.Tensor) -> torch.Tensor:
     """Write ``new (B, S, ...)`` at per-row start ``cache_index`` (clamped
@@ -76,7 +83,8 @@ def gqa_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
 
     new_cache = None
     if cache is None:
-        out = kernel_ops.attention(q, k, v, causal=cfg.causal)
+        out = kernel_ops.attention(q, k, v, causal=cfg.causal,
+                                   **_attn_kw(cfg))
     else:
         k_all = _cache_write(cache.k, k, cache_index)
         v_all = _cache_write(cache.v, v, cache_index)
@@ -86,7 +94,8 @@ def gqa_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
             out = kernel_ops.decode_attention(q[:, 0], k_all, v_all,
                                               kv_len)[:, None]
         else:
-            out = kernel_ops.attention(q, k, v, causal=cfg.causal)
+            out = kernel_ops.attention(q, k, v, causal=cfg.causal,
+                                       **_attn_kw(cfg))
     out = out.reshape(out.shape[:2] + (h * cfg.head_dim_,))
     return out @ params["wo"].to(dt), new_cache
 
@@ -184,7 +193,7 @@ def mla_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
                                               kv_len)[:, None]
         else:
             out = kernel_ops.attention(q_full, k_full, v_pad,
-                                       causal=cfg.causal)
+                                       causal=cfg.causal, **_attn_kw(cfg))
         out = out[..., :m.v_head_dim]
     out = out.reshape(out.shape[:2] + (h * m.v_head_dim,))
     return out @ params["wo"].to(dt), new_cache

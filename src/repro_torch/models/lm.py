@@ -1,11 +1,13 @@
 """The language model: parameters, the layer stack, the SHINE DEQ, serving.
 
-The port of ``repro/models/lm.py`` for the dense, MoE, hybrid and SSM
-families, with GQA or MLA attention.  A model is a list of *stack groups*,
-each ``count`` blocks of one kind stored stacked (a leading ``layers``
-axis):
+The port of ``repro/models/lm.py`` for every family: dense, MoE, audio
+and vlm with GQA (dense and MoE also with MLA), hybrid and SSM.  A model
+is a list of *stack groups*, each ``count`` blocks of one kind stored
+stacked (a leading ``layers`` axis):
 
-  * dense: ``attn_mlp`` blocks (attention + SwiGLU);
+  * dense, audio, vlm: ``attn_mlp`` blocks (attention + SwiGLU or, for
+    the audio encoder, a GELU MLP; the audio encoder attends
+    non-causally);
   * moe: ``first_k_dense`` ``attn_mlp`` blocks (of width ``dense_d_ff``),
     then ``attn_moe`` blocks (attention + fine-grained MoE, whose aux losses
     the stack sums);
@@ -25,8 +27,12 @@ with input injection,
     z* = x + C(z*),   C(z) = blocks(z) - z,
 
 by the registered forward solver (Broyden, whose inverse estimate is
-SHINE's shared object).  Training: :func:`forward` and :func:`loss_fn`
-solve the whole sequence causally, and the backward runs the configured
+SHINE's shared object).  The input comes from the family's frontend
+(:func:`_input_embedding`): token embeddings; the audio stub's frame
+embeddings ``batch["embeds"]``; or the vlm stub's patch embeddings
+``batch["image_embeds"]`` prepended to the token embeddings.  Training:
+:func:`forward` and :func:`loss_fn` solve the whole sequence (causally,
+or not for the audio encoder), and the backward runs the configured
 SHINE-family estimator (``implicit_fixed_point``).  Serving:
 :func:`prefill` runs the prompt against a fresh cache (for the DEQ: solves
 its equilibrium, cold or seeded from a cross-request prefix-cache snapshot
@@ -39,7 +45,8 @@ written in place by the attention; a Mamba or xLSTM state is read then
 replaced, so ``mamba2_block`` and the xLSTM blocks return a new one and the
 stack stores it (``_store``): inside a DEQ solve every evaluation starts
 from the frozen state and only the final pass at ``z*`` stores it.  The
-audio and VLM families come with their slices.
+vlm family serves text only (a prompt of tokens); the audio encoder is not
+served.
 
 Parameters are a plain dict with the JAX package's tree and layouts
 (``group{i}`` or ``deq_blocks`` trees), so :func:`params_from_jax` converts
@@ -91,18 +98,19 @@ class StackGroup:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "hybrid", "ssm") \
+    if cfg.family not in ("dense", "moe", "hybrid", "ssm", "audio", "vlm") \
             or cfg.attn_type not in ("gqa", "mla") \
-            or (cfg.family == "hybrid" and cfg.attn_type != "gqa"):
+            or (cfg.family in ("hybrid", "audio", "vlm")
+                and cfg.attn_type != "gqa"):
         raise NotImplementedError(
             f"repro_torch runs the dense and MoE families with GQA or MLA, "
-            f"the hybrid family with GQA and the SSM family so far; "
-            f"{cfg.name} is {cfg.family}/{cfg.attn_type}")
+            f"the hybrid, audio and vlm families with GQA and the SSM "
+            f"family; {cfg.name} is {cfg.family}/{cfg.attn_type}")
 
 
 def stack_groups(cfg: ModelConfig) -> list[StackGroup]:
     _check_family(cfg)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "audio", "vlm"):
         return [StackGroup("attn_mlp", cfg.num_layers)]
     if cfg.family == "hybrid":
         period = cfg.ssm.attn_every or cfg.num_layers
@@ -125,7 +133,8 @@ def stack_groups(cfg: ModelConfig) -> list[StackGroup]:
 
 
 def _deq_kind(cfg: ModelConfig) -> str:
-    return {"dense": "attn_mlp", "moe": "attn_moe", "hybrid": "zamba_unit",
+    return {"dense": "attn_mlp", "audio": "attn_mlp", "vlm": "attn_mlp",
+            "moe": "attn_moe", "hybrid": "zamba_unit",
             "ssm": "xlstm_unit"}[cfg.family]
 
 
@@ -166,7 +175,8 @@ def model_decl(cfg: ModelConfig) -> dict:
     _check_family(cfg)
     embed = {"embedding": ParamDecl((cfg.padded_vocab, cfg.d_model),
                                     "normal", 0.02)}
-    if not cfg.tie_embeddings:
+    if not cfg.tie_embeddings or cfg.family == "audio":
+        # the audio encoder's classifier head over the padded classes
         embed["lm_head"] = ParamDecl((cfg.d_model, cfg.padded_vocab))
     decl = {"embed": embed, "final_norm": norm_decl(cfg.d_model)}
     if cfg.deq.enabled:
@@ -468,8 +478,9 @@ def apply_stack(params, x, cfg: ModelConfig, positions, caches=None,
 def _apply_deq(params, x_emb, cfg, positions, caches=None, cache_index=None,
                active=None, carry=None):
     """Solve the weight-tied block group's fixed point.  Without caches
-    (training) the whole sequence attends causally over its own k/v and the
-    solve is differentiable; with caches the new tokens attend over the
+    (training) the whole sequence attends over its own k/v (causally, or
+    not as ``cfg.causal`` says: the audio encoder) and the solve is
+    differentiable; with caches the new tokens attend over the
     frozen cache, which is refreshed once at ``z*``.  The blocks' MoE aux
     losses are not part of the solve's output, as in the reference.
     Returns ``(z*, caches, aux)``."""
@@ -534,18 +545,36 @@ def _apply_deq(params, x_emb, cfg, positions, caches=None, cache_index=None,
 # ---------------------------------------------------------------------------
 
 
+def _input_embedding(params, batch: dict, cfg: ModelConfig):
+    """The frontend: ``(x (B, S, d), positions (B, S))`` on the parameters'
+    device.  Audio takes the stub frame embeddings ``batch["embeds"]`` in
+    the model's dtype; a vlm batch with ``image_embeds (B, N, d)`` puts
+    them before the token embeddings of ``batch["tokens"]``; every other
+    batch is its tokens' embeddings.  Positions run over the whole
+    sequence."""
+    dev = params_device(params)
+    if cfg.family == "audio":
+        x = batch["embeds"].to(device=dev, dtype=act_dtype(cfg))
+    else:
+        x = embed_tokens(params["embed"], batch["tokens"].to(dev), cfg)
+        if cfg.family == "vlm" and "image_embeds" in batch:
+            x = torch.cat([batch["image_embeds"].to(device=dev,
+                                                    dtype=x.dtype), x], 1)
+    b, s = x.shape[:2]
+    pos = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
+    return x, pos
+
+
 def forward(params, batch: dict, cfg: ModelConfig, train: bool = True,
             carry: SolveCarry | None = None):
-    """Full-sequence forward of ``batch["tokens"] (B, S)``.  Returns
-    ``(logits (B, S, V), aux)``; ``train`` rematerialises the layer stack
-    (``cfg.remat``); ``carry`` warm-starts the DEQ solve and the updated
-    one comes back under ``aux["solve_carry"]``."""
+    """Full-sequence forward of a batch (``_input_embedding``: ``tokens
+    (B, S)``, the audio stub's ``embeds`` or the vlm stub's
+    ``image_embeds`` before the tokens).  Returns ``(logits (B, S, V),
+    aux)``, the image positions included; ``train`` rematerialises the
+    layer stack (``cfg.remat``); ``carry`` warm-starts the DEQ solve and
+    the updated one comes back under ``aux["solve_carry"]``."""
     _check_family(cfg)
-    tokens = batch["tokens"]
-    x = embed_tokens(params["embed"], tokens, cfg)
-    b, s = x.shape[:2]
-    pos = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(
-        b, s)
+    x, pos = _input_embedding(params, batch, cfg)
     z, _, aux = apply_stack(params, x, cfg, pos, train=train, carry=carry)
     z = rmsnorm(params["final_norm"], z, cfg.norm_eps)
     return lm_logits(params["embed"], z, cfg), aux
@@ -553,12 +582,15 @@ def forward(params, batch: dict, cfg: ModelConfig, train: bool = True,
 
 def loss_fn(params, batch: dict, cfg: ModelConfig, z_loss: float = 1e-4,
             carry: SolveCarry | None = None):
-    """Next-token cross entropy (plus z-loss) of ``batch["tokens"]`` against
-    ``batch["targets"]``, plus the MoE's weighted load-balance and router
-    z-losses.  Returns ``(loss, metrics)``; the metrics hold the loss terms
-    and the stack's aux (the DEQ solve's, ``solve_carry`` among them when a
-    carry is given)."""
+    """Cross entropy (plus z-loss) of the logits against
+    ``batch["targets"]`` (the image positions of a vlm batch dropped first),
+    plus the MoE's weighted load-balance and router z-losses.  Returns
+    ``(loss, metrics)``; the metrics hold the loss terms and the stack's
+    aux (the DEQ solve's, ``solve_carry`` among them when a carry is
+    given)."""
     logits, aux = forward(params, batch, cfg, train=True, carry=carry)
+    if cfg.family == "vlm" and "image_embeds" in batch:
+        logits = logits[:, batch["image_embeds"].shape[1]:]
     loss, metrics = cross_entropy(logits, batch["targets"], z_loss)
     if "moe_aux" in aux:
         loss = (loss + cfg.moe.aux_weight * aux["moe_aux"]
@@ -733,8 +765,10 @@ def prefill(params, batch: dict, cfg: ModelConfig, max_len: int, *,
             prefix_carry: SolveCarry | None = None,
             prefix_len: torch.Tensor | None = None,
             return_steps: bool = False, return_status: bool = False):
-    """Encode a prompt ``batch["tokens"] (B, S)``; returns ``(logits (B, S,
-    V), caches, lengths)``.
+    """Encode a prompt ``batch["tokens"] (B, S)`` (a vlm batch's
+    ``image_embeds (B, N, d)`` before it: the logits, caches and
+    ``lengths`` then count N + S positions, and decoding continues at
+    N + S); returns ``(logits (B, N + S, V), caches, lengths)``.
 
     ``carry`` (a decode-shaped ``deq_solve_carry(cfg, B, 1)``) is seeded
     with the last token's equilibrium and appended to the return, so the
@@ -751,10 +785,8 @@ def prefill(params, batch: dict, cfg: ModelConfig, max_len: int, *,
     """
     _check_family(cfg)
     dev = params_device(params)
-    tokens = batch["tokens"].to(dev)
-    x = embed_tokens(params["embed"], tokens, cfg)
+    x, pos = _input_embedding(params, batch, cfg)
     b, s = x.shape[:2]
-    pos = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
     caches = init_cache(cfg, b, max_len, dev)
     idx0 = torch.zeros((b,), dtype=torch.int32, device=dev)
     solve_carry = None

@@ -247,6 +247,51 @@ def test_autograd_wrappers_give_plain_gradients(dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 1000, 16, 16, 80, False),
+                                   (2, 1152, 32, 8, 128, True)])
+def test_audio_and_vlm_attention_shapes(dev, shape):
+    """The prefill kernel at HuBERT-XLarge's non-causal encoder shape and
+    at Pixtral-12B's image prompt (1024 image + 128 text tokens, 32/8
+    heads), bf16, against the plain version."""
+    b, s, h, kv, hd, causal = shape
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn(b, s, h, hd, device=dev, generator=gen).bfloat16()
+    k, v = (torch.randn(b, s, kv, hd, device=dev, generator=gen).bfloat16()
+            for _ in range(2))
+    chip_smoke.check_attention(
+        f"attention{shape}", ops.attention(q, k, v, causal=causal),
+        ref.attention_ref(q, k, v, causal=causal), q, k, v, None,
+        TOL[torch.bfloat16])
+    assert launches.counts()["flash_attention"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_xla_on_the_card(dev, dtype):
+    """``impl="flash_xla"`` runs the chunked torch path on CUDA tensors
+    (no kernel launch): its forward and gradients against plain autograd
+    through the plain version, GQA, ragged tiles, causal and not."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    q, g = (torch.randn(2, 150, 8, 64, device=dev, generator=gen).to(dtype)
+            for _ in range(2))
+    k, v = (torch.randn(2, 150, 2, 64, device=dev, generator=gen).to(dtype)
+            for _ in range(2))
+    for causal in (True, False):
+        res = []
+        for fn in (lambda *a: ops.attention(*a, causal=causal,
+                                            impl="flash_xla", block_q=64,
+                                            block_kv=32),
+                   lambda *a: ref.attention_ref(*a, causal=causal)):
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            out = fn(*leaves)
+            res.append((out.detach(),)
+                       + torch.autograd.grad(out, leaves, g))
+        for a, b in zip(*res):
+            _close(a, b, dtype)
+    assert not any(launches.counts().values())
+
+
+@pytest.mark.cuda
 def test_refine_backward_leaves_the_carried_ring_alone(dev):
     import dataclasses
 

@@ -56,6 +56,37 @@ def test_registered_widths_take_the_vector_kernel(name):
     assert rms.plan(4, d, torch.bfloat16, aligned=False).per == 0
 
 
+@pytest.mark.parametrize("rows", [4, 131, 1000, 4000])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_hubert_width_takes_its_vector_instances(rows, dtype):
+    """d 1280 (HuBERT-XLarge): 5 bf16 vectors a lane of one warp, 10 in
+    f32.  Many rows take one warp a row (``(5, 1)``, ``(10, 1)``), few rows
+    spread a row over 5 warps (``(1, 5)``, ``(2, 5)``); every row taken
+    once."""
+    p = rms.plan(rows, 1280, dtype)
+    bf16 = dtype == torch.bfloat16
+    want = ((5, 1) if bf16 else (10, 1)) if rows >= rms.SMS else \
+        ((1, 5) if bf16 else (2, 5))
+    assert (p.per, p.wpr) == want
+    assert p.vpl * (256 if bf16 else 128) == 1280
+    taken = sorted(r for rs in _rows_of_each_group(p, rows) for r in rs)
+    assert taken == list(range(rows))
+
+
+@pytest.mark.parametrize("rows", [4, 1024, 2304, 3072])
+def test_pixtral_width_takes_its_vector_instances(rows):
+    """d 5120 (Pixtral-12B's, Zamba2's gated norm): bf16 ``(10, 2)`` for
+    many rows and ``(2, 10)`` for few (10 warps, 320 threads, one row a
+    block: the one instance past 8 warps); f32 ``(10, 4)``."""
+    p = rms.plan(rows, 5120, torch.bfloat16)
+    assert (p.per, p.wpr) == ((10, 2) if rows >= rms.SMS else (2, 10))
+    assert p.threads == (128 if rows >= rms.SMS else 320)
+    assert (rms.plan(rows, 5120, torch.float32).per,
+            rms.plan(rows, 5120, torch.float32).wpr) == (10, 4)
+    taken = sorted(r for rs in _rows_of_each_group(p, rows) for r in rs)
+    assert taken == list(range(rows))
+
+
 @pytest.mark.parametrize("d", [64, 100, 1000, 1792, 2305, 2336, 3584])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_other_widths_take_the_generic_kernel(d, dtype):
@@ -72,7 +103,7 @@ def test_plan_names_only_instances_the_source_has():
             for p, w in re.findall(r"X\((\d+), (\d+)\)", splits)}
     assert have == set(rms.VEC_SPLITS)
     for rows in (4, 1024):  # the plan names only those
-        for d in (2304, 2560, 3072, 6144):
+        for d in (1280, 2304, 2560, 3072, 5120, 6144):
             for dt in (torch.bfloat16, torch.float32):
                 p = rms.plan(rows, d, dt)
                 assert (p.per, p.wpr) in have
