@@ -222,7 +222,22 @@ Phases, one line (or a few) each:
      (``hold_trajectory``; both peaks); the smoke configs card against CPU
      in f32 (HuBERT's layer stack and DEQ train steps, a Pixtral drain and
      train steps with images); an ``audio_vlm_phase_split`` line;
- 17. a ``{"kernels": [...]}`` line (with each kernel's launches in the
+ 17. layout and costing on one card (``phase_layout``): the dry-run's
+     whole matrix (``python -m repro_torch.launch.dryrun --all``, started
+     in a niced subprocess when the script starts and collected here) with
+     0 failures, one line with its cells, skips, failures and seconds;
+     then, against the caching allocator (``memory_allocated``, each leaf
+     rounded to its 512-byte block): the parameters of all ten configs at
+     full width, the MiniCPM-2B DEQ train state at 4 x 256 and the caches
+     of the drains of steps 4 and 12-16 (``LAYOUT_DRAINS``), each equal
+     to the dry-run's bytes on ``one``; then two real steps that run the
+     kernels, the MiniCPM-2B DEQ train step and the DeepSeek-V2-Lite
+     prefill at 4 x 256: their peak (``max_memory_allocated``) within
+     ``LAYOUT_PEAK_TOL`` of the dry-run's ``argument_bytes + temp_bytes``,
+     and the dry-run's FLOP count over the median event time of 3 runs
+     (the DEQ's at the solve's own step count) as TFLOP/s and a share of
+     the card's dense bf16 peak, held in (0, 1.05];
+ 18. a ``{"kernels": [...]}`` line (with each kernel's launches in the
      step 8 arms, in arm c of step 4, in the MDEQ SGD steps, in the
      V2-Lite async drain of step 12, in the Zamba2 async drain and train
      steps of step 13, in the xLSTM async drain and train steps of step
@@ -244,6 +259,7 @@ import itertools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -277,7 +293,12 @@ from repro_torch.kernels import rmsnorm as cuda_rms  # noqa: E402
 from repro_torch.implicit import ImplicitConfig  # noqa: E402
 from repro_torch.implicit import fixed_point as implicit_fp  # noqa: E402
 from repro_torch.implicit import solvers as implicit_solvers  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import steps as train_steps  # noqa: E402
+from repro_torch.launch.mesh import ONE_CARD  # noqa: E402
+from repro_torch.configs.registry import ARCHS  # noqa: E402
+from repro_torch.configs.shapes import ShapeSuite  # noqa: E402
+from repro_torch.parallel.sharding import ShardCtx  # noqa: E402
 from repro_torch.models import lm, mdeq  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
@@ -4488,6 +4509,337 @@ def phase_audio_vlm(smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: layout and costing on one card
+# ---------------------------------------------------------------------------
+
+# the drains whose serving caches are held to the dry-run's bytes:
+# (arch, deq, slots, max_len) of phase_serve, phase_moe, phase_hybrid,
+# phase_xlstm and phase_audio_vlm
+LAYOUT_DRAINS = (("minicpm-2b", True, 4, 1024),
+                 ("deepseek-v2-lite-16b", False, 4, MOE_MAX_LEN),
+                 ("zamba2-2.7b", False, 4, MOE_MAX_LEN),
+                 ("xlstm-1.3b", False, 4, MOE_MAX_LEN),
+                 ("pixtral-12b", False, 4, VLM_MAX_LEN))
+# a real step's peak against the dry-run's argument_bytes + temp_bytes, as
+# a fraction of the measured peak: on meta the attention takes the plain
+# route (its f32 score blocks, which the kernel never holds), the qN ops
+# and rmsnorm their plain versions (f32 intermediates the kernels do not
+# make) and the unrolled solve selects a fresh ring every iteration; each
+# is under 2% of these peaks
+LAYOUT_PEAK_TOL = 0.10
+LAYOUT_SHARE_MAX = 1.05
+LAYOUT_STEP = dict(batch=4, seq=256, runs=3)
+DRYRUN_JOBS = 6          # workers of the matrix: two of the 8 cores left over
+# the matrix's cells that cannot finish beside the other phases: each runs
+# the sLSTM loop on meta for 455-681 s alone on the card host's 8 cores
+# (PERF.md §6); run them with the dry-run's CLI
+DRYRUN_EXCLUDE = ("xlstm-1.3b/prefill_32k/one/memory",
+                  "xlstm-1.3b/train_4k/one/memory",
+                  "xlstm-1.3b/prefill_32k/single/cost")
+# seconds after the script's start by which the matrix must be done
+DRYRUN_DEADLINE = 1000
+
+
+def start_dryrun_matrix() -> tuple:
+    """Start the dry-run's whole matrix in a niced subprocess (CPU only, no
+    card) writing into a fresh directory; ``phase_layout`` collects it."""
+    out = tempfile.mkdtemp(prefix="dryrun_")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+           "--jobs", str(DRYRUN_JOBS), "--out", out]
+    for cell in DRYRUN_EXCLUDE:
+        cmd += ["--exclude", cell]
+    with open(os.path.join(out, "matrix.log"), "w") as log:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
+                                stderr=subprocess.STDOUT, text=True,
+                                preexec_fn=lambda: os.nice(19))
+    return proc, out, time.perf_counter()
+
+
+def check_matrix(summary: dict, rc: int) -> None:
+    """The matrix's summary line: every cell written or skipped with its
+    reason, none failed."""
+    if rc != 0 or summary["failures"]:
+        raise AssertionError(f"dry-run matrix: rc {rc}, failed cells "
+                             f"{summary['failures']}")
+    if summary["ran"] + len(summary["excluded"]) != summary["cells"]:
+        raise AssertionError(f"dry-run matrix ran {summary['ran']} of "
+                             f"{summary['cells']} cells")
+
+
+def collect_dryrun_matrix(matrix: tuple, smi: str) -> dict:
+    """Wait for the matrix (at most until ``DRYRUN_DEADLINE`` seconds after
+    it started) and check its summary."""
+    proc, out, t0 = matrix
+    wait = max(1.0, DRYRUN_DEADLINE - (time.perf_counter() - t0))
+    try:
+        proc.wait(timeout=wait)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    with open(os.path.join(out, "matrix.log")) as f:
+        text = f.read()
+    if proc.returncode is None or proc.returncode < 0:
+        raise AssertionError(f"dry-run matrix not done {DRYRUN_DEADLINE} s "
+                             f"after it started: {text[-3000:]}")
+    lines = text.strip().splitlines()
+    try:
+        summary = json.loads(lines[-1])["dryrun_all"]
+    except (IndexError, ValueError, KeyError):
+        raise AssertionError(f"dry-run matrix printed no summary: "
+                             f"{text[-4000:]}")
+    errs = {p: open(os.path.join(out, p)).read()[-1500:]
+            for p in sorted(os.listdir(out)) if p.endswith(".err")}
+    say("layout_matrix", cells=summary["cells"], ran=summary["ran"],
+        excluded=summary["excluded"],
+        failures=summary["failures"], skipped=summary["skipped"],
+        seconds=summary["seconds"],
+        since_start_seconds=round(time.perf_counter() - t0, 1),
+        slowest=summary["slowest"], errors=errs, card=smi)
+    check_matrix(summary, proc.returncode)
+    return summary
+
+
+# the caching allocator gives a block over 1 MiB its whole segment when the
+# rest would be 1 MiB or less (it splits only a larger rest), so such a
+# block may hold up to this much more than its 512-byte rounding
+ALLOC_TAIL = 1 << 20
+
+
+def want_bytes(tree) -> dict:
+    """The dry-run's count of a tree on one card: its exact bytes, the
+    bytes at each leaf's 512-byte block, and its leaves over 1 MiB."""
+    leaves = [t for t, _ in dryrun.leaves_with_specs(tree)]
+    return {"exact": dryrun.tree_bytes(tree, None, ONE_CARD),
+            "blocks": dryrun.tree_bytes(tree, None, ONE_CARD, dryrun.BLOCK),
+            "large": sum(t.numel() * t.element_size() > ALLOC_TAIL
+                         for t in leaves)}
+
+
+def check_bytes(name: str, got: dict, want: dict) -> dict:
+    """The allocator's growth against the dry-run's count: the bytes
+    requested equal its exact bytes, and the bytes allocated its 512-byte
+    blocks, plus at most ``ALLOC_TAIL`` for each leaf over 1 MiB."""
+    if got["requested"] != want["exact"]:
+        raise AssertionError(f"{name}: {got['requested']} B requested, the "
+                             f"dry-run counts {want['exact']} B")
+    tail = got["allocated"] - want["blocks"]
+    if not 0 <= tail <= want["large"] * ALLOC_TAIL:
+        raise AssertionError(f"{name}: memory_allocated grew by "
+                             f"{got['allocated']} B, the dry-run counts "
+                             f"{want['blocks']} B in 512-byte blocks and "
+                             f"{want['large']} leaves over 1 MiB")
+    return dict(got, blocks=want["blocks"], tail=tail)
+
+
+def _allocated_by(build) -> tuple:
+    """``(result, {"requested", "allocated"})``: the caching allocator's
+    growth over ``build()``."""
+    def now():
+        torch.cuda.synchronize()
+        st = torch.cuda.memory_stats()
+        return (st["requested_bytes.all.current"],
+                st["allocated_bytes.all.current"])
+
+    req0, alloc0 = now()
+    out = build()
+    req1, alloc1 = now()
+    return out, {"requested": req1 - req0, "allocated": alloc1 - alloc0}
+
+
+def _one_bytes(tree, specs=None) -> int:
+    return dryrun.tree_bytes(tree, specs, ONE_CARD, dryrun.BLOCK)
+
+
+def layout_bytes(smi: str) -> dict:
+    """Parameters of every config, the DEQ train state and the drains'
+    caches, each against the allocator."""
+    ctx = ShardCtx.for_mesh(ONE_CARD)
+    res = {}
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        params, got = _allocated_by(
+            lambda: lm.init_params(cfg, seed=0, device="cuda"))
+        res[f"params/{arch}"] = check_bytes(
+            f"{arch} parameters", got,
+            want_bytes(train_steps.param_structs(cfg, ctx)[0]))
+        del params
+        torch.cuda.empty_cache()
+    cfg = get_config("minicpm-2b", deq=True)
+    tcfg = TrainConfig(global_batch=LAYOUT_STEP["batch"],
+                       seq_len=LAYOUT_STEP["seq"], schedule=cfg.schedule)
+    state, got = _allocated_by(
+        lambda: train_steps.init_train_state(cfg, tcfg, device="cuda"))
+    res["train_state/minicpm-2b-deq"] = check_bytes(
+        "minicpm-2b DEQ train state", got,
+        want_bytes(train_steps.train_state_structs(cfg, tcfg, ctx)[0]))
+    del state
+    for arch, deq, slots, max_len in LAYOUT_DRAINS:
+        cfg = get_config(arch, deq=deq)
+        caches, got = _allocated_by(
+            lambda: lm.init_cache(cfg, slots, max_len, device="cuda"))
+        res[f"caches/{arch}{'-deq' if deq else ''}"] = check_bytes(
+            f"{arch} caches ({slots} x {max_len})", got,
+            want_bytes(lm.init_cache(cfg, slots, max_len, device="meta")))
+        del caches
+    torch.cuda.empty_cache()
+    say("layout_bytes", checked=len(res), bytes=res, card=smi)
+    return res
+
+
+def _median_ms(fn, runs: int) -> tuple[list, list]:
+    """``fn()`` ``runs`` times: each run's CUDA-event ms and result."""
+    times, outs = [], []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        outs.append(fn())
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return times, outs
+
+
+def check_peak(name: str, predicted: int, measured: int) -> float:
+    err = abs(predicted - measured) / measured
+    if err > LAYOUT_PEAK_TOL:
+        raise AssertionError(f"{name}: peak {measured} B, the dry-run "
+                             f"predicts {predicted} B ({err:.3f} > "
+                             f"{LAYOUT_PEAK_TOL})")
+    return err
+
+
+def check_share(name: str, share: float) -> float:
+    if not 0.0 < share <= LAYOUT_SHARE_MAX:
+        raise AssertionError(f"{name}: achieved share {share:.4f} of the "
+                             f"card's dense bf16 peak is outside (0, "
+                             f"{LAYOUT_SHARE_MAX}]")
+    return share
+
+
+def _step_report(name, cell, mem, flops, times, peak_adj, smi, **extra):
+    pred = mem["argument_bytes_blocks"] + mem["temp_bytes"]
+    err = check_peak(name, pred, peak_adj)
+    rates = [f / (t * 1e-3) for f, t in zip(flops, times)]
+    share = check_share(name, float(np.median(rates)) / PEAK_FLOPS["bf16"])
+    out = dict(predicted_peak_bytes=pred, measured_peak_bytes=peak_adj,
+               peak_rel_err=err, argument_bytes=mem["argument_bytes_blocks"],
+               temp_bytes=mem["temp_bytes"], flops=flops, ms=times,
+               median_ms=float(np.median(times)),
+               tflops_per_s=float(np.median(rates)) / 1e12,
+               share_of_bf16_peak=share, **extra)
+    say("layout_step", cell=cell, card=smi, **out)
+    return out
+
+
+def layout_deq_train(smi: str) -> dict:
+    """The MiniCPM-2B DEQ train step at 4 x 256 (phase_train's): peak and
+    FLOPs against the dry-run's."""
+    b, s, runs = LAYOUT_STEP["batch"], LAYOUT_STEP["seq"], LAYOUT_STEP["runs"]
+    cfg = get_config("minicpm-2b", deq=True)
+    tcfg = TrainConfig(global_batch=b, seq_len=s, schedule=cfg.schedule)
+    shape = ShapeSuite(f"train_{b}x{s}", "train", s, b)
+    mem = dryrun.run_cell("minicpm-2b", shape.name, "one", "memory",
+                          deq=True, shape=shape, tcfg=tcfg)["memory"]
+    cost = dryrun.run_cell("minicpm-2b", shape.name, "one", "cost",
+                           deq=True, shape=shape, tcfg=tcfg)
+    state = train_steps.init_train_state(
+        cfg, tcfg, params=_scaled_blocks(
+            lm.init_params(cfg, seed=0, device="cuda"), 0.3))
+    torch.cuda.empty_cache()
+    batch = next(make_lm_batch_iterator(cfg, b, s, seed=0, device="cuda"))
+    step = train_steps.build_train_step(cfg, tcfg)
+    args_alloc = _one_bytes(state) + _one_bytes(batch)
+    holder = {"state": state}
+    del state
+
+    def run():
+        holder["state"], m = step(holder["state"], batch)
+        return m
+
+    peaks = []
+
+    def run_peak():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        m = run()
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base + args_alloc)
+        return m
+
+    run()  # warm-up: cuBLAS handles and workspaces, kernel loads
+    times, metrics = _median_ms(run_peak, runs)
+    steps_n = [float(m["deq_steps"]) for m in metrics]
+    d = cost["depths"]
+    per_step = cost["extrapolated"]["flops_per_layer"]
+    flops = [d["2"]["flops"] + (n - 2) * per_step for n in steps_n]
+    out = _step_report("minicpm-2b DEQ train step", shape.name, mem, flops,
+                       times, max(peaks), smi, forward_steps=steps_n,
+                       peaks=peaks, flops_per_solver_step=per_step,
+                       loss=[float(m["loss"]) for m in metrics])
+    del holder, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def layout_prefill(smi: str) -> dict:
+    """DeepSeek-V2-Lite's prefill at 4 x 256, full depth: peak and FLOPs
+    against the dry-run's."""
+    b, s, runs = LAYOUT_STEP["batch"], LAYOUT_STEP["seq"], LAYOUT_STEP["runs"]
+    arch = "deepseek-v2-lite-16b"
+    cfg = get_config(arch)
+    shape = ShapeSuite(f"prefill_{b}x{s}", "prefill", s, b)
+    mem = dryrun.run_cell(arch, shape.name, "one", "memory",
+                          shape=shape)["memory"]
+    cost = dryrun.run_cell(arch, shape.name, "one", "cost", shape=shape)
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randint(2, cfg.vocab_size, (b, s), generator=gen,
+                           dtype=torch.int32).cuda()
+    args_alloc = _one_bytes(params) + _one_bytes(tokens)
+    peaks = []
+
+    def run_peak():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = lm.prefill(params, {"tokens": tokens}, cfg, s)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base + args_alloc)
+        return out[0].isfinite().all()
+
+    lm.prefill(params, {"tokens": tokens}, cfg, s)  # warm-up
+    launches.reset()
+    times, finite = _median_ms(run_peak, runs)
+    counts = launches.counts()
+    if not all(bool(f) for f in finite):
+        raise AssertionError(f"{arch} prefill: non-finite logits")
+    missing = [k for k in ("flash_attention", "rmsnorm") if not counts[k]]
+    if missing:
+        raise AssertionError(f"{arch} prefill launched no {missing}")
+    flops = [cost["extrapolated"]["flops"]] * runs
+    out = _step_report(f"{arch} prefill", shape.name, mem, flops, times,
+                       max(peaks), smi, peaks=peaks, launches=counts)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_layout(matrix: tuple, smi: str) -> dict:
+    """Step 17: the dry-run's matrix, its bytes against the allocator, and
+    two real steps' peaks and FLOPs against its predictions."""
+    torch.cuda.empty_cache()
+    res = {"bytes": layout_bytes(smi),
+           "deq_train": layout_deq_train(smi),
+           "prefill": layout_prefill(smi)}
+    res["matrix"] = collect_dryrun_matrix(matrix, smi)
+    return res
+
+
 def timed(smi: str, name: str, fn, *args):
     """``fn(*args)`` with its wall time, to the card's last kernel, in a
     ``phase_time`` line."""
@@ -4505,6 +4857,17 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    matrix = start_dryrun_matrix()
+    try:
+        return _main(matrix)
+    finally:
+        if matrix[0].poll() is None:
+            matrix[0].kill()
+            matrix[0].wait()
+        shutil.rmtree(matrix[1], ignore_errors=True)
+
+
+def _main(matrix: tuple) -> int:
     env = phase_env()
     smi = env["nvidia_smi"]
     res = phase_kernels()
@@ -4540,6 +4903,8 @@ def main() -> int:
     stack = timed(smi, "train_stack", phase_train_stack, smi)
     torch.cuda.empty_cache()
     av = timed(smi, "audio_vlm", phase_audio_vlm, smi)
+    torch.cuda.empty_cache()
+    timed(smi, "layout", phase_layout, matrix, smi)
     rows = []
     for name, (route, source, replaces) in KERNELS.items():
         r = res[name]

@@ -2,9 +2,9 @@
 
 The port's own copy of ``repro/configs/base.py`` (the port imports nothing
 of the JAX package): same frozen dataclasses, same fields, same defaults, so
-both packages run identical hyperparameters: the model schema and the
-trainer's ``TrainConfig``.  The analytic parameter counts come with the
-dry-run slice.
+both packages run identical hyperparameters: the model schema, its
+analytic parameter count (``ModelConfig.num_params``) and the trainer's
+``TrainConfig``.
 """
 
 from __future__ import annotations
@@ -137,6 +137,82 @@ class ModelConfig:
     def with_(self, **kw: Any) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    # ---- analytic parameter counts (the published model's, which the
+    # dry-run prints; a DEQ's tied blocks are not what it counts) ----
+
+    def _attn_params(self) -> int:
+        d = self.d_model
+        if self.attn_type == "mla":
+            m = self.mla
+            qk = m.qk_nope_dim + m.qk_rope_dim
+            n = d * self.num_heads * qk                             # W_q
+            n += d * (m.kv_lora_rank + m.qk_rope_dim)               # W_dkv
+            n += m.kv_lora_rank * self.num_heads * m.qk_nope_dim    # W_uk
+            n += m.kv_lora_rank * self.num_heads * m.v_head_dim     # W_uv
+            n += self.num_heads * m.v_head_dim * d                  # W_o
+            return n
+        return d * self.attn_dim * 2 + d * self.kv_dim * 2
+
+    def _mlp_params(self, ff: int) -> int:
+        mult = 3 if self.act == "silu" else 2
+        return mult * self.d_model * ff
+
+    def _layer_params(self, layer_idx: int) -> int:
+        d = self.d_model
+        n = 2 * d  # norms
+        if self.family == "ssm":  # xLSTM
+            x = self.xlstm
+            h = self.num_heads
+            hd = d // h
+            if (layer_idx + 1) % x.slstm_every == 0:
+                ffd = int(round(d * x.slstm_proj_factor / 64)) * 64
+                return n + 4 * d * d + 4 * h * hd * hd + 3 * d * ffd
+            inner = int(d * x.mlstm_proj_factor)
+            # block-diagonal qkv: 3 * inner^2 / h
+            return (n + 2 * d * inner + inner * d
+                    + 3 * inner * inner // h + 2 * inner * h)
+        if self.family == "hybrid":  # a Mamba2 layer (shared block: once)
+            s = self.ssm
+            d_in = s.expand * d
+            nh = d_in // s.head_dim
+            conv_dim = d_in + 2 * s.n_groups * s.d_state
+            n += d * (2 * d_in + 2 * s.n_groups * s.d_state + nh)  # in_proj
+            n += conv_dim * s.d_conv + d_in * d + 2 * nh + d_in    # the rest
+            return n
+        n += self._attn_params()
+        if self.family == "moe" and layer_idx >= self.moe.first_k_dense:
+            m = self.moe
+            n += self._mlp_params(m.expert_d_ff) * m.num_experts
+            n += self._mlp_params(m.expert_d_ff * max(m.num_shared, 0))
+            n += self.d_model * m.num_experts  # router
+        else:
+            ff = (self.moe.dense_d_ff
+                  if self.family == "moe" and self.moe.dense_d_ff
+                  else self.d_ff)
+            n += self._mlp_params(ff)
+        return n
+
+    def num_params(self, active_only: bool = False) -> int:
+        """The published model's parameter count (``active_only``: a MoE
+        layer's routed experts counted at ``top_k``)."""
+        n = self.padded_vocab * self.d_model  # embed
+        if not self.tie_embeddings and self.family != "audio":
+            n += self.padded_vocab * self.d_model
+        if self.family == "audio":
+            n += self.d_model * self.vocab_size  # small classifier head
+        for i in range(self.num_layers):
+            ln = self._layer_params(i)
+            if (active_only and self.family == "moe"
+                    and i >= self.moe.first_k_dense):
+                m = self.moe
+                full_experts = self._mlp_params(m.expert_d_ff) * m.num_experts
+                active = self._mlp_params(m.expert_d_ff) * m.top_k
+                ln = ln - full_experts + active
+            n += ln
+        if self.family == "hybrid" and self.ssm.attn_every:
+            n += self._attn_params() + self._mlp_params(self.d_ff)
+        return n
+
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
@@ -153,7 +229,8 @@ class TrainConfig:
     grad_accum: int = 1
     z_loss: float = 1e-4
     seed: int = 0
-    # distributed-optimization knobs (read by the layout slice)
+    # distributed-optimization knobs (``zero1``: the dry-run's moment
+    # layout; the pod-gradient compression is not ported yet)
     zero1: bool = True
     compress_pod_grads: bool = False
     checkpoint_every: int = 0

@@ -19,12 +19,16 @@ estimate the hypergradient shares.
 
 Eager PyTorch runs each loop on the host: the whole-batch early exit
 (``all(converged)``) and, where a restart scrubs solver memory, the guard's
-"any restart" test read one flag each per iteration.  There is no
-``while_loop``/``unroll`` split: ``SolverConfig.unroll`` changes nothing
-(the JAX package unrolls only for XLA's cost analysis).  Every solve is
-batched; converged, faulted and frozen samples stop moving (their updates
-are masked out).  All inner products and denominators are f32; the
-Broyden ring stores ``cfg.qn_dtype``.
+"any restart" test read one flag each per iteration.
+``SolverConfig.unroll`` has the reference's meaning in ``broyden_solve``
+and ``fixed_point_solve``: ``max_steps`` bodies with no early exit and no
+host read (the restart is a select on the device; converged rows are
+masked out as always, so they end bit for bit where the early exit leaves
+them).  The dry-run runs the solve so on ``meta`` tensors, where a host
+read cannot be made; Anderson, adjoint Broyden and L-BFGS ignore it, as
+in the reference.  Every solve is batched; converged, faulted and frozen
+samples stop moving (their updates are masked out).  All inner products
+and denominators are f32; the Broyden ring stores ``cfg.qn_dtype``.
 """
 
 from __future__ import annotations
@@ -297,6 +301,8 @@ class SolverConfig:
     opa_freq: int = 0
     opa_t0: float = 1.0
     trace: bool = True
+    # max_steps iterations, no early exit, no host read (broyden_solve and
+    # fixed_point_solve; the dry-run's form)
     unroll: bool = False
     # storage dtype of the qN ring (coefficients always accumulate f32)
     qn_dtype: str = "bfloat16"
@@ -372,6 +378,11 @@ def broyden_solve(
     finished slots); ``carry`` warm-starts per row and comes back updated in
     ``SolveResult.carry``.  On the card the ring is updated in place, so a
     carried ring is consumed by the solve that takes it.
+
+    ``cfg.unroll``: all ``max_steps`` iterations without a host read; the
+    guard's ring scrub is a select, and with a carry the cold residual
+    ``g(z_cold)`` is evaluated once before the loop (without ``unroll``
+    only when a restart fires).
     """
     bsz, feat = z0.shape[0], tuple(z0.shape[1:])
     dev = z0.device
@@ -409,10 +420,13 @@ def broyden_solve(
         conv = conv | freeze_mask
     k, z, gz, H = 0, z0, g0, H0
     best_z, best_res = z0, res0
+    # the restart target's residual (the entry point's when cold)
+    gz_cold = g0 if carry is None or not (cfg.guard and cfg.unroll) \
+        else g(z_cold)
 
     while k < cfg.max_steps:
         done = (conv | gs.sick) if cfg.guard else conv
-        if bool(done.all()):
+        if not cfg.unroll and bool(done.all()):
             break
         p = -Hg
         if cfg.guard:
@@ -450,9 +464,10 @@ def broyden_solve(
         if cfg.guard:
             gs, do_rs, code, res = _guard_detect(
                 gs, cfg, active, res, bnorm(s), div_ref)
-            if bool(do_rs.any()):
+            if cfg.unroll or bool(do_rs.any()):
                 # recovery round: scrub the restarted rows' ring, put them
-                # back at the caller's z0 with the cold residual
+                # back at the caller's z0 with the cold residual (unrolled:
+                # as selects, a no-op for rows that did not restart)
                 rm = _expand(do_rs, z)
                 zu = torch.zeros((), dtype=H.u.dtype, device=dev)
                 H = LowRank(alpha=H.alpha, u=torch.where(rm[None], zu, H.u),
@@ -460,7 +475,8 @@ def broyden_solve(
                             count=torch.where(do_rs,
                                               torch.zeros_like(H.count),
                                               H.count))
-                gz_cold = g0 if carry is None else g(z_cold)
+                if not cfg.unroll and carry is not None:
+                    gz_cold = g(z_cold)
                 z_new = torch.where(rm, z_cold, z_new)
                 gz_new = torch.where(rm, gz_cold, gz_new)
                 Hg = torch.where(rm, H.alpha * gz_cold.float(), Hg)
@@ -514,6 +530,7 @@ def fixed_point_solve(
     The guard's restart damping scales the mixing per row; healthy rows
     select the undamped expression bit for bit.  Returns the last iterate
     with the best residual seen, and :func:`_placeholder_inverse` as ``H``.
+    ``cfg.unroll``: all ``max_steps`` iterations without a host read.
     """
     bsz, dev = z0.shape[0], z0.device
     z_cold = z0  # pre-carry start: the guard's restart target
@@ -535,7 +552,7 @@ def fixed_point_solve(
 
     while k < cfg.max_steps:
         done = (conv | gs.sick) if cfg.guard else conv
-        if bool(done.all()):
+        if not cfg.unroll and bool(done.all()):
             break
         fz = f(z)
         z_pic = (1 - damping) * z + damping * fz

@@ -4,6 +4,7 @@
     --------------+-------------------------------------------------------
     cpu           | the plain PyTorch version (kernels/ref.py)
     cuda          | the hand-written Hopper kernel (csrc/), or it raises
+    meta          | the CPU's route, on shapes only (the dry-run)
 
 There is no other route and no fallback: a CUDA tensor never reaches a
 plain version unless the caller asks for one (``attention``'s ``impl``),
@@ -55,14 +56,16 @@ from repro_torch.obs import metrics as obs_metrics
 
 
 def _on_card(*ts: torch.Tensor) -> bool:
-    """True for CUDA tensors, False for CPU tensors; anything else raises."""
+    """True for CUDA tensors; False for CPU tensors, and for ``meta``
+    tensors (the dry-run's shapes without storage take the CPU's routes:
+    nothing on them is computed); any mix raises."""
     kinds = {t.device.type for t in ts}
-    if kinds == {"cpu"}:
+    if kinds == {"cpu"} or kinds == {"meta"}:
         return False
     if kinds == {"cuda"}:
         return True
-    raise ValueError(f"kernel ops take all-CPU or all-CUDA tensors; got "
-                     f"{sorted(kinds)}")
+    raise ValueError(f"kernel ops take all-CPU, all-CUDA or all-meta "
+                     f"tensors; got {sorted(kinds)}")
 
 
 # ---------------------------------------------------------------------------

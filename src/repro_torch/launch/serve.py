@@ -123,6 +123,9 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    if device.type == "meta":
+        ap.error("--device meta holds shapes only; the dry-run "
+                 "(repro_torch.launch.dryrun) runs steps on it")
     if args.metrics_out or args.metrics_prom_out:
         obs_metrics.set_enabled(True)
     if args.trace_out:

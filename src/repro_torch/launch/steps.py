@@ -1,9 +1,12 @@
 """The train step and its state.
 
-The port of the training half of ``repro/launch/steps.py``: ``TrainState``
-(with the persistent solve carry of DEQ models), ``train_carry_enabled``,
-``build_train_step`` and ``init_train_state``.  The sharding and struct
-helpers come with the layout slice.
+The port of ``repro/launch/steps.py``: ``TrainState`` (with the
+persistent solve carry of DEQ models), ``train_carry_enabled``,
+``build_train_step`` and ``init_train_state``, and the struct helpers the
+dry-run lays out: ``param_structs``, ``train_state_structs`` (``meta``
+trees, leaf for leaf what ``init_params`` and ``init_train_state`` build)
+with ``param_shardings``, ``carry_shardings`` and ``state_shardings`` (the
+spec trees beside them; ZeRO-1 splits the moments over "data").
 
 Eager PyTorch needs no jit: the step is a plain function.  It writes the
 new parameters and moments into the state's own tensors (the reference jits
@@ -22,8 +25,10 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
-from repro_torch.core.solvers import SolveCarry, carry_state_only
+from repro_torch.core.lowrank import LowRank
+from repro_torch.core.solvers import SolveCarry, carry_state_only, torch_dtype
 from repro_torch.models import lm
+from repro_torch.models.layers import act_dtype
 from repro_torch.obs import tracing as obs_tracing
 from repro_torch.optim.optimizers import (
     OptState,
@@ -35,8 +40,18 @@ from repro_torch.optim.optimizers import (
     tree_leaves,
     tree_map,
 )
+from repro_torch.parallel.sharding import (
+    ShardCtx,
+    map_decls,
+    shape_tree,
+    spec_tree,
+    zero1_spec_tree,
+)
 
 Tree = Any
+
+# logical axes of the DEQ solver state; the qN memory prepends "qn_mem"
+_CARRY_STATE_AXES = ("batch", "seq_res", "embed_act")
 
 
 class TrainState(NamedTuple):
@@ -59,6 +74,92 @@ def train_carry_enabled(cfg: ModelConfig, tcfg: TrainConfig) -> bool:
             f"deq_carry={tcfg.deq_carry!r}; expected state | full | off")
     return bool(cfg.deq.enabled) and tcfg.deq_carry != "off" \
         and tcfg.grad_accum == 1 and cfg.family != "vlm"
+
+
+# ---------------------------------------------------------------------------
+# structs and specs (the dry-run's)
+# ---------------------------------------------------------------------------
+
+
+def param_shardings(cfg: ModelConfig, ctx: ShardCtx):
+    """The spec tree of the parameters (``None`` leaves without a mesh)."""
+    decl = lm.model_decl(cfg)
+    if ctx.mesh is None:
+        return map_decls(lambda d: None, decl)
+    return spec_tree(decl, ctx.rules)
+
+
+def param_structs(cfg: ModelConfig, ctx: ShardCtx) -> tuple[Tree, Tree]:
+    """``(meta parameter tree, its specs)``."""
+    return (shape_tree(lm.model_decl(cfg), act_dtype(cfg)),
+            param_shardings(cfg, ctx))
+
+
+def carry_shardings(cfg: ModelConfig, ctx: ShardCtx) -> SolveCarry | None:
+    """The specs of the train state's solve carry: the iterate in the
+    activation layout, the (U, V) ring batch-split beside it."""
+    if ctx.mesh is None:
+        return None
+    vec = ctx.spec(("batch",))
+    mem = ctx.spec(("qn_mem",) + _CARRY_STATE_AXES)
+    return SolveCarry(
+        z=ctx.spec(_CARRY_STATE_AXES),
+        lowrank=LowRank(alpha=(), u=mem, v=mem, count=vec),
+        warm=vec, age=vec)
+
+
+def state_shardings(cfg: ModelConfig, tcfg: TrainConfig, ctx: ShardCtx):
+    """The TrainState's spec tree: parameters TP-split and DP-replicated,
+    the moments also split over "data" under ZeRO-1, the carry (where
+    ``train_carry_enabled``) batch-split.  ``None`` without a mesh."""
+    if ctx.mesh is None:
+        return None
+    decl = lm.model_decl(cfg)
+    pspec = spec_tree(decl, ctx.rules)
+    zsize = ctx.mesh.shape.get("data", 0)
+    ospec = (zero1_spec_tree(decl, ctx.rules, zero_size=zsize)
+             if tcfg.zero1 else pspec)
+    return TrainState(
+        step=(), params=pspec,
+        opt=OptState(step=(), mu=ospec, nu=ospec),
+        carry=(carry_shardings(cfg, ctx)
+               if train_carry_enabled(cfg, tcfg) else None),
+        skips=(() if tcfg.skip_nonfinite else None))
+
+
+def train_state_structs(cfg: ModelConfig, tcfg: TrainConfig,
+                        ctx: ShardCtx) -> tuple[TrainState, Any]:
+    """``(TrainState of meta tensors, state_shardings)``: leaf for leaf
+    what ``init_train_state`` builds (parameters in the model dtype, f32
+    moments, the carry's iterate, ring and counters)."""
+    decl = lm.model_decl(cfg)
+    dt = act_dtype(cfg)
+    meta = lambda shape, dtype: torch.empty(  # noqa: E731
+        shape, dtype=dtype, device="meta")
+    scalar = lambda: meta((), torch.int32)  # noqa: E731
+    carry = None
+    if train_carry_enabled(cfg, tcfg):
+        b, s, d, m = (tcfg.global_batch, tcfg.seq_len, cfg.d_model,
+                      cfg.deq.memory)
+        ring = torch_dtype(cfg.deq.qn_dtype)
+        carry = SolveCarry(
+            z=meta((b, s, d), dt),
+            lowrank=LowRank(alpha=meta((), torch.float32),
+                            u=meta((m, b, s, d), ring),
+                            v=meta((m, b, s, d), ring),
+                            count=meta((b,), torch.int32)),
+            warm=meta((b,), torch.bool), age=meta((b,), torch.int32))
+    state = TrainState(
+        scalar(), shape_tree(decl, dt),
+        OptState(scalar(), shape_tree(decl, torch.float32),
+                 shape_tree(decl, torch.float32)),
+        carry, scalar() if tcfg.skip_nonfinite else None)
+    return state, state_shardings(cfg, tcfg, ctx)
+
+
+# ---------------------------------------------------------------------------
+# the train step
+# ---------------------------------------------------------------------------
 
 
 def _copy_carry(carry: SolveCarry) -> SolveCarry:

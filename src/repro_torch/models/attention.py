@@ -33,10 +33,10 @@ class KVCache(NamedTuple):
 
 def gqa_decl(cfg: ModelConfig) -> dict:
     d = cfg.d_model
-    return {"wq": ParamDecl((d, cfg.attn_dim)),
-            "wk": ParamDecl((d, cfg.kv_dim)),
-            "wv": ParamDecl((d, cfg.kv_dim)),
-            "wo": ParamDecl((cfg.attn_dim, d))}
+    return {"wq": ParamDecl((d, cfg.attn_dim), ("embed", "heads")),
+            "wk": ParamDecl((d, cfg.kv_dim), ("embed", "kv")),
+            "wv": ParamDecl((d, cfg.kv_dim), ("embed", "kv")),
+            "wo": ParamDecl((cfg.attn_dim, d), ("heads", "embed"))}
 
 
 def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -115,12 +115,15 @@ def mla_decl(cfg: ModelConfig) -> dict:
     d, h, m = cfg.d_model, cfg.num_heads, cfg.mla
     qk = m.qk_nope_dim + m.qk_rope_dim
     return {
-        "wq": ParamDecl((d, h * qk)),
-        "w_dkv": ParamDecl((d, m.kv_lora_rank + m.qk_rope_dim)),
-        "kv_norm": ParamDecl((m.kv_lora_rank,), "ones"),
-        "w_uk": ParamDecl((m.kv_lora_rank, h * m.qk_nope_dim)),
-        "w_uv": ParamDecl((m.kv_lora_rank, h * m.v_head_dim)),
-        "wo": ParamDecl((h * m.v_head_dim, d)),
+        "wq": ParamDecl((d, h * qk), ("embed", "heads")),
+        "w_dkv": ParamDecl((d, m.kv_lora_rank + m.qk_rope_dim),
+                           ("embed", "lora")),
+        "kv_norm": ParamDecl((m.kv_lora_rank,), ("lora",), "ones"),
+        "w_uk": ParamDecl((m.kv_lora_rank, h * m.qk_nope_dim),
+                          ("lora", "heads")),
+        "w_uv": ParamDecl((m.kv_lora_rank, h * m.v_head_dim),
+                          ("lora", "heads")),
+        "wo": ParamDecl((h * m.v_head_dim, d), ("heads", "embed")),
     }
 
 

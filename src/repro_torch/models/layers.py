@@ -19,17 +19,24 @@ from repro_torch.kernels import ops as kernel_ops
 
 @dataclasses.dataclass(frozen=True)
 class ParamDecl:
-    """Declaration of one parameter tensor (the JAX package's ParamDecl
-    without the sharding axes and the storage dtype: every leaf takes the
-    model's dtype, as the JAX package's ``init_tree`` casts it)."""
+    """Declaration of one parameter tensor: its shape, the logical axis
+    name of each dimension (``parallel/sharding.py`` maps them onto a
+    mesh) and its initializer.  The JAX package's ParamDecl without the
+    storage dtype: every leaf takes the model's dtype, as the JAX
+    package's ``init_tree`` casts it."""
 
     shape: tuple[int, ...]
+    axes: tuple[str | None, ...]
     init: str = "fan_in"  # fan_in | ones | zeros | normal
     scale: float = 1.0
 
+    def __post_init__(self) -> None:
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
 
 def norm_decl(dim: int) -> dict:
-    return {"scale": ParamDecl((dim,), "ones")}
+    return {"scale": ParamDecl((dim,), ("embed",), "ones")}
 
 
 def mlp_decl(cfg: ModelConfig, d_ff: int | None = None) -> dict:
@@ -37,9 +44,11 @@ def mlp_decl(cfg: ModelConfig, d_ff: int | None = None) -> dict:
     ``cfg.d_ff``)."""
     d, ff = cfg.d_model, d_ff or cfg.d_ff
     if cfg.act == "silu":
-        return {"wi_g": ParamDecl((d, ff)), "wi_u": ParamDecl((d, ff)),
-                "wo": ParamDecl((ff, d))}
-    return {"wi": ParamDecl((d, ff)), "wo": ParamDecl((ff, d))}
+        return {"wi_g": ParamDecl((d, ff), ("embed", "mlp")),
+                "wi_u": ParamDecl((d, ff), ("embed", "mlp")),
+                "wo": ParamDecl((ff, d), ("mlp", "embed"))}
+    return {"wi": ParamDecl((d, ff), ("embed", "mlp")),
+            "wo": ParamDecl((ff, d), ("mlp", "embed"))}
 
 
 def act_dtype(cfg: ModelConfig) -> torch.dtype:

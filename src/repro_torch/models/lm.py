@@ -141,7 +141,8 @@ def _deq_kind(cfg: ModelConfig) -> str:
 def _stack(decl: dict, count: int) -> dict:
     """Prepend a stacked ``layers`` axis to every declaration of a tree."""
     return {k: (_stack(v, count) if isinstance(v, dict) else
-                ParamDecl((count,) + v.shape, v.init, v.scale))
+                ParamDecl((count,) + v.shape, ("layers",) + v.axes, v.init,
+                          v.scale))
             for k, v in decl.items()}
 
 
@@ -174,10 +175,11 @@ def _unit_decl(cfg: ModelConfig, kind: str) -> dict:
 def model_decl(cfg: ModelConfig) -> dict:
     _check_family(cfg)
     embed = {"embedding": ParamDecl((cfg.padded_vocab, cfg.d_model),
-                                    "normal", 0.02)}
+                                    ("vocab", "embed"), "normal", 0.02)}
     if not cfg.tie_embeddings or cfg.family == "audio":
         # the audio encoder's classifier head over the padded classes
-        embed["lm_head"] = ParamDecl((cfg.d_model, cfg.padded_vocab))
+        embed["lm_head"] = ParamDecl((cfg.d_model, cfg.padded_vocab),
+                                     ("embed", "vocab"))
     decl = {"embed": embed, "final_norm": norm_decl(cfg.d_model)}
     if cfg.deq.enabled:
         decl["deq_blocks"] = _stack(_unit_decl(cfg, _deq_kind(cfg)),

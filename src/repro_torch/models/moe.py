@@ -41,6 +41,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ParamDecl, mlp, mlp_decl
 
 
+_EXPERT_IN = ("expert", "embed", "expert_mlp")
+
+
 def moe_decl(cfg: ModelConfig) -> dict:
     """The router ``(d, E)``, the routed experts' stacked SwiGLU weights and
     the shared experts' MLP.  (The reference declares the router f32 and its
@@ -49,10 +52,12 @@ def moe_decl(cfg: ModelConfig) -> dict:
     d, m = cfg.d_model, cfg.moe
     eff = m.expert_d_ff
     decl = {
-        "router": ParamDecl((d, m.num_experts), "normal", 0.02),
-        "wi_g": ParamDecl((m.num_experts, d, eff)),
-        "wi_u": ParamDecl((m.num_experts, d, eff)),
-        "wo": ParamDecl((m.num_experts, eff, d)),
+        "router": ParamDecl((d, m.num_experts), ("embed", None), "normal",
+                            0.02),
+        "wi_g": ParamDecl((m.num_experts, d, eff), _EXPERT_IN),
+        "wi_u": ParamDecl((m.num_experts, d, eff), _EXPERT_IN),
+        "wo": ParamDecl((m.num_experts, eff, d),
+                        ("expert", "expert_mlp", "embed")),
     }
     if m.num_shared:
         decl["shared"] = mlp_decl(cfg, d_ff=m.num_shared * eff)

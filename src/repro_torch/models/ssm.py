@@ -58,19 +58,20 @@ def mamba2_decl(cfg: ModelConfig) -> dict:
     s, d_in, nh, conv_dim = _dims(cfg)
     d, gn = cfg.d_model, s.n_groups * s.d_state
     return {
-        "w_z": ParamDecl((d, d_in)),
-        "w_x": ParamDecl((d, d_in)),
-        "w_B": ParamDecl((d, gn)),
-        "w_C": ParamDecl((d, gn)),
-        "w_dt": ParamDecl((d, nh)),
-        "conv_x": ParamDecl((s.d_conv, d_in), "normal", 0.5),
-        "conv_B": ParamDecl((s.d_conv, gn), "normal", 0.5),
-        "conv_C": ParamDecl((s.d_conv, gn), "normal", 0.5),
-        "A_log": ParamDecl((nh,), "zeros"),
-        "D": ParamDecl((nh,), "ones"),
-        "dt_bias": ParamDecl((nh,), "zeros"),
-        "norm": ParamDecl((d_in,), "ones"),
-        "w_out": ParamDecl((d_in, d)),
+        "w_z": ParamDecl((d, d_in), ("embed", "ssm_inner")),
+        "w_x": ParamDecl((d, d_in), ("embed", "ssm_inner")),
+        "w_B": ParamDecl((d, gn), ("embed", None)),
+        "w_C": ParamDecl((d, gn), ("embed", None)),
+        "w_dt": ParamDecl((d, nh), ("embed", "ssm_heads")),
+        "conv_x": ParamDecl((s.d_conv, d_in), ("conv", "ssm_inner"), "normal",
+                            0.5),
+        "conv_B": ParamDecl((s.d_conv, gn), ("conv", None), "normal", 0.5),
+        "conv_C": ParamDecl((s.d_conv, gn), ("conv", None), "normal", 0.5),
+        "A_log": ParamDecl((nh,), ("ssm_heads",), "zeros"),
+        "D": ParamDecl((nh,), ("ssm_heads",), "ones"),
+        "dt_bias": ParamDecl((nh,), ("ssm_heads",), "zeros"),
+        "norm": ParamDecl((d_in,), ("ssm_inner",), "ones"),
+        "w_out": ParamDecl((d_in, d), ("ssm_inner", "embed")),
     }
 
 

@@ -64,6 +64,10 @@ def _mlstm_dims(cfg: ModelConfig):
     return inner, heads, inner // heads
 
 
+# the block-diagonal per-head projections
+_HEAD_BLOCK = ("ssm_heads", None, None)
+
+
 def mlstm_decl(cfg: ModelConfig) -> dict:
     """Per-head BLOCK-DIAGONAL q/k/v projections, as the xLSTM paper's
     BlockLinear (a dense ``(inner, inner)`` qkv would about double the
@@ -71,14 +75,14 @@ def mlstm_decl(cfg: ModelConfig) -> dict:
     d = cfg.d_model
     inner, h, hd = _mlstm_dims(cfg)
     return {
-        "w_up": ParamDecl((d, 2 * inner)),
-        "w_q": ParamDecl((h, hd, hd)),
-        "w_k": ParamDecl((h, hd, hd)),
-        "w_v": ParamDecl((h, hd, hd)),
-        "w_i": ParamDecl((inner, h), "normal", 0.02),
-        "w_f": ParamDecl((inner, h), "normal", 0.02),
-        "f_bias": ParamDecl((h,), "ones"),
-        "w_down": ParamDecl((inner, d)),
+        "w_up": ParamDecl((d, 2 * inner), ("embed", "ssm_inner")),
+        "w_q": ParamDecl((h, hd, hd), _HEAD_BLOCK),
+        "w_k": ParamDecl((h, hd, hd), _HEAD_BLOCK),
+        "w_v": ParamDecl((h, hd, hd), _HEAD_BLOCK),
+        "w_i": ParamDecl((inner, h), ("ssm_inner", None), "normal", 0.02),
+        "w_f": ParamDecl((inner, h), ("ssm_inner", None), "normal", 0.02),
+        "f_bias": ParamDecl((h,), (None,), "ones"),
+        "w_down": ParamDecl((inner, d), ("ssm_inner", "embed")),
     }
 
 
@@ -240,12 +244,14 @@ def slstm_decl(cfg: ModelConfig) -> dict:
     hd = d // h
     ffd = _slstm_ff(cfg)
     return {
-        "w_in": ParamDecl((d, 4 * d)),                      # z, i, f, o
-        "r": ParamDecl((4, h, hd, hd), "normal", 0.02),
-        "bias": ParamDecl((4 * d,), "zeros"),
-        "ff_g": ParamDecl((d, ffd)),
-        "ff_u": ParamDecl((d, ffd)),
-        "ff_o": ParamDecl((ffd, d)),
+        # z, i, f, o
+        "w_in": ParamDecl((d, 4 * d), ("embed", "ssm_inner")),
+        "r": ParamDecl((4, h, hd, hd), (None, "ssm_heads", None, None),
+                       "normal", 0.02),
+        "bias": ParamDecl((4 * d,), ("ssm_inner",), "zeros"),
+        "ff_g": ParamDecl((d, ffd), ("embed", "mlp")),
+        "ff_u": ParamDecl((d, ffd), ("embed", "mlp")),
+        "ff_o": ParamDecl((ffd, d), ("mlp", "embed")),
     }
 
 

@@ -135,7 +135,11 @@ NEW_MODULES = ("runtime/faultinject.py", "core/bilevel.py", "core/deq.py",
                "launch/train.py", "models/xlstm.py", "configs/xlstm_1p3b.py",
                "optim/optimizers.py", "launch/steps.py",
                "kernels/flash_xla.py", "configs/hubert_xlarge.py",
-               "configs/pixtral_12b.py", "data/pipeline.py")
+               "configs/pixtral_12b.py", "data/pipeline.py",
+               "parallel/__init__.py", "parallel/sharding.py",
+               "launch/mesh.py", "configs/shapes.py", "launch/dryrun.py",
+               "configs/base.py", "models/layers.py", "kernels/ops.py",
+               "core/solvers.py", "device.py")
 
 
 @pytest.mark.parametrize("path", NEW_MODULES)
@@ -146,6 +150,29 @@ def test_fault_bilevel_and_mdeq_modules_import_neither_jax_nor_repro(path):
 
 def _fields(cls) -> list:
     return [(f.name, str(f.type)) for f in dataclasses.fields(cls)]
+
+
+def test_layout_classes_equal_the_jax_package():
+    """The layout slice's dataclasses, field by field, and the struct
+    helpers' names, against the reference's."""
+    from repro.configs import shapes as jshapes
+    from repro.launch import steps as jsteps
+    from repro.parallel import sharding as jsh
+    from repro_torch.configs import shapes as tshapes
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.parallel import sharding as tsh
+    assert _fields(tshapes.ShapeSuite) == _fields(jshapes.ShapeSuite)
+    assert [f.name for f in dataclasses.fields(tsh.ShardingRules)] == \
+        [f.name for f in dataclasses.fields(jsh.ShardingRules)]
+    assert [f.name for f in dataclasses.fields(tsh.ShardCtx)] == \
+        [f.name for f in dataclasses.fields(jsh.ShardCtx)]
+    assert [f.name for f in dataclasses.fields(lm.ParamDecl)][:2] == \
+        [f.name for f in dataclasses.fields(jsh.ParamDecl)][:2]
+    for name in ("param_shardings", "param_structs", "carry_shardings",
+                 "state_shardings", "train_state_structs"):
+        assert callable(getattr(tsteps, name)) and hasattr(jsteps, name)
+    assert tbase.ModelConfig().num_params() == \
+        jbase.ModelConfig().num_params()
 
 
 @pytest.mark.parametrize("pair", ["mdeq", "hoag", "deq", "hypergrad"])

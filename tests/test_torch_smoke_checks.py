@@ -18,7 +18,11 @@ layer-stack train phases' launch counts (``_forward_launches``) are held
 against a smoke train step's kernel-op calls, the xLSTM cell check's
 output-scaled tolerance directly, and the per-layer cache-leaf check on
 the xLSTM smoke model's caches (a prefill then a decode step against a
-prefill over one more token; swapped or stale layers must fail).
+prefill over one more token; swapped or stale layers must fail).  The
+layout phase's checks (``phase_layout``) fail on canned wrong answers: a
+parameter tree with one leaf's bytes off the dry-run's count, an achieved
+share of 1.2 (or 0) of the card's peak, a peak off the prediction by more
+than its tolerance, and a matrix with a failed or a missing cell.
 """
 
 import dataclasses
@@ -731,3 +735,72 @@ def test_cache_leaf_check_rejects(xlstm_caches, wrong):
         s_bad.h[1] = s_old.h[1]
     with pytest.raises(AssertionError):
         chip_smoke.check_cache_leaves(bad, want, cfg, "xlstm smoke")
+
+
+# ---------------------------------------------------------------------------
+# phase_layout's checks
+# ---------------------------------------------------------------------------
+
+
+def _allocator(tree, tails=0) -> dict:
+    """What the caching allocator would report for a tree: the bytes
+    requested, and each leaf at its 512-byte block plus ``tails`` bytes."""
+    leaves = chip_smoke._leaves(tree)
+    return {"requested": sum(t.numel() * t.element_size() for t in leaves),
+            "allocated": tails + sum(-(-t.numel() * t.element_size() // 512)
+                                     * 512 for t in leaves)}
+
+
+@pytest.mark.parametrize("arch", ["minicpm-2b", "deepseek-v2-lite-16b"])
+def test_layout_bytes_check_passes_real_params_and_rejects_one_leaf_off(
+        arch):
+    from repro_torch.launch.mesh import ONE_CARD
+    from repro_torch.launch import steps
+    from repro_torch.parallel.sharding import ShardCtx
+    cfg = smoke_config(arch)
+    params = lm.init_params(cfg, seed=0, device="cpu")
+    want = chip_smoke.want_bytes(
+        steps.param_structs(cfg, ShardCtx.for_mesh(ONE_CARD))[0])
+    got = chip_smoke.check_bytes(arch, _allocator(params), want)
+    assert got["tail"] == 0 and got["blocks"] == want["blocks"]
+    # a leaf over 1 MiB may take its segment's rest (at most 1 MiB)
+    big = dict(params, extra=torch.ones(1 << 19))
+    want_big = dict(want, exact=want["exact"] + (2 << 20),
+                    blocks=want["blocks"] + (2 << 20),
+                    large=want["large"] + 1)
+    chip_smoke.check_bytes(arch, _allocator(big, 1 << 20), want_big)
+    with pytest.raises(AssertionError, match="memory_allocated"):
+        chip_smoke.check_bytes(arch, _allocator(big, (1 << 20) + 512),
+                               want_big)
+    # one leaf 2 bytes longer than declared: the requested bytes differ
+    params["final_norm"]["scale"] = torch.ones(cfg.d_model + 1,
+                                               dtype=torch.bfloat16)
+    with pytest.raises(AssertionError, match="requested"):
+        chip_smoke.check_bytes(arch, _allocator(params), want)
+
+
+def test_layout_share_and_peak_checks_reject_canned_answers():
+    assert chip_smoke.check_share("step", 0.05) == 0.05
+    for bad in (1.2, 0.0, -0.1):
+        with pytest.raises(AssertionError, match="share"):
+            chip_smoke.check_share("step", bad)
+    tol = chip_smoke.LAYOUT_PEAK_TOL
+    assert chip_smoke.check_peak("step", 100, 100) == 0.0
+    chip_smoke.check_peak("step", int(1000 * (1 + tol * 0.9)), 1000)
+    with pytest.raises(AssertionError, match="peak"):
+        chip_smoke.check_peak("step", int(1000 * (1 + tol * 1.1)), 1000)
+    with pytest.raises(AssertionError, match="peak"):
+        chip_smoke.check_peak("step", int(1000 * (1 - tol * 1.1)), 1000)
+
+
+def test_layout_matrix_check_rejects_a_failed_or_missing_cell():
+    ok = {"cells": 3, "ran": 3, "failures": [], "skipped": {"a": "why"},
+          "excluded": [], "seconds": 1.0, "slowest": []}
+    chip_smoke.check_matrix(ok, 0)
+    with pytest.raises(AssertionError, match="failed cells"):
+        chip_smoke.check_matrix(dict(ok, failures=["x/y/one/memory/False"]),
+                                1)
+    with pytest.raises(AssertionError, match="rc 1"):
+        chip_smoke.check_matrix(ok, 1)
+    with pytest.raises(AssertionError, match="ran 2 of 3"):
+        chip_smoke.check_matrix(dict(ok, ran=2), 0)

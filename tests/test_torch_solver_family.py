@@ -45,6 +45,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.configs.registry import smoke_config as jax_smoke_config
 from repro.core import solvers as jsol
@@ -61,6 +62,23 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import lm as tlm
 
 CTX = ShardCtx.for_mesh(None)
+
+
+class _OpLog(TorchDispatchMode):
+    """Every aten op dispatched inside the block; a host read is an
+    ``aten._local_scalar_dense``."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+    @property
+    def reads(self) -> int:
+        return self.ops.count("aten._local_scalar_dense.default")
 TOL_TRACE = dict(rtol=1e-4, atol=1e-6)
 TOL_Z = dict(rtol=1e-4, atol=1e-5)
 TOL_TRACE_ANDERSON = dict(rtol=1e-2, atol=1e-6)
@@ -161,11 +179,44 @@ def test_fixed_point_matches_jax(kind):
     rt = _torch_solve("fixed_point", ft, z0, tcfg)
     _assert_same(rt, rj)
     assert int(rt.n_steps) > 5 and bool(rt.converged.all())
-    # the eager loop has no while_loop/unroll split: unroll changes nothing
+    # unroll runs all max_steps iterations with no early exit; the converged
+    # rows stop moving, so the iterate and trace are the early exit's
     ru = _torch_solve("fixed_point", ft, z0,
                       dataclasses.replace(tcfg, unroll=True))
-    assert ru.n_steps == rt.n_steps
+    assert ru.n_steps == tcfg.max_steps
     assert torch.equal(ru.z, rt.z) and torch.equal(ru.trace, rt.trace)
+
+
+@pytest.mark.parametrize("kind,carried", [("linear", False),
+                                          ("tanh", True)])
+def test_fixed_point_unroll_matches_jax_without_a_host_read(kind, carried):
+    """``unroll=True``: the reference's unrolled loop (max_steps bodies,
+    run eagerly: jitting them takes longer than the test), no host read,
+    converged rows bit for bit the early exit's iterate."""
+    a, b = _problem(kind, 4)
+    fj, ft = _maps(kind, a, b)
+    jcfg, tcfg = _cfgs(max_steps=30, tol=1e-5, unroll=True)
+    z0 = np.zeros(b.shape, np.float32)
+    jc = tc = None
+    if carried:
+        jc = jsol.init_solve_carry(b.shape[0], b.shape[1], 4,
+                                   qn_dtype="float32")
+        jc = dataclasses.replace(jc, z=jnp.full(b.shape, 0.1, jnp.float32),
+                                 warm=jnp.asarray([True, False][:b.shape[0]]
+                                                  + [True] * (b.shape[0] - 2)))
+        tc = _torch_carry(jc)
+    with jax.disable_jit():
+        rj = jsol.fixed_point_solve(fj, jnp.asarray(z0), jcfg, carry=jc)
+    with _OpLog() as log:
+        rt = _torch_solve("fixed_point", ft, z0, tcfg, carry=tc)
+    assert log.reads == 0
+    _assert_same(rt, rj)
+    assert rt.n_steps == 30 and bool(rt.converged.all())
+    early = _torch_solve("fixed_point", ft, z0,
+                         dataclasses.replace(tcfg, unroll=False),
+                         carry=None if jc is None else _torch_carry(jc))
+    assert early.n_steps < 30
+    assert torch.equal(rt.z, early.z) and torch.equal(rt.trace, early.trace)
 
 
 @pytest.mark.parametrize("kind", ["linear", "tanh"])

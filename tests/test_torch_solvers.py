@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.core import solvers as jsol
 from repro_torch.core import solvers as tsol
@@ -103,6 +104,59 @@ def test_broyden_cold_and_carried_match_jax(qn_dtype):
                                   np.asarray(rj2.carry.age))
     np.testing.assert_array_equal(rt2.carry.lowrank.count.numpy(),
                                   np.asarray(rj2.carry.lowrank.count))
+
+
+class _OpLog(TorchDispatchMode):
+    """Every aten op dispatched inside the block; a host read is an
+    ``aten._local_scalar_dense``."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+    @property
+    def reads(self) -> int:
+        return self.ops.count("aten._local_scalar_dense.default")
+
+
+@pytest.mark.parametrize("qn_dtype,carried", [("float32", False),
+                                              ("bfloat16", True)])
+def test_broyden_unroll_matches_jax_without_a_host_read(qn_dtype, carried):
+    """``unroll=True``: max_steps iterations (the reference's unrolled
+    loop) with no host read -- the guard's restart test is a select -- and
+    the converged rows bit for bit where the early exit leaves them."""
+    w, x = _problem(0)
+    jcfg, tcfg = _cfg(qn_dtype, unroll=True, max_steps=16)
+    z0 = np.zeros((B, D), np.float32)
+    jc = tc = None
+    if carried:
+        # a first solve's carry, so the warm rows start off z0
+        jc = jsol.broyden_solve(
+            _g_jax(w, x), jnp.asarray(z0), jcfg,
+            carry=jsol.init_solve_carry(B, D, jcfg.memory,
+                                        qn_dtype=qn_dtype)).carry
+        x = x + np.float32(0.05)
+    rj = jsol.broyden_solve(_g_jax(w, x), jnp.asarray(z0), jcfg, carry=jc)
+    if carried:
+        tc = _torch_carry(jc)
+    with _OpLog() as log:
+        rt = tsol.broyden_solve(_g_torch(w, x), torch.from_numpy(z0), tcfg,
+                                carry=tc)
+    assert log.reads == 0
+    _assert_same(rt, rj, qn_dtype)
+    assert int(rt.n_steps) == tcfg.max_steps and bool(rt.converged.all())
+    early = tsol.broyden_solve(
+        _g_torch(w, x), torch.from_numpy(z0),
+        dataclasses.replace(tcfg, unroll=False),
+        carry=None if jc is None else _torch_carry(jc))
+    assert early.n_steps < tcfg.max_steps
+    assert torch.equal(rt.z, early.z)
+    assert torch.equal(rt.trace, early.trace)
+    assert torch.equal(rt.status, early.status)
 
 
 @pytest.mark.parametrize("qn_dtype", ["float32", "bfloat16"])
