@@ -237,13 +237,40 @@ Phases, one line (or a few) each:
      and the dry-run's FLOP count over the median event time of 3 runs
      (the DEQ's at the solve's own step count) as TFLOP/s and a share of
      the card's dense bf16 peak, held in (0, 1.05];
- 18. a ``{"kernels": [...]}`` line (with each kernel's launches in the
+ 18. sharded execution (``phase_sharded``): a world of one rank over
+     NCCL, mesh (data=1, model=1), the MiniCPM-2B DEQ train step at full
+     width, 4 x 256, ZeRO-1, through the sharded code (DTensor parameters,
+     ``local_map`` kernel routes, the batch-split solve, the clip over the
+     whole gradient), against the unsharded step (every parameter bit for
+     bit, every first moment at rtol 1e-4; ``sharded_train_step``), each
+     arm's step and drain profiled (device busy time, idle share), and a
+     sync drain under
+     ``DECODE_RULES`` / ``PREFILL_RULES`` (the decode over the length-split
+     cache: the split launch, the gathered partials, the combine launch)
+     emitting the unsharded drain's tokens; the five path kernels' launches
+     counted over both; ``CommDebugMode``'s collectives of each; the five
+     kernels at the local shapes of a (2, 2) mesh against their plain
+     versions, and two 512-key slices' decode partials (slices with no
+     valid key among them) combined against the whole-cache decode; with
+     four cards, four ranks at (2, 2) (the DEQ step against the unsharded
+     step at the reference's tolerances, its first moments within
+     ``MU_REL_L2_SHARDED`` a leaf, the drain, DeepSeek-V2-Lite's
+     prefill through the expert-parallel branch with 0 drops, held in f32
+     at 4 layers at ``TOL_SHARDED``, and in bf16 at full depth at
+     ``TOL_SHARDED`` or, against an f32 prefill over the same weights,
+     within ``EP_FLOOR_MULT`` times the unsharded bf16 prefill's own
+     error); with fewer, a line that says so, the same branch on four
+     gloo ranks of the host's CPU at the smoke configs
+     (``sharded_four_cpu_ranks``: the host's PyTorch at (2, 2), no card,
+     no time), and that unsharded bf16 error read on the one card;
+ 19. a ``{"kernels": [...]}`` line (with each kernel's launches in the
      step 8 arms, in arm c of step 4, in the MDEQ SGD steps, in the
      V2-Lite async drain of step 12, in the Zamba2 async drain and train
      steps of step 13, in the xLSTM async drain and train steps of step
      14, in the HuBERT train and DEQ steps, the Pixtral async drain and
-     its kernel-arm train steps of step 16), then the last line
-     ``{"ok": true, "device": {...}}``.
+     its kernel-arm train steps of step 16, and in step 18's sharded
+     step and drain), then the last line ``{"ok": true, "device":
+     {...}}``.
 
 Any failed phase raises and the script exits non-zero without the last
 line.  It imports nothing of JAX; it needs the repository's ``src/`` beside
@@ -257,6 +284,7 @@ import contextlib
 import dataclasses
 import itertools
 import json
+import math
 import os
 import re
 import shutil
@@ -2230,11 +2258,14 @@ def phase_serve_prefix(params, cfg, smi: str) -> dict:
     return arms["c_async_prefix"]["launches"]
 
 
-def _profile_window(fn) -> dict:
+def _profile_window(fn, host_ops: bool = True) -> dict:
     """Run ``fn`` under torch.profiler: wall time, device busy time (sum of
-    kernel self time on the one stream), idle share and the top kernels."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    kernel self time on the one stream), idle share and the top kernels.
+    ``host_ops`` False traces the device alone (a window of many host ops,
+    whose trace would take longer to read than the window to run)."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if host_ops:
+        acts.insert(0, torch.profiler.ProfilerActivity.CPU)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -4840,6 +4871,574 @@ def phase_layout(matrix: tuple, smi: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# sharded execution (torch.distributed over NCCL)
+# ---------------------------------------------------------------------------
+
+SHARDED_TRAIN = dict(batch=4, seq=256)
+SHARDED_DRAIN = dict(requests=4, prompt=128, new=8, slots=4, max_len=256)
+# (2, 2) local shapes of the MiniCPM-2B paths: 18 of 36 heads, B 2 of 4
+SHARDED_LOCAL = dict(bsz=2, seq=256, heads=18, hd=64, rows=512, width=2304,
+                     m=8, t_slice=512)
+# the cross-rank decode: one cache of 1024 keys as two slices of 512; the
+# lengths leave slices with no valid key
+SHARDED_DECODE_LENS = (100, 700, 1024, 3)
+V2_LITE_EP_CAPACITY = 8.0
+# V2-Lite's bf16 prefill at full depth, sharded against unsharded: held at
+# TOL_SHARDED, or, both held against an f32 prefill over the same (bf16)
+# weights, the sharded one's largest error within this many times the
+# unsharded one's, in the same run
+EP_FLOOR_MULT = 2.0
+# the (2, 2) DEQ step's first moments against one card's, each leaf's
+# relative L2 error (the reference's parameter rtol, over a whole leaf)
+MU_REL_L2_SHARDED = 5e-2
+# sharded against one device, the reference's own tolerance for a sharded
+# MoE forward and a sharded decode (tests/test_sharding.py)
+TOL_SHARDED = dict(rtol=3e-2, atol=3e-2)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _comm_counts(fn):
+    """``fn()`` under ``CommDebugMode``: its result and the collectives it
+    issued (DTensor's and the c10d calls), by op name."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    mode = CommDebugMode()
+    with mode:
+        out = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, {str(k).split(".")[-1]: v
+                 for k, v in mode.get_comm_counts().items()}
+
+
+def _leaf_diff(a: dict, b: dict, atol: float) -> dict:
+    """Over the leaves of two parameter trees (DTensors gathered): the
+    largest |a - b|, the elements that differ at all, and the largest
+    excess over ``atol``."""
+    from repro_torch.parallel.sharding import full_tree
+    la = train_steps.tree_leaves(full_tree(a))
+    lb = train_steps.tree_leaves(full_tree(b))
+    return dict(
+        leaves=len(la),
+        max_abs_diff=max((x.float() - y.float()).abs().max().item()
+                         for x, y in zip(la, lb)),
+        differing=sum(int((x != y).sum()) for x, y in zip(la, lb)),
+        excess=max(excess(x, y, dict(rtol=0.0, atol=atol))
+                   for x, y in zip(la, lb)))
+
+
+def _moment_diff(got, want, rtol: float, rel_atol: float) -> dict:
+    """Adam's first moments after the first step, mu = (1 - b1) g, leaf by
+    leaf (``got``'s DTensors gathered, ``want``'s leaves moved to ``got``'s
+    device one at a time): the elements that differ at all, the largest
+    excess over ``rtol`` with an atol of ``rel_atol`` times the leaf's
+    largest entry, and the largest relative L2 error.  A leaf updated from
+    a wrong or a missing gradient shows here; in its parameter it need not
+    (Adam's first update is lr times about the gradient's sign)."""
+    from repro_torch.parallel.sharding import full_tree
+    lg = train_steps.tree_leaves(full_tree(got))
+    lw = train_steps.tree_leaves(want)
+    out = dict(leaves=len(lg), differing=0, excess=-math.inf, rel_l2=0.0)
+    for g, w in zip(lg, lw):
+        g, w = g.float(), w.to(g.device).float()
+        out["differing"] += int((g != w).sum())
+        out["excess"] = max(out["excess"], excess(g, w, dict(
+            rtol=rtol, atol=rel_atol * w.abs().max().item())))
+        out["rel_l2"] = max(out["rel_l2"], ((g - w).norm() / w.norm().clamp_min(
+            torch.finfo(torch.float32).tiny)).item())
+    return out
+
+
+def _step_seconds(step, state, batch) -> float:
+    """The wall time of one more step (the state's second), to its last
+    kernel."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(state, batch)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def sharded_train_step(cfg, params, ctx, smi: str, tag: str) -> dict:
+    """One MiniCPM-2B DEQ train step (4 x 256, ZeRO-1) through ``ctx``;
+    the unsharded step first (its loss, grad norm, parameters and first
+    moments kept on the host), then the sharded one.  On a mesh of one
+    device the sharded step runs the same kernels on the same tensors in
+    the same order: held are the forward steps (equal), the loss at rtol
+    1e-5, the grad norm at 1e-4, every parameter element bit for bit, and
+    every leaf's first moment (the gradient, which the parameter's first
+    update mostly does not show) at rtol 1e-4 with an atol of 1e-4 x the
+    leaf's largest entry.  Then the second step of
+    each, timed, and a third under the profiler: wall, device busy time
+    and idle share."""
+    tcfg = TrainConfig(steps=2, global_batch=SHARDED_TRAIN["batch"],
+                       seq_len=SHARDED_TRAIN["seq"], schedule=cfg.schedule,
+                       zero1=True)
+    batch = next(make_lm_batch_iterator(cfg, tcfg.global_batch,
+                                        tcfg.seq_len, seed=0, device="cuda"))
+    s0 = train_steps.init_train_state(cfg, tcfg, params=params)
+    step0 = train_steps.build_train_step(cfg, tcfg)
+    s0, m0 = step0(s0, batch)
+    want = train_steps.tree_map(lambda t: t.cpu(), s0.params)
+    want_mu = train_steps.tree_map(lambda t: t.cpu(), s0.opt.mu)
+    t_plain = _step_seconds(step0, s0, batch)
+    prof_plain = _profile_window(lambda: step0(s0, batch), host_ops=False)
+    m0 = {k: float(m0[k]) for k in ("loss", "grad_norm", "deq_steps",
+                                    "lr")}
+    del s0
+    torch.cuda.empty_cache()
+    s1 = train_steps.init_train_state(cfg, tcfg, params=params, ctx=ctx)
+    step = train_steps.build_train_step(cfg, tcfg, ctx=ctx)
+    launches.reset()
+    t0 = time.perf_counter()
+    (s1, m1), comms = _comm_counts(lambda: step(s1, batch))
+    secs = time.perf_counter() - t0
+    counts = launches.counts()
+    m1 = {k: float(m1[k]) for k in ("loss", "grad_norm", "deq_steps",
+                                    "lr")}
+    diff = _leaf_diff(train_steps.tree_map(lambda t: t.cuda(), want),
+                      s1.params, m0["lr"] / 10)
+    mu = _moment_diff(s1.opt.mu, want_mu, 1e-4, 1e-4)
+    del want, want_mu
+    t_sharded = _step_seconds(step, s1, batch)
+    prof = _profile_window(lambda: step(s1, batch), host_ops=False)
+    moments = train_steps.tree_leaves(s1.opt.mu)
+    say("sharded_train", mesh=dict(ctx.mesh.shape), unsharded=m0,
+        sharded=m1, bit_for_bit=(m1 == m0 and diff["differing"] == 0),
+        params=diff, first_moments=mu, seconds_first_with_comm_debug=secs,
+        seconds_second_step_unsharded=t_plain,
+        seconds_second_step_sharded=t_sharded,
+        moments_placements=str(moments[0].placements),
+        ring_placements=str(s1.carry.lowrank.u.placements), card=smi)
+    for arm, p in (("unsharded", prof_plain), ("sharded", prof)):
+        say("sharded_train_profile", arm=arm, mesh=dict(ctx.mesh.shape),
+            window="third step", card=smi, **p)
+    say("sharded_train_collectives", mesh=dict(ctx.mesh.shape), **comms)
+    if (m1["deq_steps"] != m0["deq_steps"]
+            or abs(m1["loss"] - m0["loss"]) > 1e-5 * abs(m0["loss"])
+            or abs(m1["grad_norm"] - m0["grad_norm"])
+            > 1e-4 * abs(m0["grad_norm"]) or diff["differing"]
+            or mu["excess"] > 0):
+        raise AssertionError(f"{tag}: the sharded step is not the "
+                             f"unsharded one: {m0} {m1} {diff} {mu}")
+    del s1
+    torch.cuda.empty_cache()
+    return counts
+
+
+def sharded_drain(cfg, params, ctx, pctx, smi: str) -> dict:
+    """A sync drain of MiniCPM-2B (DEQ) under ``DECODE_RULES`` /
+    ``PREFILL_RULES`` against the unsharded sync drain's tokens; each arm
+    timed once more, and once more under the profiler (wall, device busy
+    time, idle share)."""
+    d = SHARDED_DRAIN
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(2, cfg.vocab_size, size=d["prompt"]).tolist()
+               for _ in range(d["requests"])]
+
+    def drain(p, **kw):
+        reqs = [Request(uid=i, prompt=pr, max_new_tokens=d["new"])
+                for i, pr in enumerate(prompts)]
+        loop = ServeLoop(p, cfg, slots=d["slots"], max_len=d["max_len"],
+                         pipeline="sync", **kw)
+        loop.drain(reqs)
+        torch.cuda.synchronize()
+        return [r.out for r in reqs]
+
+    t0 = time.perf_counter()
+    want = drain(params)
+    t_plain = time.perf_counter() - t0
+    sharded = lm.place_params(params, cfg, ctx)
+    launches.reset()
+    t0 = time.perf_counter()
+    got, comms = _comm_counts(lambda: drain(sharded, ctx=ctx,
+                                            prefill_ctx=pctx))
+    secs = time.perf_counter() - t0
+    counts = launches.counts()
+    t0 = time.perf_counter()
+    drain(sharded, ctx=ctx, prefill_ctx=pctx)
+    t_sharded = time.perf_counter() - t0
+    for arm, fn in (("unsharded", lambda: drain(params)),
+                    ("sharded", lambda: drain(sharded, ctx=ctx,
+                                              prefill_ctx=pctx))):
+        say("sharded_drain_profile", arm=arm, mesh=dict(ctx.mesh.shape),
+            card=smi, **_profile_window(fn, host_ops=False))
+    say("sharded_drain", mesh=dict(ctx.mesh.shape),
+        same_tokens=got == want, tokens=sum(map(len, got)),
+        seconds_with_comm_debug=secs, seconds_unsharded=t_plain,
+        seconds_sharded=t_sharded,
+        cache=str(lm.init_cache(cfg, d["slots"], 8, "cuda",
+                                ctx)["deq"].k.placements), card=smi)
+    say("sharded_drain_collectives", mesh=dict(ctx.mesh.shape), **comms)
+    if got != want:
+        raise AssertionError(f"sharded drain tokens {got} != {want}")
+    return counts
+
+
+def kernels_at_local_shapes(smi: str) -> dict:
+    """The five kernels of the sharded path at what a (2, 2) mesh gives
+    each rank, against their plain versions; and the cross-rank decode:
+    two 512-key slices' partials, gathered and combined in one process,
+    against the decode over the whole cache."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    L = SHARDED_LOCAL
+    bf = torch.bfloat16
+    out = {}
+    q, k, v = _attn_inputs(g, L["bsz"], L["seq"], L["seq"], L["heads"],
+                           L["heads"], L["hd"], bf)
+    out["flash_attention"] = check_close(
+        "attention (2,2) local", ops.attention(q, k, v, causal=True),
+        ref.attention_ref(q, k, v, causal=True), _tol(bf, False))
+    x = torch.randn((L["rows"], L["width"]), generator=g, device="cuda",
+                    dtype=bf)
+    w = torch.randn((L["width"],), generator=g, device="cuda", dtype=bf)
+    out["rmsnorm"] = check_close(
+        "rmsnorm (2,2) local", ops.rmsnorm(x, w, 1e-5),
+        ref.rmsnorm_ref(x, w, 1e-5), dict(rtol=2e-2, atol=2e-2))
+    dim = L["seq"] * L["width"]
+    inp = qn_case_inputs(L["m"], L["bsz"], dim, bf, g)
+    out["qn_apply_multi"] = qn_case("qn (2,2) local", L["m"], L["bsz"], dim,
+                                    bf, None, g, inputs=inp)
+    out["broyden_step"] = out["qn_apply_multi"]
+    # decode: one 1024-key cache, as two ranks' slices of 512
+    bsz = len(SHARDED_DECODE_LENS)
+    qd, kd, vd = _decode_inputs(g, bsz, 36, 36, L["hd"], 2 * L["t_slice"],
+                                bf)
+    lens = torch.tensor(SHARDED_DECODE_LENS, dtype=torch.int32,
+                        device="cuda")
+    whole = ref.decode_attention_ref(qd, kd, vd, lens)
+    parts = []
+    for r in range(2):
+        t0 = r * L["t_slice"]
+        sl = slice(t0, t0 + L["t_slice"])
+        ll = torch.clamp(lens - t0, 0, L["t_slice"])
+        p = ops.decode_partials(qd, kd[:, sl].contiguous(),
+                                vd[:, sl].contiguous(), ll)
+        pr = ref.decode_partials_ref(qd, kd[:, sl], vd[:, sl], ll)
+        # a slice with no valid key adds nothing
+        empty = ll == 0
+        if (p[empty][..., 1] != 0).any():
+            raise AssertionError("decode partials of an empty slice")
+        live = ~empty
+        check_close(f"decode partials slice {r}",
+                    ref.decode_combine_ref(p)[live].to(bf),
+                    ref.decode_combine_ref(pr)[live].to(bf), _tol(bf, True))
+        parts.append(p)
+    got = ops.decode_combine(torch.cat(parts, dim=2), bf)
+    out["decode_attention"] = check_close(
+        "decode across two slices", got, whole, _tol(bf, True))
+    say("sharded_kernels", local_shapes=L, decode_lens=SHARDED_DECODE_LENS,
+        max_abs_err=out, card=smi)
+    return out
+
+
+def phase_sharded(smi: str) -> dict:
+    """A world of one rank over NCCL, mesh (data=1, model=1): the DEQ
+    train step and a drain through the sharded code against the unsharded
+    ones, every kernel of the path launched through ``local_map``; the
+    kernels at the (2, 2) local shapes; then, on a host with four cards,
+    four ranks at (2, 2)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.shapes import SHAPES, make_ctx
+    from repro_torch.launch.mesh import (
+        MeshSpec,
+        build_device_mesh,
+        init_distributed,
+    )
+    init_distributed("cuda", init_method=f"tcp://localhost:{_free_port()}",
+                     rank=0, world_size=1)
+    try:
+        mesh = build_device_mesh(MeshSpec(("data", "model"), (1, 1)), "cuda")
+        say("sharded_world", backend=str(dist.get_backend()),
+            world=dist.get_world_size(), mesh=str(mesh))
+        cfg = get_config("minicpm-2b", deq=True)
+        params = _scaled_blocks(lm.init_params(cfg, seed=0, device="cuda"),
+                                0.3)
+        counts = collections.Counter()
+        counts.update(sharded_train_step(
+            cfg, params, make_ctx(cfg, mesh, SHAPES["train_4k"]), smi,
+            "(1,1) DEQ step"))
+        counts.update(sharded_drain(
+            cfg, params, make_ctx(cfg, mesh, SHAPES["decode_32k"]),
+            make_ctx(cfg, mesh, SHAPES["prefill_32k"]), smi))
+        say("sharded_launches", **counts)
+        missing = [k for k in SERVE_PATH if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched on the sharded "
+                                 f"path: {missing}")
+        del params
+        torch.cuda.empty_cache()
+        errs = kernels_at_local_shapes(smi)
+    finally:
+        dist.destroy_process_group()
+    n = torch.cuda.device_count()
+    if n >= 4:
+        four = sharded_four_cards(smi)
+    else:
+        say("sharded_four_cards", ran=False,
+            why=f"this host has {n} card(s); the (2, 2) branch needs 4")
+        # the branch's code at (2, 2) on this host's PyTorch: four gloo
+        # ranks on the CPU at the smoke configs (no card, no timing)
+        four = sharded_four_cards(smi, device="cpu")
+        four["v2_lite_bf16_error_one_card"] = v2_lite_bf16_error(smi)
+    return {"counts": dict(counts), "errs": errs, "four": four}
+
+
+def sharded_four_cards(smi: str, device: str = "cuda") -> dict:
+    """Four ranks over NCCL at (2, 2): the DEQ step against the unsharded
+    step on one card at the reference's tolerances (its first moments
+    within ``MU_REL_L2_SHARDED`` a leaf), the decode drain, and
+    DeepSeek-V2-Lite's prefill through the expert-parallel branch (32
+    experts a rank) against the unsharded prefill.  ``device`` "cpu" runs
+    the same plumbing on four gloo ranks at the smoke configs (f32)."""
+    import torch.multiprocessing as mp
+    out = tempfile.mkdtemp(prefix="sharded4_")
+    pc = mp.start_processes(_four_card_rank, args=(_free_port(), out, device),
+                            nprocs=4, join=False, start_method="spawn")
+    deadline = time.monotonic() + 400
+    try:
+        while not pc.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                raise TimeoutError("the four-card world ran past 400 s")
+    finally:
+        for p in pc.processes:
+            if p.is_alive():
+                p.kill()
+    with open(os.path.join(out, "result.json")) as f:
+        res = json.load(f)
+    shutil.rmtree(out, ignore_errors=True)
+    if device == "cuda":
+        say("sharded_four_cards", ran=True, card=smi, **res)
+    else:
+        say("sharded_four_cpu_ranks", ran=True, backend="gloo",
+            configs="smoke, f32", **res)
+    # held: no drops; the f32 prefill at the reference's tolerance; the
+    # bf16 full-depth one at it or, against f32, within EP_FLOOR_MULT of
+    # the unsharded bf16 prefill's own error
+    if (res["train"].get("fail") or not res["drain"]["same_tokens"]
+            or not res["v2_lite_prefill_f32_4_layers"]["held"]
+            or not res["v2_lite_prefill_full"]["held"]):
+        raise AssertionError(f"the (2, 2) world disagrees: {res}")
+    return res
+
+
+def _four_card_rank(rank: int, port: int, out: str, dev: str) -> None:
+    import torch.distributed as dist
+
+    from repro_torch.configs.shapes import SHAPES, make_ctx
+    from repro_torch.launch.mesh import (
+        MeshSpec,
+        build_device_mesh,
+        init_distributed,
+    )
+    from repro_torch.parallel.sharding import full_tree
+    init_distributed(dev, init_method=f"tcp://localhost:{port}",
+                     rank=rank, world_size=4)
+    mesh = build_device_mesh(MeshSpec(("data", "model"), (2, 2)), dev)
+
+    def config(arch, **kw):
+        if dev == "cuda":
+            return get_config(arch, **kw)
+        torch.set_num_threads(1)
+        return dataclasses.replace(smoke_config(arch, **kw), dtype="float32")
+
+    res = {}
+    cfg = config("minicpm-2b", deq=True)
+    params = _scaled_blocks(lm.init_params(cfg, seed=0, device=dev), 0.3)
+    tcfg = TrainConfig(steps=2, global_batch=SHARDED_TRAIN["batch"],
+                       seq_len=SHARDED_TRAIN["seq"], schedule=cfg.schedule,
+                       zero1=True)
+    batch = next(make_lm_batch_iterator(cfg, tcfg.global_batch,
+                                        tcfg.seq_len, seed=0, device=dev))
+    ctx = make_ctx(cfg, mesh, SHAPES["train_4k"])
+    s1 = train_steps.init_train_state(cfg, tcfg, params=params, ctx=ctx)
+    (s1, m1), comms = _comm_counts(
+        lambda: train_steps.build_train_step(cfg, tcfg, ctx=ctx)(s1, batch))
+    p1, mu1 = full_tree(s1.params), full_tree(s1.opt.mu)
+    del s1
+    if rank == 0:
+        s0 = train_steps.init_train_state(cfg, tcfg, params=params)
+        s0, m0 = train_steps.build_train_step(cfg, tcfg)(s0, batch)
+        worst = 0.0
+        for a, b in zip(train_steps.tree_leaves(p1),
+                        train_steps.tree_leaves(s0.params)):
+            worst = max(worst, excess(a, b, dict(rtol=5e-2, atol=5e-4)))
+        mu = _moment_diff(mu1, s0.opt.mu, 5e-2, 5e-2)
+        res["train"] = dict(loss=float(m1["loss"]), loss1=float(m0["loss"]),
+                            grad_norm=float(m1["grad_norm"]),
+                            grad_norm1=float(m0["grad_norm"]),
+                            deq_steps=float(m1["deq_steps"]),
+                            deq_steps1=float(m0["deq_steps"]),
+                            excess=worst, first_moments=mu,
+                            collectives=comms)
+        if abs(res["train"]["loss"] - res["train"]["loss1"]) > 2e-2 * abs(
+                res["train"]["loss1"]) or worst > 0 \
+                or mu["rel_l2"] > MU_REL_L2_SHARDED:
+            res["train"]["fail"] = True
+        del s0
+    del p1, mu1
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    # the decode drain at (2, 2)
+    d = SHARDED_DRAIN
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(2, cfg.vocab_size, size=d["prompt"]).tolist()
+               for _ in range(d["requests"])]
+    dctx = make_ctx(cfg, mesh, SHAPES["decode_32k"])
+    pctx = make_ctx(cfg, mesh, SHAPES["prefill_32k"])
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=d["new"])
+            for i, p in enumerate(prompts)]
+    ServeLoop(lm.place_params(params, cfg, dctx), cfg, slots=d["slots"],
+              max_len=d["max_len"], pipeline="sync", ctx=dctx,
+              prefill_ctx=pctx).drain(reqs)
+    if rank == 0:
+        want = [Request(uid=i, prompt=p, max_new_tokens=d["new"])
+                for i, p in enumerate(prompts)]
+        ServeLoop(params, cfg, slots=d["slots"], max_len=d["max_len"],
+                  pipeline="sync").drain(want)
+        res["drain"] = dict(same_tokens=[r.out for r in reqs]
+                            == [r.out for r in want])
+    del params
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    # DeepSeek-V2-Lite's prefill through the expert-parallel branch: held
+    # in f32 at 4 layers, reported in bf16 at full depth beside the
+    # unsharded bf16 prefill's own rounding floor
+    base, toks = _v2_lite_ep_inputs(config("deepseek-v2-lite-16b"), dev)
+    for tag, vcfg, mult in (("f32_4_layers", dataclasses.replace(
+            base, num_layers=4, dtype="float32"), None),
+            ("full", base, EP_FLOOR_MULT)):
+        out_v = _ep_prefill(vcfg, toks, mesh, rank, dev, mult)
+        if rank == 0:
+            res[f"v2_lite_prefill_{tag}"] = out_v
+    if rank == 0:
+        with open(os.path.join(out, "result.json"), "w") as f:
+            json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _v2_lite_ep_inputs(base, dev: str):
+    """V2-Lite at ``V2_LITE_EP_CAPACITY`` and its 4 x 256 prompt tokens."""
+    base = dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, capacity_factor=V2_LITE_EP_CAPACITY))
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        2, base.vocab_size, size=(4, 256)).astype(np.int32)).to(dev)
+    return base, toks
+
+
+def _f32_logits(vcfg, vparams: dict, toks) -> torch.Tensor:
+    """The prefill's logits in f32 over ``vparams``'s (bf16) values
+    upcast: the answer that a bf16 prefill rounds.  ``vparams`` is emptied
+    (moved to the host, then back one leaf at a time as f32), so that the
+    card holds the f32 copy alone (V2-Lite: 59 GiB); drop every other
+    reference to its leaves first."""
+    dev = toks.device
+    host = train_steps.tree_map(lambda t: t.cpu(), vparams)
+    vparams.clear()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    f32 = train_steps.tree_map(lambda t: t.to(dev, torch.float32), host)
+    del host
+    out = lm.prefill(f32, {"tokens": toks},
+                     dataclasses.replace(vcfg, dtype="float32"),
+                     toks.shape[1])[0]
+    del f32
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _err(got: torch.Tensor, want: torch.Tensor) -> dict:
+    return dict(max_abs_err=(got.float() - want.float()).abs().max().item(),
+                same_argmax=(got.argmax(-1) == want.argmax(-1)).float()
+                .mean().item())
+
+
+def _ep_prefill(vcfg, toks, mesh, rank: int, dev: str,
+                floor_mult: float | None) -> dict | None:
+    """V2-Lite's prefill at (2, 2) (``PREFILL_RULES``, the EP branch)
+    against the unsharded prefill on rank 0: the drops (model rank 0's
+    over the data shards), the largest logit error and excess over
+    ``TOL_SHARDED``, the argmax agreement.  With ``floor_mult`` (bf16),
+    also both arms against an f32 prefill over the same weights.
+    ``held``: see ``ep_prefill_held``."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.shapes import SHAPES, make_ctx
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.parallel.sharding import full_tree
+    vparams = lm.init_params(vcfg, seed=0, device=dev)
+    pctx = make_ctx(vcfg, mesh, SHAPES["prefill_32k"])
+    sharded = lm.place_params(vparams, vcfg, pctx)
+    with moe_mod.count_drops() as drops:
+        logits = full_tree(lm.prefill(sharded, {"tokens": toks}, vcfg,
+                                      toks.shape[1], ctx=pctx)[0])
+        mine = int(sum(d.item() for d in drops))
+    del sharded
+    per_rank = [None] * 4
+    dist.all_gather_object(per_rank, (mesh.get_local_rank("model"), mine))
+    out = None
+    if rank == 0:
+        want = lm.prefill(vparams, {"tokens": toks}, vcfg, toks.shape[1])[0]
+        exc = excess(logits, want, TOL_SHARDED)
+        dropped = sum(n for m, n in per_rank if m == 0)
+        out = dict(
+            dtype=vcfg.dtype, layers=vcfg.num_layers,
+            experts_per_rank=vcfg.moe.num_experts // 2,
+            capacity_factor=V2_LITE_EP_CAPACITY, dropped_pairs=dropped,
+            **_err(logits, want),
+            max_abs_logit=want.float().abs().max().item(),
+            tol=TOL_SHARDED, excess=exc, floor_mult=floor_mult)
+        if floor_mult is not None:
+            truth = _f32_logits(vcfg, vparams, toks)
+            out["sharded_vs_f32"] = _err(logits, truth)
+            out["unsharded_vs_f32"] = _err(want, truth)
+            del truth
+        out["held"] = ep_prefill_held(
+            dropped, exc, out.get("sharded_vs_f32", {}).get("max_abs_err"),
+            out.get("unsharded_vs_f32", {}).get("max_abs_err"), floor_mult)
+    del vparams
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def ep_prefill_held(dropped: int, exc: float, err: float | None,
+                    floor: float | None, floor_mult: float | None) -> bool:
+    """No pair dropped, and the sharded logits within ``TOL_SHARDED`` of
+    the unsharded ones (``exc`` <= 0) or, with ``floor_mult``, the sharded
+    prefill's largest error against f32 (``err``) within ``floor_mult``
+    times the unsharded bf16 prefill's own (``floor``)."""
+    return dropped == 0 and (exc <= 0 or (
+        floor_mult is not None and err <= floor_mult * floor))
+
+
+def v2_lite_bf16_error(smi: str) -> dict:
+    """On one card, what the four-card EP prefill's bf16 full-depth check
+    weighs the sharded arm against: V2-Lite's unsharded bf16 prefill at the
+    four-card inputs against an f32 prefill over the same weights."""
+    vcfg, toks = _v2_lite_ep_inputs(get_config("deepseek-v2-lite-16b"),
+                                    "cuda")
+    vparams = lm.init_params(vcfg, seed=0, device="cuda")
+    want = lm.prefill(vparams, {"tokens": toks}, vcfg, toks.shape[1])[0]
+    truth = _f32_logits(vcfg, vparams, toks)
+    res = dict(dtype=vcfg.dtype, layers=vcfg.num_layers,
+               unsharded_vs_f32=_err(want, truth),
+               max_abs_logit=truth.float().abs().max().item())
+    say("sharded_v2_lite_bf16_error", card=smi, **res)
+    del vparams, want, truth
+    torch.cuda.empty_cache()
+    return res
+
+
 def timed(smi: str, name: str, fn, *args):
     """``fn(*args)`` with its wall time, to the card's last kernel, in a
     ``phase_time`` line."""
@@ -4905,6 +5504,8 @@ def _main(matrix: tuple) -> int:
     av = timed(smi, "audio_vlm", phase_audio_vlm, smi)
     torch.cuda.empty_cache()
     timed(smi, "layout", phase_layout, matrix, smi)
+    torch.cuda.empty_cache()
+    sharded = timed(smi, "sharded", phase_sharded, smi)
     rows = []
     for name, (route, source, replaces) in KERNELS.items():
         r = res[name]
@@ -4917,7 +5518,8 @@ def _main(matrix: tuple) -> int:
                             + hybrid["train"][name]
                             + xlstm["drain"]["counts"][name]
                             + xlstm["train"][name]
-                            + sum(c[name] for c in av.values())),
+                            + sum(c[name] for c in av.values())
+                            + sharded["counts"].get(name, 0)),
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"],
@@ -4971,6 +5573,9 @@ def _main(matrix: tuple) -> int:
                    av["audio_deq_train"][name] / AUDIO_DEQ_TRAIN["steps"]),
                "launches_vlm_serve": av["vlm_drain"][name],
                "launches_vlm_train": av["vlm_train"][name],
+               "launches_sharded_1x1": sharded["counts"].get(name, 0),
+               **({"max_abs_err_2x2_local": sharded["errs"][name]}
+                  if name in sharded["errs"] else {}),
                **{k: r[k] for k in ("launches_per_call", "decode_ms",
                                     "decode_device_ms", "decode_bound_ms",
                                     "decode_launches_per_call",

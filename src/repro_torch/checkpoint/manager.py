@@ -11,6 +11,12 @@ spells it (``.params['embed']['embedding']``, ``.carry.lowrank.u``), so
 ``omit_prefixes`` and ``fill_missing_prefixes`` name the same leaves in
 both packages.  npz has no bfloat16: bf16 leaves are stored as f32
 (lossless) and cast back to the template's dtype on restore.
+
+A sharded state (DTensor leaves) is saved as whole leaves: every rank
+calls ``save`` (the gather is a collective) and rank 0 writes.  ``restore`` places each leaf as its template
+leaf lies, or by ``shardings`` (a spec tree) on ``device_mesh``, so a
+state written on one mesh restores onto any other.  On a process group,
+``restore`` and ``latest_step`` first wait until the writer is done.
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.obs import metrics as obs_metrics
 
@@ -62,6 +70,8 @@ def _flatten(tree: Tree) -> dict[str, np.ndarray]:
     flat: dict[str, np.ndarray] = {}
 
     def put(path, leaf):
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()
         t = torch.as_tensor(leaf).detach()
         dt = torch.float32 if t.dtype == torch.bfloat16 else t.dtype
         # always a copy: ``.cpu()`` of a CPU tensor is the tensor itself and
@@ -81,8 +91,10 @@ class CheckpointManager:
         starts with one of these are not written (e.g. the
         ``.carry.lowrank.u``/``.v`` ring); restore them with a matching
         ``fill_missing_prefixes``.  Bytes left out land in the
-        ``checkpoint_bytes_omitted`` counter."""
+        ``checkpoint_bytes_omitted`` counter.  Rank 0 of a process group
+        (or the one process without one) writes."""
         self.dir = directory
+        self.writer = not dist.is_initialized() or dist.get_rank() == 0
         self.keep = keep
         self.async_save = async_save
         self.omit_prefixes = tuple(omit_prefixes)
@@ -124,6 +136,8 @@ class CheckpointManager:
             os.rename(tmp, final)
             self._gc()
 
+        if not self.writer:
+            return
         if self.async_save:
             self._thread = threading.Thread(target=write, daemon=True)
             self._thread.start()
@@ -133,6 +147,12 @@ class CheckpointManager:
     def wait(self) -> None:
         if self._thread is not None:
             self._thread.join()
+
+    def _sync(self) -> None:
+        """The writer's save finished, seen by every rank."""
+        self.wait()
+        if dist.is_initialized():
+            dist.barrier()
             self._thread = None
 
     def _gc(self) -> None:
@@ -154,6 +174,7 @@ class CheckpointManager:
         return sorted(out)
 
     def latest_step(self) -> int | None:
+        self._sync()
         steps = self.all_steps()
         return steps[-1] if steps else None
 
@@ -177,7 +198,8 @@ class CheckpointManager:
         return manifest, arrays
 
     def restore(self, template: Tree, step: int | None = None,
-                fill_missing_prefixes: tuple[str, ...] = ()
+                fill_missing_prefixes: tuple[str, ...] = (),
+                shardings: Tree | None = None, device_mesh=None
                 ) -> tuple[int, Tree, dict]:
         """Restore into the structure of ``template``; each leaf takes the
         template leaf's dtype and device.
@@ -188,8 +210,15 @@ class CheckpointManager:
         missing key raises.  With ``step=None`` a corrupt latest checkpoint
         falls back, loudly, to the previous intact one (counted in
         ``checkpoint_corruptions_total``); an explicit ``step`` raises
-        :class:`CheckpointCorruptionError`."""
-        self.wait()
+        :class:`CheckpointCorruptionError`.
+
+        A DTensor template leaf is restored with its own placements;
+        ``shardings`` (a spec tree shaped as ``template``) with
+        ``device_mesh`` places the leaves instead."""
+        self._sync()
+        specs = {}
+        if shardings is not None:
+            map_with_path(lambda p, sp: specs.__setitem__(p, sp), shardings)
         if step is None and not self.all_steps():
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
         if step is not None:
@@ -215,17 +244,30 @@ class CheckpointManager:
         filled = []
 
         def load(path, tmpl):
-            tmpl = torch.as_tensor(tmpl)
+            tmpl = tmpl if isinstance(tmpl, DTensor) else \
+                torch.as_tensor(tmpl)
             if path not in data and any(
                     path.startswith(p) for p in fill_missing_prefixes):
                 filled.append(path)
-                return torch.zeros_like(tmpl)
+                return _place(torch.zeros(tmpl.shape, dtype=tmpl.dtype,
+                                          device=tmpl.device), tmpl, path)
             arr = data[path]
             if tuple(arr.shape) != tuple(tmpl.shape):
                 raise ValueError(f"shape mismatch at {path}: {arr.shape} vs "
                                  f"{tuple(tmpl.shape)}")
-            return torch.from_numpy(np.array(arr)).to(device=tmpl.device,
-                                                      dtype=tmpl.dtype)
+            return _place(torch.from_numpy(np.array(arr)).to(
+                device=tmpl.device, dtype=tmpl.dtype), tmpl, path)
+
+        def _place(whole, tmpl, path):
+            if path in specs and specs[path] is not None:
+                from repro_torch.parallel.sharding import placements
+                return distribute_tensor(whole, device_mesh,
+                                         placements(specs[path], device_mesh),
+                                         src_data_rank=None)
+            if isinstance(tmpl, DTensor):
+                return distribute_tensor(whole, tmpl.device_mesh,
+                                         tmpl.placements, src_data_rank=None)
+            return whole
 
         state = map_with_path(load, template)
         if filled:

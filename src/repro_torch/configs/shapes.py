@@ -32,6 +32,7 @@ from repro_torch.parallel.sharding import (
     TRAIN_RULES,
     ShardCtx,
     ShardingRules,
+    is_device_mesh,
 )
 
 
@@ -83,10 +84,15 @@ def make_ctx(cfg: ModelConfig, mesh, shape: ShapeSuite,
     that do not divide the TP degree are replicated (weights and
     activations); xLSTM's 4 heads cannot split over tp 16, so its per-head
     weights are replicated; ``seq_parallel`` training splits the residual
-    stream's sequence."""
+    stream's sequence.  ``mesh`` is a ``MeshSpec``, a run's
+    ``DeviceMesh`` or None."""
     rules = rules or rules_for_shape(shape)
-    if mesh is not None and "model" in mesh.axis_names:
-        tp = mesh.shape["model"]
+    desc = mesh
+    if is_device_mesh(mesh):  # a run's DeviceMesh: its description
+        from repro_torch.launch.mesh import mesh_spec
+        desc = mesh_spec(mesh)
+    if desc is not None and "model" in desc.axis_names:
+        tp = desc.shape["model"]
         if cfg.num_kv_heads % tp != 0:
             rules = rules.replace(kv_heads_act=None, kv=None)
         if cfg.family in ("ssm", "hybrid") and cfg.num_heads % tp != 0:

@@ -19,7 +19,10 @@ estimate the hypergradient shares.
 
 Eager PyTorch runs each loop on the host: the whole-batch early exit
 (``all(converged)``) and, where a restart scrubs solver memory, the guard's
-"any restart" test read one flag each per iteration.
+"any restart" test read one flag each per iteration; inside
+``stop_tests_over(group)`` (a solve whose batch is split over ranks) each
+such read is of one ``all_reduce`` over the group, so every rank takes the
+same iterations (``STOP_READS`` counts the reads).
 ``SolverConfig.unroll`` has the reference's meaning in ``broyden_solve``
 and ``fixed_point_solve``: ``max_steps`` bodies with no early exit and no
 host read (the restart is a select on the device; converged rows are
@@ -33,10 +36,12 @@ and denominators are f32; the Broyden ring stores ``cfg.qn_dtype``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.lowrank import LowRank, _expand, bdot, bnorm
 from repro_torch.obs.tape import SolveTape, empty_tape, tape_record
@@ -61,6 +66,53 @@ STATUS_NAMES = {
 # batched solver perturbs its post-step iterate through this hook.  None
 # costs a solver iteration one ``is not None`` test.
 _FAULT_HOOK = None
+
+
+# ---------------------------------------------------------------------------
+# stop and restart tests: host reads, one per test, global on a mesh
+# ---------------------------------------------------------------------------
+
+# the process group whose ranks hold the other rows of a batch-split solve
+# (``stop_tests_over``); None: the rows are all here
+_STOP_GROUP: list = [None]
+# host reads the stop and restart tests made (the count every rank of a
+# split solve must agree on)
+STOP_READS: list = [0]
+
+
+@contextlib.contextmanager
+def stop_tests_over(group):
+    """Make every stop and restart test global over ``group`` for the
+    solves inside: a rank holds some rows of the batch, the test reads
+    the reduction over all of them (one ``all_reduce`` of one integer per
+    test), so every rank stops and restarts at the same iteration, as the
+    reference's global ``while_loop`` predicate does.  ``group`` None is
+    the default world."""
+    prev = _STOP_GROUP[0]
+    _STOP_GROUP[0] = dist.group.WORLD if group is None else group
+    try:
+        yield
+    finally:
+        _STOP_GROUP[0] = prev
+
+
+def _read(flag: Tensor, op) -> bool:
+    STOP_READS[0] += 1
+    if _STOP_GROUP[0] is None:
+        return bool(flag)
+    x = flag.to(torch.int32).reshape(1)
+    dist.all_reduce(x, op=op, group=_STOP_GROUP[0])
+    return bool(x)
+
+
+def _all_rows(t: Tensor) -> bool:
+    """``bool(t.all())`` over every rank's rows."""
+    return _read(t.all(), dist.ReduceOp.MIN)
+
+
+def _any_row(t: Tensor) -> bool:
+    """``bool(t.any())`` over every rank's rows."""
+    return _read(t.any(), dist.ReduceOp.MAX)
 
 
 def torch_dtype(name: str | torch.dtype) -> torch.dtype:
@@ -426,7 +478,7 @@ def broyden_solve(
 
     while k < cfg.max_steps:
         done = (conv | gs.sick) if cfg.guard else conv
-        if not cfg.unroll and bool(done.all()):
+        if not cfg.unroll and _all_rows(done):
             break
         p = -Hg
         if cfg.guard:
@@ -464,7 +516,7 @@ def broyden_solve(
         if cfg.guard:
             gs, do_rs, code, res = _guard_detect(
                 gs, cfg, active, res, bnorm(s), div_ref)
-            if cfg.unroll or bool(do_rs.any()):
+            if cfg.unroll or _any_row(do_rs):
                 # recovery round: scrub the restarted rows' ring, put them
                 # back at the caller's z0 with the cold residual (unrolled:
                 # as selects, a no-op for rows that did not restart)
@@ -552,7 +604,7 @@ def fixed_point_solve(
 
     while k < cfg.max_steps:
         done = (conv | gs.sick) if cfg.guard else conv
-        if not cfg.unroll and bool(done.all()):
+        if not cfg.unroll and _all_rows(done):
             break
         fz = f(z)
         z_pic = (1 - damping) * z + damping * fz
@@ -629,7 +681,7 @@ def anderson_solve(
 
     while k < cfg.max_steps:
         done = (conv | gs.sick) if cfg.guard else conv
-        if bool(done.all()):
+        if _all_rows(done):
             break
         fz = f(z)
         r = fz - z
@@ -674,7 +726,7 @@ def anderson_solve(
             gs, do_rs, code, res = _guard_detect(gs, cfg, ~done, res, step_n,
                                                  div_ref)
             rm = _expand(do_rs, z)
-            if bool(do_rs.any()):
+            if _any_row(do_rs):
                 # scrub the restarted rows' window to Z = z_cold, F = 0:
                 # identical non-zero sentinels would make the Gram matrix
                 # rank-deficient beyond the ridge's f32 reach, while F = 0
@@ -798,7 +850,7 @@ def adjoint_broyden_solve(
 
     while k < cfg.max_steps:
         done = (conv | gs.sick) if cfg.guard else conv
-        if bool(done.all()):
+        if _all_rows(done):
             break
         active = ~done
         am = _expand(active, z)
@@ -826,7 +878,7 @@ def adjoint_broyden_solve(
         if cfg.guard:
             gs, do_rs, code, res = _guard_detect(
                 gs, cfg, active, res, bnorm(z_new - z), div_ref)
-            if bool(do_rs.any()):
+            if _any_row(do_rs):
                 # recovery round: scrub BOTH chains for the restarted rows
                 # (H = B^{-1} holds only if they reset together) and go
                 # back to the cold start
@@ -969,7 +1021,7 @@ def _line_search(value_fn, z: Tensor, p: Tensor, gz: Tensor, fz: Tensor,
     alpha = 1.0
     for _ in range(max_ls):
         fa = value_fn(z + alpha * p)
-        if bool(fa <= fz + 1e-4 * alpha * gp):
+        if _all_rows(fa <= fz + 1e-4 * alpha * gp):
             break
         alpha *= 0.5
     return alpha
@@ -1016,7 +1068,7 @@ def lbfgs_solve(
     k, z, gz, mem, done = 0, z0f, g0f, mem0, gn0 < cfg.tol
 
     while k < cfg.max_steps:
-        if bool((done | gs.sick) if cfg.guard else done):
+        if _all_rows((done | gs.sick) if cfg.guard else done):
             break
         p = -lbfgs_two_loop(mem, gz, _lbfgs_gamma(mem))
         if value_fn is not None:

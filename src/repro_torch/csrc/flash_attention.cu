@@ -836,7 +836,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const int* 
   decode_split_kernel<HD><<<dim3(n_chunks, KV, B), Dec<HD>::NTH, 0, st>>>(
       (const bf*)q, (const bf*)k, (const bf*)v, kv_len, partial, Tk, H, KV, scale);
   const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess || decode == 2) return err;  // 2: the partials only
   decode_combine_kernel<HD><<<dim3(H, B), combine_threads<HD>(), 0, st>>>(partial, (bf*)out, H,
                                                                       n_chunks);
   return cudaGetLastError();
@@ -851,7 +851,9 @@ extern "C" {
 // int32 device pointer or null (= T).  `decode` selects the decode launch
 // (S == 1, not causal): for bf16 the split-K pair, which needs `partial`, an
 // f32 scratch of B * H * ceil(T / chunk) * (HD + 2), with `chunk` equal to
-// the kernel's keys per split CTA.  Returns a cudaError_t (0 = launched).
+// the kernel's keys per split CTA; `decode` 2 launches the split alone and
+// leaves the partials (m, l, acc) there (a cache split across ranks merges
+// them with decode_combine_launch).  Returns a cudaError_t (0 = launched).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            const int* kv_len, void* out, float* partial, int B, int S,
                            int Tk, int H, int KV, int HD, float scale, int causal,
@@ -861,6 +863,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   if (bf16 && decode &&
       (partial == nullptr || chunk != kDecodeChunk || S != 1 || causal))
     return (int)cudaErrorInvalidValue;
+  if (decode == 2 && !bf16) return (int)cudaErrorInvalidValue;
   // the registry's head dims: 16 (smoke configs), 64 (MiniCPM-2B), 80
   // (StableLM-3B), 96 (Phi-3-mini), 128 (InternLM2-20B, DeepSeekMoE-16B),
   // 192 (DeepSeek-V2-Lite's MLA: qk_nope 128 + qk_rope 64, v padded to 192)
@@ -881,6 +884,31 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
       return (int)cudaErrorInvalidValue;
   }
 #undef FA_CASE
+}
+
+// Merge the decode partials `partial` (B, H, n_chunks, HD + 2) f32 into the
+// bf16 output (B, H, HD): the combine launch alone, over chunks gathered
+// from several ranks' slices of one cache.
+int decode_combine_launch(const float* partial, void* out, int B, int H, int n_chunks,
+                          int HD, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (B < 1 || H < 1 || n_chunks < 1) return (int)cudaErrorInvalidValue;
+#define DC_CASE(D)                                                                  \
+  case D:                                                                           \
+    decode_combine_kernel<D><<<dim3(H, B), combine_threads<D>(), 0, st>>>(          \
+        partial, (__nv_bfloat16*)out, H, n_chunks);                                 \
+    return (int)cudaGetLastError();
+  switch (HD) {
+    DC_CASE(16)
+    DC_CASE(64)
+    DC_CASE(80)
+    DC_CASE(96)
+    DC_CASE(128)
+    DC_CASE(192)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef DC_CASE
 }
 
 }  // extern "C"

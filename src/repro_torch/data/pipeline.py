@@ -6,7 +6,9 @@ numpy, so both packages draw the same batches, placed on the given device.
 Batch ``i`` depends only on ``(seed, i)``, so a restarted run resumes its
 stream by starting at the restored step.  A batch is one small numpy draw
 on the host, so there is no prefetch thread (and no ``close``); it goes
-to the card through pinned memory, without a host wait.
+to the card through pinned memory, without a host wait.  On a running
+mesh (``ctx``) each rank takes its rows of the same global batch (the
+"batch" layout, the rest of the mesh replicated) and yields DTensors.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, to_device
+from repro_torch.parallel.sharding import NULL_CTX, ShardCtx, local_shard
 
 
 class SyntheticTokenDataset:
@@ -42,9 +45,10 @@ class _Batches:
     """Iterator of ``{"tokens", "targets"}`` int32 tensors on a device."""
 
     def __init__(self, ds: SyntheticTokenDataset, batch: int, seq: int,
-                 start_step: int, device: torch.device):
+                 start_step: int, device: torch.device,
+                 ctx: ShardCtx = NULL_CTX):
         self.ds, self.batch, self.seq = ds, batch, seq
-        self.i, self.device = start_step, device
+        self.i, self.device, self.ctx = start_step, device, ctx
 
     def __iter__(self) -> "_Batches":
         return self
@@ -53,17 +57,33 @@ class _Batches:
         toks = torch.from_numpy(self.ds.batch(self.i, self.batch,
                                               self.seq + 1))
         self.i += 1
+        if self.ctx.running:
+            return {"tokens": self._rows(toks[:, :-1]),
+                    "targets": self._rows(toks[:, 1:])}
         return {"tokens": to_device(toks[:, :-1], self.device),
                 "targets": to_device(toks[:, 1:], self.device)}
+
+    def _rows(self, whole: torch.Tensor):
+        """This rank's rows of ``whole`` as a DTensor of its shape."""
+        from torch.distributed.tensor import DTensor
+
+        mesh = self.ctx.device_mesh
+        pls = self.ctx.sharding(("batch", "seq"))
+        (n, _), (start, _) = local_shard(whole.shape, mesh, pls)
+        mine = to_device(whole[start:start + n].contiguous(), self.device)
+        return DTensor.from_local(mine, mesh, pls, run_check=False,
+                                  shape=whole.shape, stride=whole.stride())
 
 
 def make_lm_batch_iterator(cfg: ModelConfig, batch: int, seq: int, *,
                            seed: int = 0, start_step: int = 0,
-                           device=None) -> Iterator[dict]:
+                           device=None,
+                           ctx: ShardCtx = NULL_CTX) -> Iterator[dict]:
     """Yields ``{tokens, targets}`` batches of ``(batch, seq)`` next-token
-    pairs, from step ``start_step`` on, on ``device`` (default the card)."""
+    pairs, from step ``start_step`` on, on ``device`` (default the card);
+    on ``ctx``'s running mesh, this rank's rows as DTensors."""
     return _Batches(SyntheticTokenDataset(cfg.vocab_size, seed), batch, seq,
-                    start_step, resolve_device(device))
+                    start_step, resolve_device(device), ctx)
 
 
 def stub_batch(cfg: ModelConfig, batch: int, seq: int, *, seed: int = 0,

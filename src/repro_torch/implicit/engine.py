@@ -32,6 +32,7 @@ from repro_torch.device import to_device
 from repro_torch.implicit.config import ImplicitConfig
 from repro_torch.implicit.fixed_point import (
     ImplicitStats,
+    SolveLayout,
     _flatten,
     solve_forward,
 )
@@ -82,13 +83,17 @@ def batched_solve(
     *,
     valid: torch.Tensor | None = None,
     carry: SolveCarry | None = None,
+    ctx=None,
+    state_axes=None,
 ):
     """One batched forward solve of ``z = f(params, x, z)`` (inference).
 
     ``valid: (B,) bool`` marks live samples; the rest are frozen at ``z0``
     (returned untouched).  ``carry`` warm-starts per slot and turns the
     return into ``(z, stats, new_carry)``; frozen slots keep their carry
-    rows' iterate and ring (they neither move nor age)."""
+    rows' iterate and ring (they neither move nor age).  ``ctx`` and
+    ``state_axes`` lay the solve out on a running mesh, as
+    ``implicit_fixed_point``'s do."""
     if torch.is_grad_enabled() and any(
             isinstance(t, torch.Tensor) and t.requires_grad
             for t in _flatten((params, x, z0))[0]):
@@ -99,7 +104,9 @@ def batched_solve(
     freeze = None if valid is None else ~valid
     with torch.no_grad():
         res = solve_forward(lambda z: f_flat(params, x, z), z0_flat, cfg,
-                            freeze_mask=freeze, carry=carry)
+                            freeze_mask=freeze, carry=carry,
+                            layout=SolveLayout.make(ctx, state_axes,
+                                                    z0_flat))
     z = res.z
     if valid is not None:
         # padding/finished slots return their input state bit for bit

@@ -62,6 +62,8 @@ SIGNATURES: dict[str, dict[str, list]] = {
         # decode, bf16, chunk, stream
         "flash_attention_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                    _I, _I, _F, _I, _I, _I, _I, _P],
+        # partial, out, B, H, n_chunks, HD, stream
+        "decode_combine_launch": [_P, _P, _I, _I, _I, _I, _P],
     },
     "rmsnorm": {
         # x, w, out, rows, D, eps, bf16, per, wpr, n_cta, threads, stream

@@ -24,7 +24,7 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _launch(q, k, v, kv_length, *, causal: bool, scale,
-            decode: bool) -> torch.Tensor:
+            decode: int) -> torch.Tensor:
     b, s, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
@@ -50,6 +50,8 @@ def _launch(q, k, v, kv_length, *, causal: bool, scale,
     scale = hd ** -0.5 if scale is None else float(scale)
     out = torch.empty_like(q)
     partial = None
+    if decode == 2 and not bf16:
+        raise ValueError("decode partials take bfloat16 q/k/v")
     if decode and bf16:
         n_chunks = -(-t // DECODE_CHUNK)
         partial = torch.empty((b, h, n_chunks, hd + 2), dtype=torch.float32,
@@ -61,7 +63,7 @@ def _launch(q, k, v, kv_length, *, causal: bool, scale,
         scale, int(causal), int(decode), int(bf16), DECODE_CHUNK,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention")
-    return out
+    return partial if decode == 2 else out
 
 
 def flash_attention(q, k, v, kv_length=None, *, causal: bool = True,
@@ -78,7 +80,7 @@ def flash_attention(q, k, v, kv_length=None, *, causal: bool = True,
                          f"key 0 (the plain version at q_offset=0), the "
                          f"reference's Pallas kernel to key T - S")
     out = _launch(q, k, v, kv_length, causal=causal, scale=scale,
-                  decode=False)
+                  decode=0)
     launches.bump("flash_attention")
     return out
 
@@ -89,6 +91,35 @@ def decode_attention(q, k, v, kv_length, *,
     ``(B, T, KV, hd)`` with ``kv_length`` valid entries.  In bf16 two
     launches (split, combine), counted once."""
     out = _launch(q[:, None], k, v, kv_length, causal=False, scale=scale,
-                  decode=True)
+                  decode=1)
     launches.bump("decode_attention")
     return out[:, 0]
+
+
+def decode_partials(q, k, v, kv_length, *,
+                    scale: float | None = None) -> torch.Tensor:
+    """The split launch alone (bf16): ``(B, H, ceil(T / DECODE_CHUNK), hd +
+    2)`` f32 partials ``(m, l, acc)`` of q ``(B, H, hd)`` over this rank's
+    slice of a cache; ``kv_length`` 0 leaves every chunk of a row empty
+    (``l = 0``).  Counted as one ``decode_attention``."""
+    part = _launch(q[:, None], k, v, kv_length, causal=False, scale=scale,
+                   decode=2)
+    launches.bump("decode_attention")
+    return part
+
+
+def decode_combine(partials: torch.Tensor, dtype) -> torch.Tensor:
+    """The combine launch alone: ``(B, H, n, hd + 2)`` f32 partials (from
+    any number of slices) -> ``(B, H, hd)`` bf16."""
+    if dtype != torch.bfloat16 or partials.dtype != torch.float32:
+        raise ValueError("the decode combine writes bfloat16 from f32 "
+                         "partials")
+    if not (partials.is_cuda and partials.is_contiguous()):
+        raise ValueError("decode partials must be contiguous CUDA tensors")
+    b, h, n, ps = partials.shape
+    out = torch.empty((b, h, ps - 2), dtype=dtype, device=partials.device)
+    err = build.library("flash_attention").decode_combine_launch(
+        partials.data_ptr(), out.data_ptr(), b, h, n, ps - 2,
+        torch.cuda.current_stream(partials.device).cuda_stream)
+    build.check(err, "flash_attention")
+    return out

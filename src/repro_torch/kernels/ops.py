@@ -33,6 +33,21 @@ backward recomputes through the plain version from the saved inputs, as the
 JAX package's custom VJPs do.  The qN ops run only inside the implicit
 layer's forward and backward, so they need no gradient of their own.
 
+Sharded tensors: given DTensors (a run on a ``DeviceMesh``), each op runs
+on every rank's local shard through ``local_map`` with the placements the
+reference's layouts imply, and every rank launches the same kernel (the
+plain version on the CPU) on its shard.  ``attention``: batch over the DP
+axes, heads over "model" (KV heads that do not divide stay whole and each
+rank takes its query heads' groups); ``decode_attention``: the same, or
+over a cache whose length is split (``DECODE_RULES``): each rank runs the
+split-K launch on its slice with its lengths shifted by the slice's
+offset, the per-row partials ``(m, l, acc)`` are gathered over that axis
+and the combine launch merges them (a slice with no valid key adds ``l =
+0``); ``rmsnorm``: rows split, the weight whole (its gradient a
+``Partial`` sum over the axes that split the rows); ``qn_apply_multi``,
+``broyden_step``: batch over the DP axes, no collective inside (the
+reference's ``qn_apply_multi_sharded`` route).
+
 Precision: the qN ring may be stored bf16; every path upcasts ring loads
 and accumulates coefficients, denominators and outputs in f32.  The stream
 counters (``qn_stream_stats``) count fused U/V passes and their analytic
@@ -46,6 +61,8 @@ import dataclasses
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.kernels import flash_attention as cuda_fa
 from repro_torch.kernels import flash_xla
@@ -53,6 +70,12 @@ from repro_torch.kernels import qn_apply as cuda_qn
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as cuda_rms
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.parallel.sharding import (
+    as_dtensor,
+    local_shard,
+    shard_map_compat,
+    shard_offset,
+)
 
 
 def _on_card(*ts: torch.Tensor) -> bool:
@@ -136,6 +159,8 @@ def qn_apply_multi(u, v, xs, alpha, mask,
                       ((False,) * kk if transpose is None else transpose))
     if len(transpose) != kk:
         raise ValueError(f"transpose has {len(transpose)} flags for {kk} RHS")
+    if _sharded(u, v, xs, mask):
+        return qn_apply_multi_sharded(u, v, xs, alpha, mask, transpose)
     _record_stream(u, transpose)
     if not _on_card(u, v, xs, mask):
         return ref.qn_apply_multi_ref(u, v, xs, alpha, mask, transpose)
@@ -183,6 +208,9 @@ def broyden_step(u, v, g_new, s, hg_old, alpha, mask, slot, active, eps):
     ``kernels/ref.broyden_step_ref``).  On the card ``u``/``v`` are updated
     in place and returned as ``new_u``/``new_v``: callers treat the inputs
     as consumed."""
+    if _sharded(u, v, g_new, s, hg_old, mask, slot, active):
+        return _broyden_step_sharded(u, v, g_new, s, hg_old, alpha, mask,
+                                     slot, active, eps)
     _record_stream(u, (False, True))
     if not _on_card(u, v, g_new, s, hg_old, mask):
         return ref.broyden_step_ref(u, v, g_new, s, hg_old, alpha, mask,
@@ -283,6 +311,11 @@ def attention(q, k, v, *, causal: bool = True, kv_length=None,
     (B,S,H,hd) by the route ``impl`` selects (``attention_route``);
     ``block_q``/``block_kv``/``unroll`` apply to the flash_xla path
     only."""
+    if _sharded(q, k, v):
+        return _attention_sharded(q, k, v, causal=causal,
+                                  kv_length=kv_length, scale=scale,
+                                  impl=impl, block_q=block_q,
+                                  block_kv=block_kv, unroll=unroll)
     route = attention_route(impl, q, k)
     if route == "flash_xla":
         return flash_xla.flash_attention_xla(
@@ -299,6 +332,8 @@ def attention(q, k, v, *, causal: bool = True, kv_length=None,
 def decode_attention(q, k, v, kv_length, *,
                      scale: float | None = None) -> torch.Tensor:
     """q ``(B, H, hd)`` over the KV cache ``(B, T, KV, hd)``."""
+    if _sharded(q, k, v):
+        return _decode_attention_sharded(q, k, v, kv_length, scale=scale)
     if not _on_card(q, k, v):
         return ref.decode_attention_ref(q, k, v, kv_length, scale=scale)
     return cuda_fa.decode_attention(q.contiguous(), k.contiguous(),
@@ -331,6 +366,194 @@ def _rmsnorm_fwd(x, w, eps):
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
+    if _sharded(x, w):
+        return _rmsnorm_sharded(x, w, eps)
     if _needs_grad(x, w):
         return _RMSNorm.apply(x, w, eps)
     return _rmsnorm_fwd(x, w, eps)
+
+
+# ---------------------------------------------------------------------------
+# sharded routes (DTensor inputs): every rank's local shard through the op
+# ---------------------------------------------------------------------------
+
+
+def _sharded(*ts) -> bool:
+    return any(isinstance(t, DTensor) for t in ts)
+
+
+def _mesh_of(*ts):
+    return next(t.device_mesh for t in ts if isinstance(t, DTensor))
+
+
+def _keep(pls, ok) -> tuple:
+    """``pls`` with every placement ``ok`` rejects (and every ``Partial``)
+    replaced by ``Replicate``."""
+    return tuple(p if (isinstance(p, (Shard, Replicate)) and ok(p))
+                 else Replicate() for p in pls)
+
+
+def _batch_only(pls, dim: int) -> tuple:
+    """Per mesh dim: ``Shard(dim)`` where ``pls`` splits the batch (dim 0),
+    else replicated."""
+    return tuple(Shard(dim) if isinstance(p, Shard) and p.dim == 0
+                 else Replicate() for p in pls)
+
+
+def _rmsnorm_sharded(x, w, eps):
+    mesh = _mesh_of(x, w)
+    x = as_dtensor(x, mesh)
+    nd = x.ndim
+    xp = _keep(x.placements, lambda p: isinstance(p, Replicate)
+               or p.dim != nd - 1)
+    rep = (Replicate(),) * mesh.ndim
+    # the weight's gradient sums over the rows every rank holds
+    wg = tuple(Partial() if isinstance(p, Shard) else Replicate() for p in xp)
+    fn = shard_map_compat(lambda a, b: rmsnorm(a, b, eps), mesh,
+                          in_specs=(xp, rep), out_specs=xp,
+                          in_grad_specs=(xp, wg))
+    return fn(x, as_dtensor(w, mesh))
+
+
+def _attention_sharded(q, k, v, *, causal, kv_length, scale, impl, block_q,
+                       block_kv, unroll):
+    """Batch and heads split, the sequences whole: each rank attends its
+    query heads over their KV heads."""
+    mesh = _mesh_of(q, k, v)
+    q, k, v = as_dtensor(q, mesh), as_dtensor(k, mesh), as_dtensor(v, mesh)
+    h, kvh = q.shape[2], k.shape[2]
+    qp = _keep(q.placements, lambda p: isinstance(p, Replicate)
+               or p.dim in (0, 2))
+    kp, kg = [], []
+    for i, p in enumerate(qp):
+        n = mesh.size(i)
+        if isinstance(p, Shard) and p.dim == 2 and kvh % n:
+            kp.append(Replicate())   # KV heads do not divide: whole
+            kg.append(Partial())
+        else:
+            kp.append(p)
+            kg.append(p)
+    kp, kg = tuple(kp), tuple(kg)
+    (_, _, h_loc, _), (_, _, h0, _) = local_shard(q.shape, mesh, qp)
+    whole_kv = any(isinstance(p, Shard) and p.dim == 2 for p in qp) and \
+        not any(isinstance(p, Shard) and p.dim == 2 for p in kp)
+    lens = None if kv_length is None else as_dtensor(kv_length, mesh)
+    lp = None if lens is None else _batch_only(qp, 0)
+
+    def body(ql, kl, vl, ll):
+        if whole_kv:  # this rank's query heads' KV groups
+            g = h // kvh
+            if h_loc % g == 0 and h0 % g == 0:
+                kl = kl[:, :, h0 // g:(h0 + h_loc) // g]
+                vl = vl[:, :, h0 // g:(h0 + h_loc) // g]
+            else:
+                kl = kl.repeat_interleave(g, dim=2)[:, :, h0:h0 + h_loc]
+                vl = vl.repeat_interleave(g, dim=2)[:, :, h0:h0 + h_loc]
+        return attention(ql, kl.contiguous(), vl.contiguous(), causal=causal,
+                         kv_length=ll, scale=scale, impl=impl,
+                         block_q=block_q, block_kv=block_kv, unroll=unroll)
+
+    fn = shard_map_compat(body, mesh, in_specs=(qp, kp, kp, lp),
+                          out_specs=qp, in_grad_specs=(qp, kg, kg, None))
+    return fn(q, k, v, lens)
+
+
+def _decode_attention_sharded(q, k, v, kv_length, *, scale):
+    """q ``(B, H, hd)`` over a cache split over batch, KV heads or its
+    length T (at most one mesh dim splits T)."""
+    mesh = _mesh_of(q, k, v)
+    q, k, v = as_dtensor(q, mesh), as_dtensor(k, mesh), as_dtensor(v, mesh)
+    lens = as_dtensor(torch.as_tensor(kv_length, dtype=torch.int32)
+               if not isinstance(kv_length, torch.Tensor) else kv_length,
+               mesh)
+    kp = _keep(k.placements, lambda p: isinstance(p, Replicate)
+               or p.dim in (0, 1, 2))
+    t_dims = [i for i, p in enumerate(kp) if isinstance(p, Shard)
+              and p.dim == 1]
+    if len(t_dims) > 1:
+        raise ValueError("a decode cache splits its length over one mesh "
+                         "dim")
+    # the query: batch as the cache's, heads as the cache's KV heads
+    qp = tuple(Shard(0) if isinstance(p, Shard) and p.dim == 0 else
+               Shard(1) if isinstance(p, Shard) and p.dim == 2 else
+               Replicate() for p in kp)
+    lp = _batch_only(kp, 0)
+    if not t_dims:
+        fn = shard_map_compat(lambda a, b, c, ln: decode_attention(
+            a, b, c, ln, scale=scale), mesh, in_specs=(qp, kp, kp, lp),
+            out_specs=qp)
+        return fn(q, k, v, lens)
+    td = t_dims[0]
+    t0 = shard_offset(k.shape, mesh, kp)[1]
+    group = mesh.get_group(td)
+
+    def body(ql, kl, vl, ll):
+        local_len = torch.clamp(ll.to(torch.int32) - t0, 0, kl.shape[1])
+        part = decode_partials(ql, kl, vl, local_len, scale=scale)
+        parts = [torch.empty_like(part) for _ in range(mesh.size(td))]
+        dist.all_gather(parts, part.contiguous(), group=group)
+        return decode_combine(torch.cat(parts, dim=2), ql.dtype)
+
+    fn = shard_map_compat(body, mesh, in_specs=(qp, kp, kp, lp),
+                          out_specs=qp)
+    return fn(q, k, v, lens)
+
+
+def decode_partials(q, k, v, kv_length, *, scale=None) -> torch.Tensor:
+    """The split half of the decode: per row, head and key chunk, the
+    partial ``(m, l, acc[hd])`` ``(B, H, n_chunks, hd + 2)`` in f32 (``acc``
+    unnormalised, weights ``exp(s - m)``).  ``kv_length`` 0 is a slice with
+    no valid key: ``l = 0`` (the combine skips it).  On the card the
+    ``decode_split_kernel`` launch (bf16); on the CPU one chunk a row."""
+    if _on_card(q, k, v):
+        part = cuda_fa.decode_partials(q.contiguous(), k.contiguous(),
+                                       v.contiguous(), kv_length, scale=scale)
+        # the kernel reads kv_length 0 as the whole slice (the fused
+        # decode's convention): a slice with no valid key must add nothing
+        part[..., 1].masked_fill_((kv_length == 0)[:, None, None], 0.0)
+        return part
+    return ref.decode_partials_ref(q, k, v, kv_length, scale=scale)
+
+
+def decode_combine(partials: torch.Tensor, dtype) -> torch.Tensor:
+    """Merge ``(B, H, n, hd + 2)`` partials into ``(B, H, hd)`` (the
+    ``decode_combine_kernel`` launch on the card)."""
+    if _on_card(partials):
+        return cuda_fa.decode_combine(partials.contiguous(), dtype)
+    return ref.decode_combine_ref(partials).to(dtype)
+
+
+def qn_apply_multi_sharded(u, v, xs, alpha, mask, transpose=None):
+    """``qn_apply_multi`` on batch-split operands: every rank applies its
+    rows' inverse to its rows, no collective (the reference's shard_map
+    route).  ``u``/``v`` ``(m, B, *F)`` and ``xs`` ``(K, B, *F)`` split
+    along B (axis 1), ``mask`` ``(m, B)`` likewise."""
+    mesh = _mesh_of(u, v, xs, mask)
+    u, v, xs, mask = (as_dtensor(t, mesh) for t in (u, v, xs, mask))
+    bp = tuple(Shard(1) if isinstance(p, Shard) and p.dim == 1
+               else Replicate() for p in u.placements)
+    rep = (Replicate(),) * mesh.ndim
+    alpha = as_dtensor(torch.as_tensor(alpha, dtype=torch.float32), mesh) \
+        if not isinstance(alpha, DTensor) else alpha
+    fn = shard_map_compat(lambda a, b, c, al, mk: qn_apply_multi(
+        a, b, c, al, mk, transpose), mesh, in_specs=(bp, bp, bp, rep, bp),
+        out_specs=bp)
+    return fn(u, v, xs, alpha.to(u.device), mask)
+
+
+def _broyden_step_sharded(u, v, g_new, s, hg_old, alpha, mask, slot, active,
+                          eps):
+    mesh = _mesh_of(u, v, g_new, s, hg_old, mask, slot, active)
+    bp1 = tuple(Shard(1) if isinstance(p, Shard) and p.dim == 1
+                else Replicate() for p in as_dtensor(u, mesh).placements)
+    bp0 = tuple(Shard(0) if isinstance(p, Shard) else p for p in bp1)
+    rep = (Replicate(),) * mesh.ndim
+    alpha = alpha if isinstance(alpha, DTensor) else as_dtensor(
+        torch.as_tensor(alpha, dtype=torch.float32, device=u.device), mesh)
+    fn = shard_map_compat(
+        lambda a, b, c, d, e, al, mk, sl, ac: broyden_step(
+            a, b, c, d, e, al, mk, sl, ac, eps), mesh,
+        in_specs=(bp1, bp1, bp0, bp0, bp0, rep, bp1, bp0, bp0),
+        out_specs=[bp1, bp1, bp0, bp0, bp0, bp0, bp0])
+    return fn(*(as_dtensor(t, mesh) for t in (u, v, g_new, s, hg_old)), alpha,
+              *(as_dtensor(t, mesh) for t in (mask, slot, active)))

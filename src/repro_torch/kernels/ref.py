@@ -188,6 +188,40 @@ def decode_attention_ref(q, k, v, kv_length, *, scale=None):
                          scale=scale)[:, 0]
 
 
+def decode_partials_ref(q, k, v, kv_length, *, scale=None) -> torch.Tensor:
+    """The split half of a decode over one chunk (the whole cache given):
+    ``(B, H, 1, hd + 2)`` f32 rows ``(m, l, acc)`` with ``acc = sum_t
+    exp(s_t - m) v_t`` over the ``kv_length`` valid keys; a row with none
+    has ``m = -inf``, ``l = 0`` and ``acc = 0``."""
+    b, h, hd = q.shape
+    t = k.shape[1]
+    scale = hd ** -0.5 if scale is None else scale
+    kk = _gqa_expand(k, h).float()
+    vv = _gqa_expand(v, h).float()
+    s = torch.einsum("bhd,bthd->bht", q.float() * scale, kk)
+    valid = torch.arange(t, device=q.device)[None, None, :] < \
+        kv_length.to(q.device).long()[:, None, None]
+    s = torch.where(valid, s, torch.full_like(s, float("-inf")))
+    m = s.amax(-1)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.where(valid, torch.exp(s - m_safe[..., None]),
+                    torch.zeros_like(s))
+    acc = torch.einsum("bht,bthd->bhd", p, vv)
+    return torch.cat([m[..., None], p.sum(-1)[..., None], acc],
+                     dim=-1)[:, :, None, :]
+
+
+def decode_combine_ref(partials: torch.Tensor) -> torch.Tensor:
+    """Merge ``(B, H, n, hd + 2)`` decode partials into ``(B, H, hd)``
+    (f32); partials with ``l = 0`` are skipped."""
+    m, l, acc = partials[..., 0], partials[..., 1], partials[..., 2:]
+    live = l > 0
+    mm = torch.where(live, m, torch.full_like(m, float("-inf"))).amax(-1)
+    w = torch.where(live, torch.exp(m - mm[..., None]), torch.zeros_like(m))
+    den = (w * l).sum(-1)
+    return (w[..., None] * acc).sum(-2) / torch.clamp(den, min=1e-30)[..., None]
+
+
 def rmsnorm_ref(x: torch.Tensor, weight: torch.Tensor,
                 eps: float = 1e-6) -> torch.Tensor:
     """Mean square in f32, normalization applied in the activation dtype

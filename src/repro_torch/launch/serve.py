@@ -22,6 +22,15 @@ it, the weight-tied DEQ solved by SHINE.
 ``--metrics-prom-out`` keeps a Prometheus text file of the metrics registry
 (rewritten every 10 s and at the end); ``--trace-out`` writes a Chrome
 trace of the drain's spans.
+
+``--mesh DxM`` serves sharded on a (data=D, model=M) mesh, one process per
+rank: ``torchrun --nproc-per-node D*M -m repro_torch.launch.serve --mesh
+DxM --pipeline sync`` (NCCL on the cards; with ``--device cpu``, gloo).
+The process world is the counterpart of the JAX launcher's
+``--force-devices``.  The slots split over "data" and the KV cache's
+length over "model" (``DECODE_RULES``; prefill under ``PREFILL_RULES``);
+only the sync pipeline without the prefix caches runs on a mesh, and only
+rank 0 prints.
 """
 
 from __future__ import annotations
@@ -34,10 +43,17 @@ import numpy as np
 import torch
 
 from repro_torch.configs.registry import ARCHS, get_config, smoke_config
+from repro_torch.configs.shapes import SHAPES, make_ctx
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import (
+    build_device_mesh,
+    init_distributed,
+    parse_mesh,
+)
 from repro_torch.models import lm
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import tracing as obs_tracing
+from repro_torch.parallel.sharding import NULL_CTX
 from repro_torch.runtime.serving import Request, ServeLoop
 
 
@@ -90,6 +106,9 @@ def main(argv=None) -> None:
                          "slot state and prefix store on the device and no "
                          "blocking host read of its own; 'sync' blocks on "
                          "every wave and tick")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="serve sharded on a (data=D, model=M) mesh, one "
+                         "rank per process under torchrun (sync pipeline)")
     ap.add_argument("--async-depth", type=int, default=2,
                     help="async pipeline: entries in flight before dispatch "
                          "waits for the oldest to land")
@@ -143,7 +162,20 @@ def main(argv=None) -> None:
         cfg = dataclasses.replace(cfg, deq=deq)
     if cfg.family == "audio":
         raise SystemExit("encoder-only arch: no autoregressive serving")
+    ctx = pctx = NULL_CTX
+    if args.mesh:
+        if args.pipeline != "sync" or args.prefix_cache:
+            ap.error("--mesh serves with --pipeline sync and no prefix cache")
+        init_distributed(device.type)
+        mesh = build_device_mesh(parse_mesh(args.mesh), device.type)
+        ctx = make_ctx(cfg, mesh, SHAPES["decode_32k"])
+        pctx = make_ctx(cfg, mesh, SHAPES["prefill_32k"])
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
     params = lm.init_params(cfg, seed=args.seed, device=device)
+    if ctx.running:
+        params = lm.place_params(params, cfg, ctx)
+    main_rank = not ctx.running or torch.distributed.get_rank() == 0
 
     loop = ServeLoop(params, cfg, slots=args.slots, max_len=args.max_len,
                      carry_max_age=args.carry_max_age,
@@ -153,7 +185,8 @@ def main(argv=None) -> None:
                      prefix_max_age=args.prefix_max_age,
                      pipeline=args.pipeline, async_depth=args.async_depth,
                      reorder=args.reorder,
-                     reorder_age_bound=args.reorder_age_bound)
+                     reorder_age_bound=args.reorder_age_bound,
+                     ctx=ctx, prefill_ctx=pctx)
     rng = np.random.default_rng(args.seed)
     prompts = make_prompts(rng, cfg.vocab_size, args.requests,
                            args.shared_prefix)
@@ -165,6 +198,9 @@ def main(argv=None) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
+    if not main_rank:
+        torch.distributed.destroy_process_group()
+        return
     tokens = sum(len(r.out) for r in reqs)
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
@@ -193,6 +229,10 @@ def main(argv=None) -> None:
     if args.trace_out:
         obs_tracing.write(args.trace_out)
         print(f"chrome trace -> {args.trace_out}")
+    if ctx.running:
+        print(f"mesh {dict(ctx.mesh.shape)} over "
+              f"{torch.distributed.get_backend()}")
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -15,6 +15,16 @@ its step with the state donated), so the state it was given is used up;
 of a carry is updated in place on the card by the solve that takes it, so
 the step copies it first where the pre-step carry must survive a rejected
 update (``deq_carry="full"`` with ``skip_nonfinite``).
+
+On a running mesh (``ctx.device_mesh``) the state's leaves are DTensors
+placed by ``state_shardings``: parameters TP-split and DP-replicated, the
+AdamW moments also split over "data" by ``zero1_spec`` when
+``tcfg.zero1``, the carry's ring batch-split.  The step differentiates the
+sharded loss, lays every gradient out as its moments (a reduce-scatter
+or an all-reduce over the DP axes), clips by the norm of the whole
+gradient, and updates each rank's shards in place
+(``optim/optimizers``).  The loss, gradient norm and ``ok`` verdict are
+replicated values, the same on every rank.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ import dataclasses
 from typing import Any, Callable, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.lowrank import LowRank
@@ -41,10 +52,14 @@ from repro_torch.optim.optimizers import (
     tree_map,
 )
 from repro_torch.parallel.sharding import (
+    NULL_CTX,
     ShardCtx,
+    distribute_tree,
     map_decls,
+    named_sharding_tree,
     shape_tree,
     spec_tree,
+    spmd,
     zero1_spec_tree,
 )
 
@@ -178,34 +193,60 @@ def _keep_carry(ok: torch.Tensor, new: SolveCarry,
         warm=w(new.warm, old.warm), age=w(new.age, old.age))
 
 
+def _whole(x):
+    """A metric as a plain tensor (a DTensor gathered: replicated)."""
+    if isinstance(x, DTensor):
+        return x.full_tensor()
+    return x
+
+
 def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, *,
-                     loss_fn: Callable | None = None) -> Callable:
+                     loss_fn: Callable | None = None,
+                     ctx: ShardCtx = NULL_CTX) -> Callable:
     """``(state, batch) -> (state, metrics)``: gradients (with
     accumulation) -> clip -> AdamW/SGDM on the ``tcfg`` schedule.  Metrics
     are 0-d tensors on the device (reading them is the caller's host sync).
 
     With a carry in the state the default loss threads it into the forward
     solve and the updated carry rides back into the new state.  A custom
-    ``loss_fn(params, batch) -> (loss, aux)`` leaves the carry untouched."""
+    ``loss_fn(params, batch) -> (loss, aux)`` leaves the carry untouched.
+    ``ctx`` runs the step on its mesh (the state from ``init_train_state``
+    with the same ``ctx``; the batch whole or laid out by ``"batch"``)."""
     if loss_fn is None:
         def loss_with_carry(p, b, c):
-            return lm.loss_fn(p, b, cfg, z_loss=tcfg.z_loss, carry=c)
+            return lm.loss_fn(p, b, cfg, z_loss=tcfg.z_loss, carry=c,
+                              ctx=ctx)
     else:
         def loss_with_carry(p, b, c):
             return loss_fn(p, b)
     sched = make_schedule(tcfg)
 
+    moment_pls = None
+    if ctx.running:
+        if tcfg.grad_accum > 1:
+            raise NotImplementedError("gradient accumulation on a mesh is "
+                                      "not ported (grad_accum=1 there)")
+        moment_pls = named_sharding_tree(
+            state_shardings(cfg, tcfg, ctx).opt.mu, ctx.device_mesh)
+
     def grads_of(params, batch, carry):
         leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        loss, aux = loss_with_carry(leaves, batch, carry)
-        grads = iter(torch.autograd.grad(loss, tree_leaves(leaves),
-                                         allow_unused=True))
+        with spmd(ctx):
+            loss, aux = loss_with_carry(leaves, batch, carry)
+            grads = iter(torch.autograd.grad(loss, tree_leaves(leaves),
+                                             allow_unused=True))
 
         def grad_of(p):  # a parameter the loss does not use gets zeros
             g = next(grads)
             return torch.zeros_like(p) if g is None else g
 
-        return loss.detach(), aux, tree_map(grad_of, leaves)
+        grads = tree_map(grad_of, leaves)
+        if moment_pls is not None:
+            # the DP sums: each gradient laid out as its moments
+            grads = tree_map(lambda g, pl: g.redistribute(ctx.device_mesh,
+                                                          pl),
+                             grads, moment_pls)
+        return _whole(loss.detach()), aux, grads
 
     def train_step(state: TrainState, batch: dict):
         params = state.params
@@ -238,7 +279,8 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, *,
             loss, aux, grads = grads_of(params, batch, carry_in)
             new_carry = aux.pop("solve_carry", new_carry)
 
-        grads, gnorm = clip_by_global_norm(grads, tcfg.clip_norm)
+        with spmd(ctx):
+            grads, gnorm = clip_by_global_norm(grads, tcfg.clip_norm)
         lr = sched(state.step)
         # a non-finite loss or gradient norm rejects the whole update
         # (params, optimizer state, carry keep their pre-step values) by a
@@ -249,16 +291,13 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, *,
               if tcfg.skip_nonfinite else None)
         # the update writes into the state's own tensors (the old state is
         # gone after it, as the reference's donated one is)
-        if tcfg.optimizer == "sgdm":
-            new_params, opt = sgdm_update(
-                grads, state.opt, params, lr, weight_decay=tcfg.weight_decay,
-                ok=ok)
-        else:
-            new_params, opt = adamw_update(
-                grads, state.opt, params, lr, weight_decay=tcfg.weight_decay,
-                ok=ok)
+        update = sgdm_update if tcfg.optimizer == "sgdm" else adamw_update
+        with spmd(ctx):
+            new_params, opt = update(grads, state.opt, params, lr,
+                                     weight_decay=tcfg.weight_decay, ok=ok)
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}
-        metrics.update({k: (v.detach() if isinstance(v, torch.Tensor) else v)
+        metrics.update({k: (_whole(v.detach())
+                            if isinstance(v, torch.Tensor) else v)
                         for k, v in aux.items()
                         if not isinstance(v, torch.Tensor) or v.ndim == 0})
         new_state = TrainState(state.step + 1, new_params, opt, new_carry,
@@ -266,12 +305,13 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, *,
         if ok is not None:
             prev = state.skips if state.skips is not None else \
                 torch.zeros((), dtype=torch.int32, device=ok.device)
+            with spmd(ctx):
+                kept = (_keep_carry(ok, new_carry, state.carry)
+                        if new_carry is not None else None)
             new_state = TrainState(
                 state.step + 1, new_params,
                 opt._replace(step=torch.where(ok, opt.step, state.opt.step)),
-                (_keep_carry(ok, new_carry, state.carry)
-                 if new_carry is not None else None),
-                torch.where(ok, torch.zeros_like(prev), prev + 1))
+                kept, torch.where(ok, torch.zeros_like(prev), prev + 1))
             metrics["update_skipped"] = (~ok).float()
             metrics["consec_skips"] = new_state.skips.float()
         # the optimizer phase ends when the new optimizer state is computed
@@ -284,12 +324,14 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, *,
 
 def init_train_state(cfg: ModelConfig, tcfg: TrainConfig, *,
                      seed: int | None = None, params: Tree | None = None,
-                     device=None) -> TrainState:
+                     device=None, ctx: ShardCtx = NULL_CTX) -> TrainState:
     """A fresh state: parameters drawn from ``seed`` (default
     ``tcfg.seed``) on ``device``, or a copy of the given ``params``; zero
     moments; a cold carry where ``train_carry_enabled``.  The state owns
     its tensors (the train step updates them in place), so the caller's
-    ``params`` stay as they are."""
+    ``params`` stay as they are.  On a running ``ctx`` every leaf is placed
+    by ``state_shardings`` (each rank keeps its shards: the parameters
+    drawn or given whole, the same on every rank)."""
     if params is None:
         params = lm.init_params(cfg, seed=tcfg.seed if seed is None else seed,
                                 device=device)
@@ -301,5 +343,29 @@ def init_train_state(cfg: ModelConfig, tcfg: TrainConfig, *,
              if train_carry_enabled(cfg, tcfg) else None)
     skips = (torch.zeros((), dtype=torch.int32, device=dev)
              if tcfg.skip_nonfinite else None)
+    if ctx.running:
+        return _place_state(cfg, tcfg, ctx, params, carry, skips)
     return TrainState(torch.zeros((), dtype=torch.int32, device=dev), params,
                       adamw_init(params), carry, skips)
+
+
+def _place_state(cfg, tcfg, ctx, params, carry, skips) -> TrainState:
+    """A fresh state's leaves placed on ``ctx``'s mesh: the moments made
+    as zero shards where they lie."""
+    from torch.distributed.tensor import zeros as dzeros
+
+    mesh = ctx.device_mesh
+    specs = state_shardings(cfg, tcfg, ctx)
+    op = named_sharding_tree(specs.opt.mu, mesh)
+    params = distribute_tree(params, specs.params, mesh)
+    moments = lambda: tree_map(  # noqa: E731
+        lambda p, pl: dzeros(p.shape, dtype=torch.float32,
+                             device_mesh=mesh, placements=pl), params, op)
+    dev = lm.params_device(params)
+    if carry is not None:
+        carry = distribute_tree(carry, specs.carry, mesh)
+    return TrainState(torch.zeros((), dtype=torch.int32, device=dev), params,
+                      OptState(torch.zeros((), dtype=torch.int32,
+                                           device=dev), moments(), moments()),
+                      carry, skips)
+

@@ -4,8 +4,11 @@ The port of ``repro/launch/train.py``: runs the :class:`Trainer` (restore
 or init, checkpoints, rollback, preemption) on synthetic token batches,
 for the layer stack (rematerialised as the config's ``remat`` says) or,
 with ``--deq``, its DEQ/SHINE form.
-The JAX launcher's flags, minus ``--mesh`` (sharding, a later slice), plus
-``--device``.  Unknown ``--backward``/``--solver`` values are rejected
+The JAX launcher's flags plus ``--device``.  ``--mesh single|multi``
+trains on the production mesh, (data=16, model=16) or (pod=2, data=16,
+model=16), one process per card under ``torchrun`` (256 or 512 ranks;
+fewer raise, as the reference raises with too few devices), with ZeRO-1
+moments; ``--mesh none`` (the default) is one process.  Unknown ``--backward``/``--solver`` values are rejected
 with the registered names.  ``--metrics-prom-out`` keeps a Prometheus text
 file of the metrics registry (rewritten every 10 s and at the end);
 ``--trace-out`` writes a Chrome trace of the run's spans and phases.
@@ -25,13 +28,20 @@ import torch
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.configs.registry import ARCHS, get_config, smoke_config
+from repro_torch.configs.shapes import SHAPES, make_ctx
 from repro_torch.data.pipeline import make_lm_batch_iterator
 from repro_torch.device import resolve_device
 from repro_torch.implicit import ESTIMATORS, SOLVERS
+from repro_torch.launch.mesh import (
+    build_device_mesh,
+    init_distributed,
+    make_production_mesh,
+)
 from repro_torch.models import lm
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import tracing as obs_tracing
 from repro_torch.optim.optimizers import tree_leaves
+from repro_torch.parallel.sharding import NULL_CTX
 from repro_torch.runtime.trainer import Trainer
 
 
@@ -54,6 +64,10 @@ def main(argv=None) -> None:
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--checkpoint-dir", default="")
     ap.add_argument("--checkpoint-every", type=int, default=0)
+    ap.add_argument("--mesh", choices=("none", "single", "multi"),
+                    default="none",
+                    help="none: one process; single/multi: the production "
+                         "mesh, one rank per card under torchrun")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--metrics-out", default="",
                     help="write a metrics-registry JSON snapshot here after "
@@ -103,30 +117,42 @@ def main(argv=None) -> None:
             deq = dataclasses.replace(deq, guard=False)
         cfg = dataclasses.replace(cfg, deq=deq)
 
+    ctx = NULL_CTX
+    if args.mesh != "none":
+        init_distributed(device.type)
+        mesh = build_device_mesh(
+            make_production_mesh(multi_pod=args.mesh == "multi"),
+            device.type)
+        ctx = make_ctx(cfg, mesh, SHAPES["train_4k"])
+
     tcfg = TrainConfig(
         steps=args.steps, global_batch=args.batch, seq_len=args.seq,
         lr=args.lr, grad_accum=args.grad_accum, seed=args.seed,
         schedule=cfg.schedule, checkpoint_dir=args.checkpoint_dir,
         checkpoint_every=args.checkpoint_every,
         checkpoint_lean=args.checkpoint_lean,
-        qn_dtype=args.qn_dtype or cfg.deq.qn_dtype, zero1=False,
+        qn_dtype=args.qn_dtype or cfg.deq.qn_dtype,
+        zero1=ctx.mesh is not None,
         **({"skip_budget": args.skip_budget}
            if args.skip_budget is not None else {}))
 
-    trainer = Trainer(cfg, tcfg, device=device)
+    trainer = Trainer(cfg, tcfg, device=device, ctx=ctx)
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
     n_params = sum(math.prod(d.shape) for d in tree_leaves(
         lm.model_decl(cfg)))
-    print(f"arch={cfg.name} params={n_params / 1e6:.1f}M "
-          f"deq={cfg.deq.enabled} "
-          + (f"backward={cfg.deq.backward} " if cfg.deq.enabled
-             else f"remat={cfg.remat} ")
-          + f"device={where}")
+    if trainer.is_main:
+        print(f"arch={cfg.name} params={n_params / 1e6:.1f}M "
+              f"deq={cfg.deq.enabled} "
+              + (f"backward={cfg.deq.backward} " if cfg.deq.enabled
+                 else f"remat={cfg.remat} ")
+              + f"device={where}"
+              + (f" mesh={dict(ctx.mesh.shape)}" if ctx.mesh else ""))
     batches = make_lm_batch_iterator(cfg, args.batch, args.seq,
-                                     seed=args.seed, device=device)
+                                     seed=args.seed, device=device, ctx=ctx)
     state = trainer.run(batches, steps=args.steps)
-    print(f"finished at step {int(state.step)}")
+    if trainer.is_main:
+        print(f"finished at step {int(state.step)}")
 
     if args.metrics_out:
         obs_metrics.default_registry().write_json(args.metrics_out)

@@ -12,6 +12,12 @@ kernel at head dim ``qk_nope + qk_rope`` (v zero-padded to that width, the
 reference's layout, and sliced after); the absorbed one
 (``cfg.mla.absorbed_decode``) folds ``W_uk`` into the query and ``W_uv``
 after the attention and attends in the latent space with plain einsums.
+
+``ctx`` constrains q, k, the output and the caches where the reference
+does.  On a mesh the caches are DTensors: a write lands on the ranks whose
+slice of the cache's length holds its positions (``_cache_write``), and
+prefill attends over the step's own head-split k/v while it writes the
+length-split cache of ``PREFILL_RULES``.
 """
 
 from __future__ import annotations
@@ -22,8 +28,16 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.layers import ParamDecl, apply_rope
+from repro_torch.parallel.sharding import (
+    NULL_CTX,
+    ShardCtx,
+    redistribute,
+    shard_offset,
+)
 
 
 class KVCache(NamedTuple):
@@ -54,6 +68,8 @@ def _cache_write(cache: torch.Tensor, new: torch.Tensor,
                  cache_index: torch.Tensor) -> torch.Tensor:
     """Write ``new (B, S, ...)`` at per-row start ``cache_index`` (clamped
     so the write fits, as ``lax.dynamic_update_slice`` clamps), in place."""
+    if isinstance(cache, DTensor):
+        return _cache_write_sharded(cache, new, cache_index)
     b, s = new.shape[:2]
     t = cache.shape[1]
     start = torch.clamp(cache_index.long(), 0, t - s)
@@ -63,9 +79,61 @@ def _cache_write(cache: torch.Tensor, new: torch.Tensor,
     return cache
 
 
+def _cache_write_sharded(cache, new, cache_index):
+    """``_cache_write`` on a DTensor cache: each rank writes the positions
+    its slice of the length holds (the new rows laid out as the cache,
+    whole along the length); a one-token write is an indexed store, a
+    longer one a select over the local slice.  No host read."""
+    mesh, cp = cache.device_mesh, tuple(cache.placements)
+    npl = tuple(Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+                for p in cp)
+    ipl = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                for p in cp)
+    new_l = redistribute(new.to(cache.dtype), mesh, npl).to_local()
+    idx_l = redistribute(cache_index, mesh, ipl).to_local().long()
+    c_l = cache.to_local()
+    t, t0 = cache.shape[1], shard_offset(cache.shape, mesh, cp)[1]
+    b, s = new_l.shape[:2]
+    dev = c_l.device
+    start = torch.clamp(idx_l, 0, t - s)
+    rows = torch.arange(b, device=dev)[:, None]
+    if s == 1:
+        pos = start[:, None] - t0
+        ok = (pos >= 0) & (pos < c_l.shape[1])
+        pos = torch.clamp(pos, 0, c_l.shape[1] - 1)
+        keep = c_l[rows, pos]
+        sel = ok.reshape(ok.shape + (1,) * (keep.ndim - 2))
+        c_l[rows, pos] = torch.where(sel, new_l, keep)
+        return cache
+    j = torch.arange(c_l.shape[1], device=dev)[None, :] + t0 - start[:, None]
+    ok = (j >= 0) & (j < s)
+    got = new_l[rows, torch.clamp(j, 0, s - 1)]
+    c_l.copy_(torch.where(ok.reshape(ok.shape + (1,) * (c_l.ndim - 2)), got,
+                          c_l))
+    return cache
+
+
+def _pad_last(x, n: int):
+    """``x`` zero-padded by ``n`` on its last dim.  A DTensor (whose last
+    dim is whole) is padded shard by shard: DTensor's own rule for the pad
+    fails to plan its redistribution on some PyTorch versions."""
+    if not isinstance(x, DTensor):
+        return F.pad(x, (0, n))
+    if any(isinstance(p, Shard) and p.dim == x.ndim - 1
+           for p in x.placements):
+        raise ValueError("padding a split last dim")
+    local = F.pad(x.to_local(), (0, n))
+    shape = x.shape[:-1] + (x.shape[-1] + n,)
+    return DTensor.from_local(local, x.device_mesh, x.placements,
+                              run_check=False, shape=shape,
+                              stride=torch.empty(shape,
+                                                 device="meta").stride())
+
+
 def gqa_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
                   positions: torch.Tensor, cache: KVCache | None = None,
-                  cache_index: torch.Tensor | None = None):
+                  cache_index: torch.Tensor | None = None,
+                  ctx: ShardCtx = NULL_CTX):
     """Returns ``(out (B, S, d), new_cache)``.
 
     With a cache the step's k/v are written at ``cache_index`` IN PLACE
@@ -80,6 +148,9 @@ def gqa_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
     v = _split_heads(x @ params["wv"].to(dt), kv)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    q = ctx.constrain(q, ("batch", "seq", "heads_act", None))
+    k = ctx.constrain(k, ("batch", "seq", "kv_heads_act", None))
+    v = ctx.constrain(v, ("batch", "seq", "kv_heads_act", None))
 
     new_cache = None
     if cache is None:
@@ -96,8 +167,10 @@ def gqa_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
         else:
             out = kernel_ops.attention(q, k, v, causal=cfg.causal,
                                        **_attn_kw(cfg))
+    out = ctx.constrain(out, ("batch", "seq", "heads_act", None))
     out = out.reshape(out.shape[:2] + (h * cfg.head_dim_,))
-    return out @ params["wo"].to(dt), new_cache
+    return ctx.constrain(out @ params["wo"].to(dt),
+                         ("batch", "seq_res", "embed_act")), new_cache
 
 
 def gqa_cache_shape(cfg: ModelConfig, batch: int,
@@ -142,7 +215,8 @@ def _mla_compress(params: dict, x: torch.Tensor, cfg: ModelConfig,
 
 def mla_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
                   positions: torch.Tensor, cache: KVCache | None = None,
-                  cache_index: torch.Tensor | None = None):
+                  cache_index: torch.Tensor | None = None,
+                  ctx: ShardCtx = NULL_CTX):
     """Returns ``(out (B, S, d), new_cache)``.  With a cache, the step's
     ``(c_kv, k_pe)`` are written at ``cache_index`` IN PLACE.  Prefill
     (S > 1) attends causally over the step's own latents; decode (S == 1)
@@ -153,12 +227,14 @@ def mla_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
     q = _split_heads(x @ params["wq"].to(dt), h)
     q_nope, q_pe = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
     q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
+    q_nope = ctx.constrain(q_nope, ("batch", "seq", "heads_act", None))
     c_kv, k_pe = _mla_compress(params, x, cfg, positions)
 
     new_cache, kv_len = None, None
     decode = cache is not None and x.shape[1] == 1
     if cache is not None:
-        c_all = _cache_write(cache.k, c_kv, cache_index)
+        c_all = ctx.constrain(_cache_write(cache.k, c_kv, cache_index),
+                              ("batch", "kv_seq", "lora"))
         pe_all = _cache_write(cache.v, k_pe, cache_index)
         new_cache = KVCache(c_all, pe_all)
         kv_len = cache_index + x.shape[1]
@@ -190,7 +266,7 @@ def mla_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
         q_full = torch.cat([q_nope, q_pe], dim=-1)
         # v padded to the qk width so one kernel instance serves both
         # products; the pad is sliced off below
-        v_pad = F.pad(v, (0, qk - m.v_head_dim))
+        v_pad = _pad_last(v, qk - m.v_head_dim)
         if decode:
             out = kernel_ops.decode_attention(q_full[:, 0], k_full, v_pad,
                                               kv_len)[:, None]
@@ -199,7 +275,8 @@ def mla_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
                                        causal=cfg.causal, **_attn_kw(cfg))
         out = out[..., :m.v_head_dim]
     out = out.reshape(out.shape[:2] + (h * m.v_head_dim,))
-    return out @ params["wo"].to(dt), new_cache
+    return ctx.constrain(out @ params["wo"].to(dt),
+                         ("batch", "seq_res", "embed_act")), new_cache
 
 
 def mla_cache_shapes(cfg: ModelConfig, batch: int,

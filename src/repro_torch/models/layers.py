@@ -3,7 +3,9 @@ embeddings, embedding/head and the cross-entropy loss.
 
 The port of ``repro/models/layers.py``.  Parameters are plain dicts of
 tensors laid out as in the JAX package (``(d_in, d_out)`` projection
-matrices), so a JAX parameter tree converts leaf for leaf.
+matrices), so a JAX parameter tree converts leaf for leaf.  ``ctx`` (a
+``ShardCtx``) constrains activations where the reference does; off a
+running mesh that is a no-op.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.parallel.sharding import NULL_CTX, ShardCtx
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +63,8 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return kernel_ops.rmsnorm(x, params["scale"], eps)
 
 
-def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
+def mlp(params: dict, x: torch.Tensor,
+        ctx: ShardCtx = NULL_CTX) -> torch.Tensor:
     """SwiGLU (``silu(x W_g) * (x W_u)) W_o``) or GELU MLP."""
     dt = x.dtype
     if "wi_g" in params:
@@ -69,7 +73,9 @@ def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
         h = F.silu(g) * u
     else:
         h = F.gelu(x @ params["wi"].to(dt), approximate="tanh")
-    return h @ params["wo"].to(dt)
+    h = ctx.constrain(h, ("batch", "seq", "mlp_act"))
+    return ctx.constrain(h @ params["wo"].to(dt),
+                         ("batch", "seq_res", "embed_act"))
 
 
 def rope_frequencies(head_dim: int, theta: float,
@@ -91,27 +97,37 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def embed_tokens(params: dict, tokens: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
+def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+                 ctx: ShardCtx = NULL_CTX) -> torch.Tensor:
+    if ctx.running:
+        # a vocab-split table gives masked partial rows: summed here
+        tokens = ctx.constrain(tokens, ("batch", "seq"))
+        x = F.embedding(tokens, params["embedding"].to(act_dtype(cfg)))
+        return ctx.constrain(x, ("batch", "seq", "embed_act"))
     return params["embedding"].to(act_dtype(cfg))[tokens]
 
 
-def lm_logits(params: dict, x: torch.Tensor,
-              cfg: ModelConfig) -> torch.Tensor:
+def lm_logits(params: dict, x: torch.Tensor, cfg: ModelConfig,
+              ctx: ShardCtx = NULL_CTX) -> torch.Tensor:
     if cfg.tie_embeddings:
         logits = x @ params["embedding"].to(x.dtype).t()
     else:
         logits = x @ params["lm_head"].to(x.dtype)
     if cfg.logits_softcap:
         logits = cfg.logits_softcap * torch.tanh(logits / cfg.logits_softcap)
-    return logits
+    return ctx.constrain(logits, ("batch", "seq", "vocab_act"))
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
-                  z_loss: float = 0.0) -> tuple[torch.Tensor, dict]:
+                  z_loss: float = 0.0,
+                  ctx: ShardCtx = NULL_CTX) -> tuple[torch.Tensor, dict]:
     """Stable cross entropy in f32 plus ``z_loss`` times the mean squared
     log-partition; targets ``-1`` are ignored.  Returns ``(loss, {"nll",
-    "z", "tokens"})``."""
+    "z", "tokens"})``.  On a mesh the vocab is gathered first (DTensor has
+    no rule for a gather along a split vocab)."""
+    if ctx.running:
+        logits = ctx.constrain(logits, ("batch", "seq", None))
+        targets = ctx.constrain(targets, ("batch", "seq"))
     logits = logits.float()
     mask = (targets >= 0).float()
     safe_t = torch.clamp(targets, min=0).long()

@@ -51,6 +51,13 @@ served.
 Parameters are a plain dict with the JAX package's tree and layouts
 (``group{i}`` or ``deq_blocks`` trees), so :func:`params_from_jax` converts
 a JAX ``init_params`` tree leaf for leaf.
+
+Every entry point takes ``ctx`` (a ``ShardCtx``, default none).  On a
+running mesh the parameters, batch and caches are DTensors, the
+activations are constrained where the reference constrains them (block
+inputs gathered along the sequence, block outputs in the residual layout
+``seq_res``, the solver state batch-split), and the calls run with plain
+tensors taken as replicated (``sharding.spmd``).
 """
 
 from __future__ import annotations
@@ -74,6 +81,13 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
+from repro_torch.parallel.sharding import (
+    NULL_CTX,
+    ShardCtx,
+    distribute_tree,
+    spec_tree,
+    spmd,
+)
 from repro_torch.models.layers import (
     ParamDecl,
     act_dtype,
@@ -268,6 +282,13 @@ def params_from_jax(np_params: dict, device=None) -> dict:
     return conv(np_params)
 
 
+def place_params(params: dict, cfg: ModelConfig, ctx: ShardCtx) -> dict:
+    """Whole parameters (the same on every rank) as DTensors laid out by
+    ``ctx``'s rules (``model_decl``'s axes): TP-split, DP-replicated."""
+    return distribute_tree(params, spec_tree(model_decl(cfg), ctx.rules),
+                           ctx.device_mesh)
+
+
 def params_device(params: dict) -> torch.device:
     return params["embed"]["embedding"].device
 
@@ -277,14 +298,15 @@ def params_device(params: dict) -> torch.device:
 # ---------------------------------------------------------------------------
 
 
-def _apply_attention(params, x, cfg, positions, cache, cache_index):
+def _apply_attention(params, x, cfg, positions, cache, cache_index,
+                     ctx=NULL_CTX):
     fn = attn.mla_attention if cfg.attn_type == "mla" else attn.gqa_attention
-    return fn(params, x, cfg, positions, cache, cache_index)
+    return fn(params, x, cfg, positions, cache, cache_index, ctx)
 
 
 def apply_unit(kind: str, params: dict, x: torch.Tensor, cfg: ModelConfig,
                positions: torch.Tensor, cache=None, cache_index=None,
-               shared: dict | None = None):
+               shared: dict | None = None, ctx: ShardCtx = NULL_CTX):
     """One stack unit.  ``attn_mlp``/``attn_moe``: a pre-norm block,
     attention then SwiGLU or the MoE.  ``zamba_unit``: ``attn_every``
     pre-norm Mamba2 layers, then the ``shared`` attention + MLP block.
@@ -295,43 +317,52 @@ def apply_unit(kind: str, params: dict, x: torch.Tensor, cfg: ModelConfig,
     MambaCache stacked over its layers (new tensors), "attn": the KVCache
     written in place}``, an xLSTM unit's ``{"mlstm": MLSTMCache stacked
     over its layers, "slstm": SLSTMCache}`` (new tensors); storing them is
-    the caller's (``_store``)."""
+    the caller's (``_store``).  Block inputs are gathered along the
+    sequence (``_gathered``: a no-op unless sequence parallelism splits
+    the residual stream)."""
     if kind == "zamba_unit":
         return _apply_zamba_unit(params, x, cfg, positions, cache,
-                                 cache_index, shared)
+                                 cache_index, shared, ctx)
     if kind == "xlstm_unit":
-        return _apply_xlstm_unit(params, x, cfg, cache)
+        return _apply_xlstm_unit(params, x, cfg, cache, ctx)
     if kind not in ("attn_mlp", "attn_moe"):
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    g = functools.partial(_gathered, ctx)
     a_out, new_kv = _apply_attention(
-        params["attn"], rmsnorm(params["ln1"], x, cfg.norm_eps), cfg,
-        positions, cache, cache_index)
+        params["attn"], g(rmsnorm(params["ln1"], x, cfg.norm_eps)), cfg,
+        positions, cache, cache_index, ctx)
     x = x + a_out
-    h = rmsnorm(params["ln2"], x, cfg.norm_eps)
+    h = g(rmsnorm(params["ln2"], x, cfg.norm_eps))
     if kind == "attn_mlp":
-        return x + mlp(params["mlp"], h), new_kv, {}
-    m_out, aux = moe_mod.moe_block(params["moe"], h, cfg)
+        return x + mlp(params["mlp"], h, ctx), new_kv, {}
+    m_out, aux = moe_mod.moe_block(params["moe"], h, cfg, ctx)
     return x + m_out, new_kv, aux
 
 
+def _gathered(ctx: ShardCtx, h):
+    """A block input pinned whole along the sequence."""
+    return ctx.constrain(h, ("batch", "seq", "embed_act"))
+
+
 def _apply_zamba_unit(params, x, cfg, positions, cache, cache_index,
-                      shared):
+                      shared, ctx=NULL_CTX):
     eps = cfg.norm_eps
+    g = functools.partial(_gathered, ctx)
     states, convs = [], []
     for j in range(cfg.ssm.attn_every):
         pj = _block(params["mamba"], j)
         cj = None if cache is None else _block(cache["mamba"], j)
-        out, mc = ssm_mod.mamba2_block(pj["m"], rmsnorm(pj["ln"], x, eps),
-                                       cfg, cj)
+        out, mc = ssm_mod.mamba2_block(pj["m"], g(rmsnorm(pj["ln"], x, eps)),
+                                       cfg, cj, ctx)
         x = x + out
         if mc is not None:
             states.append(mc.state)
             convs.append(mc.conv)
     a_out, new_kv = _apply_attention(
-        shared["attn"], rmsnorm(shared["ln1"], x, eps), cfg, positions,
-        None if cache is None else cache["attn"], cache_index)
+        shared["attn"], g(rmsnorm(shared["ln1"], x, eps)), cfg, positions,
+        None if cache is None else cache["attn"], cache_index, ctx)
     x = x + a_out
-    x = x + mlp(shared["mlp"], rmsnorm(shared["ln2"], x, eps))
+    x = x + mlp(shared["mlp"], g(rmsnorm(shared["ln2"], x, eps)), ctx)
     new_cache = None
     if cache is not None:
         new_cache = {"mamba": ssm_mod.MambaCache(torch.stack(states),
@@ -340,20 +371,23 @@ def _apply_zamba_unit(params, x, cfg, positions, cache, cache_index,
     return x, new_cache, {}
 
 
-def _apply_xlstm_unit(params, x, cfg, cache):
+def _apply_xlstm_unit(params, x, cfg, cache, ctx=NULL_CTX):
     eps = cfg.norm_eps
+    g = functools.partial(_gathered, ctx)
     m_caches = []
     for j in range(cfg.xlstm.slstm_every - 1):
         pj = _block(params["mlstm"], j)
         cj = None if cache is None else _block(cache["mlstm"], j)
-        out, mc = xlstm_mod.mlstm_block(pj["m"], rmsnorm(pj["ln"], x, eps),
-                                        cfg, cj)
+        out, mc = xlstm_mod.mlstm_block(pj["m"], g(rmsnorm(pj["ln"], x, eps)),
+                                        cfg, cj, ctx)
         x = x + out
         if mc is not None:
             m_caches.append(mc)
     sp = params["slstm"]
-    out, sc = xlstm_mod.slstm_block(sp["s"], rmsnorm(sp["ln"], x, eps), cfg,
-                                    None if cache is None else cache["slstm"])
+    out, sc = xlstm_mod.slstm_block(sp["s"], g(rmsnorm(sp["ln"], x, eps)),
+                                    cfg,
+                                    None if cache is None else cache["slstm"],
+                                    ctx)
     x = x + out
     new_cache = None
     if cache is not None:
@@ -432,6 +466,10 @@ def deq_solve_carry(cfg: ModelConfig, batch: int, seq: int,
                             device=resolve_device(device))
 
 
+# logical axes of the DEQ solver state (the qN memory prepends "qn_mem")
+_STATE_AXES = ("batch", "seq_res", "embed_act")
+
+
 def _deq_aux(out, carry) -> dict:
     """The solve's aux outputs from ``implicit_fixed_point``'s return."""
     stats = out[1]
@@ -446,7 +484,7 @@ def _deq_aux(out, carry) -> dict:
 
 def apply_stack(params, x, cfg: ModelConfig, positions, caches=None,
                 cache_index=None, train: bool = True, active=None,
-                carry=None):
+                carry=None, ctx: ShardCtx = NULL_CTX):
     """Run every stack group.  Returns ``(x, caches, aux)``.
 
     Without the DEQ the groups run unit by unit (each unit's cache rows
@@ -455,7 +493,7 @@ def apply_stack(params, x, cfg: ModelConfig, positions, caches=None,
     ``carry`` are the DEQ's (:func:`_apply_deq`)."""
     if cfg.deq.enabled:
         return _apply_deq(params, x, cfg, positions, caches, cache_index,
-                          active=active, carry=carry)
+                          active=active, carry=carry, ctx=ctx)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux = {"moe_aux": zero, "moe_z": zero}
     shared = params.get("shared_attn")
@@ -464,8 +502,11 @@ def apply_stack(params, x, cfg: ModelConfig, positions, caches=None,
         gc = None if caches is None else caches[f"group{i}"]
 
         def body(xc, lp, lc, kind=grp.kind):
-            return apply_unit(kind, lp, xc, cfg, positions, lc, cache_index,
-                              shared)
+            x2, nc, a = apply_unit(kind, lp, xc, cfg, positions, lc,
+                                   cache_index, shared, ctx)
+            # the residual stream between blocks: sequence-split under SP
+            return ctx.constrain(x2, ("batch", "seq_res", "embed_act")), \
+                nc, a
 
         wrapped = _remat_wrap(body, cfg, train)
         for j in range(grp.count):
@@ -478,7 +519,7 @@ def apply_stack(params, x, cfg: ModelConfig, positions, caches=None,
 
 
 def _apply_deq(params, x_emb, cfg, positions, caches=None, cache_index=None,
-               active=None, carry=None):
+               active=None, carry=None, ctx: ShardCtx = NULL_CTX):
     """Solve the weight-tied block group's fixed point.  Without caches
     (training) the whole sequence attends over its own k/v (causally, or
     not as ``cfg.causal`` says: the audio encoder) and the solve is
@@ -502,11 +543,12 @@ def _apply_deq(params, x_emb, cfg, positions, caches=None, cache_index=None,
             h = z
             for j in range(nb):
                 h, _, _ = apply_unit(kind, _block(p["blocks"], j), h, cfg,
-                                     pos, shared=p.get("shared"))
-            return x_in + (h - z)
+                                     pos, shared=p.get("shared"), ctx=ctx)
+            return ctx.constrain(x_in + (h - z), _STATE_AXES)
 
         out = implicit_fixed_point(f, p_all, (x_emb, positions), z0,
-                                   _deq_cfg(cfg), carry=carry)
+                                   _deq_cfg(cfg), carry=carry, ctx=ctx,
+                                   state_axes=_STATE_AXES)
         return out[0], None, _deq_aux(out, carry)
 
     p_dec = dict(p_all, blocks=[_block(params["deq_blocks"], j)
@@ -521,23 +563,26 @@ def _apply_deq(params, x_emb, cfg, positions, caches=None, cache_index=None,
         h = z
         for j in range(nb):
             h, _, _ = apply_unit(kind, p["blocks"][j], h, cfg, pos,
-                                 unit_caches[j], cidx, p.get("shared"))
-        return x_in + (h - z)
+                                 unit_caches[j], cidx, p.get("shared"), ctx)
+        return ctx.constrain(x_in + (h - z), _STATE_AXES)
 
     xin = (x_emb, positions, cache_index)
     if active is not None:
         out = batched_solve(f_dec, p_dec, xin, z0, _deq_cfg(cfg),
-                            valid=active, carry=carry)
+                            valid=active, carry=carry, ctx=ctx,
+                            state_axes=_STATE_AXES)
     else:
         out = implicit_fixed_point(f_dec, p_dec, xin, z0, _deq_cfg(cfg),
-                                   carry=carry)
+                                   carry=carry, ctx=ctx,
+                                   state_axes=_STATE_AXES)
     z_star = out[0]
     # one more pass stores the caches at the fixed point (the state IS the
     # block-input stream under input injection)
     h = z_star
     for j in range(nb):
         h, nc, _ = apply_unit(kind, p_dec["blocks"][j], h, cfg, positions,
-                              unit_caches[j], cache_index, p_dec.get("shared"))
+                              unit_caches[j], cache_index, p_dec.get("shared"),
+                              ctx)
         _store(unit_caches[j], nc)
     return z_star, caches, _deq_aux(out, carry)
 
@@ -547,7 +592,8 @@ def _apply_deq(params, x_emb, cfg, positions, caches=None, cache_index=None,
 # ---------------------------------------------------------------------------
 
 
-def _input_embedding(params, batch: dict, cfg: ModelConfig):
+def _input_embedding(params, batch: dict, cfg: ModelConfig,
+                     ctx: ShardCtx = NULL_CTX):
     """The frontend: ``(x (B, S, d), positions (B, S))`` on the parameters'
     device.  Audio takes the stub frame embeddings ``batch["embeds"]`` in
     the model's dtype; a vlm batch with ``image_embeds (B, N, d)`` puts
@@ -558,17 +604,20 @@ def _input_embedding(params, batch: dict, cfg: ModelConfig):
     if cfg.family == "audio":
         x = batch["embeds"].to(device=dev, dtype=act_dtype(cfg))
     else:
-        x = embed_tokens(params["embed"], batch["tokens"].to(dev), cfg)
+        x = embed_tokens(params["embed"], batch["tokens"].to(dev), cfg, ctx)
         if cfg.family == "vlm" and "image_embeds" in batch:
-            x = torch.cat([batch["image_embeds"].to(device=dev,
-                                                    dtype=x.dtype), x], 1)
+            img = ctx.constrain(batch["image_embeds"].to(device=dev,
+                                                          dtype=x.dtype),
+                                ("batch", "seq", "embed_act"))
+            x = torch.cat([img, x], 1)
+    x = ctx.constrain(x, ("batch", "seq", "embed_act"))
     b, s = x.shape[:2]
     pos = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
-    return x, pos
+    return x, ctx.constrain(pos, ("batch", "seq"))
 
 
 def forward(params, batch: dict, cfg: ModelConfig, train: bool = True,
-            carry: SolveCarry | None = None):
+            carry: SolveCarry | None = None, ctx: ShardCtx = NULL_CTX):
     """Full-sequence forward of a batch (``_input_embedding``: ``tokens
     (B, S)``, the audio stub's ``embeds`` or the vlm stub's
     ``image_embeds`` before the tokens).  Returns ``(logits (B, S, V),
@@ -576,24 +625,28 @@ def forward(params, batch: dict, cfg: ModelConfig, train: bool = True,
     layer stack (``cfg.remat``); ``carry`` warm-starts the DEQ solve and
     the updated one comes back under ``aux["solve_carry"]``."""
     _check_family(cfg)
-    x, pos = _input_embedding(params, batch, cfg)
-    z, _, aux = apply_stack(params, x, cfg, pos, train=train, carry=carry)
-    z = rmsnorm(params["final_norm"], z, cfg.norm_eps)
-    return lm_logits(params["embed"], z, cfg), aux
+    with spmd(ctx):
+        x, pos = _input_embedding(params, batch, cfg, ctx)
+        z, _, aux = apply_stack(params, x, cfg, pos, train=train,
+                                carry=carry, ctx=ctx)
+        z = rmsnorm(params["final_norm"], z, cfg.norm_eps)
+        return lm_logits(params["embed"], z, cfg, ctx), aux
 
 
 def loss_fn(params, batch: dict, cfg: ModelConfig, z_loss: float = 1e-4,
-            carry: SolveCarry | None = None):
+            carry: SolveCarry | None = None, ctx: ShardCtx = NULL_CTX):
     """Cross entropy (plus z-loss) of the logits against
     ``batch["targets"]`` (the image positions of a vlm batch dropped first),
     plus the MoE's weighted load-balance and router z-losses.  Returns
     ``(loss, metrics)``; the metrics hold the loss terms and the stack's
     aux (the DEQ solve's, ``solve_carry`` among them when a carry is
     given)."""
-    logits, aux = forward(params, batch, cfg, train=True, carry=carry)
+    logits, aux = forward(params, batch, cfg, train=True, carry=carry,
+                          ctx=ctx)
     if cfg.family == "vlm" and "image_embeds" in batch:
         logits = logits[:, batch["image_embeds"].shape[1]:]
-    loss, metrics = cross_entropy(logits, batch["targets"], z_loss)
+    with spmd(ctx):
+        loss, metrics = cross_entropy(logits, batch["targets"], z_loss, ctx)
     if "moe_aux" in aux:
         loss = (loss + cfg.moe.aux_weight * aux["moe_aux"]
                 + cfg.moe.z_weight * aux["moe_z"])
@@ -639,7 +692,8 @@ def _unit_cache(cfg: ModelConfig, kind: str, count: int, batch: int,
                               (count, cfg.ssm.attn_every)), "attn": kv}
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
+               ctx: ShardCtx = NULL_CTX):
     """Cold caches, one tree per stack: ``{"deq": ...}`` stacked over the
     DEQ's ``num_blocks``, or ``{"group{i}": ...}`` stacked over each
     group's units.  An attention unit's is a zero ``KVCache``: GQA holds
@@ -652,15 +706,24 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     H, hd), m (count, n_m, B, H)), "slstm": SLSTMCache(c, n, h, m, each
     (count, B, H, d / H))}``, all f32, ``n_m = slstm_every - 1``, the
     stabilisers ``m`` at -1e30 (a zero ``m`` would change every first
-    step); it holds no ``KVCache`` and ``max_len`` does not size it."""
+    step); it holds no ``KVCache`` and ``max_len`` does not size it.
+    On a running mesh every leaf is a DTensor laid out by
+    ``configs.shapes.cache_sharding`` (under ``DECODE_RULES`` the length
+    of an attention cache is split over "model")."""
     _check_family(cfg)
     dev = resolve_device(device)
     if cfg.deq.enabled:
-        return {"deq": _unit_cache(cfg, _deq_kind(cfg), cfg.deq.num_blocks,
-                                   batch, max_len, dev)}
-    return {f"group{i}": _unit_cache(cfg, grp.kind, grp.count, batch,
-                                     max_len, dev)
-            for i, grp in enumerate(stack_groups(cfg))}
+        caches = {"deq": _unit_cache(cfg, _deq_kind(cfg), cfg.deq.num_blocks,
+                                     batch, max_len, dev)}
+    else:
+        caches = {f"group{i}": _unit_cache(cfg, grp.kind, grp.count, batch,
+                                           max_len, dev)
+                  for i, grp in enumerate(stack_groups(cfg))}
+    if not ctx.running:
+        return caches
+    from repro_torch.configs.shapes import cache_sharding
+    return distribute_tree(caches, cache_sharding(cfg, ctx, caches),
+                           ctx.device_mesh)
 
 
 def prefix_seed_carry(cfg: ModelConfig, batch: int, seq: int,
@@ -761,8 +824,19 @@ def prefix_gather_carry(cfg: ModelConfig, batch: int, seq: int, arrays,
     return carry, prefix_len
 
 
+def _spmd_entry(fn):
+    """Run an entry point under ``sharding.spmd`` of its ``ctx``."""
+    @functools.wraps(fn)
+    def wrapped(*args, ctx: ShardCtx = NULL_CTX, **kw):
+        with spmd(ctx):
+            return fn(*args, ctx=ctx, **kw)
+    return wrapped
+
+
 @torch.no_grad()
+@_spmd_entry
 def prefill(params, batch: dict, cfg: ModelConfig, max_len: int, *,
+            ctx: ShardCtx = NULL_CTX,
             carry: SolveCarry | None = None,
             prefix_carry: SolveCarry | None = None,
             prefix_len: torch.Tensor | None = None,
@@ -787,10 +861,11 @@ def prefill(params, batch: dict, cfg: ModelConfig, max_len: int, *,
     """
     _check_family(cfg)
     dev = params_device(params)
-    x, pos = _input_embedding(params, batch, cfg)
+    x, pos = _input_embedding(params, batch, cfg, ctx)
     b, s = x.shape[:2]
-    caches = init_cache(cfg, b, max_len, dev)
-    idx0 = torch.zeros((b,), dtype=torch.int32, device=dev)
+    caches = init_cache(cfg, b, max_len, dev, ctx)
+    idx0 = ctx.constrain(torch.zeros((b,), dtype=torch.int32, device=dev),
+                         ("batch",))
     solve_carry = None
     if prefix_carry is not None:
         if not cfg.deq.enabled:
@@ -804,12 +879,13 @@ def prefill(params, batch: dict, cfg: ModelConfig, max_len: int, *,
             prefix_carry,
             z=torch.where(pmask, prefix_carry.z.to(x.dtype), x))
     z, caches, aux = apply_stack(params, x, cfg, pos, caches, idx0,
-                                 train=False, carry=solve_carry)
+                                 train=False, carry=solve_carry, ctx=ctx)
     # for the DEQ the stack's output IS the equilibrium z*
     z_last = z[:, -1:, :]
     x = rmsnorm(params["final_norm"], z, cfg.norm_eps)
-    logits = lm_logits(params["embed"], x, cfg)
-    lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
+    logits = lm_logits(params["embed"], x, cfg, ctx)
+    lengths = ctx.constrain(torch.full((b,), s, dtype=torch.int32,
+                                       device=dev), ("batch",))
     out = (logits, caches, lengths)
     if carry is not None:
         out = out + (seed_carry(carry, z_last),)
@@ -824,8 +900,10 @@ def prefill(params, batch: dict, cfg: ModelConfig, max_len: int, *,
 
 
 @torch.no_grad()
+@_spmd_entry
 def decode_step(params, caches, tokens: torch.Tensor,
                 cache_index: torch.Tensor, cfg: ModelConfig, *,
+                ctx: ShardCtx = NULL_CTX,
                 active: torch.Tensor | None = None,
                 carry: SolveCarry | None = None, return_steps: bool = False,
                 return_status: bool = False):
@@ -836,12 +914,17 @@ def decode_step(params, caches, tokens: torch.Tensor,
     DEQ).  ``active: (B,) bool`` freezes finished/empty slots in the DEQ
     solve.  The caches are updated in place."""
     _check_family(cfg)
-    x = embed_tokens(params["embed"], tokens[:, None], cfg)
-    pos = cache_index[:, None].int()
+    x = embed_tokens(params["embed"], tokens[:, None], cfg, ctx)
+    x = ctx.constrain(x, ("batch", "seq", "embed_act"))
+    cache_index = ctx.constrain(cache_index, ("batch",))
+    pos = ctx.constrain(cache_index[:, None].int(), ("batch", "seq"))
+    if active is not None:
+        active = ctx.constrain(active, ("batch",))
     z, caches, aux = apply_stack(params, x, cfg, pos, caches, cache_index,
-                                 train=False, active=active, carry=carry)
+                                 train=False, active=active, carry=carry,
+                                 ctx=ctx)
     x = rmsnorm(params["final_norm"], z, cfg.norm_eps)
-    logits = lm_logits(params["embed"], x, cfg)
+    logits = lm_logits(params["embed"], x, cfg, ctx)
     out = ((logits[:, 0], caches) if carry is None
            else (logits[:, 0], caches, aux.get("solve_carry", carry)))
     if return_steps:

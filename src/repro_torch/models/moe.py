@@ -1,8 +1,7 @@
 """Fine-grained MoE (the DeepSeek family): shared experts plus routed top-k
-experts, on one device.
+experts, on one device or expert-parallel over a mesh.
 
-The port of ``repro/models/moe.py``'s single-device branch (the
-expert-parallel ``shard_map`` branch comes with the layout slice).  The
+The port of ``repro/models/moe.py``.  The
 router's logits, softmax, top-k gates and the two aux losses (the
 Switch-style load-balance loss and the router z-loss) are the reference's,
 in f32.  Each expert keeps at most ``C = min(T, _capacity(T))`` of the
@@ -27,21 +26,56 @@ one bucket pass per expert (about 30 launches a layer, not ~1000):
   * the shared experts are one dense SwiGLU MLP of width
     ``num_shared * expert_d_ff``.
 
-Nothing here reads the card from the host.
+Under a running mesh whose "model" axis splits the experts (``ep > 1``),
+the expert-parallel branch runs through ``local_map`` as the reference's
+``shard_map`` does: each rank routes all of its DP shard's tokens, takes
+the capacity from its local token count, runs its experts ``first =
+rank_along("model") * n_local`` up to ``first + n_local`` over the shared
+buckets, and the outputs come back as ``Partial`` sums over the expert
+axis (aux and z-loss as ``Partial`` means).  With a capacity that drops
+tokens, this is the reference's sharded arm, not its unsharded one.  At
+``ep == 1`` the single-device branch runs on the whole batch (its
+capacity from the global token count, as the reference's).
+
+Nothing here reads the card from the host.  ``count_drops`` collects, for
+a report, the pairs each routed call drops (device scalars).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ParamDecl, mlp, mlp_decl
+from repro_torch.parallel.sharding import (
+    NULL_CTX,
+    ShardCtx,
+    placements,
+    shard_map_compat,
+)
 
 
 _EXPERT_IN = ("expert", "embed", "expert_mlp")
+# the dropped-pair counts of the routed calls inside ``count_drops``
+_DROPS: list = []
+_COUNTING: list = [False]
+
+
+@contextlib.contextmanager
+def count_drops():
+    """Inside, each routed call appends its dropped (token, expert) pairs
+    (a 0-d tensor on the device, this rank's tokens) to the yielded list."""
+    _DROPS.clear()
+    _COUNTING[0] = True
+    try:
+        yield _DROPS
+    finally:
+        _COUNTING[0] = False
 
 
 def moe_decl(cfg: ModelConfig) -> dict:
@@ -119,15 +153,25 @@ def _expert_buckets(idx: torch.Tensor, num_experts: int, capacity: int):
 
 
 def _moe_local(x: torch.Tensor, params: dict, cfg: ModelConfig,
-               capacity: int):
-    """The routed experts over ``x (T, d)``.  Returns ``(out (T, d), aux,
-    zloss)``."""
+               capacity: int, first: int = 0):
+    """The routed experts over ``x (T, d)``: the experts ``first`` up to
+    ``first + n_local`` (``n_local`` the leading size of ``params``'
+    expert stacks; all of them by default), every token routed over all
+    ``num_experts``.  Returns ``(out (T, d), aux, zloss)``."""
     m = cfg.moe
     t, d = x.shape
     dt = x.dtype
     idx, gates, aux, zloss = _route(x, params["router"], cfg)
     cap = min(t, capacity)  # the reference's argsort(...)[:capacity]
     tab, slot = _expert_buckets(idx, m.num_experts, cap)
+    if _COUNTING[0]:
+        _DROPS.append((slot == m.num_experts * cap).sum())
+    n_local = params["wi_g"].shape[0]
+    if n_local != m.num_experts:  # this rank's experts; the rest dropped
+        tab = tab[first:first + n_local]
+        local = slot - first * cap
+        slot = torch.where((local >= 0) & (local < n_local * cap), local,
+                           torch.full_like(local, n_local * cap))
     zero = x.new_zeros((1, d))
     xg = torch.cat([x, zero])[tab]  # (E, C, d)
     h = (F.silu(torch.bmm(xg, params["wi_g"].to(dt)))
@@ -144,13 +188,90 @@ def _moe_local(x: torch.Tensor, params: dict, cfg: ModelConfig,
     return out, aux, zloss
 
 
-def moe_block(params: dict, x: torch.Tensor,
-              cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+_ROUTED = ("router", "wi_g", "wi_u", "wo")
+
+
+def moe_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
+              ctx: ShardCtx = NULL_CTX) -> tuple[torch.Tensor, dict]:
     """``x (B, S, d)`` -> ``(out, {"moe_aux", "moe_z"})``."""
     b, s, d = x.shape
-    out, aux, zloss = _moe_local(x.reshape(b * s, d), params, cfg,
-                                 _capacity(b * s, cfg.moe))
-    out = out.reshape(b, s, d)
+    ep = ctx.axis_size("expert_act") if ctx.running else 1
+    if not ctx.running:
+        out, aux, zloss = _moe_local(x.reshape(b * s, d), params, cfg,
+                                     _capacity(b * s, cfg.moe))
+        out = out.reshape(b, s, d)
+    elif ep == 1:
+        out, aux, zloss = _moe_whole(params, x, cfg, ctx)
+    else:
+        out, aux, zloss = _moe_expert_parallel(params, x, cfg, ctx, ep)
     if "shared" in params:
-        out = out + mlp(params["shared"], x)
+        out = out + mlp(params["shared"], x, ctx)
+    out = ctx.constrain(out, ("batch", "seq_res", "embed_act"))
     return out, {"moe_aux": aux, "moe_z": zloss}
+
+
+def _moe_whole(params, x, cfg, ctx):
+    """``ep == 1`` on a mesh: the single-device branch over the whole
+    batch on every rank (the capacity from the global token count)."""
+    b, s, d = x.shape
+    whole = (None, None, None)
+
+    def body(xs, *ps):
+        out, aux, zl = _moe_local(xs.reshape(b * s, d),
+                                  dict(zip(_ROUTED, ps)), cfg,
+                                  _capacity(b * s, cfg.moe))
+        return out.reshape(b, s, d), aux, zl
+
+    fn = shard_map_compat(
+        body, ctx.device_mesh,
+        in_specs=(whole,) + tuple((None,) * params[k].ndim
+                                  for k in _ROUTED),
+        out_specs=[whole, (), ()])
+    out, aux, zloss = fn(x, *(params[k] for k in _ROUTED))
+    return ctx.constrain(out, ("batch", "seq", "embed_act")), aux, zloss
+
+
+def _moe_expert_parallel(params, x, cfg, ctx, ep):
+    """The reference's shard_map branch: tokens split over the DP axes,
+    experts over "expert_act"; outputs summed and the losses averaged over
+    the expert axis (``Partial``)."""
+    m = cfg.moe
+    b, s, d = x.shape
+    mesh = ctx.device_mesh
+    n_local = m.num_experts // ep
+    dp = math.prod(ctx.mesh_size(a) for a in ("pod", "data"))
+    cap = _capacity((b * s) // max(1, dp), m)
+    ep_axis = ctx.rules.physical("expert_act")
+    first = ctx.axis_rank(ep_axis) * n_local
+    x_pl = placements(ctx.spec(("batch", None, None)), mesh)
+    e_pl = placements(ctx.spec(("expert_act", None, None)), mesh)
+    rep = (Replicate(),) * mesh.ndim
+    names = mesh.mesh_dim_names
+    # per mesh dim: the expert axis sums (means) the experts' parts
+    o_pl = tuple(Partial() if n == ep_axis else p
+                 for n, p in zip(names, x_pl))
+    l_pl = tuple(Partial("avg") if n == ep_axis else
+                 (Partial("avg") if isinstance(p, Shard) else Replicate())
+                 for n, p in zip(names, x_pl))
+
+    def body(xs, router, wi_g, wi_u, wo):
+        bl = xs.shape[0]
+        out, aux, zl = _moe_local(
+            xs.reshape(bl * s, d),
+            {"router": router, "wi_g": wi_g, "wi_u": wi_u, "wo": wo}, cfg,
+            cap, first)
+        return out.reshape(bl, s, d), aux, zl
+
+    # gradients: partial sums over the ranks that hold different tokens
+    # (the DP axes) or different experts (the expert axis)
+    split = [isinstance(p, Shard) or n == ep_axis
+             for n, p in zip(names, x_pl)]
+    xg = tuple(Partial() if n == ep_axis else p for n, p in zip(names, x_pl))
+    rg = tuple(Partial() if sp else Replicate() for sp in split)
+    eg = tuple(Partial() if isinstance(xp, Shard) else ep_
+               for xp, ep_ in zip(x_pl, e_pl))
+    fn = shard_map_compat(body, mesh,
+                          in_specs=(x_pl, rep, e_pl, e_pl, e_pl),
+                          out_specs=[o_pl, l_pl, l_pl],
+                          in_grad_specs=(xg, rg, eg, eg, eg))
+    return fn(x, *(params[k] for k in _ROUTED))

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.layers import ParamDecl, act_dtype
+from repro_torch.parallel.sharding import NULL_CTX, ShardCtx
 
 
 class MambaCache(NamedTuple):
@@ -117,7 +118,7 @@ def _segsum_decay(cum: torch.Tensor) -> torch.Tensor:
 
 
 def mamba2_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
-                 cache: MambaCache | None = None):
+                 cache: MambaCache | None = None, ctx: ShardCtx = NULL_CTX):
     """One Mamba2 mixer over ``x (B, S, d)``.  Returns ``(out (B, S, d),
     new_cache)``; ``new_cache`` is None without a cache, else a new
     ``MambaCache`` (the one passed in is left as it was)."""
@@ -128,6 +129,7 @@ def mamba2_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
     f32 = torch.float32
 
     z, xin, Bs, Cs, dt_raw = _project(params, x)
+    xin = ctx.constrain(xin, ("batch", "seq", "ssm_inner"))
     win = cache.conv if cache is not None else None
     u = torch.cat([xin, Bs, Cs], dim=-1)
     w_conv = torch.cat([params["conv_x"], params["conv_B"],
@@ -209,9 +211,11 @@ def mamba2_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
         new_cache = MambaCache(last_state, new_win) \
             if cache is not None else None
 
+    y = ctx.constrain(y, ("batch", "seq", "ssm_inner"))
     y = kernel_ops.rmsnorm((y * F.silu(z)).contiguous(),
                            params["norm"].to(dt_), cfg.norm_eps)
-    return y @ params["w_out"].to(dt_), new_cache
+    return ctx.constrain(y @ params["w_out"].to(dt_),
+                         ("batch", "seq_res", "embed_act")), new_cache
 
 
 def mamba2_cache_shape(cfg: ModelConfig, batch: int,

@@ -40,6 +40,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ParamDecl
+from repro_torch.parallel.sharding import NULL_CTX, ShardCtx
 
 # the stabilisers' start, and the input gate of a pad step (state-neutral)
 NEG = -1e30
@@ -192,13 +193,14 @@ def mlstm_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def mlstm_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
-                cache: MLSTMCache | None = None):
+                cache: MLSTMCache | None = None, ctx: ShardCtx = NULL_CTX):
     """One mLSTM mixer over ``x (B, S, d)`` (already normed).  Returns
     ``(out (B, S, d), new_cache)``: None without a cache, else a new
     ``MLSTMCache`` (the one passed in is left as it was)."""
     inner, h, hd = _mlstm_dims(cfg)
     dt = x.dtype
-    up = x @ params["w_up"].to(dt)
+    up = ctx.constrain(x @ params["w_up"].to(dt),
+                       ("batch", "seq", "ssm_inner"))
     xm, zg = up.split(inner, dim=-1)
     q, k, v, i_pre, f_pre = _mlstm_qkvif(params, xm, h, hd)
     b, seq = x.shape[:2]
@@ -215,7 +217,8 @@ def mlstm_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
         y, new_cache = mlstm_cell_chunked(q, k, v, i_pre, f_pre, cache,
                                           cfg.xlstm.chunk)
     y = y.reshape(b, seq, inner) * F.silu(zg)
-    return y @ params["w_down"].to(dt), new_cache
+    return ctx.constrain(y @ params["w_down"].to(dt),
+                         ("batch", "seq_res", "embed_act")), new_cache
 
 
 def mlstm_cache_shape(cfg: ModelConfig, batch: int,
@@ -297,7 +300,7 @@ def slstm_cell_step(params: dict, x_t: torch.Tensor, cache: SLSTMCache,
 
 
 def slstm_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
-                cache: SLSTMCache | None = None):
+                cache: SLSTMCache | None = None, ctx: ShardCtx = NULL_CTX):
     """The sLSTM time loop over ``x (B, S, d)`` (already normed), then the
     gated feed-forward (pf 4/3, tanh GELU).  Returns ``(out (B, S, d),
     new_cache)``: None without a cache, else a new ``SLSTMCache``."""
@@ -317,6 +320,7 @@ def slstm_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
     g = y @ params["ff_g"].to(dt)
     u = y @ params["ff_u"].to(dt)
     out = (F.gelu(g, approximate="tanh") * u) @ params["ff_o"].to(dt)
+    out = ctx.constrain(out, ("batch", "seq_res", "embed_act"))
     return out, (cache if ret_cache else None)
 
 

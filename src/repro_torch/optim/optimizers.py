@@ -9,6 +9,13 @@ a step never holds a second copy of them: a leaf is updated in flat chunks
 of at most ``CHUNK`` elements (each temporary one chunk), and a rejected
 step (``ok`` false) writes the old values back, bit for bit.
 
+On a mesh the leaves are DTensors: parameters TP-split and DP-replicated,
+gradients and moments in the moments' placements (under ZeRO-1 also split
+over "data").  Each rank updates its local shard of the moments in place;
+where the moments are split further than the parameter, the rank's slice
+of the new parameter is gathered over "data" into the parameter's own
+local storage (one leaf's temporaries at a time).
+
 AdamW keeps f32 moments, b2 = 0.95, and decays only tensors with
 ``ndim >= 2``.  Schedules: warmup, then cosine (default), WSD
 (warmup-stable-decay, MiniCPM's) or linear.
@@ -20,6 +27,7 @@ import math
 from typing import Any, Callable, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import TrainConfig
 
@@ -97,8 +105,7 @@ def adamw_update(grads: Tree, state: OptState, params: Tree,
     c1 = 1.0 - b1 ** t
     c2 = 1.0 - b2 ** t
 
-    def upd(p, g, m, v):
-        decay = p.ndim >= 2  # decoupled weight decay on matrices only
+    def upd(p, g, m, v, decay):
         for pc, gc, mc, vc in _chunks(p, g, m, v):
             gf = gc.float()
             m2 = b1 * mc + (1 - b1) * gf
@@ -110,7 +117,9 @@ def adamw_update(grads: Tree, state: OptState, params: Tree,
             _write(ok, m2, mc)
             _write(ok, v2, vc)
 
-    tree_map(upd, params, grads, state.mu, state.nu)
+    # decoupled weight decay on matrices only
+    tree_map(lambda p, g, m, v: _update(upd, p, g, (m, v), p.ndim >= 2),
+             params, grads, state.mu, state.nu)
     return params, OptState(step, state.mu, state.nu)
 
 
@@ -119,8 +128,7 @@ def sgdm_update(grads: Tree, state: OptState, params: Tree,
                 weight_decay: float = 0.0,
                 ok: torch.Tensor | None = None) -> tuple[Tree, OptState]:
     """One SGD-with-momentum step, in place as :func:`adamw_update`."""
-    def upd(p, g, m):
-        decay = p.ndim >= 2 and weight_decay
+    def upd(p, g, m, decay):
         for pc, gc, mc in _chunks(p, g, m):
             gf = gc.float()
             if decay:
@@ -129,8 +137,32 @@ def sgdm_update(grads: Tree, state: OptState, params: Tree,
             _write(ok, (pc.float() - lr * m2).to(pc.dtype), pc)
             _write(ok, m2, mc)
 
-    tree_map(upd, params, grads, state.mu)
+    tree_map(lambda p, g, m: _update(upd, p, g, (m,),
+                                     p.ndim >= 2 and weight_decay),
+             params, grads, state.mu)
     return params, OptState(state.step + 1, state.mu, state.nu)
+
+
+def _update(upd, p, g, moments, decay) -> None:
+    """``upd(p, g, *moments, decay)`` in place; for DTensor leaves on each
+    rank's local shards (``g`` laid out as the moments)."""
+    if not isinstance(p, DTensor):
+        upd(p, g, *moments, decay)
+        return
+    mesh, mp = p.device_mesh, tuple(moments[0].placements)
+    locs = [m.to_local() for m in moments]
+    g = g.redistribute(mesh, mp).to_local()
+    if mp == tuple(p.placements):
+        upd(p.to_local(), g, *locs, decay)
+        return
+    # ZeRO-1: update this rank's slice of p (a chunk of its local shard,
+    # no collective), then gather the slices into p's own storage
+    part = p.redistribute(mesh, mp)
+    mine = part.to_local().contiguous()
+    upd(mine, g, *locs, decay)
+    whole = DTensor.from_local(mine, mesh, mp, run_check=False,
+                               shape=p.shape, stride=p.stride())
+    p.to_local().copy_(whole.redistribute(mesh, p.placements).to_local())
 
 
 def clip_by_global_norm(grads: Tree,
@@ -138,6 +170,9 @@ def clip_by_global_norm(grads: Tree,
     """Scale ``grads`` to a global L2 norm of at most ``max_norm``; returns
     ``(clipped, norm)`` with the norm before clipping (f32)."""
     sq = sum((g.float() ** 2).sum() for g in tree_leaves(grads))
+    if isinstance(sq, DTensor):
+        # the norm of the whole gradient: a replicated leaf counts once
+        sq = sq.full_tensor()
     norm = torch.sqrt(sq)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm

@@ -1,12 +1,16 @@
-"""Fault-tolerance helpers of the training loop: preemption and stragglers.
+"""Fault-tolerance helpers of the training loop: preemption, stragglers and
+elastic re-meshing.
 
-The port of ``PreemptionGuard`` and ``StragglerWatchdog`` from
-``repro/runtime/ft.py`` (elastic re-meshing comes with the layout slice):
+The port of ``repro/runtime/ft.py``:
 
   * ``PreemptionGuard`` -- SIGTERM/SIGINT flip a flag the training loop
     polls; the loop checkpoints and exits 0.
   * ``StragglerWatchdog`` -- per-host step-time EMA with robust z-score
-    outlier flagging, mirrored onto the metrics registry.
+    outlier flagging, mirrored onto the metrics registry;
+  * ``ElasticMeshManager`` -- after a node loss, the (data, model) shape
+    of the largest power-of-two DP over the ranks left, keeping the TP
+    degree where it divides, and the ``DeviceMesh`` over the first of them
+    (the rest are hot standbys).
 """
 
 from __future__ import annotations
@@ -105,3 +109,42 @@ class StragglerWatchdog:
             else:
                 self._flagged.discard(h)
         return out
+
+
+class ElasticMeshManager:
+    """Re-mesh after node loss; prefers keeping the TP degree intact
+    (changing TP invalidates microbatch math less gracefully than
+    shrinking DP)."""
+
+    def __init__(self, model_parallel: int):
+        self.tp = model_parallel
+
+    def choose_shape(self, n_devices: int) -> tuple[int, int]:
+        tp = self.tp
+        while tp > 1 and (n_devices < tp or n_devices % tp):
+            tp //= 2
+        dp = n_devices // tp
+        # the largest power-of-two DP (an uneven remainder is dropped: the
+        # spares become hot standbys)
+        p = 1
+        while p * 2 <= dp:
+            p *= 2
+        return (p, tp)
+
+    def build(self, n_ranks: int | None = None, device_type: str = "cuda"):
+        """``(MeshSpec, DeviceMesh)`` of ``choose_shape(n_ranks)`` (default
+        the world) over ranks ``0 .. p * tp - 1``, axes ("data", "model").
+        Every rank of the world calls it (the groups are made
+        collectively); a standby rank gets ``(spec, None)``."""
+        import torch
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+
+        from repro_torch.launch.mesh import MeshSpec
+
+        world = dist.get_world_size()
+        shape = self.choose_shape(world if n_ranks is None else n_ranks)
+        spec = MeshSpec(("data", "model"), shape)
+        ranks = torch.arange(shape[0] * shape[1]).reshape(shape)
+        mesh = DeviceMesh(device_type, ranks, mesh_dim_names=("data", "model"))
+        return spec, (mesh if dist.get_rank() < ranks.numel() else None)

@@ -70,6 +70,17 @@ each holding ``admit`` (a ``prefill`` span per prompt length) and
 ``decode``; an async drain holds ``admit``, ``prefill_dispatch``,
 ``decode_dispatch`` and ``pipeline_wait`` spans, and the gauge
 ``serve_pipeline_inflight`` follows the completion queue.
+
+On a mesh (``ctx``: a running ``ShardCtx``, ``DECODE_RULES``; prefill
+under ``prefill_ctx``, ``PREFILL_RULES``) the sync pipeline runs on every
+rank: the parameters and the slot caches are DTensors (the slots split
+over "data", the cache length over "model"), each data rank prefills the
+whole wave (a wave rarely divides over the DP axes), a prefilled row is written
+into the ranks that hold its slot (``_write_slot``), the logits, statuses
+and the DEQ carry come back whole (the same on every rank, so every rank
+emits the same tokens), and each solve runs batch-split
+(``implicit/engine.batched_solve``).  The async pipeline and the prefix
+caches under a mesh raise.
 """
 
 from __future__ import annotations
@@ -82,6 +93,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.solvers import (
@@ -102,6 +114,7 @@ from repro_torch.models import lm
 from repro_torch.models.layers import act_dtype
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import tracing as obs_tracing
+from repro_torch.parallel.sharding import NULL_CTX, ShardCtx, full_tree
 
 # how long the async loop sleeps between polls of an entry it waits for
 _POLL_S = 5e-5
@@ -149,9 +162,25 @@ class ServeLoop:
                  prefix_block: int = 4, prefix_max_age: int | None = None,
                  pipeline: str = "sync", async_depth: int = 2,
                  reorder: bool = False, reorder_age_bound: int = 8,
-                 record: bool = False):
+                 record: bool = False, ctx: ShardCtx = NULL_CTX,
+                 prefill_ctx: ShardCtx | None = None):
         if pipeline not in ("sync", "async"):
             raise ValueError(f"pipeline must be sync|async, got {pipeline!r}")
+        if ctx.running and (pipeline != "sync" or prefix_cache):
+            raise NotImplementedError(
+                "on a mesh the serving loop runs the sync pipeline without "
+                "the prefix caches (the async pipeline and the prefix "
+                "caches under a mesh are not ported yet)")
+        self.ctx = ctx
+        # a prefill wave (often one request) does not divide over the DP
+        # axes: each data rank prefills the whole wave, the heads and the
+        # cache length split as the prefill rules say
+        pctx = prefill_ctx or ctx
+        self.prefill_ctx = dataclasses.replace(
+            pctx, rules=pctx.rules.replace(batch=None))
+        if ctx.running and slots % ctx.axis_size("batch"):
+            raise ValueError(f"slots={slots} must divide over the DP mesh "
+                             f"extent {ctx.axis_size('batch')}")
         if async_depth < 1:
             raise ValueError(f"async_depth must be >= 1, got {async_depth}")
         if reorder_age_bound < 1:
@@ -168,7 +197,7 @@ class ServeLoop:
         # admission staging list: the reorder policy stable-sorts it
         self.pending: list[Request] = []
         self.active: list[Request | None] = [None] * slots
-        self.caches = lm.init_cache(cfg, slots, max_len, self.device)
+        self.caches = lm.init_cache(cfg, slots, max_len, self.device, ctx)
         self._cache_axes = cache_batch_axes(cfg)
         self.lengths = self._zeros(torch.int32)
         self.cur_tok = self._zeros(torch.int32)
@@ -235,11 +264,13 @@ class ServeLoop:
                  else lm.deq_solve_carry(self.cfg, n, 1, self.device))
         res = lm.prefill(self.params, {"tokens": toks}, self.cfg,
                          self.max_len, carry=carry, return_steps=True,
-                         return_status=True)
+                         return_status=True, ctx=self.prefill_ctx)
         if carry is None:
             res = res[:3] + (None,) + res[3:]
         logits, cache_new, _lens, seeded, steps, status = res
-        return logits, cache_new, seeded, steps, status
+        # on a mesh: the caches stay split, the rest comes back whole
+        return (full_tree(logits), cache_new, full_tree(seeded), steps,
+                full_tree(status))
 
     def _decode(self, active: torch.Tensor):
         """``lm.decode_step`` over every slot, the caches updated in place:
@@ -249,11 +280,12 @@ class ServeLoop:
         res = lm.decode_step(self.params, self.caches, self.cur_tok,
                              self.lengths, self.cfg, active=active,
                              carry=carry, return_steps=True,
-                             return_status=True)
+                             return_status=True, ctx=self.ctx)
         if carry is None:
             res = res[:2] + (None,) + res[2:]
         logits, self.caches, new_carry, steps, status = res
-        return logits, new_carry, steps, status
+        return (full_tree(logits), full_tree(new_carry), steps,
+                full_tree(status))
 
     def _release(self, slot: int) -> None:
         if self.carries is not None:
@@ -264,7 +296,11 @@ class ServeLoop:
         the live caches, leaf by leaf at each leaf's batch axis."""
         for live, new, ax in zip(cache_leaves(self.caches),
                                  cache_leaves(cache_new), self._cache_axes):
-            if ax >= 0:
+            if ax < 0:
+                continue
+            if isinstance(live, DTensor):
+                _write_row_sharded(live, new, ax, slot, row)
+            else:
                 live.narrow(ax, slot, 1).copy_(new.narrow(ax, row, 1))
 
     # -- host-sync accounting --------------------------------------------
@@ -906,6 +942,22 @@ class ServeLoop:
             if self._inflight:
                 self._drain_ready(force=True)
         return reqs
+
+
+def _write_row_sharded(live, new, ax: int, slot: int, row: int) -> None:
+    """Row ``row`` of the wave's cache leaf ``new`` into slot ``slot`` of
+    the live leaf: the wave's rows gathered along ``ax`` (the other dims
+    keep the live layout), then written by the ranks whose shard holds the
+    slot."""
+    from repro_torch.parallel.sharding import redistribute, shard_offset
+
+    pls = tuple(Replicate() if isinstance(p, Shard) and p.dim == ax else p
+                for p in live.placements)
+    rows = redistribute(new, live.device_mesh, pls).to_local()
+    local = live.to_local()
+    start = shard_offset(live.shape, live.device_mesh, live.placements)[ax]
+    if start <= slot < start + local.shape[ax]:
+        local.narrow(ax, slot - start, 1).copy_(rows.narrow(ax, row, 1))
 
 
 def cache_leaves(caches) -> list[torch.Tensor]:

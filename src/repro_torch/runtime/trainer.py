@@ -8,6 +8,11 @@ checkpointing, preemption and the straggler watchdog.  With tracing on,
 each step is a ``data`` and a ``train_step`` span (a saved step adds a
 ``checkpoint`` span); the device phases marked inside ``train_step`` end
 it no earlier than the card finishes them, without a host wait.
+
+On a running mesh (``ctx``) every rank runs the loop on its shards; the
+global batch must divide over the DP axes (checked up front, with the
+reference's message), and only rank 0 writes the checkpoints and prints
+the metrics.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import time
 from typing import Callable, Iterator
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import ModelConfig, TrainConfig
@@ -25,6 +31,7 @@ from repro_torch.launch import steps
 from repro_torch.launch.steps import TrainState
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import tracing as obs_tracing
+from repro_torch.parallel.sharding import NULL_CTX, ShardCtx
 from repro_torch.runtime.ft import PreemptionGuard, StragglerWatchdog
 
 __all__ = ["Trainer", "TrainState"]
@@ -33,22 +40,32 @@ __all__ = ["Trainer", "TrainState"]
 class Trainer:
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, *,
                  loss_fn: Callable | None = None, device=None,
-                 params: dict | None = None):
+                 params: dict | None = None, ctx: ShardCtx = NULL_CTX):
         """``params`` (optional) are the initial parameters in place of a
         draw from ``tcfg.seed``; ``device`` places a drawn init (default
-        the card)."""
-        self.cfg, self.tcfg = cfg, tcfg
+        the card); ``ctx`` runs the loop on its mesh."""
+        self.cfg, self.tcfg, self.ctx = cfg, tcfg, ctx
         if cfg.deq.enabled:
             # fail fast, with the registered options listed
             SOLVERS.get(cfg.deq.solver)
             ESTIMATORS.get(cfg.deq.backward)
+        if ctx.mesh is not None:
+            # fail fast: the batched solve (and plain DP) splits the batch
+            # over the DP axes
+            dp = ctx.axis_size("batch")
+            if dp > 1 and tcfg.global_batch % dp != 0:
+                raise ValueError(
+                    f"global_batch={tcfg.global_batch} not divisible by the "
+                    f"data-parallel mesh extent {dp} (axes behind 'batch')")
+        self.is_main = not dist.is_initialized() or dist.get_rank() == 0
         self.loss_fn = loss_fn
         if loss_fn is not None:
             # a custom loss cannot thread the solve carry: allocate none
             tcfg = dataclasses.replace(tcfg, deq_carry="off")
         self._tcfg_eff = tcfg
         self._device, self._params = device, params
-        self._train_step = steps.build_train_step(cfg, tcfg, loss_fn=loss_fn)
+        self._train_step = steps.build_train_step(cfg, tcfg, loss_fn=loss_fn,
+                                                  ctx=ctx)
         self.watchdog = StragglerWatchdog(n_hosts=1)
         self.ckpt = (
             CheckpointManager(
@@ -65,7 +82,7 @@ class Trainer:
     def init_state(self, seed: int | None = None) -> TrainState:
         return steps.init_train_state(self.cfg, self._tcfg_eff, seed=seed,
                                       params=self._params,
-                                      device=self._device)
+                                      device=self._device, ctx=self.ctx)
 
     def restore_or_init(self) -> TrainState:
         return self._restore_or_init()[0]
@@ -146,7 +163,7 @@ class Trainer:
                         state = self._rollback(i + 1)
                     if on_metrics:
                         on_metrics(i + 1, metrics)
-                    else:
+                    elif self.is_main:
                         print(f"step {i + 1:5d} loss={metrics['loss']:.4f} "
                               f"gnorm={metrics['grad_norm']:.3f} "
                               f"lr={metrics['lr']:.2e} {dt * 1e3:.0f}ms")
@@ -160,8 +177,9 @@ class Trainer:
                     if self.ckpt:
                         self.ckpt.save(i + 1, state)
                         self.ckpt.wait()
-                    print(f"preempted at step {i + 1}; state saved; "
-                          f"exiting 0")
+                    if self.is_main:
+                        print(f"preempted at step {i + 1}; state saved; "
+                              f"exiting 0")
                     break
         if self.ckpt:
             self.ckpt.wait()

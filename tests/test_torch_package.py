@@ -139,7 +139,11 @@ NEW_MODULES = ("runtime/faultinject.py", "core/bilevel.py", "core/deq.py",
                "parallel/__init__.py", "parallel/sharding.py",
                "launch/mesh.py", "configs/shapes.py", "launch/dryrun.py",
                "configs/base.py", "models/layers.py", "kernels/ops.py",
-               "core/solvers.py", "device.py")
+               "core/solvers.py", "device.py", "optim/compression.py",
+               "runtime/ft.py", "runtime/trainer.py", "runtime/serving.py",
+               "checkpoint/manager.py", "models/moe.py",
+               "models/attention.py", "implicit/fixed_point.py",
+               "implicit/engine.py", "launch/serve.py")
 
 
 @pytest.mark.parametrize("path", NEW_MODULES)
@@ -164,8 +168,10 @@ def test_layout_classes_equal_the_jax_package():
     assert _fields(tshapes.ShapeSuite) == _fields(jshapes.ShapeSuite)
     assert [f.name for f in dataclasses.fields(tsh.ShardingRules)] == \
         [f.name for f in dataclasses.fields(jsh.ShardingRules)]
+    # the port's context carries the run's DeviceMesh beside the mesh
+    # description (the reference's Mesh is both)
     assert [f.name for f in dataclasses.fields(tsh.ShardCtx)] == \
-        [f.name for f in dataclasses.fields(jsh.ShardCtx)]
+        [f.name for f in dataclasses.fields(jsh.ShardCtx)] + ["device_mesh"]
     assert [f.name for f in dataclasses.fields(lm.ParamDecl)][:2] == \
         [f.name for f in dataclasses.fields(jsh.ParamDecl)][:2]
     for name in ("param_shardings", "param_structs", "carry_shardings",
