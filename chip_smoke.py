@@ -243,18 +243,27 @@ Phases, one line (or a few) each:
      ``local_map`` kernel routes, the batch-split solve, the clip over the
      whole gradient), against the unsharded step (every parameter bit for
      bit, every first moment at rtol 1e-4; ``sharded_train_step``), each
-     arm's step and drain profiled (device busy time, idle share), and a
-     sync drain under
-     ``DECODE_RULES`` / ``PREFILL_RULES`` (the decode over the length-split
-     cache: the split launch, the gathered partials, the combine launch)
-     emitting the unsharded drain's tokens; the five path kernels' launches
-     counted over both; ``CommDebugMode``'s collectives of each; the five
+     arm's step profiled (device busy time, idle share); the serving arms
+     of ``SHARDED_ARMS`` under ``DECODE_RULES`` / ``PREFILL_RULES`` (the
+     decode over the length-split cache: the split launch, the gathered
+     partials, the combine launch; sync, sync + host index, async at depth
+     2, async + device store; ``sharded_serve_arms``) each against the
+     same arm unsharded (tokens bit for bit, the same hits, prefill steps
+     and iterations, the async arms' host waits the solver's reads and one
+     clock wait; ``check_mesh_arm``), each profiled; the step again with
+     ``grad_accum`` 2, held as the first; the seconds of each part
+     (``sharded_phase_split``); the five path kernels' launches
+     counted over all, every one launched by the serving arms;
+     ``CommDebugMode``'s collectives of each; the five
      kernels at the local shapes of a (2, 2) mesh against their plain
      versions, and two 512-key slices' decode partials (slices with no
      valid key among them) combined against the whole-cache decode; with
-     four cards, four ranks at (2, 2) (the DEQ step against the unsharded
-     step at the reference's tolerances, its first moments within
-     ``MU_REL_L2_SHARDED`` a leaf, the drain, DeepSeek-V2-Lite's
+     four cards, four ranks at (2, 2) (the DEQ step, alone and with
+     ``grad_accum`` 2, against the unsharded step at the reference's
+     tolerances, its first moments within ``MU_REL_L2_SHARDED`` a leaf,
+     each one's second step timed, the sync drain and the async drain with
+     the device store against the unsharded drains' tokens,
+     DeepSeek-V2-Lite's
      prefill through the expert-parallel branch with 0 drops, held in f32
      at 4 layers at ``TOL_SHARDED``, and in bf16 at full depth at
      ``TOL_SHARDED`` or, against an f32 prefill over the same weights,
@@ -269,8 +278,8 @@ Phases, one line (or a few) each:
      steps of step 13, in the xLSTM async drain and train steps of step
      14, in the HuBERT train and DEQ steps, the Pixtral async drain and
      its kernel-arm train steps of step 16, and in step 18's sharded
-     step and drain), then the last line ``{"ok": true, "device":
-     {...}}``.
+     steps and serving arms), then the last line ``{"ok": true,
+     "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the last
 line.  It imports nothing of JAX; it needs the repository's ``src/`` beside
@@ -4876,6 +4885,7 @@ def phase_layout(matrix: tuple, smi: str) -> dict:
 # ---------------------------------------------------------------------------
 
 SHARDED_TRAIN = dict(batch=4, seq=256)
+# the four-card world's sync drain
 SHARDED_DRAIN = dict(requests=4, prompt=128, new=8, slots=4, max_len=256)
 # (2, 2) local shapes of the MiniCPM-2B paths: 18 of 36 heads, B 2 of 4
 SHARDED_LOCAL = dict(bsz=2, seq=256, heads=18, hd=64, rows=512, width=2304,
@@ -4965,10 +4975,12 @@ def _step_seconds(step, state, batch) -> float:
     return time.perf_counter() - t0
 
 
-def sharded_train_step(cfg, params, ctx, smi: str, tag: str) -> dict:
-    """One MiniCPM-2B DEQ train step (4 x 256, ZeRO-1) through ``ctx``;
-    the unsharded step first (its loss, grad norm, parameters and first
-    moments kept on the host), then the sharded one.  On a mesh of one
+def sharded_train_step(cfg, params, ctx, smi: str, tag: str,
+                       grad_accum: int = 1) -> dict:
+    """One MiniCPM-2B DEQ train step (4 x 256, ZeRO-1; ``grad_accum``
+    microbatches) through ``ctx``; the unsharded step first (its loss, grad
+    norm, parameters and first moments kept on the host), then the sharded
+    one.  On a mesh of one
     device the sharded step runs the same kernels on the same tensors in
     the same order: held are the forward steps (equal), the loss at rtol
     1e-5, the grad norm at 1e-4, every parameter element bit for bit, and
@@ -4979,9 +4991,12 @@ def sharded_train_step(cfg, params, ctx, smi: str, tag: str) -> dict:
     and idle share."""
     tcfg = TrainConfig(steps=2, global_batch=SHARDED_TRAIN["batch"],
                        seq_len=SHARDED_TRAIN["seq"], schedule=cfg.schedule,
-                       zero1=True)
+                       zero1=True, grad_accum=grad_accum)
     batch = next(make_lm_batch_iterator(cfg, tcfg.global_batch,
                                         tcfg.seq_len, seed=0, device="cuda"))
+    # under accumulation the step reports no solve steps (the reference's
+    # microbatch scan drops them): 0 on both arms
+    keys = ("loss", "grad_norm", "deq_steps", "lr")
     s0 = train_steps.init_train_state(cfg, tcfg, params=params)
     step0 = train_steps.build_train_step(cfg, tcfg)
     s0, m0 = step0(s0, batch)
@@ -4989,8 +5004,7 @@ def sharded_train_step(cfg, params, ctx, smi: str, tag: str) -> dict:
     want_mu = train_steps.tree_map(lambda t: t.cpu(), s0.opt.mu)
     t_plain = _step_seconds(step0, s0, batch)
     prof_plain = _profile_window(lambda: step0(s0, batch), host_ops=False)
-    m0 = {k: float(m0[k]) for k in ("loss", "grad_norm", "deq_steps",
-                                    "lr")}
+    m0 = {k: float(m0.get(k, 0.0)) for k in keys}
     del s0
     torch.cuda.empty_cache()
     s1 = train_steps.init_train_state(cfg, tcfg, params=params, ctx=ctx)
@@ -5000,8 +5014,7 @@ def sharded_train_step(cfg, params, ctx, smi: str, tag: str) -> dict:
     (s1, m1), comms = _comm_counts(lambda: step(s1, batch))
     secs = time.perf_counter() - t0
     counts = launches.counts()
-    m1 = {k: float(m1[k]) for k in ("loss", "grad_norm", "deq_steps",
-                                    "lr")}
+    m1 = {k: float(m1.get(k, 0.0)) for k in keys}
     diff = _leaf_diff(train_steps.tree_map(lambda t: t.cuda(), want),
                       s1.params, m0["lr"] / 10)
     mu = _moment_diff(s1.opt.mu, want_mu, 1e-4, 1e-4)
@@ -5009,17 +5022,20 @@ def sharded_train_step(cfg, params, ctx, smi: str, tag: str) -> dict:
     t_sharded = _step_seconds(step, s1, batch)
     prof = _profile_window(lambda: step(s1, batch), host_ops=False)
     moments = train_steps.tree_leaves(s1.opt.mu)
-    say("sharded_train", mesh=dict(ctx.mesh.shape), unsharded=m0,
-        sharded=m1, bit_for_bit=(m1 == m0 and diff["differing"] == 0),
+    say("sharded_train", mesh=dict(ctx.mesh.shape), grad_accum=grad_accum,
+        unsharded=m0, sharded=m1,
+        bit_for_bit=(m1 == m0 and diff["differing"] == 0),
         params=diff, first_moments=mu, seconds_first_with_comm_debug=secs,
         seconds_second_step_unsharded=t_plain,
         seconds_second_step_sharded=t_sharded,
         moments_placements=str(moments[0].placements),
-        ring_placements=str(s1.carry.lowrank.u.placements), card=smi)
+        ring_placements=(str(s1.carry.lowrank.u.placements)
+                         if s1.carry is not None else None), card=smi)
     for arm, p in (("unsharded", prof_plain), ("sharded", prof)):
         say("sharded_train_profile", arm=arm, mesh=dict(ctx.mesh.shape),
-            window="third step", card=smi, **p)
-    say("sharded_train_collectives", mesh=dict(ctx.mesh.shape), **comms)
+            grad_accum=grad_accum, window="third step", card=smi, **p)
+    say("sharded_train_collectives", mesh=dict(ctx.mesh.shape),
+        grad_accum=grad_accum, **comms)
     if (m1["deq_steps"] != m0["deq_steps"]
             or abs(m1["loss"] - m0["loss"]) > 1e-5 * abs(m0["loss"])
             or abs(m1["grad_norm"] - m0["grad_norm"])
@@ -5032,52 +5048,125 @@ def sharded_train_step(cfg, params, ctx, smi: str, tag: str) -> dict:
     return counts
 
 
-def sharded_drain(cfg, params, ctx, pctx, smi: str) -> dict:
-    """A sync drain of MiniCPM-2B (DEQ) under ``DECODE_RULES`` /
-    ``PREFILL_RULES`` against the unsharded sync drain's tokens; each arm
-    timed once more, and once more under the profiler (wall, device busy
-    time, idle share)."""
-    d = SHARDED_DRAIN
-    rng = np.random.default_rng(5)
-    prompts = [rng.integers(2, cfg.vocab_size, size=d["prompt"]).tolist()
-               for _ in range(d["requests"])]
+# the serving arms on a mesh: the two sync arms of PREFIX_ARMS, async at
+# depth 2 without a prefix cache and with the device store; over the first
+# 8 prompts of ``prefix_stream`` (4 bases, then each again: an exact hit),
+# solves stopped at PREFIX_TOL as in ``phase_serve_prefix``
+SHARDED_PREFIX = dict(prompts=8, new=8, slots=4, max_len=1024)
+SHARDED_ARMS = {
+    "a_sync": PREFIX_ARMS["a_sync"],
+    "b_sync_prefix": PREFIX_ARMS["b_sync_prefix"],
+    "async": dict(pipeline="async", async_depth=2),
+    "c_async_prefix": PREFIX_ARMS["c_async_prefix"],
+}
 
-    def drain(p, **kw):
-        reqs = [Request(uid=i, prompt=pr, max_new_tokens=d["new"])
-                for i, pr in enumerate(prompts)]
-        loop = ServeLoop(p, cfg, slots=d["slots"], max_len=d["max_len"],
-                         pipeline="sync", **kw)
-        loop.drain(reqs)
+
+def _mesh_drain(params, cfg, prompts: list, kw: dict, ctxs=None) -> dict:
+    """One drain of ``prompts`` through a fresh ``ServeLoop(**kw)`` (on
+    the mesh of ``ctxs`` = (decode ctx, prefill ctx), if given), with the
+    metrics registry and the launch counts reset just before, the host
+    waits counted (``count_syncs``) and, on the mesh, the collectives by op
+    (``CommDebugMode``)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    d = SHARDED_PREFIX
+    extra = {} if ctxs is None else dict(ctx=ctxs[0], prefill_ctx=ctxs[1])
+    loop = ServeLoop(params, cfg, slots=d["slots"], max_len=d["max_len"],
+                     **kw, **extra)
+    reqs = [Request(uid=i, prompt=list(p), max_new_tokens=d["new"])
+            for i, p in enumerate(prompts)]
+    obs_metrics.default_registry().reset()
+    syncs: list = []
+    mode = CommDebugMode() if ctxs is not None else contextlib.nullcontext()
+    if torch.cuda.is_available():
         torch.cuda.synchronize()
-        return [r.out for r in reqs]
-
-    t0 = time.perf_counter()
-    want = drain(params)
-    t_plain = time.perf_counter() - t0
-    sharded = lm.place_params(params, cfg, ctx)
     launches.reset()
     t0 = time.perf_counter()
-    got, comms = _comm_counts(lambda: drain(sharded, ctx=ctx,
-                                            prefill_ctx=pctx))
+    with count_syncs(syncs), mode:
+        loop.drain(reqs)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    counts = launches.counts()
-    t0 = time.perf_counter()
-    drain(sharded, ctx=ctx, prefill_ctx=pctx)
-    t_sharded = time.perf_counter() - t0
-    for arm, fn in (("unsharded", lambda: drain(params)),
-                    ("sharded", lambda: drain(sharded, ctx=ctx,
-                                              prefill_ctx=pctx))):
-        say("sharded_drain_profile", arm=arm, mesh=dict(ctx.mesh.shape),
-            card=smi, **_profile_window(fn, host_ops=False))
-    say("sharded_drain", mesh=dict(ctx.mesh.shape),
-        same_tokens=got == want, tokens=sum(map(len, got)),
-        seconds_with_comm_debug=secs, seconds_unsharded=t_plain,
-        seconds_sharded=t_sharded,
-        cache=str(lm.init_cache(cfg, d["slots"], 8, "cuda",
-                                ctx)["deq"].k.placements), card=smi)
-    say("sharded_drain_collectives", mesh=dict(ctx.mesh.shape), **comms)
-    if got != want:
-        raise AssertionError(f"sharded drain tokens {got} != {want}")
+    cache = loop.prefix if loop.prefix is not None else loop.prefix_store
+    return dict(
+        loop=loop, seconds=secs, tokens=[r.out for r in reqs],
+        errors=[r.error for r in reqs],
+        hits=cache.stats()["hits"] if cache is not None else 0,
+        prefill_steps=[w["steps"] for w in loop.solve_log
+                       if w["phase"] == "prefill"],
+        prefill_iters=loop.prefill_iters, saved_iters=loop.saved_iters,
+        steps={str(k): v for k, v in loop.recorded_steps.items()},
+        syncs=syncs, launches=launches.counts(),
+        collectives=({str(k).split(".")[-1]: v
+                      for k, v in mode.get_comm_counts().items()}
+                     if ctxs is not None else None))
+
+
+def check_mesh_arm(name: str, got: dict, want: dict, pipeline: str,
+                   max_steps: int) -> None:
+    """A serving arm on the mesh against the same arm unsharded: every
+    request served in full without an error, the same tokens bit for bit,
+    the same prefix hits, prefill step sequence and prefill iterations
+    (spent and saved) and per-request step sequences; an async arm waits
+    for the card only for the solver's reads and the clock
+    (``async_expected_syncs``), on the mesh as without it."""
+    for uid, (out, err) in enumerate(zip(got["tokens"], got["errors"])):
+        if len(out) != SHARDED_PREFIX["new"] or err is not None:
+            raise AssertionError(f"{name} on the mesh, request {uid}: "
+                                 f"{len(out)} tokens, error {err}")
+    for key in ("tokens", "hits", "prefill_steps", "prefill_iters",
+                "saved_iters", "steps"):
+        if got[key] != want[key]:
+            raise AssertionError(f"{name}: {key} on the mesh {got[key]}, "
+                                 f"unsharded {want[key]}")
+    if pipeline == "async":
+        for arm, a in (("mesh", got), ("unsharded", want)):
+            check_syncs(f"{name} {arm}", a["syncs"], async_expected_syncs(
+                a["loop"].solve_log, max_steps))
+
+
+def sharded_serve_arms(cfg, params, ctxs, smi: str) -> dict:
+    """``SHARDED_ARMS`` on the mesh of ``ctxs`` against each arm
+    unsharded (``check_mesh_arm``), then each mesh arm once more under the
+    profiler: wall, device busy time, idle share.  Returns the mesh arms'
+    launch counts, summed."""
+    prompts = prefix_stream(cfg.vocab_size)[:SHARDED_PREFIX["prompts"]]
+    cfg = dataclasses.replace(cfg, deq=dataclasses.replace(cfg.deq,
+                                                           tol=PREFIX_TOL))
+    sharded = lm.place_params(params, cfg, ctxs[0])
+    counts = collections.Counter()
+    for name, kw in SHARDED_ARMS.items():
+        want = _mesh_drain(params, cfg, prompts, kw)
+        got = _mesh_drain(sharded, cfg, prompts, kw, ctxs)
+        check_mesh_arm(name, got, want, kw["pipeline"], cfg.deq.max_steps)
+        counts.update(got["launches"])
+        store = got["loop"].prefix_store
+        del got["loop"], want["loop"]
+        torch.cuda.empty_cache()
+
+        def plain():
+            loop = ServeLoop(sharded, cfg, slots=SHARDED_PREFIX["slots"],
+                             max_len=SHARDED_PREFIX["max_len"], ctx=ctxs[0],
+                             prefill_ctx=ctxs[1], **kw)
+            loop.drain([Request(uid=i, prompt=list(p),
+                                max_new_tokens=SHARDED_PREFIX["new"])
+                        for i, p in enumerate(prompts)])
+
+        prof = _profile_window(plain, host_ops=False)
+        say("sharded_serve_arm", arm=name, mesh=dict(ctxs[0].mesh.shape),
+            card=smi, tol=PREFIX_TOL, pipeline=kw["pipeline"],
+            same_as_unsharded=True, tokens=sum(map(len, got["tokens"])),
+            seconds_sharded=got["seconds"], seconds_unsharded=want["seconds"],
+            hits=got["hits"], prefill_steps=got["prefill_steps"],
+            prefill_iters=got["prefill_iters"],
+            saved_iters=got["saved_iters"], host_waits=len(got["syncs"]),
+            host_waits_unsharded=len(want["syncs"]),
+            launches={k: n for k, n in got["launches"].items() if n},
+            collectives=got["collectives"],
+            store_bytes=store.nbytes() if store is not None else None,
+            profiled={k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                           "idle_share", "kernel_launches")})
+        torch.cuda.empty_cache()
+    obs_metrics.default_registry().reset()
     return counts
 
 
@@ -5140,10 +5229,13 @@ def kernels_at_local_shapes(smi: str) -> dict:
 
 def phase_sharded(smi: str) -> dict:
     """A world of one rank over NCCL, mesh (data=1, model=1): the DEQ
-    train step and a drain through the sharded code against the unsharded
-    ones, every kernel of the path launched through ``local_map``; the
-    kernels at the (2, 2) local shapes; then, on a host with four cards,
-    four ranks at (2, 2)."""
+    train step, the serving arms of ``SHARDED_ARMS`` (both pipelines,
+    both prefix caches) and the train step with gradient accumulation
+    through the sharded code against the unsharded ones, every kernel of
+    the serving path launched through ``local_map``; the kernels
+    at the (2, 2) local shapes; then, on a host with four cards, four
+    ranks at (2, 2).  Prints the seconds of each part
+    (``sharded_phase_split``)."""
     import torch.distributed as dist
 
     from repro_torch.configs.shapes import SHAPES, make_ctx
@@ -5161,18 +5253,32 @@ def phase_sharded(smi: str) -> dict:
         cfg = get_config("minicpm-2b", deq=True)
         params = _scaled_blocks(lm.init_params(cfg, seed=0, device="cuda"),
                                 0.3)
+        tctx = make_ctx(cfg, mesh, SHAPES["train_4k"])
+        ctxs = (make_ctx(cfg, mesh, SHAPES["decode_32k"]),
+                make_ctx(cfg, mesh, SHAPES["prefill_32k"]))
         counts = collections.Counter()
-        counts.update(sharded_train_step(
-            cfg, params, make_ctx(cfg, mesh, SHAPES["train_4k"]), smi,
-            "(1,1) DEQ step"))
-        counts.update(sharded_drain(
-            cfg, params, make_ctx(cfg, mesh, SHAPES["decode_32k"]),
-            make_ctx(cfg, mesh, SHAPES["prefill_32k"]), smi))
+        split = {}
+        for part, run in (
+                ("train", lambda: sharded_train_step(
+                    cfg, params, tctx, smi, "(1,1) DEQ step")),
+                ("serve_arms", lambda: sharded_serve_arms(cfg, params, ctxs,
+                                                          smi)),
+                ("train_accum", lambda: sharded_train_step(
+                    cfg, params, tctx, smi, "(1,1) DEQ step, grad_accum 2",
+                    grad_accum=2))):
+            t0 = time.perf_counter()
+            c = run()
+            torch.cuda.synchronize()
+            split[part] = time.perf_counter() - t0
+            counts.update(c)
+            if part == "serve_arms":
+                missing = [k for k in SERVE_PATH if c[k] == 0]
+                if missing:
+                    raise AssertionError(f"kernels not launched by the "
+                                         f"serving arms on the mesh: "
+                                         f"{missing}")
         say("sharded_launches", **counts)
-        missing = [k for k in SERVE_PATH if counts[k] == 0]
-        if missing:
-            raise AssertionError(f"kernels not launched on the sharded "
-                                 f"path: {missing}")
+        say("sharded_phase_split", card=smi, seconds=split)
         del params
         torch.cuda.empty_cache()
         errs = kernels_at_local_shapes(smi)
@@ -5192,9 +5298,11 @@ def phase_sharded(smi: str) -> dict:
 
 
 def sharded_four_cards(smi: str, device: str = "cuda") -> dict:
-    """Four ranks over NCCL at (2, 2): the DEQ step against the unsharded
-    step on one card at the reference's tolerances (its first moments
-    within ``MU_REL_L2_SHARDED`` a leaf), the decode drain, and
+    """Four ranks over NCCL at (2, 2): the DEQ step, alone and with two
+    microbatches, against the unsharded step on one card at the
+    reference's tolerances (its first moments within ``MU_REL_L2_SHARDED``
+    a leaf), the sync decode drain and the async drain with the device
+    prefix store against the unsharded drains' tokens, and
     DeepSeek-V2-Lite's prefill through the expert-parallel branch (32
     experts a rank) against the unsharded prefill.  ``device`` "cpu" runs
     the same plumbing on four gloo ranks at the smoke configs (f32)."""
@@ -5222,7 +5330,10 @@ def sharded_four_cards(smi: str, device: str = "cuda") -> dict:
     # held: no drops; the f32 prefill at the reference's tolerance; the
     # bf16 full-depth one at it or, against f32, within EP_FLOOR_MULT of
     # the unsharded bf16 prefill's own error
-    if (res["train"].get("fail") or not res["drain"]["same_tokens"]
+    if (res["train"].get("fail") or res["train_accum"].get("fail")
+            or not res["drain"]["same_tokens"]
+            or not res["drain_async_store"]["same_tokens"]
+            or res["drain_async_store"]["errors"]
             or not res["v2_lite_prefill_f32_4_layers"]["held"]
             or not res["v2_lite_prefill_full"]["held"]):
         raise AssertionError(f"the (2, 2) world disagrees: {res}")
@@ -5252,40 +5363,11 @@ def _four_card_rank(rank: int, port: int, out: str, dev: str) -> None:
     res = {}
     cfg = config("minicpm-2b", deq=True)
     params = _scaled_blocks(lm.init_params(cfg, seed=0, device=dev), 0.3)
-    tcfg = TrainConfig(steps=2, global_batch=SHARDED_TRAIN["batch"],
-                       seq_len=SHARDED_TRAIN["seq"], schedule=cfg.schedule,
-                       zero1=True)
-    batch = next(make_lm_batch_iterator(cfg, tcfg.global_batch,
-                                        tcfg.seq_len, seed=0, device=dev))
     ctx = make_ctx(cfg, mesh, SHAPES["train_4k"])
-    s1 = train_steps.init_train_state(cfg, tcfg, params=params, ctx=ctx)
-    (s1, m1), comms = _comm_counts(
-        lambda: train_steps.build_train_step(cfg, tcfg, ctx=ctx)(s1, batch))
-    p1, mu1 = full_tree(s1.params), full_tree(s1.opt.mu)
-    del s1
-    if rank == 0:
-        s0 = train_steps.init_train_state(cfg, tcfg, params=params)
-        s0, m0 = train_steps.build_train_step(cfg, tcfg)(s0, batch)
-        worst = 0.0
-        for a, b in zip(train_steps.tree_leaves(p1),
-                        train_steps.tree_leaves(s0.params)):
-            worst = max(worst, excess(a, b, dict(rtol=5e-2, atol=5e-4)))
-        mu = _moment_diff(mu1, s0.opt.mu, 5e-2, 5e-2)
-        res["train"] = dict(loss=float(m1["loss"]), loss1=float(m0["loss"]),
-                            grad_norm=float(m1["grad_norm"]),
-                            grad_norm1=float(m0["grad_norm"]),
-                            deq_steps=float(m1["deq_steps"]),
-                            deq_steps1=float(m0["deq_steps"]),
-                            excess=worst, first_moments=mu,
-                            collectives=comms)
-        if abs(res["train"]["loss"] - res["train"]["loss1"]) > 2e-2 * abs(
-                res["train"]["loss1"]) or worst > 0 \
-                or mu["rel_l2"] > MU_REL_L2_SHARDED:
-            res["train"]["fail"] = True
-        del s0
-    del p1, mu1
-    if dev == "cuda":
-        torch.cuda.empty_cache()
+    for key, k in (("train", 1), ("train_accum", 2)):
+        out_t = _four_card_step(cfg, params, ctx, rank, dev, k)
+        if rank == 0:
+            res[key] = out_t
     # the decode drain at (2, 2)
     d = SHARDED_DRAIN
     rng = np.random.default_rng(5)
@@ -5305,7 +5387,26 @@ def _four_card_rank(rank: int, port: int, out: str, dev: str) -> None:
                   pipeline="sync").drain(want)
         res["drain"] = dict(same_tokens=[r.out for r in reqs]
                             == [r.out for r in want])
-    del params
+    # the async pipeline with the device store at (2, 2): SHARDED_PREFIX's
+    # prompts, solves stopped at PREFIX_TOL
+    pcfg = dataclasses.replace(cfg, deq=dataclasses.replace(cfg.deq,
+                                                            tol=PREFIX_TOL))
+    prompts = prefix_stream(cfg.vocab_size)[:SHARDED_PREFIX["prompts"]]
+    kw = SHARDED_ARMS["c_async_prefix"]
+    got = _mesh_drain(lm.place_params(params, pcfg, dctx), pcfg, prompts, kw,
+                      (dctx, pctx))
+    if rank == 0:
+        want = _mesh_drain(params, pcfg, prompts, kw)
+        res["drain_async_store"] = dict(
+            same_tokens=got["tokens"] == want["tokens"],
+            **{f"{k}{tag}": a[k] for tag, a in (("", got),
+                                                 ("_unsharded", want))
+               for k in ("hits", "prefill_steps", "saved_iters",
+                         "seconds")},
+            errors=[e for e in got["errors"] if e is not None],
+            collectives=got["collectives"])
+        del want
+    del got, params
     if dev == "cuda":
         torch.cuda.empty_cache()
     # DeepSeek-V2-Lite's prefill through the expert-parallel branch: held
@@ -5323,6 +5424,56 @@ def _four_card_rank(rank: int, port: int, out: str, dev: str) -> None:
             json.dump(res, f)
     dist.barrier()
     dist.destroy_process_group()
+
+
+def _four_card_step(cfg, params, ctx, rank: int, dev: str, k: int):
+    """The DEQ train step (4 x 256, ZeRO-1, ``k`` microbatches) at (2, 2)
+    against rank 0's unsharded step at the reference's tolerances (every
+    parameter at 5e-2 / 5e-4, the loss at 2e-2, each leaf's first moment
+    within ``MU_REL_L2_SHARDED``): rank 0's record, ``fail`` set if not
+    held; None on the other ranks."""
+    from repro_torch.parallel.sharding import full_tree
+    tcfg = TrainConfig(steps=2, global_batch=SHARDED_TRAIN["batch"],
+                       seq_len=SHARDED_TRAIN["seq"], schedule=cfg.schedule,
+                       zero1=True, grad_accum=k)
+    batch = next(make_lm_batch_iterator(cfg, tcfg.global_batch,
+                                        tcfg.seq_len, seed=0, device=dev))
+    s1 = train_steps.init_train_state(cfg, tcfg, params=params, ctx=ctx)
+    step = train_steps.build_train_step(cfg, tcfg, ctx=ctx)
+    (s1, m1), comms = _comm_counts(lambda: step(s1, batch))
+    p1, mu1 = full_tree(s1.params), full_tree(s1.opt.mu)
+    # the second step's wall time, to its last kernel (every rank steps)
+    t0 = time.perf_counter()
+    step(s1, batch)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    second = time.perf_counter() - t0
+    del s1
+    out = None
+    if rank == 0:
+        s0 = train_steps.init_train_state(cfg, tcfg, params=params)
+        s0, m0 = train_steps.build_train_step(cfg, tcfg)(s0, batch)
+        worst = 0.0
+        for a, b in zip(train_steps.tree_leaves(p1),
+                        train_steps.tree_leaves(s0.params)):
+            worst = max(worst, excess(a, b, dict(rtol=5e-2, atol=5e-4)))
+        mu = _moment_diff(mu1, s0.opt.mu, 5e-2, 5e-2)
+        # under accumulation no solve steps are reported (0 on both arms)
+        out = dict(grad_accum=k, loss=float(m1["loss"]),
+                   loss1=float(m0["loss"]), grad_norm=float(m1["grad_norm"]),
+                   grad_norm1=float(m0["grad_norm"]),
+                   deq_steps=float(m1.get("deq_steps", 0.0)),
+                   deq_steps1=float(m0.get("deq_steps", 0.0)),
+                   excess=worst, first_moments=mu, collectives=comms,
+                   seconds_second_step=second)
+        if abs(out["loss"] - out["loss1"]) > 2e-2 * abs(out["loss1"]) \
+                or worst > 0 or mu["rel_l2"] > MU_REL_L2_SHARDED:
+            out["fail"] = True
+        del s0
+    del p1, mu1
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
 
 
 def _v2_lite_ep_inputs(base, dev: str):

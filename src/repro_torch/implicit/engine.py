@@ -25,6 +25,7 @@ import dataclasses
 from typing import Any, Callable, NamedTuple, Sequence
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.lowrank import LowRank, _expand
 from repro_torch.core.solvers import SolveCarry, reset_carry_rows, torch_dtype
@@ -38,6 +39,12 @@ from repro_torch.implicit.fixed_point import (
 )
 from repro_torch.implicit.pytree import prepare_flat_problem
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.parallel.sharding import (
+    full_tree,
+    laid_out_as,
+    whole,
+    write_rows_,
+)
 
 
 class CoalescedBatch(NamedTuple):
@@ -131,7 +138,15 @@ def write_carry_rows(dst: SolveCarry, src: SolveCarry,
     ``dst`` (every field; the ring scatters along its batch axis 1), in
     place: ``dst``'s buffers are updated and a carry sharing them is
     returned.  ``slots``/``rows`` are ints or index tensors (on the card,
-    a tensor already there costs no copy)."""
+    a tensor already there costs no copy).
+
+    A ``dst`` laid out on a mesh (DTensor leaves split along the batch,
+    as a batch-split solve returns its carry) takes host ints: each rank
+    writes the rows its shard holds (``sharding.write_rows_``); ``src``
+    may be whole or replicated, as a prefill with the batch replicated
+    seeds it."""
+    if isinstance(dst.z, DTensor):
+        return _write_carry_rows_sharded(dst, src, slots, rows)
     dev = dst.z.device
     sl, rw = _index(slots, dev), _index(rows, dev)
     lr_d, lr_s = dst.lowrank, src.lowrank
@@ -148,6 +163,29 @@ def write_carry_rows(dst: SolveCarry, src: SolveCarry,
         z=dst.z,
         lowrank=LowRank(alpha=lr_d.alpha, u=lr_d.u, v=lr_d.v, count=count),
         warm=warm, age=age)
+
+
+def _write_carry_rows_sharded(dst: SolveCarry, src: SolveCarry, slots,
+                              rows) -> SolveCarry:
+    if isinstance(slots, torch.Tensor) or isinstance(rows, torch.Tensor):
+        raise TypeError("a carry on a mesh takes its slots and rows as host "
+                        "ints (reading index tensors would wait for the card)")
+    sl, rw = list(slots), list(rows)
+    lr_d, lr_s = dst.lowrank, src.lowrank
+    write_rows_(dst.z, src.z, 0, sl, rw)
+    write_rows_(lr_d.u, lr_s.u, 1, sl, rw)
+    write_rows_(lr_d.v, lr_s.v, 1, sl, rw)
+
+    def rebuilt(d, s):
+        out = d.clone()
+        write_rows_(out, s, 0, sl, rw)
+        return out
+
+    return SolveCarry(
+        z=dst.z,
+        lowrank=LowRank(alpha=lr_d.alpha, u=lr_d.u, v=lr_d.v,
+                        count=rebuilt(lr_d.count, lr_s.count)),
+        warm=rebuilt(dst.warm, src.warm), age=rebuilt(dst.age, src.age))
 
 
 def write_carry_slot(dst: SolveCarry, src: SolveCarry, slot: int,
@@ -191,7 +229,11 @@ class CarryCache:
             "carry_evictions_total", {"reason": reason}).inc(n)
 
     def _reset(self, slot: int, reason: str = "ownership") -> None:
-        mask = torch.arange(self.slots, device=self.carry.z.device) == slot
+        # on a mesh the mask is laid out as the rows it selects, so the
+        # reset stays on each rank's own rows
+        mask = laid_out_as(
+            torch.arange(self.slots, device=self.carry.z.device) == slot,
+            self.carry.warm)
         self.carry = reset_carry_rows(self.carry, mask)
         self._count(reason)
 
@@ -223,7 +265,7 @@ class CarryCache:
         if self.max_age is None:
             return
         stale = carry.age > self.max_age
-        n = int(stale.sum())
+        n = int(whole(stale.sum()))
         if n:
             self.carry = reset_carry_rows(self.carry, stale)
             self._count("stale", n)
@@ -685,8 +727,11 @@ def prefix_store_scatter(arrays, carry: SolveCarry,
                          slot_ids: torch.Tensor) -> None:
     """Publish a converged prefill wave's carry rows into the store's slot
     tensors, in place (``index_copy_`` along the row axis).  ``slot_ids
-    (B,)`` may point rows at the scratch row to skip publication."""
+    (B,)`` may point rows at the scratch row to skip publication.  The
+    store is whole on every rank; a carry on a mesh (a prefill's, its batch
+    replicated) is read whole, so every rank writes the same."""
     z_s, u_s, v_s, c_s = arrays
+    carry = full_tree(carry)
     seq = carry.z.shape[1]
     lr = carry.lowrank
     idx = slot_ids.to(device=z_s.device, dtype=torch.long)

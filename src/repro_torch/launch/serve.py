@@ -25,12 +25,13 @@ trace of the drain's spans.
 
 ``--mesh DxM`` serves sharded on a (data=D, model=M) mesh, one process per
 rank: ``torchrun --nproc-per-node D*M -m repro_torch.launch.serve --mesh
-DxM --pipeline sync`` (NCCL on the cards; with ``--device cpu``, gloo).
+DxM [--prefix-cache]`` (NCCL on the cards; with ``--device cpu``, gloo).
 The process world is the counterpart of the JAX launcher's
 ``--force-devices``.  The slots split over "data" and the KV cache's
-length over "model" (``DECODE_RULES``; prefill under ``PREFILL_RULES``);
-only the sync pipeline without the prefix caches runs on a mesh, and only
-rank 0 prints.
+length over "model" (``DECODE_RULES``; prefill under ``PREFILL_RULES``),
+the DEQ carry stays batch-split between ticks; either pipeline and either
+prefix cache runs there, every rank on the same schedule, and only rank 0
+prints.
 """
 
 from __future__ import annotations
@@ -108,7 +109,7 @@ def main(argv=None) -> None:
                          "every wave and tick")
     ap.add_argument("--mesh", default=None, metavar="DxM",
                     help="serve sharded on a (data=D, model=M) mesh, one "
-                         "rank per process under torchrun (sync pipeline)")
+                         "rank per process under torchrun")
     ap.add_argument("--async-depth", type=int, default=2,
                     help="async pipeline: entries in flight before dispatch "
                          "waits for the oldest to land")
@@ -123,6 +124,12 @@ def main(argv=None) -> None:
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="synthetic prompt stream: all prompts share this "
                          "many leading tokens; 0 = fully random prompts")
+    ap.add_argument("--dtype", default=None,
+                    choices=("bfloat16", "float32"),
+                    help="the model's parameter and activation dtype "
+                         "(default the config's; a sharded bf16 run may "
+                         "part from the unsharded one at a near tie of two "
+                         "logits, an f32 one does not)")
     ap.add_argument("--qn-dtype", default=None,
                     choices=("bfloat16", "float32"),
                     help="storage dtype of the quasi-Newton U/V ring "
@@ -160,12 +167,12 @@ def main(argv=None) -> None:
         if args.no_guard:
             deq = dataclasses.replace(deq, guard=False)
         cfg = dataclasses.replace(cfg, deq=deq)
+    if args.dtype:
+        cfg = dataclasses.replace(cfg, dtype=args.dtype)
     if cfg.family == "audio":
         raise SystemExit("encoder-only arch: no autoregressive serving")
     ctx = pctx = NULL_CTX
     if args.mesh:
-        if args.pipeline != "sync" or args.prefix_cache:
-            ap.error("--mesh serves with --pipeline sync and no prefix cache")
         init_distributed(device.type)
         mesh = build_device_mesh(parse_mesh(args.mesh), device.type)
         ctx = make_ctx(cfg, mesh, SHAPES["decode_32k"])

@@ -24,7 +24,9 @@ sharded loss, lays every gradient out as its moments (a reduce-scatter
 or an all-reduce over the DP axes), clips by the norm of the whole
 gradient, and updates each rank's shards in place
 (``optim/optimizers``).  The loss, gradient norm and ``ok`` verdict are
-replicated values, the same on every rank.
+replicated values, the same on every rank.  With ``grad_accum`` k each
+microbatch is the reference's rows of the global batch, laid out over the
+DP axes by itself, and the gradient sum lies where the moments do.
 """
 
 from __future__ import annotations
@@ -33,7 +35,6 @@ import dataclasses
 from typing import Any, Callable, NamedTuple
 
 import torch
-from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.lowrank import LowRank
@@ -60,6 +61,7 @@ from repro_torch.parallel.sharding import (
     shape_tree,
     spec_tree,
     spmd,
+    whole,
     zero1_spec_tree,
 )
 
@@ -193,11 +195,42 @@ def _keep_carry(ok: torch.Tensor, new: SolveCarry,
         warm=w(new.warm, old.warm), age=w(new.age, old.age))
 
 
-def _whole(x):
-    """A metric as a plain tensor (a DTensor gathered: replicated)."""
-    if isinstance(x, DTensor):
-        return x.full_tensor()
-    return x
+def _zero_grads(params, moment_pls, ctx: ShardCtx):
+    """The f32 gradient sum's zeros; on a mesh laid out as the moments
+    (each microbatch's gradient is already)."""
+    if moment_pls is None:
+        return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                              device=p.device), params)
+    from torch.distributed.tensor import zeros as dzeros
+    return tree_map(lambda p, pl: dzeros(p.shape, dtype=torch.float32,
+                                         device_mesh=ctx.device_mesh,
+                                         placements=pl), params, moment_pls)
+
+
+def _micro_ctx(ctx: ShardCtx, rows: int) -> ShardCtx:
+    """The layout of a microbatch of ``rows``: ``ctx``, or, where the rows
+    do not divide over the DP axes, ``ctx`` with the batch replicated (each
+    data rank computes the whole microbatch; its gradients then need no DP
+    sum).  DTensor's uneven shards of the batch cannot run the model: a
+    rank left with no row fails the matmuls' reshape of the sharded batch
+    dimension, where the reference pads its shards."""
+    if not ctx.running or rows % ctx.axis_size("batch") == 0:
+        return ctx
+    return dataclasses.replace(ctx, rules=ctx.rules.replace(batch=None))
+
+
+def _microbatch(batch: dict, k: int, i: int, ctx: ShardCtx) -> dict:
+    """Microbatch ``i`` of ``k``: rows ``[i B/k, (i+1) B/k)`` of the global
+    batch, as the reference's reshape takes them.  On a mesh the batch is
+    taken whole and each microbatch laid out by ``ctx`` (``_micro_ctx``)
+    by itself, not as each rank's slice of its local rows: a batch-split
+    DEQ solve's stop tests are global over the rows that solve together."""
+    out = {}
+    for n, a in batch.items():
+        a = whole(a)
+        m = a.reshape((k, a.shape[0] // k) + a.shape[1:])[i]
+        out[n] = ctx.constrain(m, ("batch",) + (None,) * (m.ndim - 1))
+    return out
 
 
 def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, *,
@@ -213,26 +246,23 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, *,
     ``ctx`` runs the step on its mesh (the state from ``init_train_state``
     with the same ``ctx``; the batch whole or laid out by ``"batch"``)."""
     if loss_fn is None:
-        def loss_with_carry(p, b, c):
+        def loss_with_carry(p, b, c, lctx):
             return lm.loss_fn(p, b, cfg, z_loss=tcfg.z_loss, carry=c,
-                              ctx=ctx)
+                              ctx=lctx)
     else:
-        def loss_with_carry(p, b, c):
+        def loss_with_carry(p, b, c, lctx):
             return loss_fn(p, b)
     sched = make_schedule(tcfg)
 
     moment_pls = None
     if ctx.running:
-        if tcfg.grad_accum > 1:
-            raise NotImplementedError("gradient accumulation on a mesh is "
-                                      "not ported (grad_accum=1 there)")
         moment_pls = named_sharding_tree(
             state_shardings(cfg, tcfg, ctx).opt.mu, ctx.device_mesh)
 
-    def grads_of(params, batch, carry):
+    def grads_of(params, batch, carry, lctx=ctx):
         leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        with spmd(ctx):
-            loss, aux = loss_with_carry(leaves, batch, carry)
+        with spmd(lctx):
+            loss, aux = loss_with_carry(leaves, batch, carry, lctx)
             grads = iter(torch.autograd.grad(loss, tree_leaves(leaves),
                                              allow_unused=True))
 
@@ -246,20 +276,19 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, *,
             grads = tree_map(lambda g, pl: g.redistribute(ctx.device_mesh,
                                                           pl),
                              grads, moment_pls)
-        return _whole(loss.detach()), aux, grads
+        return whole(loss.detach()), aux, grads
 
     def train_step(state: TrainState, batch: dict):
         params = state.params
         new_carry = state.carry
         if tcfg.grad_accum > 1:
             k = tcfg.grad_accum
-            gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                  device=p.device), params)
+            gsum = _zero_grads(params, moment_pls, ctx)
             lsum = 0.0
+            mctx = _micro_ctx(ctx, next(iter(batch.values())).shape[0] // k)
             for i in range(k):
-                micro = {n: a.reshape((k, a.shape[0] // k) + a.shape[1:])[i]
-                         for n, a in batch.items()}
-                l, _, g = grads_of(params, micro, None)
+                micro = _microbatch(batch, k, i, mctx)
+                l, _, g = grads_of(params, micro, None, mctx)
                 gsum = tree_map(torch.add, gsum, g)
                 lsum = lsum + l
             grads = tree_map(lambda g: g / k, gsum)
@@ -296,7 +325,7 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, *,
             new_params, opt = update(grads, state.opt, params, lr,
                                      weight_decay=tcfg.weight_decay, ok=ok)
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}
-        metrics.update({k: (_whole(v.detach())
+        metrics.update({k: (whole(v.detach())
                             if isinstance(v, torch.Tensor) else v)
                         for k, v in aux.items()
                         if not isinstance(v, torch.Tensor) or v.ndim == 0})

@@ -7,9 +7,12 @@ with ``--deq``, its DEQ/SHINE form.
 The JAX launcher's flags plus ``--device``.  ``--mesh single|multi``
 trains on the production mesh, (data=16, model=16) or (pod=2, data=16,
 model=16), one process per card under ``torchrun`` (256 or 512 ranks;
-fewer raise, as the reference raises with too few devices), with ZeRO-1
-moments; ``--mesh none`` (the default) is one process.  Unknown ``--backward``/``--solver`` values are rejected
-with the registered names.  ``--metrics-prom-out`` keeps a Prometheus text
+fewer raise, as the reference raises with too few devices), and ``--mesh
+DxM`` on a (data=D, model=M) mesh of D*M ranks (``torchrun
+--nproc-per-node D*M``; gloo with ``--device cpu``), with ZeRO-1 moments
+and any ``--grad-accum``; ``--mesh none`` (the default) is one process.
+Unknown ``--backward``/``--solver`` values are rejected with the
+registered names.  ``--metrics-prom-out`` keeps a Prometheus text
 file of the metrics registry (rewritten every 10 s and at the end);
 ``--trace-out`` writes a Chrome trace of the run's spans and phases.
 
@@ -36,6 +39,7 @@ from repro_torch.launch.mesh import (
     build_device_mesh,
     init_distributed,
     make_production_mesh,
+    parse_mesh,
 )
 from repro_torch.models import lm
 from repro_torch.obs import metrics as obs_metrics
@@ -64,10 +68,10 @@ def main(argv=None) -> None:
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--checkpoint-dir", default="")
     ap.add_argument("--checkpoint-every", type=int, default=0)
-    ap.add_argument("--mesh", choices=("none", "single", "multi"),
-                    default="none",
+    ap.add_argument("--mesh", default="none",
                     help="none: one process; single/multi: the production "
-                         "mesh, one rank per card under torchrun")
+                         "mesh, DxM: a (data=D, model=M) mesh; one rank per "
+                         "process under torchrun")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--metrics-out", default="",
                     help="write a metrics-registry JSON snapshot here after "
@@ -119,11 +123,18 @@ def main(argv=None) -> None:
 
     ctx = NULL_CTX
     if args.mesh != "none":
+        if args.mesh in ("single", "multi"):
+            spec = make_production_mesh(multi_pod=args.mesh == "multi")
+        else:
+            try:
+                spec = parse_mesh(args.mesh)
+            except ValueError as e:
+                ap.error(f"{e}, or none|single|multi")
         init_distributed(device.type)
-        mesh = build_device_mesh(
-            make_production_mesh(multi_pod=args.mesh == "multi"),
-            device.type)
+        mesh = build_device_mesh(spec, device.type)
         ctx = make_ctx(cfg, mesh, SHAPES["train_4k"])
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
 
     tcfg = TrainConfig(
         steps=args.steps, global_batch=args.batch, seq_len=args.seq,
@@ -163,6 +174,8 @@ def main(argv=None) -> None:
     if args.trace_out:
         obs_tracing.write(args.trace_out)
         print(f"chrome trace -> {args.trace_out}")
+    if ctx.running:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

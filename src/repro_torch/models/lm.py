@@ -458,12 +458,22 @@ def _deq_cfg(cfg: ModelConfig) -> ImplicitConfig:
 
 
 def deq_solve_carry(cfg: ModelConfig, batch: int, seq: int,
-                    device=None) -> SolveCarry:
+                    device=None, ctx: ShardCtx = NULL_CTX) -> SolveCarry:
     """An all-cold persistent solve state for the DEQ group's ``(B, S, d)``
-    activations."""
-    return init_solve_carry(batch, (seq, cfg.d_model), cfg.deq.memory,
-                            dtype=act_dtype(cfg), qn_dtype=cfg.deq.qn_dtype,
-                            device=resolve_device(device))
+    activations; on a running ``ctx`` laid out as its solves lay it out
+    (``implicit.fixed_point.SolveLayout``: rows split along the batch over
+    the DP axes and otherwise whole, the ``(U, V)`` ring beside them)."""
+    carry = init_solve_carry(batch, (seq, cfg.d_model), cfg.deq.memory,
+                             dtype=act_dtype(cfg), qn_dtype=cfg.deq.qn_dtype,
+                             device=resolve_device(device))
+    if not ctx.running:
+        return carry
+    vec = ctx.spec(("batch",))
+    z = vec + (None, None)
+    mem = (None,) + z
+    specs = SolveCarry(z=z, lowrank=LowRank(alpha=(), u=mem, v=mem,
+                                            count=vec), warm=vec, age=vec)
+    return distribute_tree(carry, specs, ctx.device_mesh)
 
 
 # logical axes of the DEQ solver state (the qN memory prepends "qn_mem")

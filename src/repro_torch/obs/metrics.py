@@ -37,6 +37,8 @@ from typing import Callable, Mapping
 import numpy as np
 import torch
 
+from repro_torch.parallel.sharding import whole
+
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "PromFlusher",
            "Series", "default_registry", "emit_scalar", "enabled",
            "land_host", "read",
@@ -288,7 +290,9 @@ class MetricsRegistry:
 def _to_host(parts: list[torch.Tensor]) -> list[torch.Tensor]:
     """Host copies of ``parts``, each of its own shape and dtype; the ones
     on a card travel in one device-to-host copy (as float64, which holds
-    every int32, bool, bf16 and f32 value exactly)."""
+    every int32, bool, bf16 and f32 value exactly).  A value on a mesh (a
+    DTensor) is taken whole, every rank reading the same."""
+    parts = [whole(t) for t in parts]
     out = list(parts)
     dev = [i for i, t in enumerate(parts) if t.device.type != "cpu"]
     if dev:

@@ -361,6 +361,47 @@ def full_tree(tree):
     return tree
 
 
+def whole(x):
+    """A tensor's whole value: a DTensor gathered (no collective when it
+    is replicated), a plain tensor as it is."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def laid_out_as(x: torch.Tensor, ref):
+    """A whole tensor ``x`` (the same on every rank) laid out as the
+    DTensor ``ref`` (each rank keeps its shard, no collective); ``x`` as
+    it is when ``ref`` is a plain tensor."""
+    if not isinstance(ref, DTensor):
+        return x
+    return distribute_tensor(x, ref.device_mesh, ref.placements,
+                             src_data_rank=None)
+
+
+def write_rows_(live, new, ax: int, slots: Sequence[int],
+                rows: Sequence[int]) -> None:
+    """Rows ``rows`` of ``new`` along ``ax`` into slots ``slots`` of
+    ``live``, in place (a copy, so ``new``'s dtype is cast).  A DTensor
+    ``live`` split along ``ax`` is written by the ranks whose shard holds
+    each slot: ``new`` is laid out as ``live`` with ``ax`` whole (no
+    collective when it already is: a wave prefilled with the batch
+    replicated), and each rank copies the rows that land in its shard.
+    ``slots`` and ``rows`` are host ints, so no rank reads the card to
+    find its rows."""
+    if not isinstance(live, DTensor):
+        new = whole(new)
+        for slot, row in zip(slots, rows):
+            live.narrow(ax, slot, 1).copy_(new.narrow(ax, row, 1))
+        return
+    pls = tuple(Replicate() if isinstance(p, Shard) and p.dim == ax else p
+                for p in live.placements)
+    src = redistribute(new, live.device_mesh, pls).to_local()
+    local = live.to_local()
+    start = shard_offset(live.shape, live.device_mesh, live.placements)[ax]
+    for slot, row in zip(slots, rows):
+        if start <= slot < start + local.shape[ax]:
+            local.narrow(ax, slot - start, 1).copy_(src.narrow(ax, row, 1))
+
+
 def local_shard(global_shape, device_mesh, pls) -> tuple[tuple[int, ...],
                                                          tuple[int, ...]]:
     """This rank's shard of a tensor of ``global_shape`` laid out as

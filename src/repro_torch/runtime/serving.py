@@ -72,15 +72,28 @@ each holding ``admit`` (a ``prefill`` span per prompt length) and
 ``serve_pipeline_inflight`` follows the completion queue.
 
 On a mesh (``ctx``: a running ``ShardCtx``, ``DECODE_RULES``; prefill
-under ``prefill_ctx``, ``PREFILL_RULES``) the sync pipeline runs on every
-rank: the parameters and the slot caches are DTensors (the slots split
-over "data", the cache length over "model"), each data rank prefills the
-whole wave (a wave rarely divides over the DP axes), a prefilled row is written
-into the ranks that hold its slot (``_write_slot``), the logits, statuses
-and the DEQ carry come back whole (the same on every rank, so every rank
-emits the same tokens), and each solve runs batch-split
-(``implicit/engine.batched_solve``).  The async pipeline and the prefix
-caches under a mesh raise.
+under ``prefill_ctx``, ``PREFILL_RULES``) both pipelines and both prefix
+caches run on every rank, one host loop a rank:
+
+  * the parameters and the slot caches are DTensors (the slots split over
+    "data", the cache length over "model"); each data rank prefills the
+    whole wave (a wave rarely divides over the DP axes), and a wave's rows
+    are written into the ranks that hold their slots (``_write_rows``,
+    the slot ids host ints);
+  * the DEQ carry stays as the batch-split solve lays it out (its rows and
+    ring split over "data"): lease, release, the stale reset and the
+    prefill's seeds write each rank's own rows; only the logits and the
+    statuses come back whole, so every rank emits the same tokens and
+    keeps the same slot state (lengths, current tokens, the async
+    lifecycle) whole;
+  * the prefix index's snapshots and the device store are whole on every
+    rank, which all run the same lookups, gathers and scatters;
+  * the async loop's schedule is the same on every rank: an entry lands
+    in program order (every entry in flight before an admission that
+    waits for requests, else the oldest once ``async_depth`` are in
+    flight), never because a rank's own event query says it is ready,
+    since a rank that landed early would admit a wave, and issue its
+    collectives, alone.  A rank waits for an entry by polling.
 """
 
 from __future__ import annotations
@@ -93,7 +106,6 @@ from typing import Any
 
 import numpy as np
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.solvers import (
@@ -114,7 +126,14 @@ from repro_torch.models import lm
 from repro_torch.models.layers import act_dtype
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import tracing as obs_tracing
-from repro_torch.parallel.sharding import NULL_CTX, ShardCtx, full_tree
+from repro_torch.parallel.sharding import (
+    NULL_CTX,
+    ShardCtx,
+    full_tree,
+    spmd,
+    whole,
+    write_rows_,
+)
 
 # how long the async loop sleeps between polls of an entry it waits for
 _POLL_S = 5e-5
@@ -166,11 +185,6 @@ class ServeLoop:
                  prefill_ctx: ShardCtx | None = None):
         if pipeline not in ("sync", "async"):
             raise ValueError(f"pipeline must be sync|async, got {pipeline!r}")
-        if ctx.running and (pipeline != "sync" or prefix_cache):
-            raise NotImplementedError(
-                "on a mesh the serving loop runs the sync pipeline without "
-                "the prefix caches (the async pipeline and the prefix "
-                "caches under a mesh are not ported yet)")
         self.ctx = ctx
         # a prefill wave (often one request) does not divide over the DP
         # axes: each data rank prefills the whole wave, the heads and the
@@ -214,8 +228,8 @@ class ServeLoop:
         self.solve_log: list[dict[str, Any]] = []
         deq = cfg.deq.enabled
         self.carries = CarryCache(
-            lambda: lm.deq_solve_carry(cfg, slots, 1, self.device), slots,
-            max_age=carry_max_age) if deq else None
+            lambda: lm.deq_solve_carry(cfg, slots, 1, self.device, ctx),
+            slots, max_age=carry_max_age) if deq else None
         # cross-request prefix cache: host snapshots for the sync pipeline,
         # device rows for the async one.  ``prefix_cache_slots=0`` is the
         # cold accounting arm: every lookup misses, iterations still count
@@ -268,9 +282,9 @@ class ServeLoop:
         if carry is None:
             res = res[:3] + (None,) + res[3:]
         logits, cache_new, _lens, seeded, steps, status = res
-        # on a mesh: the caches stay split, the rest comes back whole
-        return (full_tree(logits), cache_new, full_tree(seeded), steps,
-                full_tree(status))
+        # on a mesh: the caches stay split, the seeds replicated (the wave's
+        # batch is), the logits and statuses come back whole
+        return full_tree(logits), cache_new, seeded, steps, full_tree(status)
 
     def _decode(self, active: torch.Tensor):
         """``lm.decode_step`` over every slot, the caches updated in place:
@@ -284,24 +298,22 @@ class ServeLoop:
         if carry is None:
             res = res[:2] + (None,) + res[2:]
         logits, self.caches, new_carry, steps, status = res
-        return (full_tree(logits), full_tree(new_carry), steps,
-                full_tree(status))
+        # on a mesh the carry stays batch-split as the solve left it
+        return full_tree(logits), new_carry, steps, full_tree(status)
 
     def _release(self, slot: int) -> None:
         if self.carries is not None:
             self.carries.release(slot)
 
-    def _write_slot(self, cache_new: dict, slot: int, row: int) -> None:
-        """Write batch row ``row`` of ``cache_new`` into slot ``slot`` of
-        the live caches, leaf by leaf at each leaf's batch axis."""
+    def _write_rows(self, cache_new: dict, slots: list[int],
+                    rows: list[int]) -> None:
+        """Write batch rows ``rows`` of ``cache_new`` into slots ``slots``
+        of the live caches, leaf by leaf at each leaf's batch axis; on a
+        mesh each rank writes the slots its shard holds."""
         for live, new, ax in zip(cache_leaves(self.caches),
                                  cache_leaves(cache_new), self._cache_axes):
-            if ax < 0:
-                continue
-            if isinstance(live, DTensor):
-                _write_row_sharded(live, new, ax, slot, row)
-            else:
-                live.narrow(ax, slot, 1).copy_(new.narrow(ax, row, 1))
+            if ax >= 0:
+                write_rows_(live, new, ax, slots, rows)
 
     # -- host-sync accounting --------------------------------------------
 
@@ -434,7 +446,10 @@ class ServeLoop:
                         matches: list,
                         skip_rows: set[int] = frozenset()) -> None:
         """Publish the wave's converged prefill carries (host copies) and
-        return the leases; ``skip_rows`` faulted and are not published."""
+        return the leases; ``skip_rows`` faulted and are not published.  On
+        a mesh the carry is the prefill's, its batch replicated: every rank
+        publishes the same whole snapshots."""
+        pf_carry = full_tree(pf_carry)
         lr = pf_carry.lowrank
         self._count_sync("prefix_publish", pf_carry.z, lr.u, lr.v, lr.count)
         z_h, u_h, v_h = pf_carry.z.cpu(), lr.u.cpu(), lr.v.cpu()
@@ -465,7 +480,9 @@ class ServeLoop:
                     self.params, {"tokens": toks}, self.cfg, self.max_len,
                     carry=lm.deq_solve_carry(self.cfg, len(group), 1,
                                              self.device),
-                    prefix_carry=pc, prefix_len=pl, return_status=True)
+                    prefix_carry=pc, prefix_len=pl, return_status=True,
+                    ctx=self.prefill_ctx)
+                logits, status = full_tree(logits), full_tree(status)
             else:
                 logits, cache_new, seeded, steps, status = self._prefill(
                     toks, len(group))
@@ -494,6 +511,11 @@ class ServeLoop:
             self.carries.update(write_carry_rows(
                 self.carries.carry, seeded, [slot for slot, _ in group],
                 list(range(len(group)))))
+        self._write_rows(cache_new,
+                         [slot for row, (slot, _) in enumerate(group)
+                          if row not in failed],
+                         [row for row in range(len(group))
+                          if row not in failed])
         retry: list[tuple[int, Request]] = []
         for row, (slot, req) in enumerate(group):
             if row in failed:
@@ -512,7 +534,6 @@ class ServeLoop:
                     self._metrics.counter("serve_requests_completed").inc()
                     self._release(slot)
                 continue
-            self._write_slot(cache_new, slot, row)
             nxt = int(nxt_all[row])
             req.out.append(nxt)
             self._metrics.histogram("serve_ttft_ms").observe(
@@ -635,7 +656,9 @@ class ServeLoop:
                  status) = lm.prefill(
                     self.params, {"tokens": toks}, self.cfg, self.max_len,
                     carry=lm.deq_solve_carry(self.cfg, n, 1, dev),
-                    prefix_carry=pc, prefix_len=pl, return_status=True)
+                    prefix_carry=pc, prefix_len=pl, return_status=True,
+                    ctx=self.prefill_ctx)
+                logits, status = full_tree(logits), full_tree(status)
                 prefix_store_scatter(self.prefix_store.arrays, pf_carry,
                                      ints_t[4])
                 meta["steps"] = steps
@@ -644,11 +667,7 @@ class ServeLoop:
                     toks, n)
             last = logits[:, -1].float()
             nxt = last.argmax(-1).int()
-            for live, new, ax in zip(cache_leaves(self.caches),
-                                     cache_leaves(cache_new),
-                                     self._cache_axes):
-                if ax >= 0:
-                    live.index_copy_(ax, slots_t, new)
+            self._write_rows(cache_new, ints[0], list(range(n)))
             self.lengths.index_fill_(0, slots_t, plen)
             self.cur_tok.index_copy_(0, slots_t, nxt)
             self._dev_active.index_fill_(0, slots_t, True)
@@ -660,9 +679,12 @@ class ServeLoop:
             if self.carries is not None:
                 for slot, req in group:
                     self.carries.lease(slot, req.uid, reset=False)
+                # a carry on a mesh takes host ints (each rank writes its
+                # own rows), else the index tensors already on the device
                 self.carries.carry = write_carry_rows(
-                    self.carries.carry, seeded, slots_t,
-                    torch.arange(n, device=dev))
+                    self.carries.carry, seeded,
+                    *((ints[0], range(n)) if self.ctx.running
+                      else (slots_t, torch.arange(n, device=dev))))
         self._prefill_counts(n)
         outs = {"nxt": nxt, "status": status}
         if self._record:
@@ -732,6 +754,9 @@ class ServeLoop:
         cuda = self.device.type == "cuda"
 
         def host(t: torch.Tensor) -> torch.Tensor:
+            # on a mesh: the whole value (a replicated one's local), so a
+            # DTensor never reaches the host buffer's copy
+            t = whole(t)
             return torch.empty(t.shape, dtype=t.dtype,
                                pin_memory=cuda).copy_(t, non_blocking=cuda)
 
@@ -760,26 +785,13 @@ class ServeLoop:
     def _entry_ready(e: _Inflight) -> bool:
         return e.event is None or e.event.query()
 
-    def _drain_ready(self, force: bool = False) -> int:
+    def _drain_ready(self, force: bool = False) -> None:
         """Land every queued entry that is ready; with ``force``, poll
         (no blocking read) until at least the oldest one lands."""
-        landed = 0
-        while self._inflight:
-            e = self._inflight[0]
-            if not self._entry_ready(e):
-                if not force:
-                    break
-                with obs_tracing.span("pipeline_wait", kind=e.kind):
-                    # the card keeps working through its queue meanwhile
-                    while not self._entry_ready(e):
-                        time.sleep(_POLL_S)
-            self._inflight.popleft()
-            self._land(e)
-            landed += 1
+        while self._inflight and (force
+                                  or self._entry_ready(self._inflight[0])):
+            self._land_oldest()
             force = False
-        self._metrics.gauge("serve_pipeline_inflight").set(
-            len(self._inflight))
-        return landed
 
     def _land(self, e: _Inflight) -> None:
         # the entry is ready: reading its host buffers cannot wait
@@ -899,7 +911,42 @@ class ServeLoop:
         if n_stale:
             self.carries._count("stale", n_stale)
 
+    def _land_oldest(self) -> None:
+        """Land the oldest entry, polling until it is ready (the host never
+        blocks on the card)."""
+        e = self._inflight[0]
+        if not self._entry_ready(e):
+            with obs_tracing.span("pipeline_wait", kind=e.kind):
+                # the card keeps working through its queue meanwhile
+                while not self._entry_ready(e):
+                    time.sleep(_POLL_S)
+        self._inflight.popleft()
+        self._land(e)
+        self._metrics.gauge("serve_pipeline_inflight").set(
+            len(self._inflight))
+
+    def _step_async_mesh(self) -> int:
+        """The async step on a mesh: what lands, what is admitted and what
+        is dispatched follow from host state every rank shares, never from
+        a rank's own event queries.  Every entry in flight lands before an
+        admission while requests wait (the free slots are then those of a
+        loop that landed everything, as on one device when every entry is
+        ready), else the oldest once ``async_depth`` are in flight."""
+        if not self.queue.empty() or self.pending:
+            while self._inflight:
+                self._land_oldest()
+            self._admit()
+        while len(self._inflight) >= self.async_depth:
+            self._land_oldest()
+        if self._tickable():
+            self._dispatch_tick()
+        elif self._inflight:
+            self._land_oldest()
+        return len(self._inflight)
+
     def _step_async(self) -> int:
+        if self.ctx.running:
+            return self._step_async_mesh()
         self._drain_ready()
         if len(self._inflight) >= self.async_depth:
             self._drain_ready(force=True)
@@ -920,10 +967,11 @@ class ServeLoop:
         tick (returns the number of slots decoded).  Async: land what is
         ready, admit, and dispatch the next tick without waiting for the
         previous one (returns the entries in flight)."""
-        if self.pipeline == "async":
-            return self._step_async()
-        with obs_tracing.span("serve_tick"):
-            return self._step_sync()
+        with spmd(self.ctx):
+            if self.pipeline == "async":
+                return self._step_async()
+            with obs_tracing.span("serve_tick"):
+                return self._step_sync()
 
     def drain(self, reqs: list[Request],
               max_ticks: int = 10_000) -> list[Request]:
@@ -939,25 +987,12 @@ class ServeLoop:
                    or self._inflight) and ticks < max_ticks:
                 self.step()
                 ticks += 1
-            if self._inflight:
-                self._drain_ready(force=True)
+            with spmd(self.ctx):
+                while self.ctx.running and self._inflight:
+                    self._land_oldest()
+                if self._inflight:
+                    self._drain_ready(force=True)
         return reqs
-
-
-def _write_row_sharded(live, new, ax: int, slot: int, row: int) -> None:
-    """Row ``row`` of the wave's cache leaf ``new`` into slot ``slot`` of
-    the live leaf: the wave's rows gathered along ``ax`` (the other dims
-    keep the live layout), then written by the ranks whose shard holds the
-    slot."""
-    from repro_torch.parallel.sharding import redistribute, shard_offset
-
-    pls = tuple(Replicate() if isinstance(p, Shard) and p.dim == ax else p
-                for p in live.placements)
-    rows = redistribute(new, live.device_mesh, pls).to_local()
-    local = live.to_local()
-    start = shard_offset(live.shape, live.device_mesh, live.placements)[ax]
-    if start <= slot < start + local.shape[ax]:
-        local.narrow(ax, slot - start, 1).copy_(rows.narrow(ax, row, 1))
 
 
 def cache_leaves(caches) -> list[torch.Tensor]:

@@ -616,3 +616,226 @@ def check_pipeline_and_elastic(w):
             "elastic3": [list(spec3.sizes),
                          w.gather(mesh3 is not None)],
             "elastic3_solved": w.gather(solved)}
+
+
+# ---------------------------------------------------------------------------
+# serving on the mesh: both pipelines, both prefix caches
+# ---------------------------------------------------------------------------
+
+# the arms held against the port's and JAX's unsharded drains of the same
+# arm; every loop at 4 slots (2 a data rank), EOS off
+SERVE_ARMS = {
+    "async": dict(pipeline="async", async_depth=2),
+    "async_store": dict(pipeline="async", async_depth=2, prefix_cache=True,
+                        prefix_cache_slots=16),
+    "sync_index": dict(pipeline="sync", prefix_cache=True,
+                       prefix_cache_slots=16),
+}
+SERVE_KW = dict(slots=4, max_len=32, eos_id=-1, record=True)
+SERVE_NEW = 3
+# the skew check: entries held unready for this many polls on ranks 1, 3
+SKEW_POLLS = 3
+
+
+def serve_prompts(vocab: int = 503, seed: int = 11) -> list[list[int]]:
+    """Six 12-token prompts over one shared 8-token base: four in the
+    first wave, then the first again (an exact hit) and one more tail (a
+    partial hit)."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(2, vocab, size=8).tolist()
+    tails = [base + rng.integers(2, vocab, size=4).tolist() for _ in range(5)]
+    return tails[:4] + [list(tails[0]), tails[4]]
+
+
+def _serve_ctxs(cfg, mesh):
+    from repro_torch.configs.shapes import SHAPES, make_ctx
+    return (make_ctx(cfg, mesh, SHAPES["decode_32k"]),
+            make_ctx(cfg, mesh, SHAPES["prefill_32k"]))
+
+
+def _serve(params, cfg, kw, ctxs=None, ready=None):
+    """A drain of ``serve_prompts`` through one ``ServeLoop(**kw)``: the
+    loop, the requests and the collectives by op (``CommDebugMode``)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.runtime.serving import Request, ServeLoop
+
+    extra = {} if ctxs is None else {"ctx": ctxs[0], "prefill_ctx": ctxs[1]}
+    loop = ServeLoop(params, cfg, **SERVE_KW, **kw, **extra)
+    if ready is not None:
+        loop._entry_ready = ready
+    reqs = [Request(uid=i, prompt=list(p), max_new_tokens=SERVE_NEW)
+            for i, p in enumerate(serve_prompts(cfg.vocab_size))]
+    mode = CommDebugMode()
+    with mode:
+        loop.drain(reqs)
+    comms = {str(k).split(".")[-1]: v
+             for k, v in sorted(mode.get_comm_counts().items(),
+                                key=lambda kv: str(kv[0]))}
+    return loop, reqs, comms
+
+
+# the carry staleness bound on the mesh: the stale reset of each pipeline
+STALE_ARMS = {"sync_stale": dict(pipeline="sync", carry_max_age=1),
+              "async_stale": dict(pipeline="async", async_depth=2,
+                                  carry_max_age=1)}
+
+
+def _serve_record(loop, reqs) -> dict:
+    cache = loop.prefix if loop.prefix is not None else loop.prefix_store
+    stats = cache.stats() if cache is not None else {}
+    return {"tokens": [r.out for r in reqs],
+            "evictions": dict(loop.carries.evictions_by_reason),
+            "errors": [r.error for r in reqs],
+            "hits": stats.get("hits", 0), "lookups": stats.get("lookups", 0),
+            "prefill_iters": loop.prefill_iters,
+            "saved_iters": loop.saved_iters,
+            "prefill_calls": loop.prefill_calls,
+            "steps": {str(k): v for k, v in loop.recorded_steps.items()},
+            "inflight": len(loop._inflight)}
+
+
+def check_serve_arms(w):
+    """Each arm of ``SERVE_ARMS`` and ``STALE_ARMS`` drained at (2, 2) and
+    unsharded, and the async store arm once more with entries held unready for
+    ``SKEW_POLLS`` polls on ranks 1 and 3 only."""
+    import collections
+
+    from repro_torch.models import lm
+
+    cfg = deq_cfg()
+    params = _params(w, "deq")
+    ctxs = _serve_ctxs(cfg, w.mesh22)
+    placed = lm.place_params(params, cfg, ctxs[0])
+    out = {}
+    for arm, kw in {**SERVE_ARMS, **STALE_ARMS}.items():
+        loop0, reqs0, _ = _serve(params, cfg, kw)
+        loop1, reqs1, comms = _serve(placed, cfg, kw, ctxs)
+        out[arm] = {"unsharded": _serve_record(loop0, reqs0),
+                    "sharded": _serve_record(loop1, reqs1),
+                    "all_ranks": w.gather([r.out for r in reqs1]),
+                    "comms": w.gather(comms)}
+    polls: collections.Counter = collections.Counter()
+
+    def held(e):
+        polls[id(e)] += 1
+        return polls[id(e)] > SKEW_POLLS
+
+    skewed = w.rank in (1, 3)
+    loop2, reqs2, comms2 = _serve(placed, cfg, SERVE_ARMS["async_store"],
+                                  ctxs, ready=held if skewed else None)
+    out["skew"] = {"sharded": _serve_record(loop2, reqs2),
+                   "all_ranks": w.gather([r.out for r in reqs2]),
+                   "comms": w.gather(comms2),
+                   "held_polls": w.gather(sum(polls.values()))}
+    return out
+
+
+class _Gathers:
+    """A dispatch mode noting the gathers a block issues: each collective
+    op whose name holds "gather", with its first input's shape and dtype
+    (DTensor ops run first, so what is seen are their collectives on
+    local tensors, as ``CommDebugMode`` sees them)."""
+
+    def __init__(self):
+        from torch.distributed.tensor import DTensor
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        seen = self.seen = []
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if any(t is DTensor for t in types):
+                    return NotImplemented
+                name = getattr(func, "__name__", str(func))
+                if "gather" in name and args and isinstance(args[0],
+                                                            torch.Tensor):
+                    seen.append((name, list(args[0].shape),
+                                 str(args[0].dtype)))
+                return func(*args, **(kwargs or {}))
+
+        self.mode = Mode()
+
+
+def check_tick_gathers(w):
+    """One decode tick of each pipeline at (2, 2), no admission in it:
+    the collectives that gather, by input shape and dtype, beside the
+    local shapes of the carry's leaves."""
+    from repro_torch.models import lm
+    from repro_torch.runtime.serving import Request, ServeLoop
+
+    cfg = deq_cfg()
+    ctxs = _serve_ctxs(cfg, w.mesh22)
+    placed = lm.place_params(_params(w, "deq"), cfg, ctxs[0])
+    out = {}
+    for pipeline in ("sync", "async"):
+        loop = ServeLoop(placed, cfg, slots=4, max_len=32, eos_id=-1,
+                         pipeline=pipeline, ctx=ctxs[0], prefill_ctx=ctxs[1])
+        for i, p in enumerate(serve_prompts(cfg.vocab_size)[:4]):
+            loop.submit(Request(uid=i, prompt=p, max_new_tokens=8))
+        for _ in range(3):
+            loop.step()
+        g = _Gathers()
+        with g.mode:
+            loop.step()
+        c = loop.carries.carry
+        out[pipeline] = {
+            "gathers": g.seen,
+            "carry_local": {
+                "z": [list(c.z.to_local().shape), str(c.z.dtype)],
+                "u": [list(c.lowrank.u.to_local().shape),
+                      str(c.lowrank.u.dtype)],
+                "count": [list(c.lowrank.count.to_local().shape),
+                          str(c.lowrank.count.dtype)],
+                "warm": [list(c.warm.to_local().shape), str(c.warm.dtype)]},
+            "placements": str(c.lowrank.u.placements)}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# gradient accumulation on the mesh
+# ---------------------------------------------------------------------------
+
+
+def _accum(w, cfg, name, ctx, k, batch):
+    from repro_torch.launch import steps
+    from repro_torch.parallel.sharding import full_tree
+
+    tc = dataclasses.replace(tcfg(True, batch), grad_accum=k)
+    state = steps.init_train_state(cfg, tc, params=_params(w, name),
+                                   ctx=ctx)
+    state, m = steps.build_train_step(cfg, tc, ctx=ctx)(state, _batch(w, name))
+    return ({k2: _np(v) for k2, v in flat(full_tree(state.params)).items()},
+            {k2: _np(v) for k2, v in flat(full_tree(state.opt.mu)).items()},
+            float(m["loss"]), float(m["grad_norm"]), state)
+
+
+def _accum_check(w, cfg, name, mesh, k, batch):
+    from repro_torch.configs.shapes import SHAPES, make_ctx
+    from repro_torch.parallel.sharding import NULL_CTX
+
+    p0, mu0, l0, g0, _ = _accum(w, cfg, name, NULL_CTX, k, batch)
+    ctx = make_ctx(cfg, mesh, SHAPES["train_4k"])
+    p1, mu1, l1, g1, s1 = _accum(w, cfg, name, ctx, k, batch)
+    out = {"loss0": l0, "loss1": l1, "gnorm0": g0, "gnorm1": g1,
+           "carry": s1.carry is not None,
+           "mu_placements": str(next(iter(
+               flat(s1.opt.mu).values())).placements)}
+    out.update({"p0/" + k2: v for k2, v in p0.items()})
+    out.update({"p1/" + k2: v for k2, v in p1.items()})
+    out.update({"mu0/" + k2: v for k2, v in mu0.items()})
+    out.update({"mu1/" + k2: v for k2, v in mu1.items()})
+    return out
+
+
+def check_accum_dense(w):
+    return _accum_check(w, dense_cfg(), "dense", w.mesh22, 2, B)
+
+
+def check_accum_deq(w):
+    return _accum_check(w, deq_cfg(), "deq8", w.mesh22, 2, 8)
+
+
+def check_accum_uneven(w):
+    """B=8, k=4 at (4, 1): each microbatch of 2 rows over 4 data ranks."""
+    return _accum_check(w, dense_cfg(), "dense8", w.mesh41, 4, 8)

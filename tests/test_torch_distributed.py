@@ -17,6 +17,15 @@ port's unsharded runs and against JAX:
   * the batched solve and the qN route at (4,1), sequence parallelism,
     greedy decode under ``DECODE_RULES`` (GQA and MLA) and the sync
     serving loop at (2,2);
+  * the serving loop at (2,2) in both pipelines with both prefix caches
+    (async, async with the device store, sync with the host index)
+    against the port's and JAX's unsharded drains of the same arm; the
+    async schedule with entries held unready on two ranks only; a decode
+    tick that gathers no leaf of the batch-split carry; the launcher
+    under ``torchrun`` against the run without a mesh;
+  * gradient accumulation at (2,2) (dense, DEQ) and at (4,1) with
+    microbatches that do not divide over the data ranks, against the
+    port's and JAX's unsharded accumulation steps;
   * the expert-parallel MoE at a capacity that drops tokens against the
     reference's sharded arm (a JAX subprocess on 4 forced host devices);
   * the int8 pod compression against JAX's quantizers, the elastic
@@ -25,9 +34,11 @@ port's unsharded runs and against JAX:
 
 import dataclasses
 import os
+import socket
 import subprocess
 import sys
 import textwrap
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -52,7 +63,8 @@ from repro_torch.runtime.ft import ElasticMeshManager
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHECKS = ["placements", "dense_step", "deq_step", "batched_solve",
           "seq_parallel", "decode", "moe_ep", "compression", "checkpoint",
-          "pipeline_and_elastic"]
+          "pipeline_and_elastic", "serve_arms", "tick_gathers",
+          "accum_dense", "accum_deq", "accum_uneven"]
 MOE_B, MOE_S = 4, 32
 
 
@@ -130,7 +142,7 @@ np.savez(os.path.join(d, "jax_moe.npz"), out=np.asarray(out),
 def world(tmp_path_factory):
     d = str(tmp_path_factory.mktemp("world"))
     for kind, batch, name in (("dense", tw.B, "dense"), ("deq", tw.B, "deq"),
-                              ("deq", 8, "deq8")):
+                              ("deq", 8, "deq8"), ("dense", 8, "dense8")):
         p = _jax_params(kind)
         tok, tgt = _tokens(_jax_cfg(kind).vocab_size, batch)
         np.savez(os.path.join(d, f"inputs_{name}.npz"), tokens=tok,
@@ -142,16 +154,36 @@ def world(tmp_path_factory):
     jax_ep = subprocess.Popen(
         [sys.executable, "-c", textwrap.dedent(_JAX_EP), d], cwd=REPO,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    launches = _start_launcher_runs(d)
+    # the world runs in its own processes; meanwhile this process computes
+    # JAX's sides of the serving and accumulation checks
+    box: dict = {}
+    side: dict = {}
+
+    def run():
+        try:
+            box["outcomes"] = tw.run_world(CHECKS, 4, d, timeout=300)
+        except BaseException as e:  # noqa: BLE001 -- raised below
+            box["error"] = e
+
+    th = threading.Thread(target=run)
+    th.start()
     try:
-        outcomes = tw.run_world(CHECKS, 4, d, timeout=300)
+        side["serve"] = _jax_serve_drains()
+        side["accum"] = {c: _jax_accum_step(*ACCUM[c]) for c in ACCUM}
     finally:
+        th.join()
         out, err = jax_ep.communicate(timeout=300)
+        side["launcher"] = _finish_launcher_runs(launches)
+    if "error" in box:
+        raise box["error"]
     assert jax_ep.returncode == 0, err[-4000:]
-    return d, outcomes
+    # the world's directory, its outcomes, and JAX's and the launcher's runs
+    return d, box["outcomes"], side
 
 
 def _load(world, name):
-    d, outcomes = world
+    d, outcomes, _ = world
     assert outcomes[name] == "ok", outcomes[name]
     with np.load(os.path.join(d, f"{name}.npz")) as f:
         arrays = {k: f[k] for k in f.files}
@@ -342,9 +374,237 @@ def test_serve_loop_on_the_mesh(world):
     assert all(r == v["serve_all_ranks"][0] for r in v["serve_all_ranks"])
 
 
+# ---------------------------------------------------------------------------
+# serving on the mesh: the async pipeline and the prefix caches
+# ---------------------------------------------------------------------------
+
+
+def _jax_serve_drains() -> dict:
+    """JAX's unsharded drain of each arm of ``tw.SERVE_ARMS`` over
+    ``tw.serve_prompts`` (the DEQ config and parameters of the world's
+    ``deq`` inputs)."""
+    from repro.runtime.serving import Request as JRequest
+    from repro.runtime.serving import ServeLoop as JServeLoop
+    cfg = _jax_cfg("deq")
+    params = jax.tree_util.tree_map(jnp.asarray, _jax_params("deq"))
+    out = {}
+    for arm, kw in tw.SERVE_ARMS.items():
+        loop = JServeLoop(params, cfg, jsh.ShardCtx.for_mesh(None),
+                          **tw.SERVE_KW, **kw)
+        reqs = [JRequest(uid=i, prompt=list(p), max_new_tokens=tw.SERVE_NEW)
+                for i, p in enumerate(tw.serve_prompts(cfg.vocab_size))]
+        loop.drain(reqs)
+        cache = loop.prefix if loop.prefix is not None else \
+            loop.prefix_store
+        out[arm] = {"tokens": [r.out for r in reqs],
+                    "hits": cache.stats()["hits"] if cache else 0,
+                    "prefill_calls": loop.prefill_calls,
+                    "steps": {str(k): [float(x) for x in v]
+                              for k, v in loop.recorded_steps.items()}}
+    return out
+
+
+@pytest.mark.parametrize("arm", sorted(tw.SERVE_ARMS))
+def test_serve_arm_on_the_mesh_matches_unsharded_and_jax(world, arm):
+    """At (2,2), with the DEQ carry batch-split between ticks: the port's
+    unsharded drain of the same arm bit for bit (tokens, prefix hits and
+    lookups, prefill iterations and calls, every request's step
+    sequence), the same tokens on every rank, nothing left in flight, the
+    same collectives on every rank; and JAX's unsharded drain's tokens,
+    hits and step sequences."""
+    _, v = _load(world, "serve_arms")
+    got, want = v[arm]["sharded"], v[arm]["unsharded"]
+    assert got == want
+    assert all(t == got["tokens"] for t in v[arm]["all_ranks"])
+    assert all(len(t) == tw.SERVE_NEW for t in got["tokens"])
+    assert got["errors"] == [None] * len(got["tokens"])
+    assert got["inflight"] == 0
+    assert all(c == v[arm]["comms"][0] for c in v[arm]["comms"])
+    j = world[2]["serve"][arm]
+    assert got["tokens"] == j["tokens"]
+    assert got["hits"] == j["hits"]
+    assert got["prefill_calls"] == j["prefill_calls"]
+    if arm != "async":   # the prefix arms record their prefill steps too
+        assert got["hits"] >= 2 and got["prefill_iters"] > 0
+    assert got["steps"] == j["steps"]
+
+
+@pytest.mark.parametrize("arm", sorted(tw.STALE_ARMS))
+def test_serve_stale_reset_on_the_mesh(world, arm):
+    """The carry staleness bound (``carry_max_age`` 1) at (2,2) in each
+    pipeline: the stale reset on the batch-split carry evicts what the
+    unsharded loop evicts, and the tokens and step sequences stay its."""
+    _, v = _load(world, "serve_arms")
+    got, want = v[arm]["sharded"], v[arm]["unsharded"]
+    assert got == want
+    assert got["evictions"]["stale"] > 0
+    assert all(t == got["tokens"] for t in v[arm]["all_ranks"])
+
+
+def test_serve_schedule_ignores_a_rank_s_readiness(world):
+    """The async store arm with every entry held unready for a few polls
+    on ranks 1 and 3 only: the same tokens, hits and step sequences as
+    without the skew, on every rank, and the same collectives on every
+    rank as the unskewed drain issued (a rank that landed what it alone
+    saw ready would have admitted a wave by itself and hung the world)."""
+    _, v = _load(world, "serve_arms")
+    sk, ref = v["skew"], v["async_store"]
+    assert sk["sharded"] == ref["sharded"]
+    assert all(t == ref["sharded"]["tokens"] for t in sk["all_ranks"])
+    assert sk["comms"] == ref["comms"]
+    held = sk["held_polls"]
+    assert held[0] == held[2] == 0 and held[1] > 0 and held[3] > 0
+
+
+@pytest.mark.parametrize("pipeline", ["sync", "async"])
+def test_decode_tick_gathers_no_carry_leaf(world, pipeline):
+    """A decode tick at (2,2) gathers the logits and the statuses, and no
+    leaf of the batch-split carry: no gathered input of the iterate's or
+    the ring's local shape, no bool row vector (``warm``), and one int32
+    row vector (the statuses; ``count`` and ``age`` stay split)."""
+    _, v = _load(world, "tick_gathers")
+    t = v[pipeline]
+    assert "Shard(dim=1)" in t["placements"]
+    shapes = [(g[1], g[2]) for g in t["gathers"]]
+    assert shapes
+    for leaf in ("z", "u"):
+        assert tuple(t["carry_local"][leaf]) not in [
+            (list(s), d) for s, d in shapes], leaf
+    row, idt = t["carry_local"]["count"]
+    assert shapes.count((row, idt)) == 1
+    assert (t["carry_local"]["warm"][0], "torch.bool") not in shapes
+
+
+# ---------------------------------------------------------------------------
+# gradient accumulation on the mesh
+# ---------------------------------------------------------------------------
+
+
+def _jax_accum_step(kind, batch, k):
+    cfg = _jax_cfg(kind)
+    p = jax.tree_util.tree_map(jnp.asarray, _jax_params(kind))
+    tc = JTrainConfig(steps=2, global_batch=batch, seq_len=tw.S, lr=1e-3,
+                      warmup_steps=1, zero1=False, grad_accum=k)
+    tok, tgt = _tokens(cfg.vocab_size, batch)
+    state = jsteps.TrainState(jnp.zeros((), jnp.int32), p,
+                              jopt.adamw_init(p), None,
+                              jnp.zeros((), jnp.int32))
+    step = jax.jit(jsteps.build_train_step(cfg, tc,
+                                           jsh.ShardCtx.for_mesh(None)))
+    new, m = step(state, {"tokens": jnp.asarray(tok),
+                          "targets": jnp.asarray(tgt)})
+    return (tw.flat(jax.tree_util.tree_map(np.asarray, new.params)),
+            float(m["loss"]))
+
+
+ACCUM = {"accum_dense": ("dense", tw.B, 2), "accum_deq": ("deq", 8, 2),
+         "accum_uneven": ("dense", 8, 4)}
+
+
+@pytest.mark.parametrize("check", sorted(ACCUM))
+def test_grad_accum_on_the_mesh_matches_the_unsharded_step(world, check):
+    """``grad_accum`` k at (2,2) (dense, 4 rows; the DEQ, 8 rows) and at
+    (4,1) with microbatches of 2 rows over 4 data ranks: loss, gradient
+    norm, every updated parameter and first moment against the port's
+    unsharded accumulation step (rtol 1e-4, f32); the moments in their
+    ZeRO-1 layout, no carry."""
+    a, v = _load(world, check)
+    kind = ACCUM[check][0]
+    np.testing.assert_allclose(v["loss1"], v["loss0"], rtol=1e-4)
+    np.testing.assert_allclose(v["gnorm1"], v["gnorm0"], rtol=1e-4)
+    assert not v["carry"] and "Shard" in v["mu_placements"]
+    keys = [k[3:] for k in a if k.startswith("p0/")]
+    assert keys
+    for k in keys:
+        mu0 = a["mu0/" + k]
+        np.testing.assert_allclose(a["mu1/" + k], mu0, rtol=1e-4,
+                                   atol=1e-4 * np.abs(mu0).max(), err_msg=k)
+        # as in test_sharded_step_matches_the_unsharded_step: Adam's first
+        # update moves a near-zero gradient's element by up to lr
+        np.testing.assert_allclose(
+            a["p1/" + k], a["p0/" + k], rtol=1e-4,
+            atol=1e-5 if kind == "dense" else 1e-4, err_msg=k)
+
+
+@pytest.mark.parametrize("check", sorted(ACCUM))
+def test_grad_accum_on_the_mesh_matches_jax(world, check):
+    """Against JAX's unsharded ``build_train_step`` with the same
+    ``grad_accum`` on the same numpy parameters and batch, at the
+    reference's sharded-vs-unsharded tolerances."""
+    a, v = _load(world, check)
+    want, loss = world[2]["accum"][check]
+    np.testing.assert_allclose(v["loss1"], loss, rtol=2e-2)
+    for k, x in want.items():
+        np.testing.assert_allclose(a["p1/" + k], x, rtol=5e-2, atol=5e-4,
+                                   err_msg=k)
+
+
+LAUNCH_ARGS = ["--smoke", "--deq", "--device", "cpu", "--prefix-cache",
+               "--shared-prefix", "8", "--requests", "4", "--slots", "2",
+               "--max-new-tokens", "4", "--dtype", "float32", "--qn-dtype",
+               "float32"]
+
+
+def _start_launcher_runs(d: str) -> dict:
+    """The serve launcher under ``torchrun`` at 2x2 and without a mesh,
+    started beside the world (output into ``d``)."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               OMP_NUM_THREADS="1")
+    cmds = {"mesh": [sys.executable, "-m", "torch.distributed.run",
+                     "--nproc-per-node", "4", "--master-port", str(port),
+                     "-m", "repro_torch.launch.serve", "--mesh", "2x2",
+                     *LAUNCH_ARGS],
+            "one": [sys.executable, "-m", "repro_torch.launch.serve",
+                    *LAUNCH_ARGS]}
+    out = {}
+    for name, cmd in cmds.items():
+        files = [open(os.path.join(d, f"launch_{name}.{x}"), "w")
+                 for x in ("out", "err")]
+        out[name] = (subprocess.Popen(cmd, cwd=REPO, env=env,
+                                      stdout=files[0], stderr=files[1]),
+                     files)
+    return out
+
+
+def _finish_launcher_runs(runs: dict) -> dict:
+    res = {}
+    for name, (proc, files) in runs.items():
+        try:
+            rc = proc.wait(timeout=240)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = "timeout"
+        for f in files:
+            f.close()
+        with open(files[0].name) as fo, open(files[1].name) as fe:
+            res[name] = (rc, fo.read(), fe.read())
+    return res
+
+
+def test_serve_launcher_on_the_mesh_gives_the_unsharded_tokens(world):
+    """``torchrun --nproc-per-node 4 -m repro_torch.launch.serve --mesh
+    2x2 --smoke --deq --device cpu --prefix-cache`` with the default
+    (async) pipeline prints the requests of the run without ``--mesh``
+    (both in f32: in bf16 a near tie of two logits may part them); the
+    two runs go beside the world."""
+    lines = {}
+    runs = world[2]["launcher"]
+    for name, (rc, out, err) in runs.items():
+        assert rc == 0, (name, err[-4000:])
+        lines[name] = [ln for ln in out.splitlines()
+                       if ln.startswith(("  req ", "prefix cache:"))]
+    assert len(lines["one"]) == 5 and lines["mesh"] == lines["one"]
+    out = runs["mesh"][1]
+    assert "async pipeline: 0 blocking host syncs" in out
+    assert "mesh {'data': 2, 'model': 2} over gloo" in out
+
+
 def test_moe_expert_parallel_matches_the_reference_sharded_arm(world):
     a, _ = _load(world, "moe_ep")
-    d, _ = world
+    d = world[0]
     with np.load(os.path.join(d, "jax_moe.npz")) as f:
         ref = {k: f[k] for k in f.files}
     np.testing.assert_allclose(a["out"], ref["out"], rtol=1e-4, atol=1e-5)
@@ -473,13 +733,24 @@ def test_decode_partials_combine_to_the_whole_cache():
 
 def test_chip_smoke_four_card_world_on_the_cpu():
     """``chip_smoke.sharded_four_cards``'s plumbing (spawned ranks, the
-    (2,2) DEQ step against rank 0's unsharded one, the drain, V2-Lite's
+    (2,2) DEQ step alone and with two microbatches against rank 0's
+    unsharded ones, the sync drain, the async drain with the device prefix
+    store, V2-Lite's
     expert-parallel prefill with its drop count) on four gloo ranks at the
     smoke configs, before a four-card host runs it over NCCL."""
     sys.path.insert(0, REPO)
     import chip_smoke
     res = chip_smoke.sharded_four_cards("cpu", device="cpu")
     assert res["drain"]["same_tokens"]
+    # the async pipeline with the device store: the unsharded drain's
+    # tokens, hits and prefill steps; every request served
+    st = res["drain_async_store"]
+    assert st["same_tokens"] and not st["errors"]
+    assert st["hits"] == st["hits_unsharded"] >= 4
+    assert st["prefill_steps"] == st["prefill_steps_unsharded"]
+    acc = res["train_accum"]
+    assert acc["grad_accum"] == 2 and "fail" not in acc
+    assert acc["excess"] <= 0 and acc["first_moments"]["rel_l2"] <= 1e-3
     for tag in ("f32_4_layers", "full"):
         v2 = res[f"v2_lite_prefill_{tag}"]
         assert v2["dropped_pairs"] == 0 and v2["excess"] <= 0, tag
@@ -562,3 +833,42 @@ def test_train_launcher_mesh_needs_the_production_ranks(monkeypatch, mesh,
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def _arm(**kw) -> dict:
+    class _Loop:
+        solve_log = [{"phase": "prefill", "steps": 3.0},
+                     {"phase": "decode", "steps": 1.0}]
+    a = dict(loop=_Loop(), tokens=[[5, 6], [7, 8]], errors=[None, None],
+             hits=1, prefill_steps=[3.0], prefill_iters=3.0, saved_iters=0.0,
+             steps={"0": [3.0, 1.0]},
+             # the solver's reads (2 an iteration + the stop) and the clock
+             syncs=["implicit"] * (7 + 3 + 1))
+    a.update(kw)
+    return a
+
+
+@pytest.mark.parametrize("fault", ["none", "token", "hits", "prefill_steps",
+                                   "extra_wait", "short", "error"])
+@pytest.mark.parametrize("pipeline", ["sync", "async"])
+def test_chip_smoke_mesh_arm_check(monkeypatch, fault, pipeline):
+    """``chip_smoke.check_mesh_arm`` on canned arms: equal arms pass; one
+    changed token, hit or prefill step count, a missing token or an error
+    fails it, and in an async arm one more host wait than the solver's
+    reads and the clock."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    monkeypatch.setitem(chip_smoke.SHARDED_PREFIX, "new", 2)
+    want = _arm()
+    got = {"none": _arm(), "token": _arm(tokens=[[5, 6], [7, 9]]),
+           "hits": _arm(hits=2), "prefill_steps": _arm(prefill_steps=[4.0]),
+           "extra_wait": _arm(syncs=["implicit"] * 12),
+           "short": _arm(tokens=[[5], [7, 8]]),
+           "error": _arm(errors=[None, "DIVERGED"])}[fault]
+    fails = fault != "none" and not (fault == "extra_wait"
+                                      and pipeline == "sync")
+    if fails:
+        with pytest.raises(AssertionError):
+            chip_smoke.check_mesh_arm("arm", got, want, pipeline, 12)
+    else:
+        chip_smoke.check_mesh_arm("arm", got, want, pipeline, 12)
