@@ -222,9 +222,12 @@ Phases, one line (or a few) each:
      (``hold_trajectory``; both peaks); the smoke configs card against CPU
      in f32 (HuBERT's layer stack and DEQ train steps, a Pixtral drain and
      train steps with images); an ``audio_vlm_phase_split`` line;
- 17. layout and costing on one card (``phase_layout``): the dry-run's
+ 17. layout and costing on one card (``phase_layout``, run after steps 18
+     and 19, last): the dry-run's
      whole matrix (``python -m repro_torch.launch.dryrun --all``, started
-     in a niced subprocess when the script starts and collected here) with
+     in a niced subprocess when the script starts and collected here; the
+     ``single`` and ``multi`` cells run the sharded step on fake worlds of
+     256 and 512 ranks, those in ``DRYRUN_EXCLUDE`` left to the CLI) with
      0 failures, one line with its cells, skips, failures and seconds;
      then, against the caching allocator (``memory_allocated``, each leaf
      rounded to its 512-byte block): the parameters of all ten configs at
@@ -254,14 +257,21 @@ Phases, one line (or a few) each:
      ``grad_accum`` 2, held as the first; the seconds of each part
      (``sharded_phase_split``); the five path kernels' launches
      counted over all, every one launched by the serving arms;
-     ``CommDebugMode``'s collectives of each; the five
+     ``CommDebugMode``'s collectives of each, those of the first step held
+     against the dry-run's count of the same step on a fake world of the
+     same mesh (``sharded_step_dryrun``, started in a niced subprocess
+     when the script starts: kinds and counts equal at (1, 1),
+     ``check_issued``); the five
      kernels at the local shapes of a (2, 2) mesh against their plain
      versions, and two 512-key slices' decode partials (slices with no
      valid key among them) combined against the whole-cache decode; with
      four cards, four ranks at (2, 2) (the DEQ step, alone and with
      ``grad_accum`` 2, against the unsharded step at the reference's
      tolerances, its first moments within ``MU_REL_L2_SHARDED`` a leaf,
-     each one's second step timed, the sync drain and the async drain with
+     the first step's collectives (kinds, counts and link bytes) equal to
+     the dry-run's and each rank's peak within ``LAYOUT_PEAK_TOL`` of its
+     ``argument_bytes + temp_bytes``, each one's second step timed, the
+     sync drain and the async drain with
      the device store against the unsharded drains' tokens,
      DeepSeek-V2-Lite's
      prefill through the expert-parallel branch with 0 drops, held in f32
@@ -271,14 +281,27 @@ Phases, one line (or a few) each:
      error); with fewer, a line that says so, the same branch on four
      gloo ranks of the host's CPU at the smoke configs
      (``sharded_four_cpu_ranks``: the host's PyTorch at (2, 2), no card,
-     no time), and that unsharded bf16 error read on the one card;
- 19. a ``{"kernels": [...]}`` line (with each kernel's launches in the
+     no time; the collectives held as on four cards), and that unsharded
+     bf16 error read on the one card;
+ 19. the examples (``phase_examples``) through their own functions:
+     ``examples/torch_quickstart.py``'s three backward modes for 20 steps
+     on the card against the same steps on the CPU (losses at rtol 1e-4),
+     ``torch_serve_lm.py`` as its CLI runs (the smoke StableLM-3B, and its
+     DEQ form) and in f32 card against CPU (the same tokens),
+     ``torch_train_deq_lm.py`` for 3 steps at its ~100M width with SHINE;
+     each example's path kernels launched (counted from 0 around each),
+     and both qN kernels at the examples' rings against their plain
+     versions (``EXAMPLE_QN``; the examples' attention and rmsnorm shapes
+     are phase 2's ``serve_lm_smoke`` / ``deq_lm_100m`` cases and
+     ``RMS_SHAPES``' 2048 x 1024);
+ 20. a ``{"kernels": [...]}`` line (with each kernel's launches in the
      step 8 arms, in arm c of step 4, in the MDEQ SGD steps, in the
      V2-Lite async drain of step 12, in the Zamba2 async drain and train
      steps of step 13, in the xLSTM async drain and train steps of step
      14, in the HuBERT train and DEQ steps, the Pixtral async drain and
-     its kernel-arm train steps of step 16, and in step 18's sharded
-     steps and serving arms), then the last line ``{"ok": true,
+     its kernel-arm train steps of step 16, in step 18's sharded
+     steps and serving arms and in step 19's examples), then the last
+     line ``{"ok": true,
      "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the last
@@ -332,7 +355,7 @@ from repro_torch.implicit import fixed_point as implicit_fp  # noqa: E402
 from repro_torch.implicit import solvers as implicit_solvers  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import steps as train_steps  # noqa: E402
-from repro_torch.launch.mesh import ONE_CARD  # noqa: E402
+from repro_torch.launch.mesh import ONE_CARD, MeshSpec  # noqa: E402
 from repro_torch.configs.registry import ARCHS  # noqa: E402
 from repro_torch.configs.shapes import ShapeSuite  # noqa: E402
 from repro_torch.parallel.sharding import ShardCtx  # noqa: E402
@@ -885,14 +908,15 @@ def qn_prefill_warm_inputs(gen):
     return u, v, mask, (count % m).int(), active, g, s, hg
 
 
-def qn_case(tag, m, bsz, dim, dtype, schedule, gen, inputs=None) -> float:
+def qn_case(tag, m, bsz, dim, dtype, schedule, gen, inputs=None,
+            straddle: bool = True) -> float:
     """``broyden_step`` and ``qn_apply_multi`` (K = 1, 2 mixed, 4) on one
     case against their plain versions: the evicted rows and every unwritten
     ring row bit for bit, the rest at the row tolerance; two calls on clones
     of the same inputs bit for bit.  The plan must be ``schedule`` (None:
     whichever the planner picks), and a streaming case's slices must
-    straddle a sample boundary.  ``inputs`` replaces the drawn
-    ``qn_case_inputs``."""
+    straddle a sample boundary (unless ``straddle`` is False: a path's own
+    shape).  ``inputs`` replaces the drawn ``qn_case_inputs``."""
     u, v, mask, slot, active, g, s, hg = inputs or qn_case_inputs(
         m, bsz, dim, dtype, gen)
     vec = dim % (16 // u.element_size()) == 0
@@ -900,7 +924,7 @@ def qn_case(tag, m, bsz, dim, dtype, schedule, gen, inputs=None) -> float:
         p = cuda_qn._plan_call(op, u, bsz, dim, k, vec)
         if schedule is not None and p.schedule != schedule:
             raise AssertionError(f"qn case {tag}: {op} planned {p}")
-        if p.coop and not _straddles(p, bsz, dim):
+        if straddle and p.coop and not _straddles(p, bsz, dim):
             raise AssertionError(f"qn case {tag}: no slice straddles")
     alpha = torch.tensor(0.8, device="cuda")
     eps = 1e-8
@@ -1297,6 +1321,12 @@ PREFILL_CASES = [
     ("hubert_noncausal_f32", 4, 1000, 1000, 16, 16, 80, torch.float32, None,
      False),
     ("pixtral_img", 2, 1152, 1152, 32, 8, 128, torch.bfloat16, None, True),
+    # examples/torch_train_deq_lm.py at its ~100M width (16 x 64 heads,
+    # 8 x 256) and torch_serve_lm.py's smoke prefill waves (4 x 16 heads
+    # over prompts of 4-15 tokens)
+    ("deq_lm_100m", 8, 256, 256, 16, 16, 64, torch.bfloat16, None, True),
+    ("serve_lm_smoke", 4, 15, 15, 4, 4, 16, torch.bfloat16, [15, 4, 9, 12],
+     True),
 ]
 # decode cases besides "main": (tag, B, H, KV, hd, T, dtype, kv_length) --
 # kv_length at the split chunk's edges (CH-1, CH, CH+1, T) and 0, a cache
@@ -1333,6 +1363,8 @@ DECODE_CASES = [
      [_CH - 1, _CH, _CH + 1, 512]),
     ("pixtral_chunk_edges", 4, 32, 8, 128, 2048, torch.bfloat16,
      [_CH - 1, _CH, _CH + 1, 2048]),
+    # examples/torch_serve_lm.py: 4 slots over its 96-token caches
+    ("serve_lm_smoke", 4, 4, 4, 16, 96, torch.bfloat16, [20, 5, 96, 40]),
 ]
 
 
@@ -1567,7 +1599,7 @@ RMS_SHAPES = [(1024, 2304), (1024, 2560), (1024, 3072), (1024, 6144),
               (4, 512), (1000, 2304), (1024, 64), (4, 2560), (1024, 5120),
               (4, 5120), (2048, 2560), (2048, 5120), (1200, 2048),
               (2048, 2048), (4000, 1280), (4, 1280), (2304, 5120),
-              (3072, 5120)]
+              (3072, 5120), (2048, 1024)]
 
 
 def kernel_rmsnorm(gen) -> dict:
@@ -4007,8 +4039,9 @@ XLSTM_DEQ_PLENS = (64, 128, 64, 128)
 # the chunked cells against their sequential oracles, in f32
 SCAN_TOL = dict(rtol=1e-4, atol=1e-4)
 # the traced train step: at 4 x 128 the trace held 93 k kernels and took
-# ~65 s to take and read, at 4 x 64 about half
-XLSTM_PROFILE_SEQ = 64
+# ~65 s to take and read, at 4 x 64 (PRs 21-25) 49 s; at 4 x 32 about half
+# that, so the script stays inside its time with the examples' phase
+XLSTM_PROFILE_SEQ = 32
 
 
 def _xlstm_desc(cfg) -> str:
@@ -4571,12 +4604,37 @@ LAYOUT_PEAK_TOL = 0.10
 LAYOUT_SHARE_MAX = 1.05
 LAYOUT_STEP = dict(batch=4, seq=256, runs=3)
 DRYRUN_JOBS = 6          # workers of the matrix: two of the 8 cores left over
-# the matrix's cells that cannot finish beside the other phases: each runs
-# the sLSTM loop on meta for 455-681 s alone on the card host's 8 cores
-# (PERF.md §6); run them with the dry-run's CLI
-DRYRUN_EXCLUDE = ("xlstm-1.3b/prefill_32k/one/memory",
-                  "xlstm-1.3b/train_4k/one/memory",
-                  "xlstm-1.3b/prefill_32k/single/cost")
+# the matrix's cells that cannot finish beside the other phases, run with
+# the dry-run's CLI (``--all``).  Seconds a cell, on an 8-core CPU host
+# with PyTorch 2.13 (6 workers) / on the card's host with PyTorch 2.11 (7
+# workers), PERF.md §4:
+DRYRUN_EXCLUDE = (
+    # the sLSTM loop over 32k tokens on meta, unsharded: 455-681 s
+    "xlstm-1.3b/prefill_32k/one/memory",
+    "xlstm-1.3b/train_4k/one/memory",
+    # 1737 / >1200 s
+    "xlstm-1.3b/prefill_32k/single/cost",
+    # the sharded prefill on meta, every chunked attention tile a DTensor
+    # op: 92-658 / 83-597 s each (xLSTM's 2065-2305 s)
+    *(f"{a}/prefill_32k/{m}/memory" for a in (
+        "minicpm-2b", "phi3-mini-3.8b", "stablelm-3b", "internlm2-20b",
+        "deepseek-v2-lite-16b", "deepseek-moe-16b", "hubert-xlarge",
+        "zamba2-2.7b", "xlstm-1.3b", "pixtral-12b")
+      for m in ("single", "multi")),
+    # sharded train steps on the two-pod mesh, 24-557 / 24-48 s each (each
+    # arch keeps its single-pod or decode cells; MiniCPM-2B's DEQ step
+    # stays in on both meshes)
+    *(f"{a}/train_4k/multi/memory" for a in (
+        "minicpm-2b", "phi3-mini-3.8b", "stablelm-3b", "internlm2-20b",
+        "deepseek-v2-lite-16b", "deepseek-moe-16b", "hubert-xlarge",
+        "zamba2-2.7b", "xlstm-1.3b", "pixtral-12b")),
+    "deepseek-moe-16b/train_4k/multi/memory/deq",      # 27-30 / 39
+    "zamba2-2.7b/train_4k/multi/memory/deq",           # 602-629 / 76
+    "zamba2-2.7b/train_4k/single/memory/deq",          # 101-110 / 71
+    "zamba2-2.7b/train_4k/single/cost/deq",            # 102-112 / 77
+    "xlstm-1.3b/train_4k/single/memory",               # 1326 / 1014
+    "xlstm-1.3b/train_4k/single/cost",                 # 1085 / 828
+)
 # seconds after the script's start by which the matrix must be done
 DRYRUN_DEADLINE = 1000
 
@@ -4907,6 +4965,167 @@ MU_REL_L2_SHARDED = 5e-2
 TOL_SHARDED = dict(rtol=3e-2, atol=3e-2)
 
 
+def sharded_cfg(smoke: bool = False):
+    """The sharded phase's MiniCPM-2B DEQ: at full width, or (the four CPU
+    ranks') its smoke config in f32."""
+    if smoke:
+        return dataclasses.replace(smoke_config("minicpm-2b", deq=True),
+                                   dtype="float32")
+    return get_config("minicpm-2b", deq=True)
+
+
+def sharded_tcfg(cfg, grad_accum: int = 1) -> TrainConfig:
+    """The sharded phase's train step: ``SHARDED_TRAIN``, ZeRO-1."""
+    return TrainConfig(steps=2, global_batch=SHARDED_TRAIN["batch"],
+                       seq_len=SHARDED_TRAIN["seq"], schedule=cfg.schedule,
+                       zero1=True, grad_accum=grad_accum)
+
+
+# the sharded phase's DEQ train steps whose collectives the dry-run counts
+# on a fake world of the same mesh: (tag, mesh, smoke config), counted at
+# two solver-step depths (a step's collectives are linear in the solve's
+# steps) and held against the real step's at its own step count
+SHARDED_DRYRUN = (("1x1", (1, 1), False), ("2x2", (2, 2), False),
+                  ("2x2_cpu", (2, 2), True))
+SHARDED_DRYRUN_DEPTHS = (2, 4)
+
+
+def issued(records) -> dict:
+    """``kind -> [count, per-device link bytes]`` of issued collectives
+    (``(kind, result bytes, group size)`` triples); a group of one counts,
+    with 0 bytes."""
+    out: dict = {}
+    for kind, n, g in records:
+        c = out.setdefault(kind, [0, 0.0])
+        c[0] += 1
+        if g > 1 or kind == "collective-permute":
+            c[1] += dryrun.RING[kind](n, g)
+    return out
+
+
+def comm_kinds(comms: dict) -> dict:
+    """``CommDebugMode``'s counts by op name as ``issued``'s kinds (no
+    bytes)."""
+    out: dict = {}
+    for name, n in comms.items():
+        out.setdefault(dryrun.collective_kind(name), [0, 0.0])[0] += n
+    return out
+
+
+def sharded_step_counts(tags=None) -> dict:
+    """(On the CPU, no card.)  The dry-run of the sharded phase's DEQ train
+    step on a fake world of each ``SHARDED_DRYRUN`` mesh (those of
+    ``tags``; None: all), as the step runs (no unroll: on ``meta`` every
+    stop test reads as not met, so the solve runs its ``max_steps`` and
+    issues each test): its collectives at ``SHARDED_DRYRUN_DEPTHS`` solver
+    steps; at (2, 2) full width also the memory cell at the config's
+    ``max_steps``."""
+    shape = ShapeSuite("train_4x256", "train", SHARDED_TRAIN["seq"],
+                       SHARDED_TRAIN["batch"])
+    res = {}
+    for tag, dims, smoke in SHARDED_DRYRUN:
+        if tags is not None and tag not in tags:
+            continue
+        cfg = sharded_cfg(smoke)
+        tcfg = sharded_tcfg(cfg)
+        mesh = MeshSpec(("data", "model"), dims)
+        entry = {"max_steps": cfg.deq.max_steps, "depths": {}}
+        t0 = time.perf_counter()
+        with dryrun.fake_world(mesh) as world:
+            for n in SHARDED_DRYRUN_DEPTHS:
+                ncfg = dataclasses.replace(cfg, deq=dataclasses.replace(
+                    cfg.deq, max_steps=n))
+                _, _, rec = dryrun.run_step(dryrun.build_cell(
+                    ncfg, shape, world, tcfg))
+                entry["depths"][str(n)] = issued(rec)
+            if tag == "2x2":
+                mem = dryrun.memory_cell(cfg, shape, mesh, tcfg, run=True,
+                                         world=world)
+                entry["memory"] = {k: mem[k] for k in (
+                    "argument_bytes", "argument_bytes_blocks",
+                    "temp_bytes")}
+        entry["seconds"] = time.perf_counter() - t0
+        res[tag] = entry
+    return res
+
+
+def sharded_step_dryrun(out_path: str) -> None:
+    """``sharded_step_counts()`` written to ``out_path`` as JSON."""
+    with open(out_path, "w") as f:
+        json.dump(sharded_step_counts(), f)
+
+
+def start_sharded_dryrun() -> tuple:
+    """Start ``sharded_step_dryrun`` in a niced subprocess (CPU only);
+    ``collect_sharded_dryrun`` waits for it."""
+    out = tempfile.mkdtemp(prefix="sharded_dryrun_")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    code = ("import sys, chip_smoke; "
+            "chip_smoke.sharded_step_dryrun(sys.argv[1])")
+    with open(os.path.join(out, "log"), "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", code, os.path.join(out, "counts.json")],
+            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
+            text=True, preexec_fn=lambda: os.nice(19))
+    return proc, out
+
+
+def collect_sharded_dryrun(handle: tuple, timeout: float = 600) -> dict:
+    proc, out = handle
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    path = os.path.join(out, "counts.json")
+    if proc.returncode != 0 or not os.path.exists(path):
+        with open(os.path.join(out, "log")) as f:
+            raise AssertionError(f"the sharded step's dry-run failed "
+                                 f"(rc {proc.returncode}): "
+                                 f"{f.read()[-4000:]}")
+    with open(path) as f:
+        res = json.load(f)
+    shutil.rmtree(out, ignore_errors=True)
+    return res
+
+
+def expected_issued(entry: dict, n: int, stop_group: int) -> dict:
+    """The dry-run's collectives of the step at ``n`` solver steps: linear
+    in the steps between its two counted depths.  A solve that stopped
+    before its ``max_steps`` also read the test that stopped it: one more
+    all-reduce of one int32 over the ``stop_group`` ranks."""
+    (l0, d0), (l1, d1) = sorted((int(k), v)
+                                for k, v in entry["depths"].items())
+    out = {}
+    for kind in set(d0) | set(d1):
+        a, b = d0.get(kind, [0, 0.0]), d1.get(kind, [0, 0.0])
+        out[kind] = [a[i] + (n - l0) * (b[i] - a[i]) / (l1 - l0)
+                     for i in (0, 1)]
+    if n < entry["max_steps"]:
+        c = out.setdefault("all-reduce", [0, 0.0])
+        c[0] += 1
+        if stop_group > 1:
+            c[1] += dryrun.RING["all-reduce"](4, stop_group)
+    return out
+
+
+def check_issued(name: str, got: dict, want: dict,
+                 with_bytes: bool) -> None:
+    """The collectives a real step issued against the dry-run's: the same
+    kinds and counts, and (``with_bytes``) the same link bytes."""
+    zero = [0, 0.0]
+    bad = {k: (got.get(k, zero), want.get(k, zero))
+           for k in set(got) | set(want)
+           if got.get(k, zero)[0] != want.get(k, zero)[0]
+           or (with_bytes and not math.isclose(
+               got.get(k, zero)[1], want.get(k, zero)[1], rel_tol=1e-9,
+               abs_tol=1e-6))}
+    if bad:
+        raise AssertionError(f"{name}: the step's collectives are not the "
+                             f"dry-run's (got, dry-run): {bad}")
+
+
 def _free_port() -> int:
     import socket
     with socket.socket() as sock:
@@ -4976,7 +5195,8 @@ def _step_seconds(step, state, batch) -> float:
 
 
 def sharded_train_step(cfg, params, ctx, smi: str, tag: str,
-                       grad_accum: int = 1) -> dict:
+                       grad_accum: int = 1, record: dict | None = None
+                       ) -> dict:
     """One MiniCPM-2B DEQ train step (4 x 256, ZeRO-1; ``grad_accum``
     microbatches) through ``ctx``; the unsharded step first (its loss, grad
     norm, parameters and first moments kept on the host), then the sharded
@@ -4988,10 +5208,9 @@ def sharded_train_step(cfg, params, ctx, smi: str, tag: str,
     update mostly does not show) at rtol 1e-4 with an atol of 1e-4 x the
     leaf's largest entry.  Then the second step of
     each, timed, and a third under the profiler: wall, device busy time
-    and idle share."""
-    tcfg = TrainConfig(steps=2, global_batch=SHARDED_TRAIN["batch"],
-                       seq_len=SHARDED_TRAIN["seq"], schedule=cfg.schedule,
-                       zero1=True, grad_accum=grad_accum)
+    and idle share.  ``record`` takes the sharded first step's collectives
+    (``CommDebugMode``'s counts) and solve steps."""
+    tcfg = sharded_tcfg(cfg, grad_accum)
     batch = next(make_lm_batch_iterator(cfg, tcfg.global_batch,
                                         tcfg.seq_len, seed=0, device="cuda"))
     # under accumulation the step reports no solve steps (the reference's
@@ -5036,6 +5255,8 @@ def sharded_train_step(cfg, params, ctx, smi: str, tag: str,
             grad_accum=grad_accum, window="third step", card=smi, **p)
     say("sharded_train_collectives", mesh=dict(ctx.mesh.shape),
         grad_accum=grad_accum, **comms)
+    if record is not None:
+        record.update(comms=comms, deq_steps=m1["deq_steps"])
     if (m1["deq_steps"] != m0["deq_steps"]
             or abs(m1["loss"] - m0["loss"]) > 1e-5 * abs(m0["loss"])
             or abs(m1["grad_norm"] - m0["grad_norm"])
@@ -5227,7 +5448,7 @@ def kernels_at_local_shapes(smi: str) -> dict:
     return out
 
 
-def phase_sharded(smi: str) -> dict:
+def phase_sharded(smi: str, step_dryrun: tuple) -> dict:
     """A world of one rank over NCCL, mesh (data=1, model=1): the DEQ
     train step, the serving arms of ``SHARDED_ARMS`` (both pipelines,
     both prefix caches) and the train step with gradient accumulation
@@ -5235,7 +5456,9 @@ def phase_sharded(smi: str) -> dict:
     the serving path launched through ``local_map``; the kernels
     at the (2, 2) local shapes; then, on a host with four cards, four
     ranks at (2, 2).  Prints the seconds of each part
-    (``sharded_phase_split``)."""
+    (``sharded_phase_split``).  The first DEQ step's collectives, at (1, 1)
+    and at (2, 2), are held against the dry-run's count of the same step
+    (``step_dryrun``: ``start_sharded_dryrun``'s subprocess)."""
     import torch.distributed as dist
 
     from repro_torch.configs.shapes import SHAPES, make_ctx
@@ -5258,9 +5481,11 @@ def phase_sharded(smi: str) -> dict:
                 make_ctx(cfg, mesh, SHAPES["prefill_32k"]))
         counts = collections.Counter()
         split = {}
+        first: dict = {}
         for part, run in (
                 ("train", lambda: sharded_train_step(
-                    cfg, params, tctx, smi, "(1,1) DEQ step")),
+                    cfg, params, tctx, smi, "(1,1) DEQ step",
+                    record=first)),
                 ("serve_arms", lambda: sharded_serve_arms(cfg, params, ctxs,
                                                           smi)),
                 ("train_accum", lambda: sharded_train_step(
@@ -5279,6 +5504,15 @@ def phase_sharded(smi: str) -> dict:
                                          f"{missing}")
         say("sharded_launches", **counts)
         say("sharded_phase_split", card=smi, seconds=split)
+        expect = collect_sharded_dryrun(step_dryrun)
+        n = int(first["deq_steps"])
+        got, want = comm_kinds(first["comms"]), expected_issued(
+            expect["1x1"], n, 1)
+        say("sharded_dryrun_check", mesh={"data": 1, "model": 1},
+            forward_steps=n, issued=got, dryrun=want,
+            dryrun_seconds={k: v["seconds"] for k, v in expect.items()},
+            card=smi)
+        check_issued("(1,1) DEQ step", got, want, with_bytes=False)
         del params
         torch.cuda.empty_cache()
         errs = kernels_at_local_shapes(smi)
@@ -5286,18 +5520,20 @@ def phase_sharded(smi: str) -> dict:
         dist.destroy_process_group()
     n = torch.cuda.device_count()
     if n >= 4:
-        four = sharded_four_cards(smi)
+        four = sharded_four_cards(smi, expect=expect["2x2"])
     else:
         say("sharded_four_cards", ran=False,
             why=f"this host has {n} card(s); the (2, 2) branch needs 4")
         # the branch's code at (2, 2) on this host's PyTorch: four gloo
         # ranks on the CPU at the smoke configs (no card, no timing)
-        four = sharded_four_cards(smi, device="cpu")
+        four = sharded_four_cards(smi, device="cpu",
+                                  expect=expect["2x2_cpu"])
         four["v2_lite_bf16_error_one_card"] = v2_lite_bf16_error(smi)
     return {"counts": dict(counts), "errs": errs, "four": four}
 
 
-def sharded_four_cards(smi: str, device: str = "cuda") -> dict:
+def sharded_four_cards(smi: str, device: str = "cuda",
+                       expect: dict | None = None) -> dict:
     """Four ranks over NCCL at (2, 2): the DEQ step, alone and with two
     microbatches, against the unsharded step on one card at the
     reference's tolerances (its first moments within ``MU_REL_L2_SHARDED``
@@ -5305,7 +5541,11 @@ def sharded_four_cards(smi: str, device: str = "cuda") -> dict:
     prefix store against the unsharded drains' tokens, and
     DeepSeek-V2-Lite's prefill through the expert-parallel branch (32
     experts a rank) against the unsharded prefill.  ``device`` "cpu" runs
-    the same plumbing on four gloo ranks at the smoke configs (f32)."""
+    the same plumbing on four gloo ranks at the smoke configs (f32).
+    ``expect`` (``sharded_step_dryrun``'s entry for the mesh): the DEQ
+    step's collectives (kinds, counts, link bytes) held against the
+    dry-run's, and on the cards each rank's peak against its
+    ``argument_bytes + temp_bytes``."""
     import torch.multiprocessing as mp
     out = tempfile.mkdtemp(prefix="sharded4_")
     pc = mp.start_processes(_four_card_rank, args=(_free_port(), out, device),
@@ -5337,6 +5577,21 @@ def sharded_four_cards(smi: str, device: str = "cuda") -> dict:
             or not res["v2_lite_prefill_f32_4_layers"]["held"]
             or not res["v2_lite_prefill_full"]["held"]):
         raise AssertionError(f"the (2, 2) world disagrees: {res}")
+    if expect is not None:
+        t = res["train"]
+        want = expected_issued(expect, int(t["deq_steps"]), 4)
+        check_issued(f"(2,2) DEQ step ({device})", t["issued"], want,
+                     with_bytes=True)
+        check = dict(device=device, issued=t["issued"], dryrun=want)
+        if device == "cuda":
+            mem = expect["memory"]
+            pred = mem["argument_bytes_blocks"] + mem["temp_bytes"]
+            check.update(predicted_peak_bytes=pred, peaks=t["peaks"],
+                         peak_rel_err=[check_peak(
+                             f"(2,2) DEQ step, rank {r}", pred, pk)
+                             for r, pk in enumerate(t["peaks"])])
+        say("sharded_dryrun_check", mesh={"data": 2, "model": 2},
+            forward_steps=t["deq_steps"], card=smi, **check)
     return res
 
 
@@ -5432,15 +5687,27 @@ def _four_card_step(cfg, params, ctx, rank: int, dev: str, k: int):
     parameter at 5e-2 / 5e-4, the loss at 2e-2, each leaf's first moment
     within ``MU_REL_L2_SHARDED``): rank 0's record, ``fail`` set if not
     held; None on the other ranks."""
+    import torch.distributed as dist
+
     from repro_torch.parallel.sharding import full_tree
-    tcfg = TrainConfig(steps=2, global_batch=SHARDED_TRAIN["batch"],
-                       seq_len=SHARDED_TRAIN["seq"], schedule=cfg.schedule,
-                       zero1=True, grad_accum=k)
+    tcfg = sharded_tcfg(cfg, k)
     batch = next(make_lm_batch_iterator(cfg, tcfg.global_batch,
                                         tcfg.seq_len, seed=0, device=dev))
     s1 = train_steps.init_train_state(cfg, tcfg, params=params, ctx=ctx)
     step = train_steps.build_train_step(cfg, tcfg, ctx=ctx)
-    (s1, m1), comms = _comm_counts(lambda: step(s1, batch))
+    peak = None
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        args_alloc = _local_bytes(s1) + _local_bytes(batch)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    with dryrun.Collectives() as coll:
+        (s1, m1), comms = _comm_counts(lambda: step(s1, batch))
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base + args_alloc
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, peak)
     p1, mu1 = full_tree(s1.params), full_tree(s1.opt.mu)
     # the second step's wall time, to its last kernel (every rank steps)
     t0 = time.perf_counter()
@@ -5465,6 +5732,7 @@ def _four_card_step(cfg, params, ctx, rank: int, dev: str, k: int):
                    deq_steps=float(m1.get("deq_steps", 0.0)),
                    deq_steps1=float(m0.get("deq_steps", 0.0)),
                    excess=worst, first_moments=mu, collectives=comms,
+                   issued=issued(coll.records), peaks=peaks,
                    seconds_second_step=second)
         if abs(out["loss"] - out["loss1"]) > 2e-2 * abs(out["loss1"]) \
                 or worst > 0 or mu["rel_l2"] > MU_REL_L2_SHARDED:
@@ -5474,6 +5742,17 @@ def _four_card_step(cfg, params, ctx, rank: int, dev: str, k: int):
     if dev == "cuda":
         torch.cuda.empty_cache()
     return out
+
+
+def _local_bytes(tree) -> int:
+    """One rank's bytes of a tree's leaves (a DTensor's local shard), each
+    storage once, at its 512-byte block."""
+    from torch.distributed.tensor import DTensor
+    seen = {}
+    for t, _ in dryrun.leaves_with_specs(tree):
+        st = (t.to_local() if isinstance(t, DTensor) else t).untyped_storage()
+        seen[st.data_ptr()] = -(-st.nbytes() // dryrun.BLOCK) * dryrun.BLOCK
+    return sum(seen.values())
 
 
 def _v2_lite_ep_inputs(base, dev: str):
@@ -5590,6 +5869,225 @@ def v2_lite_bf16_error(smi: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the examples (examples/torch_*.py) through their own functions
+# ---------------------------------------------------------------------------
+
+EXAMPLES_DIR = os.path.join(ROOT, "examples")
+EXAMPLE_QUICK_STEPS = 20
+EXAMPLE_TRAIN_STEPS = 3
+EXAMPLE_QUICK_RTOL = 1e-4
+# the kernels each example's path launches
+EXAMPLE_PATHS = {
+    "quickstart_full": ("broyden_step", "qn_apply_multi"),
+    "quickstart_shine": ("broyden_step", "qn_apply_multi"),
+    "quickstart_jfb": ("broyden_step", "qn_apply_multi"),
+    "serve_lm": ("flash_attention", "decode_attention", "rmsnorm"),
+    "serve_lm_deq": SERVE_PATH,
+    "train_deq_lm": TRAIN_PATH,
+}
+
+
+def example_qn_rings() -> list:
+    """``(tag, m, B, D)`` of the examples' bf16 qN rings: the quickstart's
+    (memory 30 on the M=32 template, 32 samples of 64), the ~100M DEQ
+    LM's (memory 10 on M=16, 8 x 256 x 1024) and the smoke DEQ's served
+    prompts (its memory, 4 slots, 15 x 64)."""
+    serve = smoke_config("stablelm-3b", deq=True)
+    return [("quickstart", 30, 32, 64), ("train_deq_lm", 10, 8, 256 * 1024),
+            ("serve_lm_deq", serve.deq.memory, 4, 15 * serve.d_model)]
+
+
+def example_kernel_times(gen) -> dict:
+    """The examples' kernels timed at their shapes (their checks against
+    the plain versions are ``EXAMPLE_QN``'s cases here and phase 2's
+    ``deq_lm_100m`` / ``serve_lm_smoke`` attention cases): both qN ops
+    cold (``qn_timing``) at the quickstart's and the ~100M DEQ LM's rings;
+    the prefill kernel at the DEQ LM's 8 x 256 x 16 x 64 and the serving
+    example's 4 x 15 x 4 x 16, the decode kernel over its 96-token cache,
+    each beside the plain version, SDPA and the bound.  Every row in one
+    ``kernel`` line."""
+    bf = torch.bfloat16
+    rows = {}
+    for tag, m, bsz, dim in example_qn_rings()[:2]:
+        u, v, mask, slot, active, g, s_, hg = qn_case_inputs(m, bsz, dim, bf,
+                                                             gen)
+        alpha, eps = torch.tensor(1.0, device="cuda"), 1e-8
+        ring = 2 * m * bsz * dim * 2
+        uu, vv = u.clone(), v.clone()
+        shape = f"m={m} B={bsz} D={dim} bf16 ring"
+        rows[f"broyden_step[{tag}]"] = qn_timing(
+            "broyden_step",
+            lambda: cuda_qn.broyden_step(uu, vv, g, s_, hg, alpha, mask,
+                                         slot, active, eps),
+            lambda: ref.broyden_step_ref(u, v, g, s_, hg, alpha, mask, slot,
+                                         active, eps),
+            ring + 5 * bsz * dim * 4 + 2 * bsz * dim * 2
+            + 2 * bsz * dim * 2, 8 * m * bsz * dim, shape, example=tag)
+        xs = g[None]
+        rows[f"qn_apply_multi[{tag}]"] = qn_timing(
+            "qn_apply_multi",
+            lambda: cuda_qn.qn_apply_multi(u, v, xs, alpha, mask, (False,)),
+            lambda: ref.qn_apply_multi_ref(u, v, xs, alpha, mask, (False,)),
+            ring + 2 * bsz * dim * 4, 4 * m * bsz * dim, shape, example=tag)
+    for tag, bsz, seq, h, hd in (("train_deq_lm", 8, 256, 16, 64),
+                                 ("serve_lm", 4, 15, 4, 16)):
+        q, k, v = _attn_inputs(gen, bsz, seq, seq, h, h, hd, bf)
+        kern = lambda: cuda_fa.flash_attention(  # noqa: E731
+            q, k, v, causal=True)
+        b_ms, b_by = bound(2 * q.numel() * 2 + 2 * k.numel() * 2,
+                           4 * bsz * h * hd * seq * (seq + 1) / 2, "bf16")
+        rows[f"flash_attention[{tag}]"] = dict(
+            shape=f"B={bsz} S=T={seq} H=KV={h} hd={hd} causal bf16",
+            ms=time_ms(kern), device_ms=device_ms(kern),
+            plain_ms=time_ms(lambda: ref.attention_ref(q, k, v,
+                                                       causal=True)),
+            library_ms=time_ms(lambda: _sdpa(q, k, v, causal=True)),
+            library_device_ms=device_ms(lambda: _sdpa(q, k, v,
+                                                      causal=True)),
+            bound_ms=b_ms, bound_by=b_by)
+    bsz, h, hd, t = 4, 4, 16, 96
+    lens = _lens([20, 5, 96, 40])
+    q, k, v = _decode_inputs(gen, bsz, h, h, hd, t, bf)
+    kern = lambda: cuda_fa.decode_attention(q, k, v, lens)  # noqa: E731
+    amask = (torch.arange(t, device="cuda")[None, :] < lens[:, None]
+             )[:, None, None, :]
+    lib = lambda: _sdpa(q[:, None], k, v, causal=False,  # noqa: E731
+                        mask=amask)
+    live = int(lens.sum())
+    b_ms, b_by = bound(2 * q.numel() * 2 + 2 * live * h * hd * 2 + bsz * 4,
+                       4 * h * hd * live, "bf16")
+    rows["decode_attention[serve_lm]"] = dict(
+        shape=f"B={bsz} H=KV={h} hd={hd} T={t} kv_length={lens.tolist()} "
+        "bf16", ms=time_ms(kern), device_ms=sum(device_profile(kern)
+                                                 .values()),
+        plain_ms=time_ms(lambda: ref.decode_attention_ref(q, k, v, lens)),
+        library_ms=time_ms(lib), library_device_ms=device_ms(lib),
+        bound_ms=b_ms, bound_by=b_by)
+    return rows
+
+
+@contextlib.contextmanager
+def _cpu_threads(n: int):
+    """The CPU arm of a parity check on ``n`` intra-op threads (the
+    matrix's workers hold the other cores)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
+
+
+def _path_counts(name: str, run):
+    """``run()`` with the launch counts set to 0 just before it and read
+    just after; fails if a kernel of the example's path did not launch."""
+    launches.reset()
+    out = run()
+    torch.cuda.synchronize()
+    counts = launches.counts()
+    missing = [k for k in EXAMPLE_PATHS[name] if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"example {name}: kernels not launched: "
+                             f"{missing}")
+    return out, counts
+
+
+def phase_examples(smi: str) -> dict:
+    """The three examples on the card through their own functions: the
+    quickstart's modes against the same steps on the CPU, the serving
+    example as its CLI runs (and in f32 against the CPU), the ~100M DEQ
+    LM's first steps; both qN kernels at their rings against the plain
+    versions.  Returns each example's launch counts."""
+    if EXAMPLES_DIR not in sys.path:
+        sys.path.insert(0, EXAMPLES_DIR)
+    import torch_quickstart as quick
+    import torch_serve_lm as serve_ex
+    import torch_train_deq_lm as train_ex
+
+    t_start = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    qn_errs = {tag: qn_case(f"example_{tag}", m, b, d, torch.bfloat16, None,
+                            gen, straddle=False)
+               for tag, m, b, d in example_qn_rings()}
+    say("kernel_cases", name="broyden_step, qn_apply_multi (examples)",
+        cases={t: f"m={m} B={b} D={d} bf16 ring"
+               for t, m, b, d in example_qn_rings()},
+        max_abs_err=qn_errs)
+    say("example_kernels", card=smi, rows=example_kernel_times(gen))
+    counts = {}
+    # quickstart: every mode on the card and on the CPU from one draw
+    params, x, y = quick.make_problem("cpu")
+    card = ({k: v.cuda() for k, v in params.items()}, x.cuda(), y.cuda())
+    for mode, label in quick.MODES:
+        name = f"quickstart_{mode}"
+        (got, secs), counts[name] = _path_counts(name, lambda: quick.train(
+            *card, mode, steps=EXAMPLE_QUICK_STEPS, log_every=5))
+        with _cpu_threads(1):
+            want, _ = quick.train(params, x, y, mode,
+                                  steps=EXAMPLE_QUICK_STEPS, log_every=5)
+        err = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        say("example", name=name, label=label, losses=got, losses_cpu=want,
+            max_rel_err=err, seconds=secs, launches=counts[name], card=smi)
+        if not all(math.isfinite(v) for v in got) or got[-1] >= got[0] \
+                or err > EXAMPLE_QUICK_RTOL:
+            raise AssertionError(f"quickstart {mode}: card {got} vs CPU "
+                                 f"{want}")
+    # serve_lm: as its CLI runs it, then in f32 on the card and the CPU
+    for deq in (False, True):
+        name = "serve_lm_deq" if deq else "serve_lm"
+        t0 = time.perf_counter()
+        reqs, counts[name] = _path_counts(
+            name, lambda: serve_ex.main(["--deq"] if deq else []))
+        cfg = smoke_config("stablelm-3b", deq=deq)
+        if any(len(r.out) != 12 or not all(0 <= t < cfg.padded_vocab
+                                           for t in r.out) for r in reqs):
+            raise AssertionError(f"{name}: outputs {[r.out for r in reqs]}")
+        cfg = dataclasses.replace(cfg, dtype="float32")
+        if deq:
+            cfg = dataclasses.replace(cfg, deq=dataclasses.replace(
+                cfg.deq, qn_dtype="float32"))
+        cpu_params = lm.init_params(cfg, seed=0, device="cpu")
+        toks = {}
+        for dev, p in (("cuda", _map(lambda t: t.cuda(), cpu_params)),
+                       ("cpu", cpu_params)):
+            r = serve_ex.make_requests(cfg.vocab_size, 12)
+            with _cpu_threads(1 if dev == "cpu" else torch.get_num_threads()):
+                serve_ex.serve(p, cfg, r, slots=4)
+            toks[dev] = [q.out for q in r]
+        say("example", name=name, requests=len(reqs),
+            tokens=sum(len(r.out) for r in reqs),
+            f32_tokens_card_eq_cpu=toks["cuda"] == toks["cpu"],
+            seconds=time.perf_counter() - t0, launches=counts[name],
+            card=smi)
+        if toks["cuda"] != toks["cpu"]:
+            raise AssertionError(f"{name} f32: card {toks['cuda']} vs CPU "
+                                 f"{toks['cpu']}")
+    # train_deq_lm: its ~100M config, SHINE, on the card
+    ck = tempfile.mkdtemp(prefix="example_ck_")
+    t0 = time.perf_counter()
+    try:
+        state, counts["train_deq_lm"] = _path_counts(
+            "train_deq_lm", lambda: train_ex.main(
+                ["--steps", str(EXAMPLE_TRAIN_STEPS), "--checkpoint-dir",
+                 ck]))
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in train_steps.tree_leaves(state.params))
+    say("example", name="train_deq_lm", steps=int(state.step),
+        params=lm.param_count(train_ex.hundred_m_config(
+            "phi3-mini-3.8b", "shine_fallback", True)),
+        finite_params=finite, seconds=time.perf_counter() - t0,
+        launches=counts["train_deq_lm"], card=smi)
+    if int(state.step) != EXAMPLE_TRAIN_STEPS or not finite:
+        raise AssertionError("train_deq_lm: the steps did not all land")
+    del state
+    torch.cuda.empty_cache()
+    say("examples_phase", seconds=time.perf_counter() - t_start, card=smi)
+    return counts
+
+
 def timed(smi: str, name: str, fn, *args):
     """``fn(*args)`` with its wall time, to the card's last kernel, in a
     ``phase_time`` line."""
@@ -5608,16 +6106,18 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     matrix = start_dryrun_matrix()
+    step_dryrun = start_sharded_dryrun()
     try:
-        return _main(matrix)
+        return _main(matrix, step_dryrun)
     finally:
-        if matrix[0].poll() is None:
-            matrix[0].kill()
-            matrix[0].wait()
-        shutil.rmtree(matrix[1], ignore_errors=True)
+        for proc, out in (matrix[:2], step_dryrun):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            shutil.rmtree(out, ignore_errors=True)
 
 
-def _main(matrix: tuple) -> int:
+def _main(matrix: tuple, step_dryrun: tuple) -> int:
     env = phase_env()
     smi = env["nvidia_smi"]
     res = phase_kernels()
@@ -5654,9 +6154,12 @@ def _main(matrix: tuple) -> int:
     torch.cuda.empty_cache()
     av = timed(smi, "audio_vlm", phase_audio_vlm, smi)
     torch.cuda.empty_cache()
-    timed(smi, "layout", phase_layout, matrix, smi)
+    sharded = timed(smi, "sharded", phase_sharded, smi, step_dryrun)
     torch.cuda.empty_cache()
-    sharded = timed(smi, "sharded", phase_sharded, smi)
+    examples = timed(smi, "examples", phase_examples, smi)
+    torch.cuda.empty_cache()
+    # last: the matrix, started with the script, runs beside every phase
+    timed(smi, "layout", phase_layout, matrix, smi)
     rows = []
     for name, (route, source, replaces) in KERNELS.items():
         r = res[name]
@@ -5670,7 +6173,8 @@ def _main(matrix: tuple) -> int:
                             + xlstm["drain"]["counts"][name]
                             + xlstm["train"][name]
                             + sum(c[name] for c in av.values())
-                            + sharded["counts"].get(name, 0)),
+                            + sharded["counts"].get(name, 0)
+                            + sum(c[name] for c in examples.values())),
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"],
@@ -5725,6 +6229,8 @@ def _main(matrix: tuple) -> int:
                "launches_vlm_serve": av["vlm_drain"][name],
                "launches_vlm_train": av["vlm_train"][name],
                "launches_sharded_1x1": sharded["counts"].get(name, 0),
+               **{f"launches_example_{k}": c[name]
+                  for k, c in examples.items()},
                **({"max_abs_err_2x2_local": sharded["errs"][name]}
                   if name in sharded["errs"] else {}),
                **{k: r[k] for k in ("launches_per_call", "decode_ms",

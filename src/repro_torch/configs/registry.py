@@ -16,8 +16,11 @@ from repro_torch.configs import (
     deepseek_moe_16b,
     deepseek_v2_lite_16b,
     hubert_xlarge,
+    internlm2_20b,
     minicpm_2b,
+    phi3_mini_3p8b,
     pixtral_12b,
+    stablelm_3b,
     xlstm_1p3b,
     zamba2_2p7b,
 )
@@ -28,28 +31,10 @@ from repro_torch.configs.base import (
     ModelConfig,
 )
 
-# Dense entries besides MiniCPM, as published (see the JAX package's
-# configs/ for the sources): Phi-3-mini [arXiv:2404.14219], StableLM-3B
-# [hf:stabilityai], InternLM2-20B [arXiv:2403.17297].
-_PHI3_MINI = ModelConfig(
-    name="phi3-mini-3.8b", family="dense",
-    num_layers=32, d_model=3072, num_heads=32, num_kv_heads=32,
-    d_ff=8192, vocab_size=32064, head_dim=96, rope_theta=10000.0,
-)
-_STABLELM_3B = ModelConfig(
-    name="stablelm-3b", family="dense",
-    num_layers=32, d_model=2560, num_heads=32, num_kv_heads=32,
-    d_ff=6912, vocab_size=50304, head_dim=80, rope_theta=10000.0,
-)
-_INTERNLM2_20B = ModelConfig(
-    name="internlm2-20b", family="dense",
-    num_layers=48, d_model=6144, num_heads=48, num_kv_heads=8,
-    d_ff=16384, vocab_size=92544, head_dim=128, rope_theta=1000000.0,
-)
-
 ARCHS: dict[str, ModelConfig] = {
     c.name: c
-    for c in [minicpm_2b.CONFIG, _PHI3_MINI, _STABLELM_3B, _INTERNLM2_20B,
+    for c in [minicpm_2b.CONFIG, phi3_mini_3p8b.CONFIG, stablelm_3b.CONFIG,
+              internlm2_20b.CONFIG,
               deepseek_v2_lite_16b.CONFIG, deepseek_moe_16b.CONFIG,
               hubert_xlarge.CONFIG, zamba2_2p7b.CONFIG, xlstm_1p3b.CONFIG,
               pixtral_12b.CONFIG]

@@ -27,9 +27,12 @@ same iterations (``STOP_READS`` counts the reads).
 and ``fixed_point_solve``: ``max_steps`` bodies with no early exit and no
 host read (the restart is a select on the device; converged rows are
 masked out as always, so they end bit for bit where the early exit leaves
-them).  The dry-run runs the solve so on ``meta`` tensors, where a host
-read cannot be made; Anderson, adjoint Broyden and L-BFGS ignore it, as
-in the reference.  Every solve is batched; converged, faulted and frozen
+them); over a split batch each test's ``all_reduce`` is still issued,
+unread (``_issue``), so an unrolled solve issues the collectives of a
+solve that runs its ``max_steps``.  The dry-run runs the solve so on
+``meta`` tensors, where a host read cannot be made (a ``meta`` test that
+is read reads as not met, ``_host_bool``); Anderson, adjoint Broyden and
+L-BFGS ignore it, as in the reference.  Every solve is batched; converged, faulted and frozen
 samples stop moving (their updates are masked out).  All inner products
 and denominators are f32; the Broyden ring stores ``cfg.qn_dtype``.
 """
@@ -99,10 +102,27 @@ def stop_tests_over(group):
 def _read(flag: Tensor, op) -> bool:
     STOP_READS[0] += 1
     if _STOP_GROUP[0] is None:
-        return bool(flag)
+        return _host_bool(flag)
     x = flag.to(torch.int32).reshape(1)
     dist.all_reduce(x, op=op, group=_STOP_GROUP[0])
-    return bool(x)
+    return _host_bool(x)
+
+
+def _host_bool(t: Tensor) -> bool:
+    """A flag's value on the host.  A ``meta`` flag (the dry-run's) holds
+    no value: its test reads as not met, so a solve on ``meta`` runs its
+    ``max_steps`` and issues every test as a solve that runs them does."""
+    return False if t.device.type == "meta" else bool(t)
+
+
+def _issue(flag: Tensor, op) -> None:
+    """An unrolled solve's stop or restart test over a split batch: its
+    ``all_reduce`` is issued as the solve that reads it issues it (as the
+    reference's ``while_loop`` predicate is an all-reduce of the flag over
+    the batch's shards), and not read.  A no-op off a mesh."""
+    if _STOP_GROUP[0] is not None:
+        dist.all_reduce(flag.to(torch.int32).reshape(1), op=op,
+                        group=_STOP_GROUP[0])
 
 
 def _all_rows(t: Tensor) -> bool:
@@ -478,7 +498,9 @@ def broyden_solve(
 
     while k < cfg.max_steps:
         done = (conv | gs.sick) if cfg.guard else conv
-        if not cfg.unroll and _all_rows(done):
+        if cfg.unroll:
+            _issue(done.all(), dist.ReduceOp.MIN)
+        elif _all_rows(done):
             break
         p = -Hg
         if cfg.guard:
@@ -516,6 +538,8 @@ def broyden_solve(
         if cfg.guard:
             gs, do_rs, code, res = _guard_detect(
                 gs, cfg, active, res, bnorm(s), div_ref)
+            if cfg.unroll:
+                _issue(do_rs.any(), dist.ReduceOp.MAX)
             if cfg.unroll or _any_row(do_rs):
                 # recovery round: scrub the restarted rows' ring, put them
                 # back at the caller's z0 with the cold residual (unrolled:
@@ -604,7 +628,9 @@ def fixed_point_solve(
 
     while k < cfg.max_steps:
         done = (conv | gs.sick) if cfg.guard else conv
-        if not cfg.unroll and _all_rows(done):
+        if cfg.unroll:
+            _issue(done.all(), dist.ReduceOp.MIN)
+        elif _all_rows(done):
             break
         fz = f(z)
         z_pic = (1 - damping) * z + damping * fz

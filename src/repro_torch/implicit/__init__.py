@@ -5,6 +5,7 @@ cache and the cross-request prefix caches."""
 
 from repro_torch.core.solvers import (
     SolveCarry,
+    carry_state_only,
     init_solve_carry,
     reset_carry_rows,
     seed_carry,
@@ -46,6 +47,8 @@ from repro_torch.implicit.engine import (
 )
 from repro_torch.implicit.fixed_point import (
     ImplicitStats,
+    SolveLayout,
+    carry_for_state,
     implicit_fixed_point,
 )
 from repro_torch.implicit.pytree import pack_state, ravel_state
@@ -62,7 +65,8 @@ __all__ = [
     "DevEntry", "DevPrefixMatch", "DevicePrefixStore", "ESTIMATORS",
     "EstimatorContext", "ForwardConfig", "ImplicitConfig", "ImplicitStats",
     "PrefixCarryIndex", "PrefixEntry", "PrefixMatch", "Registry", "SOLVERS",
-    "SolveCarry", "adjoint_system", "batched_solve", "bilevel_context",
+    "SolveCarry", "SolveLayout", "adjoint_system", "batched_solve",
+    "bilevel_context", "carry_for_state", "carry_state_only",
     "coalesce_states", "deq_context", "estimate_cotangent",
     "estimate_hypergrad_cotangent", "fallback_cotangent",
     "implicit_fixed_point", "init_solve_carry", "jfb_cotangent",

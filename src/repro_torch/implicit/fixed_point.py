@@ -49,7 +49,12 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from repro_torch.implicit import estimators as _builtin_estimators  # noqa: F401
 from repro_torch.implicit import solvers as _builtin_solvers
 from repro_torch.core.lowrank import LowRank, _expand
-from repro_torch.core.solvers import SolveCarry, SolveResult, stop_tests_over
+from repro_torch.core.solvers import (
+    SolveCarry,
+    SolveResult,
+    init_solve_carry,
+    stop_tests_over,
+)
 from repro_torch.implicit.config import ImplicitConfig
 from repro_torch.implicit.estimators import estimate_cotangent
 from repro_torch.implicit.pytree import prepare_flat_problem, ravel_state
@@ -57,7 +62,7 @@ from repro_torch.implicit.registry import SOLVERS
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import tracing as obs_tracing
 from repro_torch.obs.tape import SolveTape
-from repro_torch.parallel.sharding import redistribute
+from repro_torch.parallel.sharding import contiguous_stride, redistribute
 
 
 class ImplicitStats(NamedTuple):
@@ -126,10 +131,9 @@ class SolveLayout:
             return t
         shape = list(t.shape)
         shape[dim] = self.batch
-        stride = torch.empty(shape, device="meta").stride()
         return DTensor.from_local(t, self.mesh, self.rows(dim),
                                   run_check=False, shape=torch.Size(shape),
-                                  stride=stride)
+                                  stride=contiguous_stride(shape))
 
     def _carry(self, carry, fn):
         if carry is None:
@@ -363,3 +367,16 @@ def implicit_fixed_point(
     if new_carry is not None:
         new_carry = dataclasses.replace(new_carry, z=new_carry.z.detach())
     return unravel(z), stats, new_carry
+
+
+def carry_for_state(z0: Any, cfg: ImplicitConfig, *,
+                    dtype=None) -> SolveCarry:
+    """An all-cold :class:`SolveCarry` for the flat solver state of
+    ``z0`` (a single-leaf state keeps its shape; a multi-leaf state packs
+    to ``(B, D)``) with ``cfg.memory`` ring slots in ``cfg.qn_dtype``, on
+    ``z0``'s device."""
+    z0_flat = ravel_state(z0)[0]
+    return init_solve_carry(
+        z0_flat.shape[0], tuple(z0_flat.shape[1:]), cfg.memory,
+        dtype=dtype or z0_flat.dtype, qn_dtype=cfg.qn_dtype,
+        device=z0_flat.device)

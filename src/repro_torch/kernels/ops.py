@@ -75,6 +75,7 @@ from repro_torch.parallel.sharding import (
     local_shard,
     shard_map_compat,
     shard_offset,
+    with_shape,
 )
 
 
@@ -455,12 +456,14 @@ def _attention_sharded(q, k, v, *, causal, kv_length, scale, impl, block_q,
 
     fn = shard_map_compat(body, mesh, in_specs=(qp, kp, kp, lp),
                           out_specs=qp, in_grad_specs=(qp, kg, kg, None))
-    return fn(q, k, v, lens)
+    # uneven head shards (36 heads over 16 ranks) keep their global shape
+    return with_shape(fn(q, k, v, lens), q.shape[:3] + v.shape[3:])
 
 
 def _decode_attention_sharded(q, k, v, kv_length, *, scale):
     """q ``(B, H, hd)`` over a cache split over batch, KV heads or its
-    length T (at most one mesh dim splits T)."""
+    length T (over one mesh dim or several, as long-context decode splits
+    it over "pod" and "data")."""
     mesh = _mesh_of(q, k, v)
     q, k, v = as_dtensor(q, mesh), as_dtensor(k, mesh), as_dtensor(v, mesh)
     lens = as_dtensor(torch.as_tensor(kv_length, dtype=torch.int32)
@@ -470,9 +473,6 @@ def _decode_attention_sharded(q, k, v, kv_length, *, scale):
                or p.dim in (0, 1, 2))
     t_dims = [i for i, p in enumerate(kp) if isinstance(p, Shard)
               and p.dim == 1]
-    if len(t_dims) > 1:
-        raise ValueError("a decode cache splits its length over one mesh "
-                         "dim")
     # the query: batch as the cache's, heads as the cache's KV heads
     qp = tuple(Shard(0) if isinstance(p, Shard) and p.dim == 0 else
                Shard(1) if isinstance(p, Shard) and p.dim == 2 else
@@ -483,16 +483,19 @@ def _decode_attention_sharded(q, k, v, kv_length, *, scale):
             a, b, c, ln, scale=scale), mesh, in_specs=(qp, kp, kp, lp),
             out_specs=qp)
         return fn(q, k, v, lens)
-    td = t_dims[0]
     t0 = shard_offset(k.shape, mesh, kp)[1]
-    group = mesh.get_group(td)
 
     def body(ql, kl, vl, ll):
         local_len = torch.clamp(ll.to(torch.int32) - t0, 0, kl.shape[1])
         part = decode_partials(ql, kl, vl, local_len, scale=scale)
-        parts = [torch.empty_like(part) for _ in range(mesh.size(td))]
-        dist.all_gather(parts, part.contiguous(), group=group)
-        return decode_combine(torch.cat(parts, dim=2), ql.dtype)
+        # every slice's partials, gathered over each mesh dim that splits
+        # the length in turn (the combine takes them in any order)
+        for td in t_dims:
+            parts = [torch.empty_like(part) for _ in range(mesh.size(td))]
+            dist.all_gather(parts, part.contiguous(),
+                            group=mesh.get_group(td))
+            part = torch.cat(parts, dim=2)
+        return decode_combine(part, ql.dtype)
 
     fn = shard_map_compat(body, mesh, in_specs=(qp, kp, kp, lp),
                           out_specs=qp)

@@ -2,8 +2,15 @@
 
 The port of ``repro/launch/dryrun.py``.  The reference compiles each cell
 for a forced-CPU mesh of 256 or 512 devices and reads XLA's memory and cost
-analyses.  Eager PyTorch has no single-process SPMD compiler, so the port
-works from the layout instead:
+analyses and the compiled HLO.  Eager PyTorch has no single-process SPMD
+compiler, so the port runs the real sharded step in a world of its own: a
+``single`` or ``multi`` cell opens a ``fake`` process group of 256 or 512
+ranks in one process (``launch/mesh.init_fake_world``; collectives move
+nothing), builds the ``DeviceMesh`` of the cell's ``MeshSpec``, places the
+cell's ``meta`` structs on it (``parallel/sharding.distribute_tree``) and
+runs the step every rank runs (``steps.build_train_step(ctx=)``,
+``build_prefill``, ``build_decode_step``) as rank 0.  ``one`` opens no
+group and runs the unsharded step.
 
   * ``memory`` -- per-device bytes on the chosen mesh (``launch/mesh.py``:
     ``single`` (data=16, model=16), ``multi`` (pod=2, data=16, model=16),
@@ -13,23 +20,28 @@ works from the layout instead:
     ``spec_local_shape``, uneven splits rounded up); ZeRO-1 moments follow
     ``zero1_spec``.  ``output_bytes`` sums the step's outputs the same way
     and ``alias_bytes`` the donated inputs (the train state; a decode
-    step's caches).  On ``one`` only, the step runs at full size on
-    ``meta`` tensors and ``temp_bytes`` is the peak of the bytes the step
-    allocates (every storage rounded up to the caching allocator's 512-byte
-    block; the step's outputs count among them, XLA's temp does not);
-    ``argument_bytes + temp_bytes`` is the peak the card would see.
-    Elsewhere ``temp_bytes`` is ``null``: running a sharded step is not
-    ported yet.
+    step's caches).  ``temp_bytes`` is rank 0's peak of the bytes the step
+    allocates in its local shards (``LiveBytes``: every storage rounded up
+    to the caching allocator's 512-byte block; the step's outputs and the
+    collectives' buffers count among them, XLA's temp does not);
+    ``argument_bytes + temp_bytes`` is the peak one device would see.
+    ``run_seconds`` is that run's wall time.  ``collectives`` holds every
+    collective the step issued (``Collectives``: DTensor's functional ones
+    and the plain ``c10d`` calls) as per-device link bytes and counts by
+    kind (``collective_bytes``), every layer and solver step counted as
+    it runs; the reference's ``collectives_loop_counted_once`` reads a
+    scanned body once.
   * ``cost`` -- the real step on ``meta`` under ``FlopCounterMode`` at two
     reduced depths ``L0`` and ``L0 + p`` (``p`` the arch's layer period; a
     DEQ at 2 and 4 solver steps with ``unroll``, whose cost is linear in
     the iterations), extrapolated as the reference does: ``cost(L) =
     cost(L0) + (L - L0) * delta``, ``delta`` per layer (or solver step).
     ``flops`` counts the whole step's matrix products (the global batch,
-    all devices together).  ``bytes`` sums every aten op's input and output
-    bytes (views excluded): eager PyTorch runs every op unfused, where
-    XLA counts after fusion.  ``collective_bytes`` is ``null``: no
-    collective runs until a sharded step does.
+    all devices together; the unsharded step).  ``bytes`` sums every aten
+    op's input and output bytes (views excluded): eager PyTorch runs every
+    op unfused, where XLA counts after fusion.  ``collective_bytes`` is the
+    sharded step's per-device link bytes at each depth on the cell's fake
+    mesh (0 on ``one``), extrapolated the same way.
 
 On ``meta`` nothing is computed: kernel ops take the CPU's routes
 (``kernels/ops.py``), attention by ``attention_route``'s CPU policy (the
@@ -47,6 +59,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import math
@@ -58,9 +71,10 @@ import time
 import traceback
 import weakref
 from pathlib import Path
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import FlopCounterMode
@@ -77,10 +91,18 @@ from repro_torch.configs.shapes import (
     valid_cells,
 )
 from repro_torch.launch import steps
-from repro_torch.launch.mesh import ONE_CARD, make_production_mesh
+from repro_torch.launch.mesh import (
+    ONE_CARD,
+    build_device_mesh,
+    init_fake_world,
+    make_production_mesh,
+)
 from repro_torch.models import lm
 from repro_torch.models.layers import act_dtype
-from repro_torch.parallel.sharding import spec_local_shape
+from repro_torch.parallel.sharding import (
+    distribute_tree,
+    spec_local_shape,
+)
 
 RESULTS_DIR = Path("results/dryrun_torch")
 # the CUDA caching allocator's block: every allocation rounds up to it
@@ -94,6 +116,20 @@ def mesh_for(kind: str):
     if kind not in ("single", "multi"):
         raise ValueError(f"mesh {kind!r}; expected one of {MESHES}")
     return make_production_mesh(multi_pod=kind == "multi")
+
+
+@contextlib.contextmanager
+def fake_world(mesh):
+    """A ``fake`` process group of ``mesh.size`` ranks, this process rank
+    0, and the ``DeviceMesh`` of ``mesh`` on it (CPU); the group is
+    destroyed on exit."""
+    import torch.distributed as dist
+
+    init_fake_world(mesh.size)
+    try:
+        yield build_device_mesh(mesh, "cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
@@ -183,36 +219,40 @@ def build_cell(cfg: ModelConfig, shape: ShapeSuite, mesh,
                tcfg: TrainConfig) -> Cell:
     """The cell's step and its ``meta`` inputs.  Donation follows the
     production step: the train state and a decode step's caches are
-    updated in place (the outputs alias them)."""
+    updated in place (the outputs alias them).  ``mesh`` a ``MeshSpec``
+    (or None): the unsharded step, with the specs of that mesh; a
+    ``DeviceMesh`` (a fake world's): the sharded step, its inputs placed
+    as DTensors over ``meta`` shards."""
     ctx = make_ctx(cfg, mesh, shape)
     inputs, in_specs = input_specs(cfg, shape, ctx)
     if shape.kind == "train":
         state, sspec = steps.train_state_structs(cfg, tcfg, ctx)
-        return Cell(steps.build_train_step(cfg, tcfg),
+        cell = Cell(steps.build_train_step(cfg, tcfg, ctx=ctx),
                     (state, inputs["batch"]), (sspec, in_specs["batch"]),
                     (0,), lambda out: (sspec, {k: () for k in out[1]}))
-    params, pspec = steps.param_structs(cfg, ctx)
-    if shape.kind == "prefill":
-        def prefill_step(p, batch):
-            return lm.prefill(p, batch, cfg, shape.seq_len)
+    else:
+        params, pspec = steps.param_structs(cfg, ctx)
+        if shape.kind == "prefill":
+            def prefill_specs(out):
+                return (ctx.spec(("batch", "seq", "vocab_act")),
+                        cache_sharding(cfg, ctx, out[1]),
+                        ctx.spec(("batch",)))
 
-        def prefill_specs(out):
-            return (ctx.spec(("batch", "seq", "vocab_act")),
-                    cache_sharding(cfg, ctx, out[1]), ctx.spec(("batch",)))
-
-        return Cell(prefill_step, (params, inputs["batch"]),
-                    (pspec, in_specs["batch"]), (), prefill_specs)
-
-    def decode_step(p, caches, tokens, cache_index):
-        return lm.decode_step(p, caches, tokens, cache_index, cfg)
-
-    return Cell(decode_step,
-                (params, inputs["caches"], inputs["tokens"],
-                 inputs["cache_index"]),
-                (pspec, in_specs["caches"], in_specs["tokens"],
-                 in_specs["cache_index"]), (1,),
-                lambda out: (ctx.spec(("batch", "vocab_act")),
-                             in_specs["caches"]))
+            cell = Cell(steps.build_prefill(cfg, ctx, shape.seq_len),
+                        (params, inputs["batch"]),
+                        (pspec, in_specs["batch"]), (), prefill_specs)
+        else:
+            cell = Cell(steps.build_decode_step(cfg, ctx),
+                        (params, inputs["caches"], inputs["tokens"],
+                         inputs["cache_index"]),
+                        (pspec, in_specs["caches"], in_specs["tokens"],
+                         in_specs["cache_index"]), (1,),
+                        lambda out: (ctx.spec(("batch", "vocab_act")),
+                                     in_specs["caches"]))
+    if ctx.running:
+        cell.args = tuple(distribute_tree(a, sp, ctx.device_mesh)
+                          for a, sp in zip(cell.args, cell.specs))
+    return cell
 
 
 def output_structs(cfg: ModelConfig, shape: ShapeSuite, tcfg: TrainConfig,
@@ -250,12 +290,26 @@ def train_metrics(cfg: ModelConfig, tcfg: TrainConfig) -> list[str]:
 # ---------------------------------------------------------------------------
 
 
+def _on_dtensors(types) -> bool:
+    """Whether an op has DTensor operands: a mode then lets DTensor run it
+    first and sees the local ops (and collectives) it turns into."""
+    return any(issubclass(t, DTensor) for t in types)
+
+
+def _propagating() -> bool:
+    """Whether DTensor is propagating shardings: it runs the op on fake
+    tensors of the global shapes, which allocate nothing."""
+    return torch._C._get_dispatch_mode(
+        torch._C._TorchDispatchModeKey.FAKE) is not None
+
+
 class LiveBytes(TorchDispatchMode):
     """The bytes of the storages ops allocate while it is on, each rounded
     up to ``block``, with their peak; a storage leaves the count when it is
     freed.  An op's output that shares an input's storage (a view, an
     in-place op) allocates nothing, so storages that existed before (the
-    step's arguments) are never counted."""
+    step's arguments) are never counted.  On a mesh it counts the local
+    shards' storages (DTensor's wrappers hold none), this rank's."""
 
     def __init__(self, block: int = BLOCK):
         super().__init__()
@@ -269,7 +323,11 @@ class LiveBytes(TorchDispatchMode):
             self.current -= n
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _on_dtensors(types):
+            return NotImplemented
         out = func(*args, **(kwargs or {}))
+        if _propagating():
+            return out
         outs = (out,) if isinstance(out, torch.Tensor) else tree_flatten(
             out)[0]
         inputs = None
@@ -311,6 +369,130 @@ class OpBytes(TorchDispatchMode):
         return out
 
 
+class Collective(NamedTuple):
+    """One collective as issued: its kind (the reference's HLO names), the
+    bytes of its result (all its tensors; an all-reduce's in place) and
+    the size of its group."""
+
+    kind: str
+    nbytes: int
+    group: int
+
+
+_FUNCTIONAL = {  # _c10d_functional op -> kind
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "all_gather_into_tensor_out": "all-gather",
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_reduce_coalesced_": "all-reduce",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+    "broadcast": "broadcast", "broadcast_": "broadcast",
+}
+_C10D = {  # c10d op -> kind; its result tensors are its first argument
+    "allgather_": "all-gather", "_allgather_base_": "all-gather",
+    "allgather_coalesced_": "all-gather",
+    "allgather_into_tensor_coalesced_": "all-gather",
+    "allreduce_": "all-reduce", "allreduce_coalesced_": "all-reduce",
+    "reduce_scatter_": "reduce-scatter",
+    "_reduce_scatter_base_": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced_": "reduce-scatter",
+    "alltoall_": "all-to-all", "alltoall_base_": "all-to-all",
+    "broadcast_": "broadcast", "send": "collective-permute",
+}
+
+
+def collective_kind(op_name: str) -> str | None:
+    """The kind of a collective op by its name (a functional collective's,
+    ``all_reduce``, or a ``c10d`` op's, ``allreduce_``), as
+    ``CommDebugMode`` names them; None for any other op."""
+    return _FUNCTIONAL.get(op_name) or _C10D.get(op_name)
+
+
+def _tensor_bytes(x) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_flatten(x)[0]
+               if isinstance(t, torch.Tensor))
+
+
+def _group_size(args) -> int:
+    """The size of the group an op runs over: a ``c10d`` op's process group
+    (a ``ScriptObject`` at dispatch), or a functional collective's group
+    name."""
+    from torch.distributed import ProcessGroup
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    for a in args:
+        if isinstance(a, ProcessGroup):
+            return a.size()
+        if isinstance(a, torch.ScriptObject):
+            return ProcessGroup.unbox(a).size()
+    for a in args:
+        if isinstance(a, str):
+            try:
+                return _resolve_process_group(a).size()
+            except (KeyError, RuntimeError, ValueError):
+                continue
+    raise ValueError("a collective without a group")
+
+
+class Collectives(TorchDispatchMode):
+    """Every collective issued while it is on, as a :class:`Collective`:
+    DTensor's redistributions and ``local_map`` bodies as they reach the
+    functional ops (``_c10d_functional``), and direct ``torch.distributed``
+    calls as their ``c10d`` ops (the solver's stop tests, the sharded
+    decode's gather)."""
+
+    def __init__(self):
+        super().__init__()
+        self.records: list[Collective] = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _on_dtensors(types):
+            return NotImplemented
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        name = func._overloadpacket.__name__
+        table = {"_c10d_functional": _FUNCTIONAL,
+                 "c10d": _C10D}.get(func.namespace, {})
+        if name in table:
+            result = out if table is _FUNCTIONAL else args[0]
+            self.records.append(Collective(
+                table[name], _tensor_bytes(result),
+                _group_size(list(args) + list(kwargs.values()))))
+        return out
+
+
+# per-device link bytes of one collective of ``n`` result bytes over ``g``
+# devices, the ring algorithm's (the reference's ``collective_bytes``)
+RING = {
+    "all-gather": lambda n, g: n * (g - 1) / g,
+    "all-reduce": lambda n, g: 2 * n * (g - 1) / g,
+    "reduce-scatter": lambda n, g: n * (g - 1),
+    "all-to-all": lambda n, g: n * (g - 1) / g,
+    "collective-permute": lambda n, g: n,
+    "broadcast": lambda n, g: n * (g - 1) / g,
+}
+
+
+def collective_bytes(records) -> dict:
+    """Per-device link bytes and counts by collective kind, with the
+    reference's ring factors: all-gather out x (g-1)/g, all-reduce 2 x size
+    x (g-1)/g, reduce-scatter out x (g-1), all-to-all out x (g-1)/g,
+    permute out (a broadcast, which XLA has not, as an all-gather).  Groups
+    of one move nothing and are skipped, as the reference skips them.
+    ``records``: ``Collective``s or ``(kind, bytes, group)`` triples."""
+    totals: dict[str, float] = {}
+    counts: dict[str, int] = {}
+    for kind, n, g in records:
+        if g <= 1 and kind != "collective-permute":
+            continue
+        totals[kind] = totals.get(kind, 0.0) + RING[kind](n, g)
+        counts[kind] = counts.get(kind, 0) + 1
+    totals["total"] = sum(totals.values())
+    return {"bytes": totals, "counts": counts}
+
+
 def count_cost(cell: Cell) -> dict:
     """Run the cell once on ``meta`` under the FLOP and byte counters."""
     t0 = time.time()
@@ -318,14 +500,15 @@ def count_cost(cell: Cell) -> dict:
         cell.fn(*cell.args)
     return {"seconds": round(time.time() - t0, 2),
             "flops": float(flops.get_total_flops()),
-            "bytes": float(nbytes.total), "collective_bytes": None}
+            "bytes": float(nbytes.total)}
 
 
-def peak_temp(cell: Cell) -> tuple[int, Any]:
-    """``(peak allocated bytes, outputs)`` of one run of the cell."""
-    with LiveBytes() as live:
+def run_step(cell: Cell) -> tuple[int, Any, list]:
+    """``(peak allocated bytes, outputs, collectives)`` of one run of the
+    cell (rank 0's, on a mesh)."""
+    with LiveBytes() as live, Collectives() as coll:
         out = cell.fn(*cell.args)
-    return live.peak, out
+    return live.peak, out, coll.records
 
 
 # ---------------------------------------------------------------------------
@@ -340,11 +523,13 @@ def _train_config(shape: ShapeSuite, grad_accum: int) -> TrainConfig:
 
 
 def memory_cell(cfg: ModelConfig, shape: ShapeSuite, mesh,
-                tcfg: TrainConfig, *, run: bool) -> dict:
+                tcfg: TrainConfig, *, run: bool, world=None) -> dict:
     """The ``memory`` variant's numbers; ``run``: also run the step on
-    ``meta`` for ``temp_bytes`` (and hold its outputs to the ones counted
-    without running)."""
-    cell = build_cell(cfg, shape, mesh, tcfg)
+    ``meta`` for ``temp_bytes`` and its collectives (and hold its outputs
+    to the ones counted without running); ``world``: the ``DeviceMesh`` it
+    runs on (the sharded step), else the unsharded step."""
+    cell = build_cell(cfg, shape, world if run and world is not None
+                      else mesh, tcfg)
     outs = output_structs(cfg, shape, tcfg, cell)
     arg = sum(tree_bytes(a, s, mesh) for a, s in zip(cell.args, cell.specs))
     mem = {
@@ -359,8 +544,9 @@ def memory_cell(cfg: ModelConfig, shape: ShapeSuite, mesh,
     }
     if run:
         t0 = time.time()
-        mem["temp_bytes"], got = peak_temp(cell)
+        mem["temp_bytes"], got, records = run_step(cell)
         mem["run_seconds"] = round(time.time() - t0, 2)
+        mem["collectives"] = collective_bytes(records)
         want = [(tuple(t.shape), t.dtype) for t, _ in leaves_with_specs(outs)]
         if shape.kind == "train":  # the metrics' host numbers dropped
             got = got[0], {k: v for k, v in got[1].items()
@@ -372,9 +558,11 @@ def memory_cell(cfg: ModelConfig, shape: ShapeSuite, mesh,
 
 
 def cost_cell(cfg: ModelConfig, shape: ShapeSuite, mesh,
-              tcfg: TrainConfig) -> dict:
+              tcfg: TrainConfig, world=None) -> dict:
     """The ``cost`` variant: counts at two reduced depths (DEQ: solver
-    steps) and the exact extrapolation to the full one."""
+    steps) and the exact extrapolation to the full one.  FLOPs and bytes
+    count the unsharded step; ``world`` (a ``DeviceMesh``) also runs the
+    sharded step at each depth for its collectives."""
     depths = (2, 4) if cfg.deq.enabled else _reduced_depths(cfg)
     runs = {}
     for n in depths:
@@ -385,12 +573,24 @@ def cost_cell(cfg: ModelConfig, shape: ShapeSuite, mesh,
         else:
             ccfg = _costing_config(cfg, n)
         runs[n] = count_cost(build_cell(ccfg, shape, mesh, tcfg))
+        records = []
+        if world is not None:
+            t0 = time.time()
+            cell = build_cell(ccfg, shape, world, tcfg)
+            with Collectives() as coll:
+                cell.fn(*cell.args)
+            records = coll.records
+            runs[n]["sharded_seconds"] = round(time.time() - t0, 2)
+        coll = collective_bytes(records)
+        runs[n]["collective_bytes"] = coll["bytes"]["total"]
+        runs[n]["collective_counts"] = coll["counts"]
     full = cfg.deq.max_steps if cfg.deq.enabled else cfg.num_layers
     return {"depths": {str(k): v for k, v in runs.items()},
             "extrapolated": extrapolate(runs, full), "num_layers": full,
             "extrapolation_axis": ("solver_steps" if cfg.deq.enabled
                                    else "layers"),
-            "flops_scope": "the whole step: global batch, all devices"}
+            "flops_scope": "the whole step: global batch, all devices",
+            "collective_scope": "per device, the sharded step as issued"}
 
 
 def extrapolate(runs: dict, full: int) -> dict:
@@ -398,11 +598,10 @@ def extrapolate(runs: dict, full: int) -> dict:
     (per-step) difference of the two counted depths."""
     (l0, r0), (l1, r1) = sorted(runs.items())
     out = {}
-    for key in ("flops", "bytes"):
+    for key in ("flops", "bytes", "collective_bytes"):
         delta = (r1[key] - r0[key]) / (l1 - l0)
         out[key] = r0[key] + (full - l0) * delta
         out[key + "_per_layer"] = delta
-    out["collective_bytes"] = None
     return out
 
 
@@ -445,14 +644,18 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, variant: str, *,
         "params": int(cfg.num_params()),
         "params_active": int(cfg.num_params(active_only=True)),
     }
-    t0 = time.time()
-    if variant == "memory":
-        out["memory"] = memory_cell(_costing_config(cfg, cfg.num_layers),
-                                    shape, mesh, tcfg, run=mesh_kind == "one")
-    elif variant == "cost":
-        out.update(cost_cell(cfg, shape, mesh, tcfg))
-    else:
+    if variant not in ("memory", "cost"):
         raise ValueError(variant)
+    t0 = time.time()
+    with (fake_world(mesh) if mesh_kind != "one"
+          else contextlib.nullcontext()) as world:
+        if variant == "memory":
+            out["memory"] = memory_cell(_costing_config(cfg, cfg.num_layers),
+                                        shape, mesh, tcfg, run=True,
+                                        world=world)
+            out["collectives"] = out["memory"].pop("collectives")
+        else:
+            out.update(cost_cell(cfg, shape, mesh, tcfg, world=world))
     out["seconds"] = round(time.time() - t0, 2)
     return out
 

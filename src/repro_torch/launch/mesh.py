@@ -16,6 +16,8 @@ on the card: if NCCL does not come up, that is the error.
 :func:`build_device_mesh` makes the ``DeviceMesh`` of a ``MeshSpec`` (the
 same axis names in the same order); a spec whose size differs from the
 world raises, as ``make_production_mesh`` raises with too few devices.
+:func:`init_fake_world` opens a ``fake`` group of any size in one process
+(no rank but this one runs): the dry-run's 256- and 512-rank worlds.
 """
 
 from __future__ import annotations
@@ -110,6 +112,18 @@ def init_distributed(device_type: str = "cuda", *, init_method: str | None = Non
     return rank, world_size
 
 
+def init_fake_world(world_size: int, rank: int = 0) -> None:
+    """A ``fake`` process group of ``world_size`` ranks in this process,
+    seen as ``rank``: its collectives move nothing (on ``meta`` tensors they
+    only make their outputs), but every group has its real size.  The
+    dry-run runs a sharded step there; ``destroy_process_group`` ends it."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world_size)
+
+
 def build_device_mesh(spec: MeshSpec, device_type: str = "cuda"):
     """The ``DeviceMesh`` of ``spec`` over the whole world (ranks laid out
     row-major, the last axis fastest, as ``jax.make_mesh`` lays devices
@@ -127,10 +141,13 @@ def build_device_mesh(spec: MeshSpec, device_type: str = "cuda"):
 
 
 def _check_backend(device_type: str) -> None:
+    """A cuda mesh runs on NCCL; a cpu mesh on gloo, or on a ``fake``
+    group (the dry-run's world of 256 or 512 ranks in one process)."""
     import torch.distributed as dist
 
-    backend = dist.get_backend()
-    want = "nccl" if device_type == "cuda" else "gloo"
-    if want not in str(backend):
-        raise RuntimeError(f"a {device_type} mesh runs on {want}; the "
-                           f"process group is {backend}")
+    backend = str(dist.get_backend())
+    want = ("nccl",) if device_type == "cuda" else ("gloo", "fake")
+    if not any(w in backend for w in want):
+        raise RuntimeError(f"a {device_type} mesh runs on "
+                           f"{' or '.join(want)}; the process group is "
+                           f"{backend}")

@@ -2,7 +2,8 @@
 
 The port of ``repro/launch/steps.py``: ``TrainState`` (with the
 persistent solve carry of DEQ models), ``train_carry_enabled``,
-``build_train_step`` and ``init_train_state``, and the struct helpers the
+``build_train_step`` and ``init_train_state``, the serving steps
+``build_prefill`` and ``build_decode_step``, and the struct helpers the
 dry-run lays out: ``param_structs``, ``train_state_structs`` (``meta``
 trees, leaf for leaf what ``init_params`` and ``init_train_state`` build)
 with ``param_shardings``, ``carry_shardings`` and ``state_shardings`` (the
@@ -398,3 +399,25 @@ def _place_state(cfg, tcfg, ctx, params, carry, skips) -> TrainState:
                                            device=dev), moments(), moments()),
                       carry, skips)
 
+
+
+# ---------------------------------------------------------------------------
+# serving steps
+# ---------------------------------------------------------------------------
+
+
+def build_prefill(cfg: ModelConfig, ctx: ShardCtx, max_len: int) -> Callable:
+    """``(params, batch) -> (logits, caches, lengths)``: ``lm.prefill`` into
+    caches of ``max_len`` through ``ctx`` (its mesh, if it runs on one)."""
+    def prefill_step(params, batch):
+        return lm.prefill(params, batch, cfg, max_len, ctx=ctx)
+    return prefill_step
+
+
+def build_decode_step(cfg: ModelConfig, ctx: ShardCtx) -> Callable:
+    """``(params, caches, tokens, cache_index) -> (logits, caches)``:
+    ``lm.decode_step`` through ``ctx``, the caches written in place."""
+    def decode_step(params, caches, tokens, cache_index):
+        return lm.decode_step(params, caches, tokens, cache_index, cfg,
+                              ctx=ctx)
+    return decode_step

@@ -35,7 +35,10 @@ from repro_torch.models.layers import ParamDecl, apply_rope
 from repro_torch.parallel.sharding import (
     NULL_CTX,
     ShardCtx,
+    contiguous_stride,
+    map_local,
     redistribute,
+    reshape_whole,
     shard_offset,
 )
 
@@ -54,7 +57,14 @@ def gqa_decl(cfg: ModelConfig) -> dict:
 
 
 def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
-    return x.reshape(x.shape[:-1] + (n, x.shape[-1] // n))
+    return reshape_whole(x, x.shape[:-1] + (n, x.shape[-1] // n),
+                         x.ndim - 1, n)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """``(B, S, H, hd)`` -> ``(B, S, H * hd)``."""
+    return reshape_whole(x, x.shape[:2] + (x.shape[2] * x.shape[3],), 2,
+                         x.shape[2])
 
 
 def _attn_kw(cfg: ModelConfig) -> dict:
@@ -126,8 +136,7 @@ def _pad_last(x, n: int):
     shape = x.shape[:-1] + (x.shape[-1] + n,)
     return DTensor.from_local(local, x.device_mesh, x.placements,
                               run_check=False, shape=shape,
-                              stride=torch.empty(shape,
-                                                 device="meta").stride())
+                              stride=contiguous_stride(shape))
 
 
 def gqa_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -167,8 +176,8 @@ def gqa_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
         else:
             out = kernel_ops.attention(q, k, v, causal=cfg.causal,
                                        **_attn_kw(cfg))
-    out = ctx.constrain(out, ("batch", "seq", "heads_act", None))
-    out = out.reshape(out.shape[:2] + (h * cfg.head_dim_,))
+    out = _merge_heads(ctx.constrain(out, ("batch", "seq", "heads_act",
+                                           None)))
     return ctx.constrain(out @ params["wo"].to(dt),
                          ("batch", "seq_res", "embed_act")), new_cache
 
@@ -211,6 +220,19 @@ def _mla_compress(params: dict, x: torch.Tensor, cfg: ModelConfig,
     c_kv = kernel_ops.rmsnorm(c_kv, params["kv_norm"], cfg.norm_eps)
     k_pe = apply_rope(k_pe[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
     return c_kv, k_pe
+
+
+def _latent_up(c: torch.Tensor, w: torch.Tensor, ctx: ShardCtx,
+               decode: bool) -> torch.Tensor:
+    """``c (B, T, rank) @ w (rank, n)``.  A decode step's ``c`` is the
+    cache, its length split on a mesh: each rank rebuilds its own rows
+    from the whole weight (``map_local``; DTensor's matmul would flatten the
+    batch with the split length, which some PyTorch versions refuse)."""
+    if not (decode and ctx.running):
+        return c @ w
+    return map_local(torch.matmul, ctx, (c, w),
+                     (("batch", "kv_seq", None), (None, None)),
+                     out_like=(0,))
 
 
 def mla_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -258,8 +280,10 @@ def mla_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
         out = torch.einsum("bshr,rhv->bshv", o_lat, w_uv)
     else:
         # naive path: per-head K and V rebuilt from the latents
-        k_nope = _split_heads(c_kv.to(dt) @ params["w_uk"].to(dt), h)
-        v = _split_heads(c_kv.to(dt) @ params["w_uv"].to(dt), h)
+        k_nope = _split_heads(_latent_up(c_kv.to(dt), params["w_uk"].to(dt),
+                                         ctx, decode), h)
+        v = _split_heads(_latent_up(c_kv.to(dt), params["w_uv"].to(dt), ctx,
+                                    decode), h)
         k_pe_b = k_pe.to(dt)[:, :, None, :].expand(
             k_nope.shape[:3] + (m.qk_rope_dim,))
         k_full = torch.cat([k_nope, k_pe_b], dim=-1)
@@ -274,7 +298,7 @@ def mla_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
             out = kernel_ops.attention(q_full, k_full, v_pad,
                                        causal=cfg.causal, **_attn_kw(cfg))
         out = out[..., :m.v_head_dim]
-    out = out.reshape(out.shape[:2] + (h * m.v_head_dim,))
+    out = _merge_heads(out)
     return ctx.constrain(out @ params["wo"].to(dt),
                          ("batch", "seq_res", "embed_act")), new_cache
 

@@ -10,32 +10,29 @@ running mesh that is a no-op.
 
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.parallel.sharding import NULL_CTX, ShardCtx
+from repro_torch.parallel.sharding import (
+    NULL_CTX,
+    ParamDecl,
+    ShardCtx,
+    shard_map_compat,
+)
 
 
-@dataclasses.dataclass(frozen=True)
-class ParamDecl:
-    """Declaration of one parameter tensor: its shape, the logical axis
-    name of each dimension (``parallel/sharding.py`` maps them onto a
-    mesh) and its initializer.  The JAX package's ParamDecl without the
-    storage dtype: every leaf takes the model's dtype, as the JAX
-    package's ``init_tree`` casts it."""
-
-    shape: tuple[int, ...]
-    axes: tuple[str | None, ...]
-    init: str = "fan_in"  # fan_in | ones | zeros | normal
-    scale: float = 1.0
-
-    def __post_init__(self) -> None:
-        if len(self.shape) != len(self.axes):
-            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+def embed_decl(cfg: ModelConfig) -> dict:
+    """The token embedding (``normal`` 0.02) and, without tied
+    embeddings, the LM head."""
+    d = {"embedding": ParamDecl((cfg.padded_vocab, cfg.d_model),
+                                ("vocab", "embed"), "normal", 0.02)}
+    if not cfg.tie_embeddings:
+        d["lm_head"] = ParamDecl((cfg.d_model, cfg.padded_vocab),
+                                 ("embed", "vocab"))
+    return d
 
 
 def norm_decl(dim: int) -> dict:
@@ -118,23 +115,40 @@ def lm_logits(params: dict, x: torch.Tensor, cfg: ModelConfig,
     return ctx.constrain(logits, ("batch", "seq", "vocab_act"))
 
 
+def _ce_sums(logits: torch.Tensor, targets: torch.Tensor):
+    """Over the rows given: the summed f32 NLL, the summed squared
+    log-partition and the count of targets (``-1`` ignored)."""
+    logits = logits.float()
+    mask = (targets >= 0).float()
+    safe_t = torch.clamp(targets, min=0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe_t[..., None])[..., 0]
+    return ((lse - gold) * mask).sum(), (lse ** 2 * mask).sum(), mask.sum()
+
+
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
                   z_loss: float = 0.0,
                   ctx: ShardCtx = NULL_CTX) -> tuple[torch.Tensor, dict]:
     """Stable cross entropy in f32 plus ``z_loss`` times the mean squared
     log-partition; targets ``-1`` are ignored.  Returns ``(loss, {"nll",
     "z", "tokens"})``.  On a mesh the vocab is gathered first (DTensor has
-    no rule for a gather along a split vocab)."""
+    no rule for a gather along a split vocab) and each rank sums over its
+    own rows (``local_map``; the sums are partial over the mesh dims that
+    split the rows): run as DTensor ops, the gather's backward would make
+    a zero gradient of the whole global logits on every rank."""
     if ctx.running:
         logits = ctx.constrain(logits, ("batch", "seq", None))
         targets = ctx.constrain(targets, ("batch", "seq"))
-    logits = logits.float()
-    mask = (targets >= 0).float()
-    safe_t = torch.clamp(targets, min=0).long()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe_t[..., None])[..., 0]
-    nll = (lse - gold) * mask
-    denom = torch.clamp(mask.sum(), min=1.0)
-    loss = nll.sum() / denom
-    zl = (lse ** 2 * mask).sum() / denom
+        rows = tuple(Partial() if isinstance(p, Shard) else Replicate()
+                     for p in logits.placements)
+        sums = shard_map_compat(
+            _ce_sums, ctx.device_mesh,
+            in_specs=(tuple(logits.placements), tuple(targets.placements)),
+            out_specs=[rows] * 3)
+        nll, zl, count = sums(logits, targets)
+    else:
+        nll, zl, count = _ce_sums(logits, targets)
+    denom = torch.clamp(count, min=1.0)
+    loss = nll / denom
+    zl = zl / denom
     return loss + z_loss * zl, {"nll": loss, "z": zl, "tokens": denom}

@@ -85,6 +85,7 @@ from repro_torch.parallel.sharding import (
     NULL_CTX,
     ShardCtx,
     distribute_tree,
+    map_decls,
     spec_tree,
     spmd,
 )
@@ -92,6 +93,7 @@ from repro_torch.models.layers import (
     ParamDecl,
     act_dtype,
     cross_entropy,
+    embed_decl,
     embed_tokens,
     lm_logits,
     mlp,
@@ -188,9 +190,8 @@ def _unit_decl(cfg: ModelConfig, kind: str) -> dict:
 
 def model_decl(cfg: ModelConfig) -> dict:
     _check_family(cfg)
-    embed = {"embedding": ParamDecl((cfg.padded_vocab, cfg.d_model),
-                                    ("vocab", "embed"), "normal", 0.02)}
-    if not cfg.tie_embeddings or cfg.family == "audio":
+    embed = embed_decl(cfg)
+    if "lm_head" not in embed and cfg.family == "audio":
         # the audio encoder's classifier head over the padded classes
         embed["lm_head"] = ParamDecl((cfg.d_model, cfg.padded_vocab),
                                      ("embed", "vocab"))
@@ -242,6 +243,14 @@ def _init_leaf(d: ParamDecl, gen: torch.Generator, device,
     for i in range(d.shape[0]):
         out[i] = draw(d.shape[1:])
     return out
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """The number of parameters: the elements of every declared leaf
+    (``model_decl``)."""
+    leaves = []
+    map_decls(leaves.append, model_decl(cfg))
+    return sum(math.prod(d.shape) for d in leaves)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:

@@ -35,11 +35,17 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.layers import ParamDecl, act_dtype
-from repro_torch.parallel.sharding import NULL_CTX, ShardCtx
+from repro_torch.parallel.sharding import (
+    NULL_CTX,
+    ShardCtx,
+    map_local,
+    reshape_whole,
+)
 
 
 class MambaCache(NamedTuple):
@@ -117,6 +123,62 @@ def _segsum_decay(cum: torch.Tensor) -> torch.Tensor:
     return torch.exp(torch.where(mask, diff, float("-inf")))
 
 
+def _ssd_chunks(xh, dt, A, Bsq, Csq, D, prev_state, chunk: int):
+    """The chunked SSD over ``xh (B, S, H, P)``, ``dt (B, S, H)`` (f32),
+    ``A, D (H,)``, ``Bsq, Csq (B, S, N)`` (f32) from ``prev_state (B, H, P,
+    N)``: ``(y (B, S, H, P) in f32 with the skip term, the last state)``.
+    Rows and heads are independent."""
+    f32 = torch.float32
+    b, seq, nh, p = xh.shape
+    n = Bsq.shape[-1]
+    q = min(chunk, seq)
+    orig_seq = seq
+    if seq % q:
+        # right-pad to a chunk multiple with dt = 0 steps: decay
+        # exp(0) = 1 and increment dt*B*x = 0 leave the recurrent state
+        # untouched, so the final cache is exact; padded outputs are
+        # sliced off
+        pad = q - seq % q
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        Bsq = F.pad(Bsq, (0, 0, 0, pad))
+        Csq = F.pad(Csq, (0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        seq = seq + pad
+    nc = seq // q
+    xc = xh.reshape(b, nc, q, nh, p).to(f32)
+    dtc = dt.reshape(b, nc, q, nh)
+    Bc = Bsq.reshape(b, nc, q, n)
+    Cc = Csq.reshape(b, nc, q, n)
+    a = dtc * A                                             # (B,nc,Q,H)
+    cum = torch.cumsum(a, dim=2)
+
+    # intra-chunk: Y[i] = sum_{j<=i} (C_i.B_j) exp(cum_i-cum_j) dt_j x_j
+    cb = Cc @ Bc.transpose(-1, -2)                          # (B,nc,Q,Q)
+    L = _segsum_decay(cum)                                  # (B,nc,H,Q,Q)
+    w_ij = (cb[:, :, None] * L) * dtc.transpose(-1, -2)[:, :, :, None, :]
+    y_intra = (w_ij @ xc.permute(0, 1, 3, 2, 4)).permute(0, 1, 3, 2, 4)
+
+    # chunk states: S_c = sum_j exp(cum_last-cum_j) dt_j B_j (x) x_j
+    decay_last = torch.exp(cum[:, :, -1:, :] - cum)         # (B,nc,Q,H)
+    xw = (decay_last * dtc)[..., None] * xc                 # (B,nc,Q,H,P)
+    sc = torch.einsum("bcjhp,bcjn->bchpn", xw, Bc)
+
+    # inter-chunk recurrence over nc
+    chunk_decay = torch.exp(cum[:, :, -1, :])               # (B,nc,H)
+    h_prevs = []
+    h = prev_state
+    for c in range(nc):
+        h_prevs.append(h)
+        h = chunk_decay[:, c, :, None, None] * h + sc[:, c]
+    last_state = h
+    h_prevs = torch.stack(h_prevs, dim=1)                   # (B,nc,H,P,N)
+    y_inter = torch.einsum("bcin,bchpn->bcihp", Cc, h_prevs) \
+        * torch.exp(cum)[..., None]
+    y = (y_intra + y_inter).reshape(b, seq, nh, p)
+    y = y + D[None, None, :, None] * xh.to(f32)
+    return y[:, :orig_seq], last_state
+
+
 def mamba2_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
                  cache: MambaCache | None = None, ctx: ShardCtx = NULL_CTX):
     """One Mamba2 mixer over ``x (B, S, d)``.  Returns ``(out (B, S, d),
@@ -156,58 +218,34 @@ def mamba2_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
         x0 = xh[:, 0].to(f32)                                   # (B, H, P)
         inc = (dt[:, 0, :, None] * x0)[..., None] * Bsq[:, 0, None, None, :]
         state = da[..., None, None] * prev_state + inc
-        y = (state @ Csq[:, 0, None, :, None])[..., 0]          # (B, H, P)
+        if isinstance(state, DTensor):
+            # a product and a sum: the batched matmul flattens the batch
+            # and head dims, which some PyTorch versions' DTensor cannot
+            # do with both split
+            y = (state * Csq[:, 0, None, None, :]).sum(-1)
+        else:
+            y = (state @ Csq[:, 0, None, :, None])[..., 0]      # (B, H, P)
         y = y + D[None, :, None] * x0
         y = y.reshape(b, 1, d_in).to(dt_)
         new_cache = MambaCache(state, new_win)
     else:
         # ---- chunked SSD ----
-        q = min(s.chunk, seq)
-        orig_seq = seq
-        if seq % q:
-            # right-pad to a chunk multiple with dt = 0 steps: decay
-            # exp(0) = 1 and increment dt*B*x = 0 leave the recurrent state
-            # untouched, so the final cache is exact; padded outputs are
-            # sliced off
-            pad = q - seq % q
-            xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
-            Bsq = F.pad(Bsq, (0, 0, 0, pad))
-            Csq = F.pad(Csq, (0, 0, 0, pad))
-            dt = F.pad(dt, (0, 0, 0, pad))
-            seq = seq + pad
-        nc = seq // q
-        xc = xh.reshape(b, nc, q, nh, p).to(f32)
-        dtc = dt.reshape(b, nc, q, nh)
-        Bc = Bsq.reshape(b, nc, q, n)
-        Cc = Csq.reshape(b, nc, q, n)
-        a = dtc * A                                             # (B,nc,Q,H)
-        cum = torch.cumsum(a, dim=2)
+        args = (xh, dt, A, Bsq, Csq, D, prev_state)
 
-        # intra-chunk: Y[i] = sum_{j<=i} (C_i.B_j) exp(cum_i-cum_j) dt_j x_j
-        cb = Cc @ Bc.transpose(-1, -2)                          # (B,nc,Q,Q)
-        L = _segsum_decay(cum)                                  # (B,nc,H,Q,Q)
-        w_ij = (cb[:, :, None] * L) * dtc.transpose(-1, -2)[:, :, :, None, :]
-        y_intra = (w_ij @ xc.permute(0, 1, 3, 2, 4)).permute(0, 1, 3, 2, 4)
+        def core(*a):
+            return _ssd_chunks(*a, s.chunk)
 
-        # chunk states: S_c = sum_j exp(cum_last-cum_j) dt_j B_j (x) x_j
-        decay_last = torch.exp(cum[:, :, -1:, :] - cum)         # (B,nc,Q,H)
-        xw = (decay_last * dtc)[..., None] * xc                 # (B,nc,Q,H,P)
-        sc = torch.einsum("bcjhp,bcjn->bchpn", xw, Bc)
-
-        # inter-chunk recurrence over nc
-        chunk_decay = torch.exp(cum[:, :, -1, :])               # (B,nc,H)
-        h_prevs = []
-        h = prev_state
-        for c in range(nc):
-            h_prevs.append(h)
-            h = chunk_decay[:, c, :, None, None] * h + sc[:, c]
-        last_state = h
-        h_prevs = torch.stack(h_prevs, dim=1)                   # (B,nc,H,P,N)
-        y_inter = torch.einsum("bcin,bchpn->bcihp", Cc, h_prevs) \
-            * torch.exp(cum)[..., None]
-        y = (y_intra + y_inter).reshape(b, seq, nh, p)
-        y = y + D[None, None, :, None] * xh.to(f32)
-        y = y.reshape(b, seq, d_in).to(dt_)[:, :orig_seq]
+        if ctx.running:
+            heads = ("batch", None, "ssm_heads_act")
+            y, last_state = map_local(
+                core, ctx, args,
+                (heads + (None,), heads, ("ssm_heads_act",),
+                 ("batch", None, None), ("batch", None, None),
+                 ("ssm_heads_act",), ("batch", "ssm_heads_act", None, None)),
+                out_like=(0, 6))
+        else:
+            y, last_state = core(*args)
+        y = reshape_whole(y, (b, seq, d_in), 2, nh).to(dt_)
         new_cache = MambaCache(last_state, new_win) \
             if cache is not None else None
 

@@ -40,7 +40,12 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ParamDecl
-from repro_torch.parallel.sharding import NULL_CTX, ShardCtx
+from repro_torch.parallel.sharding import (
+    NULL_CTX,
+    ShardCtx,
+    map_local,
+    reshape_whole,
+)
 
 # the stabilisers' start, and the input gate of a pad step (state-neutral)
 NEG = -1e30
@@ -96,7 +101,7 @@ def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
 
 def _mlstm_qkvif(params: dict, xm: torch.Tensor, h: int, hd: int):
     dt = xm.dtype
-    xh = xm.reshape(xm.shape[:2] + (h, hd))                 # (B, S, H, hd)
+    xh = reshape_whole(xm, xm.shape[:2] + (h, hd), 2, h)   # (B, S, H, hd)
     q, k, v = (torch.einsum("bshd,hde->bshe", xh, params[w].to(dt))
                for w in ("w_q", "w_k", "w_v"))
     i_pre = (xm @ params["w_i"].to(dt)).float()
@@ -171,6 +176,27 @@ def mlstm_cell_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y.to(q.dtype), MLSTMCache(C, n, m)
 
 
+def _cell_chunked(q, k, v, i_pre, f_pre, cache: MLSTMCache, chunk: int,
+                  ctx: ShardCtx):
+    """``mlstm_cell_chunked``; on a running mesh over each rank's local
+    rows and heads (``map_local``: the cell is independent across them)."""
+    if not ctx.running:
+        return mlstm_cell_chunked(q, k, v, i_pre, f_pre, cache, chunk)
+
+    def cell(q, k, v, i_pre, f_pre, C, n, m):
+        y, c = mlstm_cell_chunked(q, k, v, i_pre, f_pre,
+                                  MLSTMCache(C, n, m), chunk)
+        return y, c.C, c.n, c.m
+
+    heads = ("batch", None, "ssm_heads_act")
+    rows = ("batch", "ssm_heads_act")
+    y, C, n, m = map_local(
+        cell, ctx, (q, k, v, i_pre, f_pre) + tuple(cache),
+        (heads + (None,),) * 3 + (heads,) * 2
+        + (rows + (None, None), rows + (None,), rows), out_like=(0, 5, 6, 7))
+    return y, MLSTMCache(C, n, m)
+
+
 def mlstm_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                i_pre: torch.Tensor, f_pre: torch.Tensor, cache: MLSTMCache):
     """One recurrent step (decode, and the sequential oracle): ``q, k, v
@@ -204,19 +230,18 @@ def mlstm_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
     xm, zg = up.split(inner, dim=-1)
     q, k, v, i_pre, f_pre = _mlstm_qkvif(params, xm, h, hd)
     b, seq = x.shape[:2]
-    if cache is None:
-        y, _ = mlstm_cell_chunked(q, k, v, i_pre, f_pre,
-                                  mlstm_cache_shape(cfg, b, x.device),
-                                  cfg.xlstm.chunk)
-        new_cache = None
-    elif seq == 1:
+    if seq == 1 and cache is not None:
         y, new_cache = mlstm_step(q[:, 0], k[:, 0], v[:, 0], i_pre[:, 0],
                                   f_pre[:, 0], cache)
         y = y[:, None]
-    else:  # prefill
-        y, new_cache = mlstm_cell_chunked(q, k, v, i_pre, f_pre, cache,
-                                          cfg.xlstm.chunk)
-    y = y.reshape(b, seq, inner) * F.silu(zg)
+    else:  # a whole sequence (training), or a prefill into the cache
+        c0 = cache if cache is not None else mlstm_cache_shape(cfg, b,
+                                                               x.device)
+        y, new_cache = _cell_chunked(q, k, v, i_pre, f_pre, c0,
+                                     cfg.xlstm.chunk, ctx)
+        if cache is None:
+            new_cache = None
+    y = reshape_whole(y, (b, seq, inner), 2, y.shape[2]) * F.silu(zg)
     return ctx.constrain(y @ params["w_down"].to(dt),
                          ("batch", "seq_res", "embed_act")), new_cache
 
@@ -274,7 +299,7 @@ def _slstm_recur(r: torch.Tensor, pre: torch.Tensor, cache: SLSTMCache,
     h = cfg.num_heads
     hd = cfg.d_model // h
     b = pre.shape[0]
-    pre = pre.reshape(b, 4, h, hd)
+    pre = reshape_whole(pre, (b, 4, h, hd), 1, 4)
     # "bhd,ghde->bghe": per head, h_prev @ r[g, head]
     rec = torch.matmul(cache.h.transpose(0, 1)[None], r)
     pre = pre + rec.permute(2, 0, 1, 3)                     # (B, 4, H, hd)
@@ -315,7 +340,8 @@ def slstm_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
     for t in range(seq):
         hidden, cache = _slstm_recur(r, pre[:, t], cache, cfg)
         hs.append(hidden)
-    y = torch.stack(hs, dim=1).reshape(b, seq, d).to(x.dtype)
+    y = torch.stack(hs, dim=1)
+    y = reshape_whole(y, (b, seq, d), 2, y.shape[2]).to(x.dtype)
     dt = x.dtype
     g = y @ params["ff_g"].to(dt)
     u = y @ params["ff_u"].to(dt)

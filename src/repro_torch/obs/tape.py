@@ -6,7 +6,8 @@ norm (inf where unrecorded), the step length (0 where unrecorded), the
 quasi-Newton ring occupancy and, for guarded solvers, the health code (-1
 where unrecorded).  Frozen samples keep their cells bit for bit.
 :func:`tape_residual_series` digests a tape's residuals on the host (the
-metrics bridge's ``solve_residual_tape`` series).
+metrics bridge's ``solve_residual_tape`` series), :func:`tape_summary` a
+whole tape.
 """
 
 from __future__ import annotations
@@ -70,3 +71,18 @@ def tape_residual_series(residual) -> list[float]:
         row = r[k][finite[k]]
         out.append(float(row.mean()) if row.size else float("nan"))
     return out
+
+
+def tape_summary(tape: SolveTape) -> dict:
+    """Host-side digest of one solve's tape (JSON-able): a read of the
+    device for each of its buffers."""
+    series = tape_residual_series(tape.residual.cpu())
+    qn = tape.qn_count.cpu().numpy()
+    step = tape.step_norm.cpu().numpy().astype(np.float64)
+    return {
+        "n_iters": len(series),
+        "residual_series": series,
+        "final_residual": series[-1] if series else None,
+        "qn_occupancy_max": int(qn.max()) if qn.size else 0,
+        "step_norm_max": float(step.max()) if step.size else 0.0,
+    }

@@ -173,6 +173,25 @@ def rules_for_mesh(rules: ShardingRules, mesh) -> ShardingRules:
 # ---------------------------------------------------------------------------
 
 
+@dataclasses.dataclass(frozen=True)
+class ParamDecl:
+    """Declaration of one parameter tensor: its shape, the logical axis
+    name of each dimension (``parallel/sharding.py`` maps them onto a
+    mesh) and its initializer.  The JAX package's ParamDecl without the
+    storage dtype: every leaf takes the model's dtype, as the JAX
+    package's ``init_tree`` casts it."""
+
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]
+    init: str = "fan_in"  # fan_in | ones | zeros | normal
+    scale: float = 1.0
+
+    def __post_init__(self) -> None:
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
+
+
 def map_decls(fn: Callable, tree):
     """``fn`` applied to every declaration of a (nested dict) tree."""
     if isinstance(tree, dict):
@@ -314,7 +333,10 @@ def distribute_tree(tree, specs, device_mesh):
     """Place a tree of whole tensors (dicts, NamedTuples, dataclasses) by
     the spec at the same place in ``specs``: every rank holds the same
     values (parameters drawn from one seed or converted from JAX, cold
-    caches) and keeps its own shard, no collective."""
+    caches) and keeps its own shard, no collective.  ``None`` stays
+    ``None`` (a train state without a carry)."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: distribute_tree(tree[k], specs[k], device_mesh)
                 for k in tree}
@@ -375,6 +397,60 @@ def laid_out_as(x: torch.Tensor, ref):
         return x
     return distribute_tensor(x, ref.device_mesh, ref.placements,
                              src_data_rank=None)
+
+
+def contiguous_stride(shape: Sequence[int]) -> tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape`` (computed, not read
+    off a ``meta`` tensor: the dry-run counts every allocation, ``meta``
+    ones too)."""
+    out, n = [], 1
+    for d in reversed(tuple(shape)):
+        out.append(n)
+        n *= max(int(d), 1)
+    return tuple(reversed(out))
+
+
+def with_shape(x, shape: Sequence[int]):
+    """A DTensor ``x`` with the global ``shape`` it has: ``local_map``
+    infers an output's global shape as if every shard were as large as
+    this rank's, which an uneven split (36 heads over 16 ranks: 3 a rank,
+    none on the last four) overstates.  ``x`` as it is when it agrees."""
+    if not isinstance(x, DTensor) or tuple(x.shape) == tuple(shape):
+        return x
+    return DTensor.from_local(x.to_local(), x.device_mesh, x.placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
+
+
+def grad_laid_out_as_value(x):
+    """A DTensor ``x`` as it is, whose gradient is redistributed to ``x``'s
+    placements where it arrives here (``from_local``'s backward does
+    that), before it flows further back; a plain tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    return DTensor.from_local(x.to_local(), x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def reshape_whole(x, shape: Sequence[int], dim: int, parts: int):
+    """``x.reshape(shape)``, a view that splits dim ``dim`` of ``x`` into
+    ``parts`` leading pieces (heads) or merges ``parts`` pieces into it.
+    DTensor cannot view a split that does not divide ``parts`` (36 heads
+    over 16 ranks), where GSPMD pads the shards.  So on a mesh with a dim
+    that does not divide ``parts``, ``dim`` is gathered whole over such mesh
+    dims first (an all-gather, where they split it), and the gradient is
+    laid out as the view's value where it flows back through the view (it
+    may arrive split there)."""
+    if not isinstance(x, DTensor):
+        return x.reshape(shape)
+    mesh = x.device_mesh
+    bad = [i for i in range(mesh.ndim) if parts % mesh.size(i)]
+    if not bad:
+        return x.reshape(shape)
+    pls = tuple(Replicate() if i in bad and isinstance(p, Shard)
+                and p.dim == dim else p for i, p in enumerate(x.placements))
+    return grad_laid_out_as_value(redistribute(x, mesh, pls).reshape(shape))
 
 
 def write_rows_(live, new, ax: int, slots: Sequence[int],
@@ -445,6 +521,51 @@ def shard_map_compat(f, mesh, *, in_specs, out_specs, in_grad_specs=None):
                      in_placements=tuple(pl(s) for s in in_specs),
                      in_grad_placements=grads, device_mesh=mesh,
                      redistribute_inputs=True)
+
+
+def even_placements(ctx: "ShardCtx", axes: Sequence[str | None],
+                    shape: Sequence[int]) -> tuple:
+    """The placements of a tensor of ``shape`` whose dims carry ``axes``,
+    with a dim its mesh dims do not divide left whole: ``local_map`` takes
+    even shards (it infers the global shape from this rank's)."""
+    spec = list(ctx.spec(axes))
+    spec += [None] * (len(shape) - len(spec))
+    for i, e in enumerate(spec):
+        if e is not None and int(shape[i]) % entry_size(ctx.mesh, e):
+            spec[i] = None
+    return placements(tuple(spec), ctx.device_mesh)
+
+
+def grad_of_replicated(pls: Sequence, outs: Sequence[Sequence]) -> tuple:
+    """An input's gradient placements for a ``local_map``: ``Partial`` on
+    each mesh dim where the input is replicated but an output is split (each
+    rank's output part contributes its share), else the input's own."""
+    from torch.distributed.tensor import Partial
+    return tuple(Partial() if isinstance(p, Replicate)
+                 and any(isinstance(o[i], Shard) for o in outs) else p
+                 for i, p in enumerate(pls))
+
+
+def map_local(fn: Callable, ctx: "ShardCtx", args: Sequence,
+              in_axes: Sequence, out_like: Sequence[int]):
+    """``fn`` over each rank's local shards of ``args`` (tensors, the same
+    values on every rank where replicated), laid out by ``in_axes`` (one
+    tuple of logical axes per argument) as ``even_placements``; output
+    ``j`` is laid out as argument ``out_like[j]`` (its dims whole where
+    that argument's are).  For work that is independent across the split
+    dims (rows, heads): it runs as plain tensor code on each rank, where
+    DTensor's rules for some ops (a batched matmul over two split dims, a
+    cumsum's backward) fail to plan on some PyTorch versions.  One output
+    comes back as a tensor, several as a tuple."""
+    mesh = ctx.device_mesh
+    in_pls = [even_placements(ctx, a, t.shape)
+              for a, t in zip(in_axes, args)]
+    out_pls = [in_pls[i] for i in out_like]
+    mapped = shard_map_compat(
+        fn, mesh, in_specs=tuple(in_pls),
+        out_specs=out_pls if len(out_pls) > 1 else out_pls[0],
+        in_grad_specs=tuple(grad_of_replicated(p, out_pls) for p in in_pls))
+    return mapped(*(as_dtensor(t, mesh) for t in args))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -839,3 +839,201 @@ def check_accum_deq(w):
 def check_accum_uneven(w):
     """B=8, k=4 at (4, 1): each microbatch of 2 rows over 4 data ranks."""
     return _accum_check(w, dense_cfg(), "dense8", w.mesh41, 4, 8)
+
+
+# ---------------------------------------------------------------------------
+# the dry-run's cells on real tensors, and query heads that do not divide
+# ---------------------------------------------------------------------------
+
+# (kind, deq) of the dry-run cells held against a fake world of the same
+# mesh: every collective and rank 0's allocations
+DRYRUN_CELLS = (("train", False), ("prefill", False), ("decode", False),
+                ("train", True))
+
+
+def dryrun_cell(cfg, kind: str, mesh, args=None):
+    """The dry-run's cell of a smoke ``cfg`` at (B, S) = (``B``, ``S``) on
+    ``mesh`` (a ``DeviceMesh``), its arguments ``args`` (whole tensors,
+    placed here), or ``meta`` ones; returns ``(rank 0's peak bytes, the
+    collectives as (kind, bytes, group) triples)``."""
+    from repro_torch.configs.shapes import ShapeSuite
+    from repro_torch.launch import dryrun
+    from repro_torch.parallel.sharding import distribute_tree
+
+    cfg = dryrun._costing_config(cfg, cfg.num_layers)
+    shape = ShapeSuite(kind, kind, S, B)
+    cell = dryrun.build_cell(cfg, shape, mesh, dryrun._train_config(shape, 1))
+    if args is not None:
+        cell = dataclasses.replace(cell, args=tuple(
+            distribute_tree(a, sp, mesh)
+            for a, sp in zip(args(cfg, shape), cell.specs)))
+    peak, _, records = dryrun.run_step(cell)
+    return peak, [tuple(r) for r in records]
+
+
+def real_cell_args(cfg, shape):
+    """A cell's arguments as real CPU tensors, the same on every rank
+    (parameters from seed 0, tokens from a seeded generator, cold caches
+    and state)."""
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+
+    gen = torch.Generator().manual_seed(0)
+    b, s = shape.global_batch, shape.seq_len
+
+    def tok(*size):
+        return torch.randint(0, cfg.vocab_size, size, generator=gen,
+                             dtype=torch.int32)
+
+    if shape.kind == "train":
+        tc = dataclasses.replace(tcfg(batch=b), seq_len=s)
+        return (steps.init_train_state(cfg, tc, device="cpu"),
+                {"tokens": tok(b, s), "targets": tok(b, s)})
+    params = lm.init_params(cfg, seed=0, device="cpu")
+    if shape.kind == "prefill":
+        return (params, {"tokens": tok(b, s)})
+    return (params, lm.init_cache(cfg, b, s, device="cpu"), tok(b),
+            torch.tensor([3, 7, 0, 15][:b], dtype=torch.int32))
+
+
+def check_dryrun_cells(w):
+    """The dry-run's smoke cells run at (2, 2) on real tensors: rank 0's
+    collectives as issued and its peak of allocated bytes (``LiveBytes``
+    over the local shards), for the test to hold against a fake world."""
+    from repro_torch.configs.registry import smoke_config
+
+    out = {}
+    for kind, deq in DRYRUN_CELLS:
+        cfg = dataclasses.replace(smoke_config("minicpm-2b", deq=deq),
+                                  dtype="float32")
+        peak, records = dryrun_cell(cfg, kind, w.mesh22, real_cell_args)
+        tag = f"{kind}{'_deq' if deq else ''}"
+        out[tag + "_peak"] = peak
+        out[tag + "_records"] = records
+    return out
+
+
+def uneven_heads_cfg():
+    """MiniCPM-2B's smoke config with 3 query (and KV) heads: neither
+    divides the (2, 2) mesh's "model" axis, as 36 heads do not divide 16."""
+    return dataclasses.replace(dense_cfg(), num_heads=3, num_kv_heads=3)
+
+
+def check_uneven_heads(w):
+    """A train step (its loss, gradient norm and every gradient leaf), a
+    prefill and a decode step at (2, 2) with query heads that do not
+    divide "model", against the same runs unsharded."""
+    from repro_torch.configs.shapes import SHAPES, make_ctx
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import NULL_CTX, distribute_tree, \
+        whole
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    cfg = uneven_heads_cfg()
+    gen = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                         dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    out = {}
+    for tag, ctx in (("0", NULL_CTX),
+                     ("1", make_ctx(cfg, w.mesh22, SHAPES["train_4k"]))):
+        if tag == "0" and w.rank:  # the unsharded runs: rank 0's alone
+            continue
+        tc = tcfg()
+        params = lm.init_params(cfg, seed=0, device="cpu")
+        state = steps.init_train_state(cfg, tc, params=params, ctx=ctx)
+        mode = CommDebugMode()
+        with mode:
+            state, m = steps.build_train_step(cfg, tc, ctx=ctx)(state, batch)
+        out["loss" + tag] = float(m["loss"])
+        out["gnorm" + tag] = float(m["grad_norm"])
+        placed = steps.init_train_state(cfg, tc, params=params, ctx=ctx)
+        out.update({f"g{tag}/{k}": _np(v) for k, v in flat(
+            _grads(cfg, placed.params, batch, ctx)).items()})
+        if tag == "1":
+            out["train_comms"] = {str(k).split(".")[-1]: v for k, v in
+                                  mode.get_comm_counts().items()}
+    params = lm.init_params(cfg, seed=0, device="cpu")
+    for tag, shape_name in (("0", None), ("1", "decode_32k")):
+        if tag == "0" and w.rank:
+            continue
+        p, caches = params, lm.init_cache(cfg, B, 2 * S, device="cpu")
+        ctx = NULL_CTX
+        if shape_name:
+            from repro_torch.configs.shapes import cache_sharding
+            from repro_torch.launch.steps import param_shardings
+            ctx = make_ctx(cfg, w.mesh22, SHAPES[shape_name])
+            p = distribute_tree(params, param_shardings(cfg, ctx), w.mesh22)
+            caches = distribute_tree(caches,
+                                     cache_sharding(cfg, ctx, caches),
+                                     w.mesh22)
+        logits, caches, lens = steps.build_prefill(cfg, ctx, 2 * S)(
+            p, {"tokens": batch["tokens"]})
+        nxt = whole(logits)[:, -1].argmax(-1).to(torch.int32)
+        dl, _ = steps.build_decode_step(cfg, ctx)(
+            p, caches, nxt, torch.full((B,), S, dtype=torch.int32))
+        out["prefill" + tag] = _np(logits)
+        out["decode" + tag] = _np(dl)
+    return out
+
+
+def check_decode_split_twice(w):
+    """The decode attention over a cache whose length is split over both
+    mesh dims (as long-context decode splits it over "pod" and "data"),
+    against the plain decode over the whole cache; one row's keys end in
+    the first slice, so the other slices hold none of it."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator().manual_seed(3)
+    b, h, kvh, hd, t = 2, 4, 2, 16, 32
+    q = torch.randn(b, h, hd, generator=gen)
+    k = torch.randn(b, t, kvh, hd, generator=gen)
+    v = torch.randn(b, t, kvh, hd, generator=gen)
+    lens = torch.tensor([30, 7], dtype=torch.int32)
+    kd, vd = (distribute_tensor(x, w.mesh22, (Shard(1), Shard(1)),
+                                src_data_rank=None) for x in (k, v))
+    got = ops.decode_attention(q, kd, vd, lens)
+    return {"got": _np(got),
+            "want": ref.decode_attention_ref(q, k, v, lens).numpy()}
+
+
+def check_ssm_families(w):
+    """Zamba2's chunked SSD and xLSTM's chunked mLSTM cell run on each
+    rank's local rows and heads (``map_local``): at (2, 2), every gradient
+    leaf of a smoke train step's loss and a prefill's logits against the
+    unsharded runs (f32, S=32: two chunks of 16)."""
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.configs.shapes import SHAPES, make_ctx
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import NULL_CTX, distribute_tree
+
+    out = {}
+    for arch in ("zamba2-2.7b", "xlstm-1.3b"):
+        cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+        gen = torch.Generator().manual_seed(1)
+        toks = torch.randint(0, cfg.vocab_size, (B, 33), generator=gen,
+                             dtype=torch.int32)
+        batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+        params = lm.init_params(cfg, seed=0, device="cpu")
+        tctx = make_ctx(cfg, w.mesh22, SHAPES["train_4k"])
+        placed = distribute_tree(params, steps.param_shardings(cfg, tctx),
+                                 w.mesh22)
+        for tag, p, ctx in (("0", params, NULL_CTX), ("1", placed, tctx)):
+            if tag == "0" and w.rank:  # the unsharded runs: rank 0's
+                continue
+            out.update({f"{arch}/g{tag}/{k}": _np(v) for k, v in flat(
+                _grads(cfg, p, batch, ctx)).items()})
+        pctx = make_ctx(cfg, w.mesh22, SHAPES["prefill_32k"])
+        pp = distribute_tree(params, steps.param_shardings(cfg, pctx),
+                             w.mesh22)
+        for tag, p, ctx in (("0", params, NULL_CTX), ("1", pp, pctx)):
+            if tag == "0" and w.rank:
+                continue
+            logits, _, _ = steps.build_prefill(cfg, ctx, 40)(
+                p, {"tokens": batch["tokens"]})
+            out[f"{arch}/prefill{tag}"] = _np(logits)
+    return out

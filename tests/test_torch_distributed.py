@@ -29,7 +29,17 @@ port's unsharded runs and against JAX:
   * the expert-parallel MoE at a capacity that drops tokens against the
     reference's sharded arm (a JAX subprocess on 4 forced host devices);
   * the int8 pod compression against JAX's quantizers, the elastic
-    re-meshing, and a checkpoint written at (2,2) restored at (4,1).
+    re-meshing, and a checkpoint written at (2,2) restored at (4,1);
+  * the dry-run's smoke cells (a train step, with and without the DEQ, a
+    prefill, a decode step) at (2,2): a fake world of 4 ranks in this
+    process issues the gloo world's collectives, kind, bytes and group
+    for each, and rank 0's peak of allocated bytes equals the real local
+    shards' (``LiveBytes``);
+  * query heads that do not divide "model" (3 over 2, as MiniCPM-2B's 36
+    over 16): the train step, prefill and decode at (2,2) against the
+    unsharded runs; a decode cache split along its length over both mesh
+    dims; Zamba2's SSD and xLSTM's mLSTM cell on each rank's local rows
+    and heads (gradients and prefill logits against the unsharded runs).
 """
 
 import dataclasses
@@ -64,7 +74,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHECKS = ["placements", "dense_step", "deq_step", "batched_solve",
           "seq_parallel", "decode", "moe_ep", "compression", "checkpoint",
           "pipeline_and_elastic", "serve_arms", "tick_gathers",
-          "accum_dense", "accum_deq", "accum_uneven"]
+          "accum_dense", "accum_deq", "accum_uneven", "dryrun_cells",
+          "uneven_heads", "decode_split_twice", "ssm_families"]
 MOE_B, MOE_S = 4, 32
 
 
@@ -737,10 +748,16 @@ def test_chip_smoke_four_card_world_on_the_cpu():
     unsharded ones, the sync drain, the async drain with the device prefix
     store, V2-Lite's
     expert-parallel prefill with its drop count) on four gloo ranks at the
-    smoke configs, before a four-card host runs it over NCCL."""
+    smoke configs, before a four-card host runs it over NCCL; the DEQ
+    step's collectives held against the dry-run's count of the same step
+    on a fake (2,2) world, kind, count and link bytes."""
     sys.path.insert(0, REPO)
     import chip_smoke
-    res = chip_smoke.sharded_four_cards("cpu", device="cpu")
+    expect = chip_smoke.sharded_step_counts(["2x2_cpu"])["2x2_cpu"]
+    res = chip_smoke.sharded_four_cards("cpu", device="cpu", expect=expect)
+    assert res["train"]["issued"] == chip_smoke.expected_issued(
+        expect, int(res["train"]["deq_steps"]), 4)
+    assert res["train"]["issued"]["all-reduce"][0] > 0
     assert res["drain"]["same_tokens"]
     # the async pipeline with the device store: the unsharded drain's
     # tokens, hits and prefill steps; every request served
@@ -872,3 +889,84 @@ def test_chip_smoke_mesh_arm_check(monkeypatch, fault, pipeline):
             chip_smoke.check_mesh_arm("arm", got, want, pipeline, 12)
     else:
         chip_smoke.check_mesh_arm("arm", got, want, pipeline, 12)
+
+
+# ---------------------------------------------------------------------------
+# the dry-run's fake world against the gloo world; uneven query heads
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kind,deq", tw.DRYRUN_CELLS)
+def test_dryrun_fake_world_equals_the_gloo_world(world, kind, deq):
+    """The dry-run's cell on a fake (2,2) world of ``meta`` shards against
+    the same cell on the gloo world's real tensors: every collective
+    issued (kind, result bytes, group size, in order), the accounting of
+    their link bytes and rank 0's peak of allocated bytes."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.launch import dryrun
+
+    _, v = _load(world, "dryrun_cells")
+    tag = f"{kind}{'_deq' if deq else ''}"
+    cfg = dataclasses.replace(smoke_config("minicpm-2b", deq=deq),
+                              dtype="float32")
+    assert not dist.is_initialized()
+    with dryrun.fake_world(MeshSpec(("data", "model"), (2, 2))) as mesh:
+        peak, records = tw.dryrun_cell(cfg, kind, mesh)
+    want = [tuple(r) for r in v[tag + "_records"]]
+    assert records == want
+    assert dryrun.collective_bytes(records) == dryrun.collective_bytes(want)
+    assert {r[0] for r in records} >= {"all-reduce", "all-gather"}
+    assert peak == v[tag + "_peak"] > 0
+
+
+def test_uneven_query_heads_match_the_unsharded_runs(world):
+    """F5: with query heads that do not divide "model" the view of the
+    head-split projection raised (DTensor cannot unflatten an uneven
+    split); the projection is now gathered whole before the view.  The
+    (2,2) train step's loss, gradient norm and gradients, the prefill's and
+    the decode step's logits against the unsharded ones."""
+    arrays, v = _load(world, "uneven_heads")
+    np.testing.assert_allclose(v["loss1"], v["loss0"], rtol=1e-5)
+    np.testing.assert_allclose(v["gnorm1"], v["gnorm0"], rtol=1e-4)
+    keys = [k[3:] for k in arrays if k.startswith("g0/")]
+    assert keys
+    for k in keys:
+        g0 = arrays["g0/" + k]
+        np.testing.assert_allclose(arrays["g1/" + k], g0, rtol=1e-4,
+                                   atol=1e-4 * np.abs(g0).max(), err_msg=k)
+    for name in ("prefill", "decode"):
+        np.testing.assert_allclose(arrays[name + "1"], arrays[name + "0"],
+                                   rtol=1e-4, atol=1e-5, err_msg=name)
+    assert v["train_comms"]["all_gather_into_tensor"] > 0
+
+
+def test_decode_over_a_length_split_over_two_mesh_dims(world):
+    """The sharded decode gathers each slice's partials over every mesh dim
+    that splits the cache's length (it refused more than one: the dry-run's
+    long-context cells on the two-pod mesh split it over "pod" and
+    "data")."""
+    arrays, _ = _load(world, "decode_split_twice")
+    np.testing.assert_allclose(arrays["got"], arrays["want"], rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-1.3b"])
+def test_local_ssm_cells_match_the_unsharded_runs(world, arch):
+    """The chunked SSD and mLSTM cell run on each rank's rows and heads
+    (``sharding.map_local``: DTensor's batched matmul over a split batch
+    and split heads, and a cumsum's backward, fail to plan on PyTorch
+    2.11): every gradient leaf of a (2,2) train step's loss and the
+    prefill's logits against the unsharded runs (f32)."""
+    arrays, _ = _load(world, "ssm_families")
+    keys = [k.split("/g0/")[1] for k in arrays
+            if k.startswith(f"{arch}/g0/")]
+    assert keys
+    for k in keys:
+        g0 = arrays[f"{arch}/g0/{k}"]
+        np.testing.assert_allclose(arrays[f"{arch}/g1/{k}"], g0, rtol=1e-4,
+                                   atol=1e-4 * np.abs(g0).max(), err_msg=k)
+    np.testing.assert_allclose(arrays[f"{arch}/prefill1"],
+                               arrays[f"{arch}/prefill0"], rtol=1e-4,
+                               atol=1e-5)

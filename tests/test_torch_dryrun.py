@@ -15,7 +15,20 @@
     the card's raises;
   * one full-size cost cell (MiniCPM-2B ``prefill_32k`` on the single pod)
     through ``main``, its count held to the analytic matrix-product count
-    of the model (projections, tiles of the chunked attention, the head).
+    of the model (projections, tiles of the chunked attention, the head),
+    its collective bytes those of the sharded step on a fake 256-rank
+    world (the layers' all-reduces and all-gathers, by their ring factors);
+  * the collective accounting (``collective_bytes``) against the
+    reference's on the reference's own HLO example, and ``Collectives``
+    reading both the functional and the plain ``c10d`` collectives with
+    their groups' sizes;
+  * a fake world's cells: a smoke memory cell on the 256-rank single pod
+    with ``temp_bytes`` and ``collectives``; the sharded loss allocates no
+    tensor of the whole global logits; the faults the fake world found
+    (a ``fake`` group refused for a CPU mesh, ``distribute_tree`` failing
+    on a ``None`` leaf).  ``tests/test_torch_distributed.py`` holds a fake
+    (2, 2) world's cells against the real gloo world's, collective by
+    collective and byte for byte.
 """
 
 import dataclasses
@@ -235,8 +248,22 @@ def test_main_runs_a_full_size_cost_cell(tmp_path):
     assert ext["flops"] == head + cfg.num_layers * layer
     assert sorted(res["depths"]) == ["1", "2"]
     assert res["num_layers"] == 40 and res["chips"] == 256
-    assert ext["collective_bytes"] is None
     assert ext["bytes"] > 0 and res["params"] == cfg.num_params()
+    # the sharded step on a fake 256-rank world: per layer, the attention
+    # and MLP outputs' all-reduces over "model" (16), and the gathers over
+    # it where 36 heads do not divide 16: q's projection (144 columns a
+    # rank) and the attention output, whose shards of 3 heads (none on
+    # the last 4 ranks) DTensor pads to 16 x 3 = 48 heads to gather
+    depth = {int(k): v for k, v in res["depths"].items()}
+    assert depth[2]["collective_counts"] == {"all-reduce": 5,
+                                             "all-gather": 4}
+    rows = b // 16 * s                       # one device's tokens
+    act = rows * d * 2                       # a bf16 (rows, d) activation
+    layer = (2 * (2 * act * 15 / 16) + act * 15 / 16
+             + act * 48 / 36 * 15 / 16)
+    assert ext["collective_bytes_per_layer"] == layer
+    assert ext["collective_bytes"] == depth[1]["collective_bytes"] + (
+        cfg.num_layers - 1) * layer
 
 
 def test_live_bytes_counts_new_storages_at_their_blocks_and_their_peak():
@@ -282,3 +309,161 @@ def test_all_cells_is_the_reference_matrix_plus_one_card(tmp_path):
     assert dryrun.run_cell("hubert-xlarge", "decode_32k", "one",
                            "memory") == {
         "skipped": "encoder-only: no autoregressive decode"}
+
+
+# ---------------------------------------------------------------------------
+# collectives and the fake world
+# ---------------------------------------------------------------------------
+
+# the reference's HLO example (tests/test_dryrun_tools.py) as issued
+# collectives: (kind, result bytes, group size)
+REF_HLO_RECORDS = [
+    ("all-reduce", 16 * 128 * 4, 4),                 # f32[16,128], {0..3}
+    ("all-gather", 64 * 256 * 2, 4),                 # bf16[64,256], [2,4]
+    ("reduce-scatter", 8 * 128 * 4, 4),              # f32[8,128], {0..3}
+    ("collective-permute", 32 * 2, 1),               # bf16[32]
+    ("all-reduce", (128 + 64) * 4, 2),               # (f32[128], f32[64])
+]
+
+
+@pytest.fixture(scope="module")
+def ref_dryrun():
+    """``repro.launch.dryrun`` without its XLA_FLAGS line reaching this
+    process (as ``tests/test_dryrun_tools.py`` imports it)."""
+    import importlib
+    import os
+    before = os.environ.get("XLA_FLAGS")
+    mod = importlib.import_module("repro.launch.dryrun")
+    if before is None:
+        os.environ.pop("XLA_FLAGS", None)
+    else:
+        os.environ["XLA_FLAGS"] = before
+    return mod
+
+
+def test_collective_bytes_equals_the_reference_on_its_hlo_example(
+        ref_dryrun):
+    from test_dryrun_tools import HLO
+    want = ref_dryrun.collective_bytes(HLO)
+    got = dryrun.collective_bytes(REF_HLO_RECORDS)
+    assert got["counts"] == want["counts"]
+    assert got["bytes"].keys() == want["bytes"].keys()
+    for kind, b in want["bytes"].items():
+        assert got["bytes"][kind] == pytest.approx(b), kind
+    one = "%ar = f32[128]{0} all-reduce(%x), replica_groups={{0}}, to_apply=%a"
+    assert ref_dryrun.collective_bytes(one) == dryrun.collective_bytes(
+        [("all-reduce", 512, 1)]) == {"bytes": {"total": 0}, "counts": {}}
+
+
+def test_collectives_reads_functional_and_c10d_ops_with_their_groups():
+    """DTensor's redistributions reach the functional ops, direct calls
+    the ``c10d`` ops; each record carries its result bytes and its
+    group's size (a mesh dim's 4, the world's 8)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.launch.mesh import MeshSpec
+
+    with dryrun.fake_world(MeshSpec(("data", "model"), (2, 4))) as mesh:
+        x = distribute_tensor(torch.empty(8, 12, device="meta"), mesh,
+                              [Replicate(), Shard(1)], src_data_rank=None)
+        part = torch.empty(3, device="meta")
+        with dryrun.Collectives() as coll:
+            x.redistribute(mesh, [Replicate(), Replicate()])
+            dist.all_gather([torch.empty_like(part) for _ in range(4)], part,
+                            group=mesh.get_group(1))
+            dist.all_reduce(torch.empty(5, device="meta"))
+    assert [tuple(r) for r in coll.records] == [
+        ("all-gather", 8 * 12 * 4, 4), ("all-gather", 4 * 3 * 4, 4),
+        ("all-reduce", 5 * 4, 8)]
+    assert not dist.is_initialized()
+
+
+def test_a_fake_group_builds_a_cpu_mesh_and_the_backends_stay_checked(
+        monkeypatch):
+    """F4: ``build_device_mesh`` took only gloo for a CPU mesh, so the
+    dry-run's fake world could not build one.  A CUDA mesh still needs
+    NCCL, a CPU mesh gloo or fake."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_mod
+
+    spec = mesh_mod.MeshSpec(("data", "model"), (2, 2))
+    with dryrun.fake_world(spec) as dm:
+        assert dm.mesh_dim_names == ("data", "model")
+        assert tuple(dm.mesh.shape) == (2, 2)
+        with pytest.raises(RuntimeError, match="cuda mesh runs on nccl"):
+            mesh_mod._check_backend("cuda")
+    for backend, device in (("gloo", "cuda"), ("nccl", "cpu")):
+        monkeypatch.setattr(dist, "get_backend", lambda b=backend: b)
+        with pytest.raises(RuntimeError, match=f"process group is {backend}"):
+            mesh_mod._check_backend(device)
+    monkeypatch.setattr(dist, "get_backend", lambda: "nccl")
+    mesh_mod._check_backend("cuda")
+
+
+def test_distribute_tree_passes_a_none_leaf():
+    """F6: the train state of a config without a DEQ has ``carry=None``,
+    which ``distribute_tree`` tried to detach."""
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.parallel.sharding import ShardCtx, distribute_tree
+
+    cfg = smoke_config("minicpm-2b")
+    tcfg = TrainConfig(global_batch=4, seq_len=8, zero1=True)
+    spec = MeshSpec(("data", "model"), (2, 2))
+    with dryrun.fake_world(spec) as dm:
+        state, specs = steps.train_state_structs(
+            cfg, tcfg, ShardCtx.for_mesh(dm))
+        assert state.carry is None and specs.carry is None
+        placed = distribute_tree(state, specs, dm)
+    assert placed.carry is None
+    assert tuple(placed.params["embed"]["embedding"].to_local().shape) == (
+        cfg.padded_vocab // 2, cfg.d_model)
+
+
+def test_a_single_pod_memory_cell_of_a_smoke_arch():
+    """On the fake 256-rank world: the sharded step's peak in the local
+    shards and every collective it issued; ``argument_bytes`` as without
+    running it."""
+    shape = tshapes.ShapeSuite("train", "train", 64, 32)
+    tcfg = dryrun._train_config(shape, 1)
+    cfg = dryrun._costing_config(smoke_config("minicpm-2b"), 2)
+    mesh = dryrun.mesh_for("single")
+    laid = dryrun.memory_cell(cfg, shape, mesh, tcfg, run=False)
+    with dryrun.fake_world(mesh) as world:
+        mem = dryrun.memory_cell(cfg, shape, mesh, tcfg, run=True,
+                                 world=world)
+    assert mem["argument_bytes"] == laid["argument_bytes"]
+    assert mem["temp_bytes"] > 0 and mem["run_seconds"] >= 0
+    counts = mem["collectives"]["counts"]
+    assert counts["all-reduce"] > 0 and counts["reduce-scatter"] > 0
+    assert mem["collectives"]["bytes"]["total"] > 0
+
+
+def test_the_sharded_loss_allocates_no_whole_global_logits():
+    """On a (2, 2) fake world the cross entropy and its backward run on
+    each rank's rows: DTensor's own gather would make a zero gradient of
+    the whole global logits on every rank."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs.shapes import SHAPES, make_ctx
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.models.layers import cross_entropy
+    from repro_torch.parallel.sharding import spmd
+
+    cfg = smoke_config("minicpm-2b")
+    b, s, v = 8, 16, 512
+    with dryrun.fake_world(MeshSpec(("data", "model"), (2, 2))) as dm:
+        ctx = make_ctx(cfg, dm, SHAPES["train_4k"])
+        logits = distribute_tensor(
+            torch.empty(b, s, v, device="meta"), dm,
+            ctx.sharding(("batch", "seq", "vocab_act")),
+            src_data_rank=None).requires_grad_(True)
+        targets = distribute_tensor(
+            torch.zeros(b, s, dtype=torch.int32, device="meta"), dm,
+            ctx.sharding(("batch", "seq")), src_data_rank=None)
+        with dryrun.LiveBytes(block=1) as live, spmd(ctx):
+            loss, _ = cross_entropy(logits, targets, 1e-4, ctx)
+            torch.autograd.grad(loss, logits)
+    # a rank's rows in f32 at the whole vocab, a few times over
+    assert live.peak < 8 * (b // 2) * s * v * 4

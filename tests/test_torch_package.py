@@ -7,9 +7,16 @@
     ``TrainConfig``, equal the JAX package's, field by field.
   * Entry points run on the card by default: with no CUDA and no device
     asked for they raise; with ``device="cpu"`` they run.
+  * The public API: every name a package ``__init__`` of the JAX package
+    exports, and every public name a module of it defines, exists in the
+    port's counterpart or stands in ``DELIBERATE_DIFFERENCES`` with its
+    reason; ``carry_for_state`` builds the reference's carry shapes.
 """
 
+import ast
 import dataclasses
+import fnmatch
+import importlib
 import os
 import re
 import subprocess
@@ -143,7 +150,12 @@ NEW_MODULES = ("runtime/faultinject.py", "core/bilevel.py", "core/deq.py",
                "runtime/ft.py", "runtime/trainer.py", "runtime/serving.py",
                "checkpoint/manager.py", "models/moe.py",
                "models/attention.py", "implicit/fixed_point.py",
-               "implicit/engine.py", "launch/serve.py")
+               "implicit/engine.py", "launch/serve.py",
+               "configs/phi3_mini_3p8b.py", "configs/stablelm_3b.py",
+               "configs/internlm2_20b.py", "configs/__init__.py",
+               "obs/__init__.py", "optim/__init__.py", "runtime/__init__.py",
+               "data/__init__.py", "checkpoint/__init__.py",
+               "implicit/__init__.py", "obs/tape.py")
 
 
 @pytest.mark.parametrize("path", NEW_MODULES)
@@ -220,3 +232,162 @@ def test_chip_smoke_alone_fails(tmp_path):
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
     assert "repro_torch" in out.stderr
+
+
+# Public names of the JAX package with no same-named counterpart in the
+# port ("package.module.name"; fnmatch patterns), each with its reason.
+DELIBERATE_DIFFERENCES = {
+    "kernels.ops.force_impl": (
+        "a global test hook that forces every op onto one implementation: "
+        "on the card it would let a kernel path give way to its plain "
+        "version; the port routes by device (a CPU tensor takes the plain "
+        "version, a CUDA tensor the kernel or an error)"),
+    "kernels.ops.Impl": "the type of force_impl's argument",
+    "data.shard_batch": (
+        "placement is done inside make_lm_batch_iterator(ctx=): on a "
+        "running mesh each rank keeps its rows as DTensors"),
+    "data.pipeline.shard_batch": "as data.shard_batch",
+    "models.attention.mla_cache_shape": (
+        "mla_cache_shapes: the MLA cache is two buffers (c_kv, k_pe), "
+        "each with its shape"),
+    "parallel.init_tree": (
+        "parameters are drawn by lm.init_params from a torch.Generator on "
+        "the target device; init_tree splits a JAX PRNG key over the "
+        "declarations (tests carry JAX's draws over with "
+        "lm.params_from_jax)"),
+    "parallel.sharding.init_tree": "as parallel.init_tree",
+    "implicit.solve_sharding": (
+        "SolveLayout (implicit/fixed_point.py): how a solve's state, ring "
+        "and per-row vectors lie on a running mesh, with the batch-split "
+        "stop tests"),
+    "implicit.fixed_point.solve_sharding": "as implicit.solve_sharding",
+    "core.solvers.SolveSharding": "as implicit.solve_sharding",
+    "core.solvers.NO_SHARDING": "as implicit.solve_sharding",
+    "kernels.*.*_pallas": (
+        "the Pallas TPU kernels: their Hopper counterparts are in csrc/ "
+        "behind the same-named wrappers of kernels/ (qn_apply, "
+        "flash_attention, rmsnorm)"),
+    "kernels.flash_attention.DEFAULT_BLOCK_[QK]": (
+        "the Pallas kernels' tile sizes; the CUDA kernels' tiles are "
+        "template constants of csrc/flash_attention.cu"),
+    "kernels.flash_attention.NEG_INF": (
+        "the Pallas kernels' mask value; the CUDA kernels mask with "
+        "-INFINITY in csrc/flash_attention.cu"),
+    "*.Array": "the jax.Array type alias; the port annotates torch.Tensor",
+    "*.Pytree": "the pytree type alias; the port annotates Any",
+}
+
+REF_ROOT = os.path.join(REPO, "src", "repro")
+
+
+def _deliberate(name: str) -> bool:
+    return any(fnmatch.fnmatchcase(name, pat)
+               for pat in DELIBERATE_DIFFERENCES)
+
+
+def _bound_names(path: str) -> tuple[set, list | None]:
+    """A module's public top-level names (defs, classes, assignments,
+    imports) and its ``__all__`` (None without one), read from its
+    source."""
+    tree = ast.parse(open(path).read())
+    names, exported = set(), None
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            for t in node.targets:
+                if isinstance(t, ast.Name):
+                    names.add(t.id)
+                    if t.id == "__all__":
+                        exported = ast.literal_eval(node.value)
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target,
+                                                           ast.Name):
+            names.add(node.target.id)
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            names.update((a.asname or a.name).split(".")[0]
+                         for a in node.names)
+    return {n for n in names if not n.startswith("_")}, exported
+
+
+def _ref_files():
+    for root, _, files in os.walk(REF_ROOT):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                yield os.path.relpath(os.path.join(root, f), REF_ROOT)
+
+
+def test_every_package_export_of_the_reference_is_in_the_port():
+    """Each package ``__init__``: its ``__all__`` (or, without one, the
+    names it binds) in the port's package of the same name."""
+    missing = []
+    inits = [r for r in _ref_files() if r.endswith("__init__.py")]
+    assert len(inits) == 12
+    for rel in inits:
+        pkg = os.path.dirname(rel).replace(os.sep, ".")
+        names, exported = _bound_names(os.path.join(REF_ROOT, rel))
+        if exported is None:
+            names = {n for n in names if n not in ("annotations",)}
+        else:
+            names = set(exported)
+        port = importlib.import_module("repro_torch." + pkg if pkg
+                                       else "repro_torch")
+        missing += [f"{pkg}.{n}" for n in sorted(names)
+                    if not hasattr(port, n) and not _deliberate(f"{pkg}.{n}")]
+    assert missing == []
+
+
+def test_every_public_name_of_a_reference_module_is_in_the_port():
+    """Each module file: every public name it defines exists in the port's
+    module of the same path, or stands in ``DELIBERATE_DIFFERENCES``."""
+    missing, used = [], set()
+    for rel in _ref_files():
+        if rel.endswith("__init__.py"):
+            continue
+        mod = rel[:-3].replace(os.sep, ".")
+        port = importlib.import_module("repro_torch." + mod)
+        tree = ast.parse(open(os.path.join(REF_ROOT, rel)).read())
+        defined = {n.name for n in tree.body if isinstance(
+            n, (ast.FunctionDef, ast.ClassDef))}
+        defined |= {t.id for n in tree.body if isinstance(n, ast.Assign)
+                    for t in n.targets if isinstance(t, ast.Name)}
+        for name in sorted(n for n in defined if not n.startswith("_")):
+            key = f"{mod}.{name}"
+            if hasattr(port, name):
+                continue
+            if _deliberate(key):
+                used.update(p for p in DELIBERATE_DIFFERENCES
+                            if fnmatch.fnmatchcase(key, p))
+            else:
+                missing.append(key)
+    assert missing == []
+    # every module-level entry of the table still names a difference
+    stale = {p for p in DELIBERATE_DIFFERENCES if p.count(".") >= 2
+             or p.startswith("*")} - used
+    assert stale == set()
+
+
+@pytest.mark.parametrize("state", ["single", "multi"])
+def test_carry_for_state_matches_the_reference(state):
+    import jax.numpy as jnp
+
+    from repro.implicit import ImplicitConfig as JImplicitConfig
+    from repro.implicit import carry_for_state as jcarry_for_state
+    from repro_torch.implicit import ImplicitConfig, carry_for_state
+
+    shapes = ({"z": (3, 4, 8)} if state == "single"
+              else {"a": (3, 5), "b": (3, 2, 4)})
+    jz0 = {k: jnp.zeros(v, jnp.float32) for k, v in shapes.items()}
+    tz0 = {k: torch.zeros(v) for k, v in shapes.items()}
+    want = jcarry_for_state(jz0, JImplicitConfig(memory=6))
+    got = carry_for_state(tz0, ImplicitConfig(memory=6))
+
+    def leaves(c):
+        lr = c.lowrank
+        return [(tuple(t.shape), str(t.dtype).replace("torch.", ""))
+                for t in (c.z, lr.alpha, lr.u, lr.v, lr.count, c.warm,
+                          c.age)]
+
+    assert leaves(got) == leaves(want)
+    assert got.z.shape == ((3, 4, 8) if state == "single" else (3, 13))
+    assert got.lowrank.u.dtype == torch.bfloat16
+    assert not bool(got.warm.any())
