@@ -5448,6 +5448,65 @@ def kernels_at_local_shapes(smi: str) -> dict:
     return out
 
 
+# the vocab-parallel loss at (2, 2): a rank's rows (2 x 256) at its half
+# of MiniCPM-2B's padded vocab (122880 / 2), bf16 logits
+SHARDED_LOSS = dict(rows=512, cols=61440)
+SHARDED_LOSS_TOL = dict(rtol=1e-5, atol=0.0)
+
+
+def loss_shard_on_card(smi: str) -> dict:
+    """The vocab-parallel loss's per-rank function
+    (``layers._ShardLogPartition``, no group: a shard's own log-partition
+    and gold logit) on a (2, 2) rank's bf16 logits, ``SHARDED_LOSS``,
+    targets ``-1`` among them, against the plain loss (``_ce_sums``, f32
+    inside, autograd): the NLL and squared log-partition sums at
+    ``SHARDED_LOSS_TOL``, the logits' gradient at bf16's; the bytes each
+    allocates over its inputs for forward and backward, in f32 copies of
+    the shard, and each one's time."""
+    from repro_torch.models.layers import (
+        _ce_sums,
+        _masked_sums,
+        _ShardLogPartition,
+    )
+    g = torch.Generator(device="cuda").manual_seed(12)
+    r, c = SHARDED_LOSS["rows"], SHARDED_LOSS["cols"]
+    x = (3 * torch.randn((r, c), generator=g, device="cuda")).to(
+        torch.bfloat16)
+    t = torch.randint(-1, c, (r,), generator=g, device="cuda")
+
+    def split(xi):
+        return _masked_sums(*_ShardLogPartition.apply(xi, t, 0, []), t)[:2]
+
+    def plain(xi):
+        return _ce_sums(xi, t)[:2]
+
+    def run(fn):
+        xi = x.detach().requires_grad_(True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        nll, zl = fn(xi)
+        (nll + 1e-4 * zl).backward()
+        torch.cuda.synchronize()
+        return nll, zl, xi.grad, torch.cuda.max_memory_allocated() - base
+
+    got, want = run(split), run(plain)
+    out = dict(shape=SHARDED_LOSS, card=smi)
+    for i, name in enumerate(("nll", "z")):
+        out[name] = check_close(f"vocab shard loss {name}", got[i], want[i],
+                                SHARDED_LOSS_TOL)
+    out["grad"] = check_close("vocab shard loss gradient", got[2], want[2],
+                              _tol(torch.bfloat16, False))
+    unit = r * c * 4
+    out["f32_copies"] = dict(split=got[3] / unit, plain=want[3] / unit)
+    for name, fn in (("split", split), ("plain", plain)):
+        xi = x.detach().requires_grad_(True)
+        out[f"{name}_ms"] = time_ms(lambda: sum(fn(xi)).backward(), iters=5,
+                                    warmup=1)
+    say("sharded_loss_shard", **out)
+    return out
+
+
 def phase_sharded(smi: str, step_dryrun: tuple) -> dict:
     """A world of one rank over NCCL, mesh (data=1, model=1): the DEQ
     train step, the serving arms of ``SHARDED_ARMS`` (both pipelines,
@@ -5516,6 +5575,7 @@ def phase_sharded(smi: str, step_dryrun: tuple) -> dict:
         del params
         torch.cuda.empty_cache()
         errs = kernels_at_local_shapes(smi)
+        loss_shard_on_card(smi)
     finally:
         dist.destroy_process_group()
     n = torch.cuda.device_count()

@@ -491,6 +491,9 @@ def broyden_solve(
     if freeze_mask is not None:
         conv = conv | freeze_mask
     k, z, gz, H = 0, z0, g0, H0
+    # the entry ring (the guard's scrubbed copy of a carried one) is
+    # dead once the first step has appended to it: no name keeps it
+    del H0
     best_z, best_res = z0, res0
     # the restart target's residual (the entry point's when cold)
     gz_cold = g0 if carry is None or not (cfg.guard and cfg.unroll) \

@@ -10,7 +10,10 @@ running mesh that is a no-op.
 
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.distributed.tensor import Partial, Replicate, Shard
 
@@ -21,6 +24,7 @@ from repro_torch.parallel.sharding import (
     ParamDecl,
     ShardCtx,
     shard_map_compat,
+    shard_offset,
 )
 
 
@@ -115,15 +119,72 @@ def lm_logits(params: dict, x: torch.Tensor, cfg: ModelConfig,
     return ctx.constrain(logits, ("batch", "seq", "vocab_act"))
 
 
-def _ce_sums(logits: torch.Tensor, targets: torch.Tensor):
+def _masked_sums(lse: torch.Tensor, gold: torch.Tensor,
+                 targets: torch.Tensor):
     """Over the rows given: the summed f32 NLL, the summed squared
     log-partition and the count of targets (``-1`` ignored)."""
-    logits = logits.float()
     mask = (targets >= 0).float()
+    return ((lse - gold) * mask).sum(), (lse ** 2 * mask).sum(), mask.sum()
+
+
+def _ce_sums(logits: torch.Tensor, targets: torch.Tensor):
+    """``_masked_sums`` of logits whose vocab is whole."""
+    logits = logits.float()
     safe_t = torch.clamp(targets, min=0).long()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, safe_t[..., None])[..., 0]
-    return ((lse - gold) * mask).sum(), (lse ** 2 * mask).sum(), mask.sum()
+    return _masked_sums(lse, gold, targets)
+
+
+class _ShardLogPartition(torch.autograd.Function):
+    """Per row of one rank's vocab shard ``[v0, v0 + V_local)``: the f32
+    log-partition over the whole vocab and the target's logit (0 on the
+    ranks whose shard does not hold it), from one all-reduce of the row
+    maxima (MAX) and one of the pair ``(sum exp(x - m), gold)`` (SUM) over
+    each group in ``groups``.  The maxima are a shift only and carry no
+    gradient; the backward issues no collective: ``g_lse * softmax +
+    g_gold * onehot`` on the shard, from the saved log-partition."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, v0: int, groups):
+        m = logits.detach().amax(-1).float()
+        for g in groups:
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
+        # as torch.logsumexp: an infinite maximum shifts by 0
+        m = m.masked_fill(m.abs() == float("inf"), 0.0)
+        local = targets.long() - v0
+        own = (local >= 0) & (local < logits.shape[-1])
+        idx = torch.where(own, local, 0)[..., None]
+        pair = torch.stack([
+            torch.sub(logits, m[..., None]).exp_().sum(-1),
+            torch.where(own, torch.gather(logits, -1, idx)[..., 0].float(),
+                        0.0)])
+        for g in groups:
+            dist.all_reduce(pair, group=g)
+        lse = pair[0].log() + m
+        ctx.save_for_backward(logits, lse, idx, own)
+        return lse, pair[1]
+
+    @staticmethod
+    def backward(ctx, g_lse, g_gold):
+        logits, lse, idx, own = ctx.saved_tensors
+        grad = torch.sub(logits, lse[..., None]).exp_().mul_(g_lse[..., None])
+        grad.scatter_add_(-1, idx, torch.where(own, g_gold, 0.0)[..., None])
+        return grad.to(logits.dtype), None, None, None
+
+
+def _vocab_groups(logits) -> list | None:
+    """The process groups of the mesh dims of more than one rank that
+    split the last dim of the DTensor ``logits``; None where there is none
+    or the split is uneven (``local_map`` takes even shards)."""
+    mesh = logits.device_mesh
+    dims = [i for i, p in enumerate(logits.placements)
+            if isinstance(p, Shard) and p.dim == logits.ndim - 1
+            and mesh.size(i) > 1]
+    n = math.prod(mesh.size(i) for i in dims)
+    if not dims or logits.shape[-1] % n:
+        return None
+    return [mesh.get_group(i) for i in dims]
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
@@ -131,18 +192,35 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
                   ctx: ShardCtx = NULL_CTX) -> tuple[torch.Tensor, dict]:
     """Stable cross entropy in f32 plus ``z_loss`` times the mean squared
     log-partition; targets ``-1`` are ignored.  Returns ``(loss, {"nll",
-    "z", "tokens"})``.  On a mesh the vocab is gathered first (DTensor has
-    no rule for a gather along a split vocab) and each rank sums over its
-    own rows (``local_map``; the sums are partial over the mesh dims that
-    split the rows): run as DTensor ops, the gather's backward would make
-    a zero gradient of the whole global logits on every rank."""
+    "z", "tokens"})``.  On a mesh the logits stay split as ``lm_logits``
+    leaves them, rows and vocab (``("batch", "seq", "vocab_act")``), and
+    each rank sums over its own rows and vocab shard in ``local_map``
+    (``_ShardLogPartition``: two all-reduces over the mesh dims that split
+    the vocab); the sums are partial over the mesh dims that split the
+    rows.  Where no mesh dim of more than one rank splits the vocab, or
+    its split is uneven (a test mesh whose "model" does not divide the
+    padded vocab), the vocab is gathered whole first and each rank sums
+    over its rows with the unsharded code (no collective over a mesh dim
+    of one)."""
     if ctx.running:
-        logits = ctx.constrain(logits, ("batch", "seq", None))
+        logits = ctx.constrain(logits, ("batch", "seq", "vocab_act"))
         targets = ctx.constrain(targets, ("batch", "seq"))
-        rows = tuple(Partial() if isinstance(p, Shard) else Replicate()
+        groups = _vocab_groups(logits)
+        if groups is None:
+            logits = ctx.constrain(logits, ("batch", "seq", None))
+            fn = _ce_sums
+        else:
+            v0 = shard_offset(logits.shape, logits.device_mesh,
+                              logits.placements)[-1]
+
+            def fn(lg, tg):
+                return _masked_sums(
+                    *_ShardLogPartition.apply(lg, tg, v0, groups), tg)
+        rows = tuple(Partial() if isinstance(p, Shard)
+                     and p.dim < logits.ndim - 1 else Replicate()
                      for p in logits.placements)
         sums = shard_map_compat(
-            _ce_sums, ctx.device_mesh,
+            fn, ctx.device_mesh,
             in_specs=(tuple(logits.placements), tuple(targets.placements)),
             out_specs=[rows] * 3)
         nll, zl, count = sums(logits, targets)

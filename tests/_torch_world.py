@@ -176,6 +176,12 @@ def deq_cfg():
         deq=dataclasses.replace(cfg.deq, qn_dtype="float32"))
 
 
+def untied_cfg():
+    """StableLM-3B's smoke config (its own LM head) in f32."""
+    from repro_torch.configs.registry import smoke_config
+    return dataclasses.replace(smoke_config("stablelm-3b"), dtype="float32")
+
+
 def moe_cfg():
     from repro_torch.configs.registry import smoke_config
     cfg = smoke_config("deepseek-moe-16b")
@@ -1037,3 +1043,55 @@ def check_ssm_families(w):
                 p, {"tokens": batch["tokens"]})
             out[f"{arch}/prefill{tag}"] = _np(logits)
     return out
+
+
+# the vocab-parallel loss's z-loss weights: none, and ``loss_fn``'s
+VPLOSS_Z = (("z0", 0.0), ("z4", 1e-4))
+
+
+def check_vocab_parallel_loss(w):
+    """The cross entropy at (2, 2) on logits split over rows and vocab, in
+    f32: the loss, its metrics and the logits' gradient at each
+    ``VPLOSS_Z`` (targets ``-1`` and on both edges of each rank's vocab
+    shard), the collectives it issues, and the gradient of ``loss_fn``
+    for the tied MiniCPM-2B smoke config and the untied StableLM-3B."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs.shapes import SHAPES, make_ctx
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models import lm
+    from repro_torch.models.layers import cross_entropy
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+    from repro_torch.parallel.sharding import distribute_tree, spmd
+
+    inp = w.inputs("vploss")
+    ctx = make_ctx(dense_cfg(), w.mesh22, SHAPES["train_4k"])
+    out = {}
+    for tag, z in VPLOSS_Z:
+        logits = distribute_tensor(
+            torch.from_numpy(inp["logits"]), w.mesh22,
+            ctx.sharding(("batch", "seq", "vocab_act")),
+            src_data_rank=None).requires_grad_(True)
+        targets = distribute_tensor(
+            torch.from_numpy(inp["targets"]), w.mesh22,
+            ctx.sharding(("batch", "seq")), src_data_rank=None)
+        with spmd(ctx), dryrun.Collectives() as coll:
+            loss, m = cross_entropy(logits, targets, z, ctx)
+            g, = torch.autograd.grad(loss, logits)
+        out[f"{tag}/records"] = [tuple(r) for r in coll.records]
+        out[f"{tag}/grad_local"] = list(g.to_local().shape)
+        out[f"{tag}/loss"] = _np(loss)
+        out.update({f"{tag}/{k}": _np(v) for k, v in m.items()})
+        out[f"{tag}/grad"] = _np(g)
+    for name, cfg in (("dense", dense_cfg()), ("untied", untied_cfg())):
+        c = make_ctx(cfg, w.mesh22, SHAPES["train_4k"])
+        params = tree_map(lambda p: p.requires_grad_(True), distribute_tree(
+            _params(w, name), steps.param_shardings(cfg, c), w.mesh22))
+        with spmd(c):
+            loss, _ = lm.loss_fn(params, _batch(w, name), cfg, ctx=c)
+            gs = iter(torch.autograd.grad(loss, tree_leaves(params)))
+        out[f"{name}/loss"] = _np(loss)
+        out.update({f"{name}/g/{k}": _np(v) for k, v in flat(
+            tree_map(lambda p: next(gs), params)).items()})
+    return out
+

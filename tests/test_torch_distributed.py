@@ -75,11 +75,15 @@ CHECKS = ["placements", "dense_step", "deq_step", "batched_solve",
           "seq_parallel", "decode", "moe_ep", "compression", "checkpoint",
           "pipeline_and_elastic", "serve_arms", "tick_gathers",
           "accum_dense", "accum_deq", "accum_uneven", "dryrun_cells",
-          "uneven_heads", "decode_split_twice", "ssm_families"]
+          "uneven_heads", "decode_split_twice", "ssm_families",
+          "vocab_parallel_loss"]
 MOE_B, MOE_S = 4, 32
 
 
 def _jax_cfg(kind):
+    if kind == "untied":
+        return dataclasses.replace(jax_smoke_config("stablelm-3b"),
+                                   dtype="float32")
     if kind == "dense":
         return dataclasses.replace(jax_smoke_config("minicpm-2b"),
                                    dtype="float32")
@@ -101,6 +105,32 @@ def _tokens(vocab, batch, seed=0):
     toks = np.random.default_rng(seed).integers(
         0, vocab, size=(batch, tw.S + 1)).astype(np.int32)
     return toks[:, :-1], toks[:, 1:]
+
+
+def _untied_batch():
+    """The untied config's batch: a row with its last targets ignored."""
+    tok, tgt = _tokens(_jax_cfg("untied").vocab_size, tw.B, seed=3)
+    tgt[1, -4:] = -1
+    return tok, tgt
+
+
+# the padded vocab of the smoke configs: 256 columns a "model" rank at (2, 2)
+VPLOSS_V = 512
+
+
+def _vploss_inputs():
+    """Logits ``(B, S, VPLOSS_V)`` and targets with ``-1``s and, in rows of
+    both "data" ranks, the first and last column of both vocab shards."""
+    rng = np.random.default_rng(5)
+    logits = (3 * rng.standard_normal((tw.B, tw.S, VPLOSS_V))).astype(
+        np.float32)
+    tgt = rng.integers(0, VPLOSS_V, size=(tw.B, tw.S)).astype(np.int32)
+    half = VPLOSS_V // 2
+    for row in (0, tw.B // 2):
+        tgt[row, :4] = [0, half - 1, half, VPLOSS_V - 1]
+    tgt[1, 5:8] = -1
+    tgt[tw.B - 1, 0] = -1
+    return logits, tgt
 
 
 def _moe_inputs():
@@ -159,6 +189,13 @@ def world(tmp_path_factory):
         np.savez(os.path.join(d, f"inputs_{name}.npz"), tokens=tok,
                  targets=tgt, **{"params/" + k: v
                                  for k, v in tw.flat(p).items()})
+    tok, tgt = _untied_batch()
+    np.savez(os.path.join(d, "inputs_untied.npz"), tokens=tok, targets=tgt,
+             **{"params/" + k: v
+                for k, v in tw.flat(_jax_params("untied")).items()})
+    logits, tgt = _vploss_inputs()
+    np.savez(os.path.join(d, "inputs_vploss.npz"), logits=logits,
+             targets=tgt)
     moe, x = _moe_inputs()
     np.savez(os.path.join(d, "inputs_moe.npz"), x=x,
              **{"params/" + k: v for k, v in tw.flat(moe).items()})
@@ -970,3 +1007,80 @@ def test_local_ssm_cells_match_the_unsharded_runs(world, arch):
     np.testing.assert_allclose(arrays[f"{arch}/prefill1"],
                                arrays[f"{arch}/prefill0"], rtol=1e-4,
                                atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the vocab-parallel loss (F10)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("tag,z", tw.VPLOSS_Z)
+def test_vocab_parallel_loss_matches_unsharded_and_jax(world, tag, z):
+    """F10: the sharded loss gathered the vocab onto every rank (a rank's
+    rows at the whole vocab in f32, five copies).  At (2,2) the logits
+    stay split over rows and vocab: the loss, ``nll``, ``z``, ``tokens``
+    and the logits' gradient (f32, targets ``-1`` and on both edges of each
+    vocab shard) against the port's unsharded loss and JAX's
+    ``cross_entropy``; each rank's gradient is its rows' vocab shard, and
+    the loss issues the row maxima's and the pair's all-reduces over
+    "model" and the partial sums' over "data", no gather."""
+    from repro.models import layers as jlayers
+    from repro_torch.models.layers import cross_entropy
+
+    arrays, v = _load(world, "vocab_parallel_loss")
+    logits, tgt = _vploss_inputs()
+    x = torch.from_numpy(logits).requires_grad_(True)
+    loss, m = cross_entropy(x, torch.from_numpy(tgt), z)
+    g, = torch.autograd.grad(loss, x)
+    port = {"loss": loss, **m, "grad": g}
+    (lj, mj), gj = jax.jit(jax.value_and_grad(
+        lambda a: jlayers.cross_entropy(a, jnp.asarray(tgt), z),
+        has_aux=True))(jnp.asarray(logits))
+    ref = {"loss": lj, **mj, "grad": gj}
+    for k in ("loss", "nll", "z", "tokens", "grad"):
+        got = arrays[f"{tag}/{k}"]
+        np.testing.assert_allclose(got, port[k].detach().numpy(), rtol=1e-5,
+                                   err_msg=k)
+        np.testing.assert_allclose(got, np.asarray(ref[k]), rtol=1e-5,
+                                   err_msg=k)
+    assert v[f"{tag}/grad_local"] == [tw.B // 2, tw.S, VPLOSS_V // 2]
+    rows = tw.B // 2 * tw.S
+    assert [tuple(r) for r in v[f"{tag}/records"]] == [
+        ("all-reduce", 4 * rows, 2), ("all-reduce", 8 * rows, 2),
+        ("all-reduce", 4, 2)]
+
+
+@pytest.mark.parametrize("kind", ["dense", "untied"])
+def test_vocab_parallel_loss_fn_gradient(world, kind):
+    """``loss_fn`` at (2,2) with the vocab split, for the tied MiniCPM-2B
+    smoke config and the untied StableLM-3B (f32): the loss and every
+    gradient leaf against the port's unsharded ``loss_fn`` and JAX's."""
+    from repro_torch.models import lm
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+
+    arrays, _ = _load(world, "vocab_parallel_loss")
+    cfg = tw.dense_cfg() if kind == "dense" else tw.untied_cfg()
+    p = _jax_params(kind)
+    tok, tgt = (_tokens(cfg.vocab_size, tw.B) if kind == "dense"
+                else _untied_batch())
+    leaves = tree_map(lambda a: a.requires_grad_(True),
+                      lm.params_from_jax(p, "cpu"))
+    batch = {"tokens": torch.from_numpy(tok), "targets": torch.from_numpy(tgt)}
+    loss, _ = lm.loss_fn(leaves, batch, cfg)
+    gs = iter(torch.autograd.grad(loss, tree_leaves(leaves)))
+    port = tw.flat(tree_map(lambda a: next(gs).numpy(), leaves))
+    jcfg = _jax_cfg(kind)
+    lj, gj = jax.jit(jax.value_and_grad(lambda q: jlm.loss_fn(
+        q, {"tokens": jnp.asarray(tok), "targets": jnp.asarray(tgt)}, jcfg,
+        jsh.ShardCtx.for_mesh(None))[0]))(
+        jax.tree_util.tree_map(jnp.asarray, p))
+    want = tw.flat(jax.tree_util.tree_map(np.asarray, gj))
+    np.testing.assert_allclose(arrays[f"{kind}/loss"], loss.item(), rtol=1e-5)
+    np.testing.assert_allclose(arrays[f"{kind}/loss"], float(lj), rtol=1e-5)
+    assert port.keys() == want.keys()
+    for k, g0 in port.items():
+        got = arrays[f"{kind}/g/{k}"]
+        for ref in (g0, want[k]):
+            np.testing.assert_allclose(got, ref, rtol=1e-5,
+                                       atol=1e-5 * np.abs(ref).max(),
+                                       err_msg=k)

@@ -421,29 +421,41 @@ def test_distribute_tree_passes_a_none_leaf():
         cfg.padded_vocab // 2, cfg.d_model)
 
 
-def test_a_single_pod_memory_cell_of_a_smoke_arch():
+@pytest.mark.parametrize("vocab", [4096, 8192])
+def test_a_single_pod_memory_cell_of_a_smoke_arch(vocab):
     """On the fake 256-rank world: the sharded step's peak in the local
     shards and every collective it issued; ``argument_bytes`` as without
-    running it."""
+    running it.  The peak grows with the vocab over the 16 "model" ranks
+    that split it, a few f32 copies of a rank's rows at ``V / 16`` above
+    the smoke vocab's (F10: gathered, five copies at the whole ``V``)."""
     shape = tshapes.ShapeSuite("train", "train", 64, 32)
     tcfg = dryrun._train_config(shape, 1)
-    cfg = dryrun._costing_config(smoke_config("minicpm-2b"), 2)
     mesh = dryrun.mesh_for("single")
+    temps = {}
+    for v in (512, vocab):
+        cfg = dryrun._costing_config(dataclasses.replace(
+            smoke_config("minicpm-2b"), vocab_size=v), 2)
+        with dryrun.fake_world(mesh) as world:
+            mem = dryrun.memory_cell(cfg, shape, mesh, tcfg, run=True,
+                                     world=world)
+        temps[v] = mem["temp_bytes"]
     laid = dryrun.memory_cell(cfg, shape, mesh, tcfg, run=False)
-    with dryrun.fake_world(mesh) as world:
-        mem = dryrun.memory_cell(cfg, shape, mesh, tcfg, run=True,
-                                 world=world)
     assert mem["argument_bytes"] == laid["argument_bytes"]
     assert mem["temp_bytes"] > 0 and mem["run_seconds"] >= 0
     counts = mem["collectives"]["counts"]
     assert counts["all-reduce"] > 0 and counts["reduce-scatter"] > 0
     assert mem["collectives"]["bytes"]["total"] > 0
+    rows = shape.global_batch // mesh.shape["data"] * shape.seq_len
+    grown = temps[vocab] - temps[512]
+    assert 0 < grown < 6 * rows * (vocab - 512) // mesh.shape["model"] * 4
 
 
 def test_the_sharded_loss_allocates_no_whole_global_logits():
     """On a (2, 2) fake world the cross entropy and its backward run on
-    each rank's rows: DTensor's own gather would make a zero gradient of
-    the whole global logits on every rank."""
+    each rank's rows and vocab shard: DTensor's own gather would make a
+    zero gradient of the whole global logits on every rank (F7), and a
+    gather of the vocab a rank's rows at the whole vocab in f32, five
+    copies of them (F10)."""
     from torch.distributed.tensor import distribute_tensor
 
     from repro_torch.configs.shapes import SHAPES, make_ctx
@@ -465,5 +477,25 @@ def test_the_sharded_loss_allocates_no_whole_global_logits():
         with dryrun.LiveBytes(block=1) as live, spmd(ctx):
             loss, _ = cross_entropy(logits, targets, 1e-4, ctx)
             torch.autograd.grad(loss, logits)
-    # a rank's rows in f32 at the whole vocab, a few times over
-    assert live.peak < 8 * (b // 2) * s * v * 4
+    # a rank's rows in f32 at its vocab shard, a few times over
+    assert live.peak < 6 * (b // 2) * s * (v // 2) * 4
+
+
+def test_the_broyden_solve_frees_its_entry_ring():
+    """F11: with a carry and the guard, an unrolled solve (the dry-run's)
+    scrubs the carried ring into a new one at entry, and the solve kept
+    that copy for all its steps (4.8 GB of MiniCPM-2B's DEQ `train_4k`
+    temp on the single pod).  On ``meta``, the solve's peak in units of the
+    ring (u and v): 7.38 with the copy kept, 6.38 without."""
+    from repro_torch.core import solvers
+
+    m, b, d = 8, 2, 4096
+    cfg = solvers.SolverConfig(max_steps=4, memory=m, unroll=True,
+                               guard=True)
+    carry = solvers.init_solve_carry(b, d, m, qn_dtype="bfloat16",
+                                     device="meta")
+    with dryrun.LiveBytes(block=1) as live:
+        solvers.broyden_solve(lambda z: torch.tanh(z) - z,
+                              torch.zeros(b, d, device="meta"), cfg,
+                              carry=carry)
+    assert live.peak < 7 * (2 * m * b * d * 2)
