@@ -4033,6 +4033,10 @@ XLSTM_CACHE_SEQS = (128, 300)
 XLSTM_CACHE_SEQ_BF16 = 300
 XLSTM_SCAN_SEQ = 300
 XLSTM_TRAIN = dict(steps=4, batch=4, seq=512)
+# that step's peak before the chunk and time loops kept only their entry
+# states (NVIDIA H100 80GB HBM3, 700 W): it is set by the stacked leaves'
+# gradients and their f32 copies, which the loops do not change
+XLSTM_STACKED_GRADS_PEAK_GIB = 32.06
 # the DEQ form reruns its four tied units' sLSTM time loops at every solver
 # evaluation, so its prompts are short
 XLSTM_DEQ_PLENS = (64, 128, 64, 128)
@@ -4076,7 +4080,10 @@ def check_xlstm_cells(params, cfg, seq: int, smi: str) -> None:
     and k are drawn around 1, so that the normaliser ``|q . n|`` stays off
     0: around 0 the output ``num / den`` magnifies f32 rounding wherever
     the two sums nearly cancel (at mean 0 the card read 0.73 of the
-    limit)."""
+    limit).  Then both loops' ``autograd.Function``s (``_MLSTMChunks``,
+    ``_SLSTMSteps``) against their plain loops on the same inputs, their
+    outputs and every input's gradient for the same unit-scale
+    cotangents, at the same tolerance (``xlstm_function_grads``)."""
     gen = torch.Generator(device="cuda").manual_seed(7)
     _, h, hd = xlstm_mod._mlstm_dims(cfg)
 
@@ -4086,7 +4093,7 @@ def check_xlstm_cells(params, cfg, seq: int, smi: str) -> None:
     q, k = (1 + randn(4, seq, h, hd) for _ in range(2))
     v = randn(4, seq, h, hd)
     i_pre, f_pre = 2 * randn(4, seq, h), 2 + 2 * randn(4, seq, h)
-    cache = xlstm_mod.mlstm_cache_shape(cfg, 4, "cuda")
+    cache = cache0 = xlstm_mod.mlstm_cache_shape(cfg, 4, "cuda")
     s_params = {k_: v_[0].float()
                 for k_, v_ in params["group0"]["slstm"]["s"].items()}
     x = randn(4, seq, cfg.d_model)
@@ -4115,6 +4122,53 @@ def check_xlstm_cells(params, cfg, seq: int, smi: str) -> None:
         f"chunk {cfg.xlstm.chunk}; unit 0's sLSTM, d={cfg.d_model})",
         card=smi, tol=SCAN_TOL, atol="times each output's largest entry",
         **row)
+
+    # the loops' autograd Functions (entry states saved, each chunk or step
+    # recomputed in the backward) against the plain loops, whose autograd
+    # keeps every intermediate: outputs and every input's gradient for the
+    # same unit-scale cotangents
+    def grads(fn, args, n_in):
+        args = [t.detach().clone().requires_grad_(True) for t in args]
+        outs = fn(*args)
+        outs = (outs[0], *outs[1])
+        cots = [randn(*t.shape) for t in outs]
+        return list(outs) + list(torch.autograd.grad(outs, args[:n_in],
+                                                     cots))
+
+    def mlstm(ref):
+        fn = (xlstm_mod.mlstm_cell_chunked_ref if ref
+              else xlstm_mod.mlstm_cell_chunked)
+        return lambda *a: fn(*a[:5], xlstm_mod.MLSTMCache(*a[5:]),
+                             cfg.xlstm.chunk)
+
+    def slstm(ref):
+        fn = xlstm_mod.slstm_steps_ref if ref else xlstm_mod.slstm_steps
+        return lambda *a: fn(a[0], a[1], xlstm_mod.SLSTMCache(*a[2:]), cfg)
+
+    m_args = (q, k, v, i_pre, f_pre, *cache0)
+    with torch.no_grad():
+        pre = xlstm_mod._slstm_input(s_params, x)
+    s_args = (s_params["r"], pre, *xlstm_mod.slstm_cache_shape(cfg, 4,
+                                                               "cuda"))
+    row = {}
+    for tag, make, args, names in (
+            ("mlstm", mlstm, m_args, ("y", "C", "n", "m", "dq", "dk", "dv",
+                                      "di", "df", "dC", "dn", "dm")),
+            ("slstm", slstm, s_args, ("h", "c", "n", "h_last", "m", "dr",
+                                      "dpre", "dc", "dn", "dh", "dm"))):
+        gen.manual_seed(11)
+        got = grads(make(False), args, len(args))
+        gen.manual_seed(11)
+        want = grads(make(True), args, len(args))
+        for name, g, w in zip(names, got, want):
+            tol = _scaled_tol(w)
+            row[f"{tag}_{name}"] = check_close(
+                f"{tag} Function {name} vs plain loop f32 B=4 S={seq}", g, w,
+                tol)
+    say("xlstm_function_grads", config=f"{cfg.name} (mLSTM {h} heads of "
+        f"{hd}, chunk {cfg.xlstm.chunk}; unit 0's sLSTM recurrence)",
+        card=smi, tol=SCAN_TOL, atol="times each output's largest entry",
+        max_abs_err=row)
 
 
 def profile_train_step(params, cfg, *, batch: int, seq: int,
@@ -4242,6 +4296,10 @@ def phase_xlstm(smi: str) -> dict:
         raise AssertionError(f"{XLSTM_ARCH}: training changed the caller's "
                              f"weights (leaves {changed})")
     del before
+    say("xlstm_train_peak", config=desc, card=smi,
+        batch=f"{XLSTM_TRAIN['batch']} x {XLSTM_TRAIN['seq']}",
+        peak_mem_gib=tr["peak_mem_gib"],
+        earlier_peak_gib=XLSTM_STACKED_GRADS_PEAK_GIB)
     out["train"] = tr["counts"]
     lap("train")
     profile_train_step(params, dataclasses.replace(cfg, remat="full"),

@@ -13,6 +13,16 @@ form: a Python loop over time.  Both cells run in f32 whatever the
 activation dtype, as in the reference, and both stabilisers start at
 -1e30.
 
+Where a gradient is wanted both loops run as ``autograd.Function``s that
+keep what the reference's scans keep: the mLSTM each chunk's entry state,
+the sLSTM each step's, each chunk or step recomputed in the backward
+(``_MLSTMChunks``, ``_SLSTMSteps``; eager autograd over the loops,
+``mlstm_cell_chunked_ref`` and ``slstm_steps_ref``, kept every chunk's
+and step's intermediates).  On a mesh whose "model" does not divide the
+mLSTM heads (xLSTM-1.3B's 4 over 16) the heads are padded and split as
+GSPMD splits them, ``ceil(H / tp)`` a rank (``_cell_padded_heads``); the
+sLSTM loop runs on each rank's rows after one gather of its input.
+
 Differences from the reference:
 
   * the reference's 3-operand einsums, whose order ``opt_einsum`` picks,
@@ -43,7 +53,9 @@ from repro_torch.models.layers import ParamDecl
 from repro_torch.parallel.sharding import (
     NULL_CTX,
     ShardCtx,
+    even_placements,
     map_local,
+    redistribute,
     reshape_whole,
 )
 
@@ -99,15 +111,157 @@ def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
                                             device=x.device))
 
 
+def _mlstm_up(params: dict, x: torch.Tensor, inner: int, ctx: ShardCtx):
+    """``x @ w_up`` as the cell's input ``xm`` and the output gate ``zg``,
+    each ``(B, S, inner)`` on "ssm_inner".  Where a running mesh splits
+    "ssm_inner", each is its own product with its half of ``w_up``: a split
+    of one product's sharded last dim would gather it whole."""
+    w = params["w_up"].to(x.dtype)
+    axes = ("batch", "seq", "ssm_inner")
+    if not ctx.running or ctx.axis_size("ssm_inner") == 1:
+        return ctx.constrain(x @ w, axes).split(inner, dim=-1)
+    return tuple(
+        ctx.constrain(x @ ctx.constrain(half, ("embed", "ssm_inner")), axes)
+        for half in w.split(inner, dim=-1))
+
+
+def _mlstm_gates(params: dict, xm: torch.Tensor):
+    """The input and forget gates' pre-activations ``(B, S, H)``, f32."""
+    dt = xm.dtype
+    i_pre = (xm @ params["w_i"].to(dt)).float()
+    f_pre = (xm @ params["w_f"].to(dt)).float()
+    return i_pre, f_pre + params["f_bias"].float() + 3.0   # forget-biased
+
+
 def _mlstm_qkvif(params: dict, xm: torch.Tensor, h: int, hd: int):
     dt = xm.dtype
     xh = reshape_whole(xm, xm.shape[:2] + (h, hd), 2, h)   # (B, S, H, hd)
     q, k, v = (torch.einsum("bshd,hde->bshe", xh, params[w].to(dt))
                for w in ("w_q", "w_k", "w_v"))
-    i_pre = (xm @ params["w_i"].to(dt)).float()
-    f_pre = (xm @ params["w_f"].to(dt)).float()
-    f_pre = f_pre + params["f_bias"].float() + 3.0          # forget-biased
-    return q, k, v, i_pre, f_pre
+    return (q, k, v) + _mlstm_gates(params, xm)
+
+
+def _tril(cq: int, device) -> torch.Tensor:
+    return torch.ones((cq, cq), dtype=torch.bool,
+                      device=device).tril()[None, :, :, None]
+
+
+def _chunk_inputs(q, k, v, i_pre, f_pre, c: int, cq: int) -> list:
+    """Chunk ``c`` (``cq`` steps) of the cell's inputs.  The sequence's
+    tail is right-padded with state-neutral steps: zero q/k/v, input
+    pre-activation -1e30 (no contribution) and forget +1e30 (log-sigmoid
+    0: no decay), so the final ``(C, n, m)`` is exact."""
+    start = c * cq
+    n = min(cq, q.shape[1] - start)
+    parts = [t.narrow(1, start, n) for t in (q, k, v, i_pre, f_pre)]
+    if n == cq:
+        return parts
+    pad = cq - n
+    return ([F.pad(t, (0, 0, 0, 0, 0, pad)) for t in parts[:3]]
+            + [F.pad(parts[3], (0, 0, 0, pad), value=NEG),
+               F.pad(parts[4], (0, 0, 0, pad), value=-NEG)])
+
+
+def _chunk_step(qc, kc, vc, ic, fc, C, n, m, tri):
+    """One chunk of the stabilised mLSTM from the state ``(C, n, m)`` at
+    its entry: ``qc, kc, vc (B, cq, H, hd)`` in their own dtype, the gate
+    pre-activations ``ic, fc (B, cq, H)`` f32.  Returns ``(y (B, cq, H, hd)
+    f32, C, n, m)`` with the state at the chunk's end."""
+    qc = qc.float() * (qc.shape[-1] ** -0.5)
+    kc, vc = kc.float(), vc.float()
+    bc = torch.cumsum(_log_sigmoid(fc), dim=1)              # inclusive
+    # intra decays D[i, j] = b_i - b_j + i_j (j <= i), masked before the
+    # exponential
+    Dm = bc[:, :, None, :] - bc[:, None, :, :] + ic[:, None, :, :]
+    Dm = torch.where(tri, Dm, float("-inf"))                # (B, cq, cq, H)
+    m_intra = Dm.amax(dim=2)                                # (B, cq, H)
+    # inter decay for position i: g_i = b_i + m_prev
+    g = bc + m[:, None, :]
+    m_tot = torch.maximum(m_intra, g)                       # stabiliser
+    s_qk = torch.einsum("bihd,bjhd->bijh", qc, kc)
+    sw = s_qk * torch.exp(Dm - m_tot[:, :, None, :])
+    num_intra = torch.einsum("bijh,bjhd->bihd", sw, vc)
+    den_intra = sw.sum(dim=2)                               # (B, cq, H)
+    w_inter = torch.exp(g - m_tot)
+    num_inter = torch.einsum("bihd,bhde->bihe", qc, C) * w_inter[..., None]
+    den_inter = torch.einsum("bihd,bhd->bih", qc, n) * w_inter
+    den = torch.maximum((den_intra + den_inter).abs(), torch.exp(-m_tot))
+    y = (num_intra + num_inter) / den[..., None]
+    # ---- the state at the chunk's end ----
+    f_c = bc[:, -1, :]                                      # (B, H)
+    dec_j = f_c[:, None, :] - bc + ic                       # (B, cq, H)
+    m_new = torch.maximum(f_c + m, dec_j.amax(dim=1))
+    sc_w = torch.exp(dec_j - m_new[:, None, :])
+    carry = torch.exp(f_c + m - m_new)
+    kw = sc_w[..., None] * kc                               # (B, cq, H, hd)
+    C = carry[:, :, None, None] * C + torch.einsum("bjhd,bjhe->bhde", kw, vc)
+    n = carry[:, :, None] * n + kw.sum(dim=1)
+    return y, C, n, m_new
+
+
+def mlstm_cell_chunked_ref(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, i_pre: torch.Tensor,
+                           f_pre: torch.Tensor, cache: MLSTMCache,
+                           chunk: int, entries: list | None = None):
+    """``mlstm_cell_chunked`` as a plain loop over the chunks, whose
+    autograd keeps every chunk's intermediates: the plain version the
+    chunk Function is held against, and that Function's forward, which
+    passes ``entries`` (a list) to collect each chunk's entry state."""
+    b, seq, h, hd = q.shape
+    cq = min(chunk, seq)
+    tri = _tril(cq, q.device)
+    y = q.new_empty((b, seq, h, hd))
+    state = tuple(cache)
+    for c in range(-(-seq // cq)):
+        if entries is not None:
+            entries += state
+        yc, *state = _chunk_step(
+            *_chunk_inputs(q, k, v, i_pre, f_pre, c, cq), *state, tri)
+        ln = min(cq, seq - c * cq)
+        y.narrow(1, c * cq, ln).copy_(yc.narrow(1, 0, ln))
+    return y, MLSTMCache(*state)
+
+
+class _MLSTMChunks(torch.autograd.Function):
+    """The chunk loop keeping what the reference's ``lax.scan`` keeps: the
+    forward (the plain loop) saves the inputs in their own dtype and each
+    chunk's entry state ``(C, n, m)``; the backward walks the chunks in
+    reverse, recomputes each one's body (``_chunk_step``, the forward's)
+    from its entry state and takes its VJP for the chunk's output gradient
+    and the carried state gradient, writing each input's gradient into its
+    slice."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, i_pre, f_pre, C, n, m, chunk):
+        entries = []
+        y, state = mlstm_cell_chunked_ref(q, k, v, i_pre, f_pre,
+                                          MLSTMCache(C, n, m), chunk, entries)
+        ctx.cq = min(chunk, q.shape[1])
+        ctx.save_for_backward(q, k, v, i_pre, f_pre, *entries)
+        return (y, *state)
+
+    @staticmethod
+    def backward(ctx, gy, gC, gn, gm):
+        q, k, v, i_pre, f_pre, *entries = ctx.saved_tensors
+        cq, seq = ctx.cq, q.shape[1]
+        tri = _tril(cq, q.device)
+        ins = (q, k, v, i_pre, f_pre)
+        grads = [torch.empty_like(t) for t in ins]
+        carried = (gC, gn, gm)
+        for c in reversed(range(len(entries) // 3)):
+            start, ln = c * cq, min(cq, seq - c * cq)
+            with torch.enable_grad():
+                xs = [t.detach().requires_grad_(True) for t in
+                      _chunk_inputs(*ins, c, cq)
+                      + list(entries[3 * c:3 * c + 3])]
+                yc, *state = _chunk_step(*xs, tri)
+            gyc = F.pad(gy.narrow(1, start, ln).float(),
+                        (0, 0, 0, 0, 0, cq - ln))
+            got = torch.autograd.grad((yc, *state), xs, (gyc, *carried))
+            for g, t in zip(grads, got[:5]):
+                g.narrow(1, start, ln).copy_(t.narrow(1, 0, ln))
+            carried = got[5:]
+        return (*grads, *carried, None)
 
 
 def mlstm_cell_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -115,86 +269,140 @@ def mlstm_cell_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        cache: MLSTMCache, chunk: int):
     """Chunkwise stabilised mLSTM over ``q, k, v (B, S, H, hd)`` and the
     gate pre-activations ``i_pre, f_pre (B, S, H)`` (f32), from ``cache``.
-    Returns ``(y (B, S, H, hd) in q's dtype, new MLSTMCache)``."""
-    b, seq, h, hd = q.shape
-    qf = q.float() * (hd ** -0.5)
-    kf, vf = k.float(), v.float()
-    cq = min(chunk, seq)
-    orig_seq = seq
-    if seq % cq:
-        # right-pad to a chunk multiple with state-neutral gates: forget
-        # pre-activation +1e30 (log-sigmoid 0: no decay) and input -1e30
-        # (no contribution), so the final (C, n, m) is exact
-        pad = cq - seq % cq
-        qf, kf, vf = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (qf, kf, vf))
-        i_pre = F.pad(i_pre, (0, 0, 0, pad), value=NEG)
-        f_pre = F.pad(f_pre, (0, 0, 0, pad), value=-NEG)
-        seq = seq + pad
-    nc = seq // cq
-
-    def rs(x):  # (B, S, ...) -> (B, nc, cq, ...)
-        return x.reshape((b, nc, cq) + x.shape[2:])
-
-    qs, ks, vs, is_ = rs(qf), rs(kf), rs(vf), rs(i_pre)
-    cumf = torch.cumsum(_log_sigmoid(rs(f_pre)), dim=2)     # inclusive
-    tri = torch.ones((cq, cq), dtype=torch.bool,
-                     device=q.device).tril()[None, :, :, None]
-    C, n, m = cache
-    ys = []
-    for c in range(nc):
-        qc, kc, vc = qs[:, c], ks[:, c], vs[:, c]           # (B, cq, H, hd)
-        ic, bc = is_[:, c], cumf[:, c]                      # (B, cq, H)
-        # intra decays D[i, j] = b_i - b_j + i_j (j <= i), masked before
-        # the exponential
-        Dm = bc[:, :, None, :] - bc[:, None, :, :] + ic[:, None, :, :]
-        Dm = torch.where(tri, Dm, float("-inf"))            # (B, cq, cq, H)
-        m_intra = Dm.amax(dim=2)                            # (B, cq, H)
-        # inter decay for position i: g_i = b_i + m_prev
-        g = bc + m[:, None, :]
-        m_tot = torch.maximum(m_intra, g)                   # stabiliser
-        s_qk = torch.einsum("bihd,bjhd->bijh", qc, kc)
-        sw = s_qk * torch.exp(Dm - m_tot[:, :, None, :])
-        num_intra = torch.einsum("bijh,bjhd->bihd", sw, vc)
-        den_intra = sw.sum(dim=2)                           # (B, cq, H)
-        w_inter = torch.exp(g - m_tot)
-        num_inter = torch.einsum("bihd,bhde->bihe", qc, C) * w_inter[..., None]
-        den_inter = torch.einsum("bihd,bhd->bih", qc, n) * w_inter
-        den = torch.maximum((den_intra + den_inter).abs(), torch.exp(-m_tot))
-        ys.append((num_intra + num_inter) / den[..., None])
-        # ---- the state at the chunk's end ----
-        f_c = bc[:, -1, :]                                  # (B, H)
-        dec_j = f_c[:, None, :] - bc + ic                   # (B, cq, H)
-        m_new = torch.maximum(f_c + m, dec_j.amax(dim=1))
-        sc_w = torch.exp(dec_j - m_new[:, None, :])
-        carry = torch.exp(f_c + m - m_new)
-        kw = sc_w[..., None] * kc                           # (B, cq, H, hd)
-        C = carry[:, :, None, None] * C + torch.einsum("bjhd,bjhe->bhde",
-                                                       kw, vc)
-        n = carry[:, :, None] * n + kw.sum(dim=1)
-        m = m_new
-    y = torch.cat(ys, dim=1)[:, :orig_seq]
-    return y.to(q.dtype), MLSTMCache(C, n, m)
+    Returns ``(y (B, S, H, hd) in q's dtype, new MLSTMCache)``.  Where a
+    gradient is wanted it runs as ``_MLSTMChunks`` (the chunk entry states
+    saved, each chunk recomputed in the backward), else as the plain
+    loop, which then keeps nothing."""
+    args = (q, k, v, i_pre, f_pre, *cache)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        y, *state = _MLSTMChunks.apply(*args, chunk)
+        return y, MLSTMCache(*state)
+    return mlstm_cell_chunked_ref(q, k, v, i_pre, f_pre, cache, chunk)
 
 
-def _cell_chunked(q, k, v, i_pre, f_pre, cache: MLSTMCache, chunk: int,
-                  ctx: ShardCtx):
-    """``mlstm_cell_chunked``; on a running mesh over each rank's local
-    rows and heads (``map_local``: the cell is independent across them)."""
+def _cold_mlstm(batch: int, h: int, hd: int, device=None) -> MLSTMCache:
+    """A cold state: zero memory and normaliser, the stabiliser at
+    -1e30."""
+    f32 = torch.float32
+    return MLSTMCache(
+        C=torch.zeros((batch, h, hd, hd), dtype=f32, device=device),
+        n=torch.zeros((batch, h, hd), dtype=f32, device=device),
+        m=torch.full((batch, h), NEG, dtype=f32, device=device))
+
+
+def _map_cell(fn, ctx: ShardCtx, args: tuple, in_axes: tuple, y_like: int,
+              cache, cache_axes: tuple, cold, summed: str | None = None):
+    """``fn(*args, state) -> (y, new state)`` from ``cache``, or from
+    ``cold(*args)`` where it is None (and then only ``y`` comes back, with a
+    None state).  On a running mesh it runs over each rank's local shards
+    (``map_local``: ``args`` laid out by ``in_axes``, the state by
+    ``cache_axes``; ``y`` comes back laid out as ``args[y_like]``, the state
+    as it went in), so a cold state is made at the local shape."""
+    state = () if cache is None else tuple(cache)
+    k = len(args)
+
+    def run(*xs):
+        y, c = fn(*xs[:k], type(cache)(*xs[k:]) if state else cold(*xs[:k]))
+        return (y, *c) if state else y
+
     if not ctx.running:
-        return mlstm_cell_chunked(q, k, v, i_pre, f_pre, cache, chunk)
+        out = run(*args, *state)
+    else:
+        out = map_local(run, ctx, args + state,
+                        in_axes + (cache_axes if state else ()),
+                        out_like=(y_like, *range(k, k + len(state))),
+                        summed=summed)
+    if not state:
+        return out, None
+    return out[0], type(cache)(*out[1:])
 
-    def cell(q, k, v, i_pre, f_pre, C, n, m):
-        y, c = mlstm_cell_chunked(q, k, v, i_pre, f_pre,
-                                  MLSTMCache(C, n, m), chunk)
-        return y, c.C, c.n, c.m
 
+def _cell_chunked(q, k, v, i_pre, f_pre, cache: MLSTMCache | None,
+                  chunk: int, ctx: ShardCtx):
+    """``mlstm_cell_chunked`` from ``cache``, or from a cold state where it
+    is None (and then only ``y`` is returned, with a ``None`` state).  On a
+    running mesh over each rank's local rows and heads (the cell is
+    independent across them)."""
     heads = ("batch", None, "ssm_heads_act")
     rows = ("batch", "ssm_heads_act")
-    y, C, n, m = map_local(
-        cell, ctx, (q, k, v, i_pre, f_pre) + tuple(cache),
-        (heads + (None,),) * 3 + (heads,) * 2
-        + (rows + (None, None), rows + (None,), rows), out_like=(0, 5, 6, 7))
-    return y, MLSTMCache(C, n, m)
+    return _map_cell(
+        lambda q, k, v, i_pre, f_pre, c0: mlstm_cell_chunked(
+            q, k, v, i_pre, f_pre, c0, chunk),
+        ctx, (q, k, v, i_pre, f_pre), (heads + (None,),) * 3 + (heads,) * 2,
+        0, cache, (rows + (None, None), rows + (None,), rows),
+        lambda q, *_: _cold_mlstm(q.shape[0], q.shape[2], q.shape[3],
+                                  q.device))
+
+
+def _heads(x: torch.Tensor, dim: int, lo: int, count: int) -> torch.Tensor:
+    """Heads ``[lo, lo + count)`` of ``x`` along ``dim`` as a new tensor,
+    zero past the last one ``x`` has."""
+    n = max(0, min(count, x.shape[dim] - lo))
+    part = x.narrow(dim, min(lo, x.shape[dim]), n)
+    if n == count:
+        return part.clone()
+    shape = list(x.shape)
+    shape[dim] = count - n
+    return torch.cat([part, x.new_zeros(shape)], dim=dim)
+
+
+def _unheads(x: torch.Tensor, dim: int, lo: int, h: int) -> torch.Tensor:
+    """``x``'s heads (the ones from ``lo`` on, below ``h``) placed at
+    ``[lo, ...)`` of ``h`` heads along ``dim``, zero elsewhere.  A rank
+    that holds only pad heads pads an empty slice of ``x``, so its
+    backward still reaches ``x`` (and issues the collectives of the other
+    ranks' backward)."""
+    lo = min(lo, h)
+    n = min(x.shape[dim], h - lo)
+    pad = [0, 0] * (x.dim() - 1 - dim) + [lo, h - lo - n]
+    return F.pad(x.narrow(dim, 0, n), pad)
+
+
+def _cell_padded_heads(params: dict, xm, cache: MLSTMCache | None,
+                       cfg: ModelConfig, ctx: ShardCtx):
+    """The chunked cell on a running mesh whose head mesh dims (those of
+    "ssm_heads_act") do not divide the heads, split as GSPMD splits them:
+    the heads padded to ``tp x ceil(H / tp)``, ``ceil(H / tp)`` a rank.
+    Each rank views its heads out of ``xm`` gathered whole over those dims
+    (pad heads get zero q/k/v, zero gate pre-activations and a zero
+    entry state, ``m = 0`` too, so their state stays zero, their ``y`` 0
+    and every value finite), projects them, runs the cell on them, and
+    places its output at its heads of the whole: the sum over those mesh
+    dims is the cell's output, reduce-scattered onto "ssm_inner".
+    Returns ``(y (B, S, inner) on "ssm_inner", state)``: the state whole
+    over heads where ``cache`` is given, else None."""
+    inner, h, hd = _mlstm_dims(cfg)
+    b, seq = xm.shape[:2]
+    dt = xm.dtype
+    hl = -(-h // ctx.axis_size("ssm_heads_act"))
+    lo = ctx.entry_rank("ssm_heads_act") * hl
+
+    def cell(xm, w_q, w_k, w_v, i_pre, f_pre, c0):
+        xs = _heads(xm.reshape(xm.shape[:2] + (h, hd)), 2, lo, hl)
+        w = torch.cat([_heads(t, 0, lo, hl) for t in (w_q, w_k, w_v)], -1)
+        q, k, v = torch.einsum("bshd,hde->bshe", xs, w.to(dt)).split(hd, -1)
+        y, c = mlstm_cell_chunked(
+            q, k, v, _heads(i_pre, 2, lo, hl), _heads(f_pre, 2, lo, hl),
+            MLSTMCache(*(_heads(t, 1, lo, hl) for t in c0)), cfg.xlstm.chunk)
+        # the state is placed back only where it is returned
+        return (_unheads(y, 2, lo, h),
+                (_unheads(t, 1, lo, h) for t in c) if cache is not None
+                else None)
+
+    whole = ("batch", None, None)
+    state_axes = (whole + (None,), whole, ("batch", None))
+    y, c = _map_cell(
+        cell, ctx, (xm, params["w_q"], params["w_k"], params["w_v"])
+        + _mlstm_gates(params, xm), (whole,) + ((None, None, None),) * 3
+        + (whole,) * 2, 4, cache, state_axes,
+        lambda xm, *_: _cold_mlstm(xm.shape[0], h, hd, xm.device),
+        summed="ssm_heads_act")
+    y = ctx.constrain(y.reshape(b, seq, inner), ("batch", "seq", "ssm_inner"))
+    if c is None:
+        return y, None
+    return y, MLSTMCache(*(
+        redistribute(t, ctx.device_mesh, even_placements(ctx, ax, t.shape))
+        for t, ax in zip(c, state_axes)))
 
 
 def mlstm_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -225,23 +433,22 @@ def mlstm_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
     ``MLSTMCache`` (the one passed in is left as it was)."""
     inner, h, hd = _mlstm_dims(cfg)
     dt = x.dtype
-    up = ctx.constrain(x @ params["w_up"].to(dt),
-                       ("batch", "seq", "ssm_inner"))
-    xm, zg = up.split(inner, dim=-1)
-    q, k, v, i_pre, f_pre = _mlstm_qkvif(params, xm, h, hd)
+    xm, zg = _mlstm_up(params, x, inner, ctx)
     b, seq = x.shape[:2]
-    if seq == 1 and cache is not None:
-        y, new_cache = mlstm_step(q[:, 0], k[:, 0], v[:, 0], i_pre[:, 0],
-                                  f_pre[:, 0], cache)
-        y = y[:, None]
-    else:  # a whole sequence (training), or a prefill into the cache
-        c0 = cache if cache is not None else mlstm_cache_shape(cfg, b,
-                                                               x.device)
-        y, new_cache = _cell_chunked(q, k, v, i_pre, f_pre, c0,
-                                     cfg.xlstm.chunk, ctx)
-        if cache is None:
-            new_cache = None
-    y = reshape_whole(y, (b, seq, inner), 2, y.shape[2]) * F.silu(zg)
+    step = seq == 1 and cache is not None
+    if not step and ctx.running and h % ctx.axis_size("ssm_heads_act"):
+        y, new_cache = _cell_padded_heads(params, xm, cache, cfg, ctx)
+    else:
+        q, k, v, i_pre, f_pre = _mlstm_qkvif(params, xm, h, hd)
+        if step:
+            y, new_cache = mlstm_step(q[:, 0], k[:, 0], v[:, 0],
+                                      i_pre[:, 0], f_pre[:, 0], cache)
+            y = y[:, None]
+        else:  # a whole sequence (training), or a prefill into the cache
+            y, new_cache = _cell_chunked(q, k, v, i_pre, f_pre, cache,
+                                         cfg.xlstm.chunk, ctx)
+        y = reshape_whole(y, (b, seq, inner), 2, h)
+    y = y * F.silu(zg)
     return ctx.constrain(y @ params["w_down"].to(dt),
                          ("batch", "seq_res", "embed_act")), new_cache
 
@@ -250,12 +457,8 @@ def mlstm_cache_shape(cfg: ModelConfig, batch: int,
                       device=None) -> MLSTMCache:
     """A cold cache for one layer: zero memory and normaliser, the
     stabiliser at -1e30."""
-    inner, h, hd = _mlstm_dims(cfg)
-    f32 = torch.float32
-    return MLSTMCache(
-        C=torch.zeros((batch, h, hd, hd), dtype=f32, device=device),
-        n=torch.zeros((batch, h, hd), dtype=f32, device=device),
-        m=torch.full((batch, h), NEG, dtype=f32, device=device))
+    _, h, hd = _mlstm_dims(cfg)
+    return _cold_mlstm(batch, h, hd, device)
 
 
 # ---------------------------------------------------------------------------
@@ -324,41 +527,121 @@ def slstm_cell_step(params: dict, x_t: torch.Tensor, cache: SLSTMCache,
                         _slstm_input(params, x_t).float(), cache, cfg)
 
 
+def slstm_steps_ref(r: torch.Tensor, pre: torch.Tensor, cache: SLSTMCache,
+                    cfg: ModelConfig, entries: list | None = None):
+    """The sLSTM time loop as plain autograd code, which keeps every
+    step's intermediates: ``r (4, H, hd, hd)`` f32, ``pre (B, S, 4d)`` in
+    the activation dtype (each step cast to f32).  Returns ``(hidden (B,
+    S, H, hd) f32, the last SLSTMCache)``; the plain version of
+    ``_SLSTMSteps``, and its forward, which passes ``entries`` (a list) to
+    collect each step's entry ``(c, n, m)``."""
+    b, seq = pre.shape[:2]
+    y = cache.c.new_empty((b, seq) + tuple(cache.c.shape[1:]))
+    for t in range(seq):
+        if entries is not None:
+            entries += (cache.c, cache.n, cache.m)
+        y[:, t], cache = _slstm_recur(r, pre[:, t].float(), cache, cfg)
+    return y, cache
+
+
+class _SLSTMSteps(torch.autograd.Function):
+    """The sLSTM time loop keeping each step's state: the forward (the
+    plain loop) saves ``pre`` in its own dtype, every step's ``(c, n, m)``
+    and the hidden outputs (the steps' ``h``); the backward walks the
+    steps in reverse, recomputes each one (``_slstm_recur``, the
+    forward's) from its entry state and takes its VJP for the step's
+    output gradient and the carried state gradient."""
+
+    @staticmethod
+    def forward(ctx, r, pre, c, n, h, m, cfg):
+        saved = []
+        y, state = slstm_steps_ref(r, pre, SLSTMCache(c, n, h, m), cfg,
+                                   saved)
+        ctx.cfg = cfg
+        ctx.save_for_backward(r, pre, h, y, *saved)
+        return (y, *state)
+
+    @staticmethod
+    def backward(ctx, gy, gc, gn, gh, gm):
+        r, pre, h0, y, *saved = ctx.saved_tensors
+        dpre = torch.empty_like(pre)
+        dr = torch.zeros_like(r)
+        dc, dn, dh, dm = gc, gn, gh, gm
+        for t in reversed(range(pre.shape[1])):
+            c, n, m = saved[3 * t:3 * t + 3]
+            with torch.enable_grad():
+                xs = [x.detach().requires_grad_(True) for x in (
+                    pre[:, t].float(), c, n, h0 if t == 0 else y[:, t - 1],
+                    m, r)]
+                hidden, st = _slstm_recur(xs[5], xs[0],
+                                          SLSTMCache(*xs[1:5]), ctx.cfg)
+            got = torch.autograd.grad(
+                (hidden, st.c, st.n, st.m), xs, (gy[:, t] + dh, dc, dn, dm))
+            dpre[:, t] = got[0]
+            dr += got[5]
+            dc, dn, dh, dm = got[1:5]
+        return dr, dpre, dc, dn, dh, dm, None
+
+
+def slstm_steps(r: torch.Tensor, pre: torch.Tensor, cache: SLSTMCache,
+                cfg: ModelConfig):
+    """The sLSTM time loop (``slstm_steps_ref``'s arguments and values);
+    where a gradient is wanted it runs as ``_SLSTMSteps`` (each step's
+    state saved, each step recomputed in the backward), else as the plain
+    loop, which then keeps nothing."""
+    args = (r, pre, *cache)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        y, *state = _SLSTMSteps.apply(*args, cfg)
+        return y, SLSTMCache(*state)
+    return slstm_steps_ref(r, pre, cache, cfg)
+
+
+def _slstm_time(r, pre, cache: SLSTMCache | None, cfg: ModelConfig,
+                ctx: ShardCtx):
+    """The time loop from ``cache``, or from a cold state where it is None
+    (and then only the hidden outputs come back, with a ``None`` state).
+    On a running mesh ``pre`` is gathered whole over its gates once and
+    the loop runs on each rank's local rows."""
+    h = cfg.num_heads
+    hd = cfg.d_model // h
+    rows = ("batch", None, None)
+    return _map_cell(
+        lambda r, pre, c0: slstm_steps(r.float(), pre, c0, cfg), ctx,
+        (r, pre), ((None,) * 4, rows), 1, cache, (rows,) * 4,
+        lambda r, pre: _cold_slstm(pre.shape[0], h, hd, pre.device))
+
+
 def slstm_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
                 cache: SLSTMCache | None = None, ctx: ShardCtx = NULL_CTX):
     """The sLSTM time loop over ``x (B, S, d)`` (already normed), then the
     gated feed-forward (pf 4/3, tanh GELU).  Returns ``(out (B, S, d),
     new_cache)``: None without a cache, else a new ``SLSTMCache``."""
     b, seq, d = x.shape
-    ret_cache = cache is not None
-    if cache is None:
-        cache = slstm_cache_shape(cfg, b, x.device)
-    # the input projection and both casts to f32 once, outside the loop
-    pre = _slstm_input(params, x).float()                   # (B, S, 4d)
-    r = params["r"].float()
-    hs = []
-    for t in range(seq):
-        hidden, cache = _slstm_recur(r, pre[:, t], cache, cfg)
-        hs.append(hidden)
-    y = torch.stack(hs, dim=1)
+    # the input projection once over every row, outside the loop
+    y, new_cache = _slstm_time(params["r"], _slstm_input(params, x), cache,
+                               cfg, ctx)
     y = reshape_whole(y, (b, seq, d), 2, y.shape[2]).to(x.dtype)
     dt = x.dtype
     g = y @ params["ff_g"].to(dt)
     u = y @ params["ff_u"].to(dt)
     out = (F.gelu(g, approximate="tanh") * u) @ params["ff_o"].to(dt)
     out = ctx.constrain(out, ("batch", "seq_res", "embed_act"))
-    return out, (cache if ret_cache else None)
+    return out, new_cache
+
+
+def _cold_slstm(batch: int, h: int, hd: int, device=None) -> SLSTMCache:
+    shape = (batch, h, hd)
+    f32 = torch.float32
+    return SLSTMCache(*(torch.zeros(shape, dtype=f32, device=device)
+                        for _ in range(3)),
+                      m=torch.full(shape, NEG, dtype=f32, device=device))
 
 
 def slstm_cache_shape(cfg: ModelConfig, batch: int,
                       device=None) -> SLSTMCache:
     """A cold cache for one layer: zeros, the stabiliser at -1e30."""
     h = cfg.num_heads
-    shape = (batch, h, cfg.d_model // h)
-    f32 = torch.float32
-    return SLSTMCache(*(torch.zeros(shape, dtype=f32, device=device)
-                        for _ in range(3)),
-                      m=torch.full(shape, NEG, dtype=f32, device=device))
+    return _cold_slstm(batch, h, cfg.d_model // h, device)
 
 
 # ---------------------------------------------------------------------------

@@ -45,6 +45,7 @@ from typing import Any, Callable, Mapping, Sequence
 import torch
 from torch.distributed.tensor import (
     DTensor,
+    Partial,
     Replicate,
     Shard,
     distribute_tensor,
@@ -538,16 +539,17 @@ def even_placements(ctx: "ShardCtx", axes: Sequence[str | None],
 
 def grad_of_replicated(pls: Sequence, outs: Sequence[Sequence]) -> tuple:
     """An input's gradient placements for a ``local_map``: ``Partial`` on
-    each mesh dim where the input is replicated but an output is split (each
-    rank's output part contributes its share), else the input's own."""
-    from torch.distributed.tensor import Partial
+    each mesh dim where the input is replicated but an output is split or
+    a partial sum (each rank's output part contributes its share), else
+    the input's own."""
     return tuple(Partial() if isinstance(p, Replicate)
-                 and any(isinstance(o[i], Shard) for o in outs) else p
-                 for i, p in enumerate(pls))
+                 and any(isinstance(o[i], (Shard, Partial)) for o in outs)
+                 else p for i, p in enumerate(pls))
 
 
 def map_local(fn: Callable, ctx: "ShardCtx", args: Sequence,
-              in_axes: Sequence, out_like: Sequence[int]):
+              in_axes: Sequence, out_like: Sequence[int],
+              summed: str | None = None):
     """``fn`` over each rank's local shards of ``args`` (tensors, the same
     values on every rank where replicated), laid out by ``in_axes`` (one
     tuple of logical axes per argument) as ``even_placements``; output
@@ -556,11 +558,19 @@ def map_local(fn: Callable, ctx: "ShardCtx", args: Sequence,
     dims (rows, heads): it runs as plain tensor code on each rank, where
     DTensor's rules for some ops (a batched matmul over two split dims, a
     cumsum's backward) fail to plan on some PyTorch versions.  One output
-    comes back as a tensor, several as a tuple."""
+    comes back as a tensor, several as a tuple.  ``summed``: a logical
+    axis over whose mesh dims ``fn`` splits the work itself (the
+    arguments whole over them, ``ShardCtx.entry_rank`` its share): each
+    rank's outputs hold its share and zeros, partial sums over those dims,
+    as the arguments' gradients are."""
     mesh = ctx.device_mesh
     in_pls = [even_placements(ctx, a, t.shape)
               for a, t in zip(in_axes, args)]
     out_pls = [in_pls[i] for i in out_like]
+    if summed is not None:
+        dims = ctx.mesh_dims(summed)
+        out_pls = [tuple(Partial() if i in dims else p
+                         for i, p in enumerate(pls)) for pls in out_pls]
     mapped = shard_map_compat(
         fn, mesh, in_specs=tuple(in_pls),
         out_specs=out_pls if len(out_pls) > 1 else out_pls[0],
@@ -622,6 +632,21 @@ class ShardCtx:
         if self.device_mesh is None:
             return x
         return redistribute(x, self.device_mesh, self.sharding(axes))
+
+    def mesh_dims(self, logical: str) -> tuple[int, ...]:
+        """The indices of the running mesh's dims behind a logical axis."""
+        names = tuple(self.device_mesh.mesh_dim_names)
+        return tuple(names.index(n) for n in
+                     _names(self.rules.physical(logical)) if n in names)
+
+    def entry_rank(self, logical: str) -> int:
+        """This rank's shard of a dim that carries ``logical``: its index
+        over the mesh axes behind it, major to minor (0 off a running
+        mesh)."""
+        idx = 0
+        for name in _names(self.rules.physical(logical)):
+            idx = idx * self.mesh_size(name) + self.axis_rank(name)
+        return idx
 
     def axis_rank(self, axis: str) -> int:
         """This rank's coordinate along one mesh axis (0 if absent)."""

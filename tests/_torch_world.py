@@ -1045,6 +1045,98 @@ def check_ssm_families(w):
     return out
 
 
+# xLSTM at 3 heads and at 1: the tokens of a train step and a prefill (S
+# 37: two chunks of 16 and a padded third)
+XLSTM3_S = 37
+
+
+def xlstm3_cfg(heads: int = 3):
+    """xLSTM-1.3B's smoke config at ``heads`` heads over one unit (d 96),
+    in f32: 3 heads (or 1) do not divide the (2, 2) mesh's "model", as
+    xLSTM-1.3B's 4 do not divide 16."""
+    from repro_torch.configs.registry import smoke_config
+    return dataclasses.replace(smoke_config("xlstm-1.3b"), dtype="float32",
+                               d_model=96, num_heads=heads,
+                               num_kv_heads=heads, num_layers=4)
+
+
+def _padded_ssm_heads(w, heads: int) -> dict:
+    """A (2, 2) train step's loss gradients and a prefill's logits for the
+    ``heads``-head smoke xLSTM, each beside the same run unsharded (rank
+    0's); the heads each rank's cell held, whether every gradient that
+    reached a cell's inputs (pad heads included) was finite, and each
+    rank's collectives by op in the sharded runs."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.configs.shapes import SHAPES, make_ctx
+    from repro_torch.launch import steps
+    from repro_torch.models import xlstm
+    from repro_torch.parallel.sharding import NULL_CTX, distribute_tree
+
+    cfg = xlstm3_cfg(heads)
+    name = f"xlstm{heads}"
+    batch = _batch(w, name)
+    params = _params(w, name)
+    seen, finite = [], []
+    cell = xlstm.mlstm_cell_chunked
+
+    def spy(q, k, v, i_pre, f_pre, cache, chunk):
+        seen.append(int(q.shape[2]))
+        for t in (q, k, v, i_pre, f_pre):
+            if t.requires_grad:
+                t.register_hook(lambda g: finite.append(
+                    bool(torch.isfinite(g).all())))
+        return cell(q, k, v, i_pre, f_pre, cache, chunk)
+
+    def prefill(p, ctx):
+        return steps.build_prefill(cfg, ctx, 40)(
+            p, {"tokens": batch["tokens"]})[0]
+
+    out = {}
+    xlstm.mlstm_cell_chunked = spy
+    try:
+        for kind, shape, run in (
+                ("train", "train_4k", lambda p, ctx: flat(
+                    _grads(cfg, p, batch, ctx))),
+                ("prefill", "prefill_32k", prefill)):
+            ctx1 = make_ctx(cfg, w.mesh22, SHAPES[shape])
+            placed = distribute_tree(params, steps.param_shardings(cfg, ctx1),
+                                     w.mesh22)
+            for tag, p, ctx in (("0", params, NULL_CTX), ("1", placed, ctx1)):
+                if tag == "0" and w.rank:  # the unsharded runs: rank 0's
+                    continue
+                seen.clear()
+                mode = CommDebugMode()
+                with mode:
+                    got = run(p, ctx)
+                if kind == "train":
+                    out.update({f"g{tag}/{k}": _np(v) for k, v in got.items()})
+                else:
+                    out["prefill" + tag] = _np(got)
+                out[f"{kind}_heads{tag}"] = list(seen)
+                if tag == "1":
+                    out[f"{kind}_comms"] = w.gather(
+                        {str(k).split(".")[-1]: v for k, v in
+                         mode.get_comm_counts().items()})
+    finally:
+        xlstm.mlstm_cell_chunked = cell
+    out["finite"] = w.gather(bool(finite) and all(finite))
+    return out
+
+
+def check_uneven_ssm_heads(w):
+    """The mLSTM with heads that "model" does not divide, split as GSPMD
+    splits them (3 padded to 4, 2 a rank): ``_padded_ssm_heads``."""
+    return _padded_ssm_heads(w, 3)
+
+
+def check_pad_only_ssm_heads(w):
+    """One head padded to 2, 1 a rank: the ranks at "model" 1 hold only a
+    pad head, and their backward must issue the collectives of the others'
+    (``_padded_ssm_heads``)."""
+    return _padded_ssm_heads(w, 1)
+
+
 # the vocab-parallel loss's z-loss weights: none, and ``loss_fn``'s
 VPLOSS_Z = (("z0", 0.0), ("z4", 1e-4))
 

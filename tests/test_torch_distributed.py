@@ -39,7 +39,11 @@ port's unsharded runs and against JAX:
     over 16): the train step, prefill and decode at (2,2) against the
     unsharded runs; a decode cache split along its length over both mesh
     dims; Zamba2's SSD and xLSTM's mLSTM cell on each rank's local rows
-    and heads (gradients and prefill logits against the unsharded runs).
+    and heads (gradients and prefill logits against the unsharded runs);
+  * mLSTM heads that do not divide "model" (3 over 2, and 1 over 2, where
+    a rank holds only a pad head), padded and split as GSPMD splits them:
+    gradients and prefill logits against the unsharded runs, every rank
+    issuing the same collectives.
 """
 
 import dataclasses
@@ -76,7 +80,7 @@ CHECKS = ["placements", "dense_step", "deq_step", "batched_solve",
           "pipeline_and_elastic", "serve_arms", "tick_gathers",
           "accum_dense", "accum_deq", "accum_uneven", "dryrun_cells",
           "uneven_heads", "decode_split_twice", "ssm_families",
-          "vocab_parallel_loss"]
+          "vocab_parallel_loss", "uneven_ssm_heads", "pad_only_ssm_heads"]
 MOE_B, MOE_S = 4, 32
 
 
@@ -94,11 +98,21 @@ def _jax_cfg(kind):
 
 
 def _jax_params(kind):
+    if kind.startswith("xlstm"):
+        return jax.tree_util.tree_map(np.asarray, jlm.init_params(
+            _jax_xlstm3_cfg(int(kind[5:])), jax.random.PRNGKey(4)))
     p = jlm.init_params(_jax_cfg(kind), jax.random.PRNGKey(0))
     if kind == "deq":  # contractive blocks: the solves converge
         p["deq_blocks"] = jax.tree_util.tree_map(lambda a: a * 0.3,
                                                  p["deq_blocks"])
     return jax.tree_util.tree_map(np.asarray, p)
+
+
+def _jax_xlstm3_cfg(heads: int = 3):
+    """``tw.xlstm3_cfg`` in the JAX package."""
+    return dataclasses.replace(jax_smoke_config("xlstm-1.3b"),
+                               dtype="float32", d_model=96, num_heads=heads,
+                               num_kv_heads=heads, num_layers=4)
 
 
 def _tokens(vocab, batch, seed=0):
@@ -193,6 +207,14 @@ def world(tmp_path_factory):
     np.savez(os.path.join(d, "inputs_untied.npz"), tokens=tok, targets=tgt,
              **{"params/" + k: v
                 for k, v in tw.flat(_jax_params("untied")).items()})
+    toks = np.random.default_rng(6).integers(
+        0, _jax_xlstm3_cfg().vocab_size,
+        size=(tw.B, tw.XLSTM3_S + 1)).astype(np.int32)
+    for name in ("xlstm3", "xlstm1"):
+        np.savez(os.path.join(d, f"inputs_{name}.npz"), tokens=toks[:, :-1],
+                 targets=toks[:, 1:],
+                 **{"params/" + k: v
+                    for k, v in tw.flat(_jax_params(name)).items()})
     logits, tgt = _vploss_inputs()
     np.savez(os.path.join(d, "inputs_vploss.npz"), logits=logits,
              targets=tgt)
@@ -1007,6 +1029,73 @@ def test_local_ssm_cells_match_the_unsharded_runs(world, arch):
     np.testing.assert_allclose(arrays[f"{arch}/prefill1"],
                                arrays[f"{arch}/prefill0"], rtol=1e-4,
                                atol=1e-5)
+
+
+def test_uneven_ssm_heads_are_padded_and_split(world):
+    """F12: where "model" does not divide the mLSTM heads (xLSTM-1.3B's 4
+    over 16), every rank ran every head (the view gathered them whole),
+    4x the reference's share of the chunk loop.  The heads are now padded
+    to a multiple of "model" and split, as GSPMD splits them.  At (2, 2)
+    with 3 heads each rank's cell holds ``ceil(3 / 2) = 2`` (the unsharded
+    run 3), every gradient that reached a cell's inputs is finite (pad
+    heads included), and every gradient leaf of the train step's loss and
+    the prefill's logits (through the cell's state route) agree with the
+    unsharded port and with JAX at rtol 1e-5 (f32)."""
+    from repro.parallel.sharding import ShardCtx as JShardCtx
+
+    arrays, v = _load(world, "uneven_ssm_heads")
+    assert set(v["train_heads1"]) == set(v["prefill_heads1"]) == {2}
+    assert set(v["train_heads0"]) == set(v["prefill_heads0"]) == {3}
+    assert v["finite"] == [True] * 4
+    inp = np.load(os.path.join(world[0], "inputs_xlstm3.npz"))
+    jcfg, jctx = _jax_xlstm3_cfg(), JShardCtx.for_mesh(None)
+    jp = tw.unflat(dict(inp), "params/")
+    jb = {"tokens": jnp.asarray(inp["tokens"]),
+          "targets": jnp.asarray(inp["targets"])}
+    gj = tw.flat(jax.tree_util.tree_map(np.asarray, jax.jit(jax.grad(
+        lambda p: jlm.loss_fn(p, jb, jcfg, jctx)[0]))(jp)))
+    assert sorted(gj) == sorted(k[3:] for k in arrays if k.startswith("g0/"))
+    for k, want in gj.items():
+        for got in (arrays["g1/" + k], arrays["g0/" + k]):
+            np.testing.assert_allclose(got, want, rtol=1e-5,
+                                       atol=1e-5 * np.abs(want).max(),
+                                       err_msg=k)
+        np.testing.assert_allclose(arrays["g1/" + k], arrays["g0/" + k],
+                                   rtol=1e-5,
+                                   atol=1e-5 * np.abs(want).max(), err_msg=k)
+    jl = np.asarray(jax.jit(lambda p, t: jlm.prefill(
+        p, {"tokens": t}, jcfg, jctx, 40))(jp, jb["tokens"])[0])
+    for got in (arrays["prefill1"], arrays["prefill0"]):
+        np.testing.assert_allclose(got, jl, rtol=1e-5,
+                                   atol=1e-5 * np.abs(jl).max())
+    assert all(c == v["train_comms"][0] for c in v["train_comms"])
+    assert all(c == v["prefill_comms"][0] for c in v["prefill_comms"])
+
+
+def test_pad_only_ssm_heads_issue_the_same_collectives(world):
+    """One mLSTM head at (2, 2): padded to 2, one a rank, so the ranks at
+    "model" 1 hold only a pad head.  Such a rank's output must keep its
+    autograd link to the cell's inputs: else its backward skips the
+    collectives of the real rank's (the input's reduce-scatter, the
+    weights' partial sums), which on a real mesh pairs mismatched
+    collectives.  Every rank issues the same collectives in the train step
+    and the prefill, every gradient that reached a cell is finite, and
+    every gradient leaf and the prefill's logits agree with the unsharded
+    run at rtol 1e-5 (f32)."""
+    arrays, v = _load(world, "pad_only_ssm_heads")
+    assert set(v["train_heads1"]) == set(v["prefill_heads1"]) == {1}
+    assert v["finite"] == [True] * 4
+    for kind in ("train_comms", "prefill_comms"):
+        assert v[kind][0] and all(c == v[kind][0] for c in v[kind]), v[kind]
+    grads = sorted(k[3:] for k in arrays if k.startswith("g0/"))
+    assert grads == sorted(k[3:] for k in arrays if k.startswith("g1/"))
+    for k in grads:
+        want = arrays["g0/" + k]
+        np.testing.assert_allclose(arrays["g1/" + k], want, rtol=1e-5,
+                                   atol=1e-5 * np.abs(want).max(), err_msg=k)
+    np.testing.assert_allclose(arrays["prefill1"], arrays["prefill0"],
+                               rtol=1e-5,
+                               atol=1e-5 * np.abs(arrays["prefill0"]).max())
 
 
 # ---------------------------------------------------------------------------

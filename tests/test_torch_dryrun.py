@@ -450,6 +450,86 @@ def test_a_single_pod_memory_cell_of_a_smoke_arch(vocab):
     assert 0 < grown < 6 * rows * (vocab - 512) // mesh.shape["model"] * 4
 
 
+def test_a_single_pod_xlstm_cell_splits_its_padded_heads():
+    """F12: the 4-head smoke xLSTM (one unit: 3 mLSTM + 1 sLSTM layers; S
+    128, 8 chunks of 16; 2 rows a rank) on the fake 256-rank world, whose
+    "model" 16 does not divide its heads.  Every rank ran all 4 heads of
+    the mLSTM chunk loop and autograd kept every chunk's intermediates:
+    8.18 MB of temp on the parent.  Now each rank runs one head of the
+    heads padded to 16 and keeps its chunk entry states and inputs: 1.47
+    MB.  Bound: four times the unit's four layers' one-head chunk states
+    and inputs a rank (1.90 MB)."""
+    from repro_torch.models import xlstm as txl
+
+    shape = tshapes.ShapeSuite("train", "train", 128, 32)
+    tcfg = dryrun._train_config(shape, 1)
+    mesh = dryrun.mesh_for("single")
+    cfg = dryrun._costing_config(smoke_config("xlstm-1.3b"), 4)
+    with dryrun.fake_world(mesh) as world:
+        mem = dryrun.memory_cell(cfg, shape, mesh, tcfg, run=True,
+                                 world=world)
+    laid = dryrun.memory_cell(cfg, shape, mesh, tcfg, run=False)
+    assert mem["argument_bytes"] == laid["argument_bytes"]
+    _, h, hd = txl._mlstm_dims(cfg)
+    assert h % mesh.shape["model"]
+    rows = shape.global_batch // mesh.shape["data"]
+    nc = shape.seq_len // cfg.xlstm.chunk
+    act = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    state = rows * (hd * hd + hd + 1) * 4
+    inputs = rows * shape.seq_len * (3 * hd * act + 2 * 4)
+    assert mem["temp_bytes"] < 4 * cfg.num_layers * (nc * state + inputs)
+
+
+def test_xlstm_at_mesh_1x1_is_bit_for_bit_the_unsharded_run(tmp_path):
+    """On a one-rank gloo world the (1, 1) mesh runs the xLSTM's sharded
+    routes (the up projection, the chunk cell's and the sLSTM loop's
+    ``map_local`` with a cold state made on the rank, the cell's state
+    route in a prefill) where "model" divides the heads: every gradient
+    leaf of the loss and a prefill's logits equal the unsharded run's bit
+    for bit (the smoke xLSTM in f32, S 20: a chunk of 16 and a padded
+    second)."""
+    import torch.distributed as dist
+
+    import _torch_world as tw
+    from repro_torch.launch.mesh import (
+        MeshSpec,
+        build_device_mesh,
+        init_distributed,
+    )
+    from repro_torch.parallel.sharding import distribute_tree
+
+    cfg = dataclasses.replace(smoke_config("xlstm-1.3b"), dtype="float32",
+                              num_layers=4)
+    params = lm.init_params(cfg, 3, "cpu")
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, size=(2, 21)))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    runs = {}
+    init_distributed("cpu", rank=0, world_size=1,
+                     init_method=f"file://{tmp_path / 'rdv'}")
+    try:
+        mesh = build_device_mesh(MeshSpec(("data", "model"), (1, 1)), "cpu")
+        for shape in ("train_4k", "prefill_32k"):
+            ctx = tshapes.make_ctx(cfg, mesh, tshapes.SHAPES[shape])
+            placed = distribute_tree(params, steps.param_shardings(cfg, ctx),
+                                     mesh)
+            for tag, p, c in (("0", params, NULL_CTX), ("1", placed, ctx)):
+                if shape == "train_4k":
+                    got = tw.flat(tw._grads(cfg, p, batch, c))
+                else:
+                    got = {"logits": steps.build_prefill(cfg, c, 40)(
+                        p, {"tokens": batch["tokens"]})[0]}
+                runs.update({f"{tag}/{k}": tw._np(v) for k, v in got.items()})
+    finally:
+        dist.destroy_process_group()
+    keys = sorted(k[2:] for k in runs if k.startswith("0/"))
+    assert "logits" in keys and len(keys) > 10
+    assert keys == sorted(k[2:] for k in runs if k.startswith("1/"))
+    for k in keys:
+        np.testing.assert_array_equal(runs["1/" + k], runs["0/" + k],
+                                      err_msg=k)
+
+
 def test_the_sharded_loss_allocates_no_whole_global_logits():
     """On a (2, 2) fake world the cross entropy and its backward run on
     each rank's rows and vocab shard: DTensor's own gather would make a

@@ -14,7 +14,12 @@ over through numpy:
     sLSTM's input projection hoisted over the sequence: rtol 1e-5), and
     neither writes the cache it is given;
   * the cold caches: zeros, stabilisers at -1e30;
-  * finite gradients at xLSTM-1.3B's chunk of 256 over S = 300.
+  * finite gradients at xLSTM-1.3B's chunk of 256 over S = 300;
+  * the chunk loop's ``autograd.Function`` (``y``, the final state and
+    every input gradient) against the plain loop and against JAX's cell
+    through ``jax.vjp`` at rtol 1e-5, and the sLSTM time loop's against
+    its plain loop; on ``meta``, the peak bytes of each loop's forward and
+    backward against what its Function saves.
 """
 
 import dataclasses
@@ -30,6 +35,7 @@ from repro.configs.registry import smoke_config as jax_smoke_config
 from repro.models import xlstm as jxl
 from repro.parallel.sharding import ShardCtx, init_tree
 from repro_torch.configs.registry import smoke_config
+from repro_torch.launch import dryrun
 from repro_torch.models import lm as tlm
 from repro_torch.models import xlstm as txl
 
@@ -275,3 +281,114 @@ def test_long_chunk_gradients_are_finite(cfgs, mlstm):
         assert t.grad.abs().max() > 0, k
     _close(y, txl.mlstm_scan_ref({k: v.detach() for k, v in leaves.items()},
                                  x.detach(), cfg), 1e-4, "y")
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_chunk_function_matches_the_plain_loop_and_jax_vjp(cfgs, warm):
+    """``mlstm_cell_chunked`` where a gradient is wanted runs the chunk
+    loop as ``_MLSTMChunks`` (the chunk entry states saved, each chunk
+    recomputed in the backward): its ``y``, final state and the gradient
+    of every input (q, k, v, both gates and the entry state) for random
+    cotangents, against the plain loop (``mlstm_cell_chunked_ref``) and
+    JAX's ``mlstm_cell_chunked`` through ``jax.vjp``, f32, rtol 1e-5, at S
+    37 (the third chunk padded)."""
+    _, tcfg = cfgs
+    _, h, hd = txl._mlstm_dims(tcfg)
+    arrs = _cell_inputs(2, 37, h, hd, 20) + _mlstm_cache(2, h, hd, warm, 21)
+    rng = np.random.default_rng(22)
+    cots = [rng.standard_normal(a.shape).astype(np.float32)
+            for a in [arrs[0]] + arrs[5:]]
+
+    def jcell(*a):
+        y, c = jxl.mlstm_cell_chunked(*a[:5], jxl.MLSTMCache(*a[5:]), 16)
+        return (y, *c)
+
+    jout, vjp = jax.vjp(jax.jit(jcell), *_j(arrs))
+    jgrads = vjp(tuple(_j(cots)))
+    runs = {}
+    for name, fn in (("function", txl.mlstm_cell_chunked),
+                     ("plain", txl.mlstm_cell_chunked_ref)):
+        args = [t.requires_grad_(True) for t in _t(arrs)]
+        y, c = fn(*args[:5], txl.MLSTMCache(*args[5:]), 16)
+        assert (type(y.grad_fn).__name__ == "_MLSTMChunksBackward") == (
+            name == "function")
+        runs[name] = [y, *c] + list(torch.autograd.grad((y, *c), args,
+                                                        _t(cots)))
+    names = ["y", "C", "n", "m", "dq", "dk", "dv", "di", "df", "dC", "dn",
+             "dm"]
+    for i, name in enumerate(names):
+        got = runs["function"][i]
+        _close(got, runs["plain"][i], 1e-5, name + " vs plain")
+        _close(got, (list(jout) + list(jgrads))[i], 1e-5, name + " vs jax")
+        assert torch.isfinite(got).all(), name
+
+
+def _meta_leaf(*shape):
+    return torch.empty(shape, device="meta").requires_grad_(True)
+
+
+def test_chunk_function_keeps_entry_states_not_chunk_intermediates():
+    """On ``meta``, the peak of the cell's forward and backward
+    (``LiveBytes(block=1)``: every storage made, each at its bytes) at B 2,
+    S 250, 4 heads of 32, chunk 16 (16 chunks): under 8 f32 copies of q
+    (``y``, its cotangent, the q/k/v gradients, a spare) plus twice the 16
+    chunk entry states (the saved ones and the backward's per-chunk
+    state gradients).  The plain loop keeps every chunk's intermediates:
+    5.55 MB against this bound's 3.13 MB; the Function 2.44 MB."""
+    b, s, h, hd, chunk = 2, 250, 4, 32, 16
+    q, k, v = (_meta_leaf(b, s, h, hd) for _ in range(3))
+    gates = [_meta_leaf(b, s, h) for _ in range(2)]
+    state = [_meta_leaf(b, h, hd, hd), _meta_leaf(b, h, hd),
+             _meta_leaf(b, h)]
+    args = [q, k, v] + gates + state
+    with dryrun.LiveBytes(block=1) as live:
+        y, c = txl.mlstm_cell_chunked(q, k, v, *gates,
+                                      txl.MLSTMCache(*state), chunk)
+        torch.autograd.grad((y, *c), args, [torch.ones_like(t)
+                                            for t in (y, *c)])
+    nc = -(-s // chunk)
+    qkv = b * s * h * hd * 4
+    entry = b * h * (hd * hd + hd + 1) * 4
+    assert live.peak < 8 * qkv + 2 * nc * entry, live.peak
+
+
+def test_slstm_function_matches_the_plain_loop(cfgs):
+    """The sLSTM time loop where a gradient is wanted runs as
+    ``_SLSTMSteps`` (each step's ``(c, n, m)`` saved, each step recomputed
+    in the backward): hidden outputs, the last state and the gradient of
+    ``r``, ``pre`` and the entry state against the plain loop
+    (``slstm_steps_ref``, which runs ``_slstm_recur`` step by step), f32,
+    from a cold and a warm state; on ``meta`` at B 2, S 64, the peak of
+    its forward and backward stays under the plain loop's."""
+    _, tcfg = cfgs
+    h = tcfg.num_heads
+    hd = tcfg.d_model // h
+    rng = np.random.default_rng(23)
+    r = (0.3 * rng.standard_normal((4, h, hd, hd))).astype(np.float32)
+    pre = rng.standard_normal((2, 23, 4 * tcfg.d_model)).astype(np.float32)
+    for warm in (False, True):
+        st = (_slstm_cache(2, h, hd, 24) if warm else
+              [t.numpy() for t in txl.slstm_cache_shape(tcfg, 2)])
+        runs = {}
+        for name, fn in (("function", txl.slstm_steps),
+                         ("plain", txl.slstm_steps_ref)):
+            args = [t.requires_grad_(True) for t in _t([r, pre] + st)]
+            y, c = fn(args[0], args[1], txl.SLSTMCache(*args[2:]), tcfg)
+            cots = [torch.from_numpy(np.random.default_rng(25).standard_normal(
+                t.shape).astype(np.float32)) for t in (y, *c)]
+            runs[name] = [y, *c] + list(torch.autograd.grad((y, *c), args,
+                                                            cots))
+        for i, (got, want) in enumerate(zip(runs["function"], runs["plain"])):
+            _close(got, want, 1e-5, f"warm={warm} output {i}")
+    peaks = {}
+    for name, fn in (("function", txl.slstm_steps),
+                     ("plain", txl.slstm_steps_ref)):
+        args = [_meta_leaf(4, h, hd, hd), _meta_leaf(2, 64, 4 * tcfg.d_model),
+                _meta_leaf(2, h, hd), _meta_leaf(2, h, hd),
+                _meta_leaf(2, h, hd), _meta_leaf(2, h, hd)]
+        with dryrun.LiveBytes(block=1) as live:
+            y, c = fn(args[0], args[1], txl.SLSTMCache(*args[2:]), tcfg)
+            torch.autograd.grad((y, *c), args, [torch.ones_like(t)
+                                                for t in (y, *c)])
+        peaks[name] = live.peak
+    assert peaks["function"] < peaks["plain"] / 2, peaks
